@@ -5,9 +5,11 @@ The package imports ``torch`` and numpy only; its CUDA kernels
 (``faer_tpu_torch/csrc``) are compiled and loaded at their first launch on a
 CUDA tensor, so importing it works on a machine without a GPU.
 
-This slice covers the LLT and partial-pivot LU factor-and-solve path:
+The ported slices: the LLT and partial-pivot LU factor-and-solve path,
 ``linalg.cholesky`` (``llt_factor``, ``llt_solve``) and ``linalg.lu``
-(``lu_in_place``, ``lu_solve``), chained by ``entry.flagship_step``.
+(``lu_in_place``, ``lu_solve``), chained by ``entry.flagship_step``, for
+every float32 shape; and the Householder QR path, ``linalg.qr``
+(``qr_in_place``, then ``qr_solve_lstsq`` and its siblings).
 """
 from faer_tpu_torch.core.errors import (
     LltInfo,
@@ -15,6 +17,7 @@ from faer_tpu_torch.core.errors import (
     NonPositivePivotError,
     ShapeError,
 )
+from faer_tpu_torch.core.params import QrParams
 from faer_tpu_torch.linalg.cholesky import llt_factor, llt_reconstruct, llt_solve
 from faer_tpu_torch.linalg.lu import (
     lu_determinant,
@@ -22,9 +25,20 @@ from faer_tpu_torch.linalg.lu import (
     lu_reconstruct,
     lu_solve,
 )
+from faer_tpu_torch.linalg.qr import (
+    qr_apply_q,
+    qr_compute_q,
+    qr_in_place,
+    qr_inverse,
+    qr_reconstruct,
+    qr_solve,
+    qr_solve_lstsq,
+)
 
 __all__ = [
     "LltInfo", "LuInfo", "NonPositivePivotError", "ShapeError",
     "llt_factor", "llt_solve", "llt_reconstruct",
     "lu_in_place", "lu_solve", "lu_reconstruct", "lu_determinant",
+    "QrParams", "qr_in_place", "qr_solve_lstsq", "qr_solve", "qr_reconstruct",
+    "qr_compute_q", "qr_apply_q", "qr_inverse",
 ]

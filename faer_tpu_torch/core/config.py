@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("trtri", "llt_panel", "lu_panel")
+KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -1,8 +1,9 @@
 """Dtype policy (counterpart of ``faer_tpu/core/dtypes.py``).
 
-This slice computes in ``torch.float32``: the hand-written kernels take f32
-only. The helpers stay generic over the real and complex torch dtypes so the
-later slices can reuse them.
+The port computes in ``torch.float32``: the hand-written kernels take f32
+only, and :func:`require_f32` turns other dtypes away at the factorizations'
+front doors. The other helpers stay generic over the real and complex torch
+dtypes so the later slices can reuse them.
 """
 from __future__ import annotations
 
@@ -21,3 +22,12 @@ def real_dtype_of(dtype):
 def eps(dtype) -> float:
     """Machine epsilon of the associated real dtype (faer ``ApproxEq::eps``)."""
     return float(torch.finfo(real_dtype_of(dtype)).eps)
+
+
+def require_f32(a, name: str) -> None:
+    """Raise ``NotImplementedError`` unless ``a`` is float32."""
+    if a.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{name}: float32 only, got {a.dtype}; the f64 and complex "
+            "factorizations take the JAX package's non-kernel panels, "
+            "ROADMAP §1 item 5c")

@@ -17,8 +17,10 @@ class LltParams:
     """faer ``LltParams`` (``cholesky/llt/factor.rs:40``).
 
     ``block_size``: panel width of the blocked factor (``None``: 256 for
-    n ≥ 1024, else 64). ``recursion_threshold`` and ``kernel_leaf`` select
-    the off-route recursive driver, which this slice does not port.
+    n ≥ 1024, else 64). ``kernel_leaf``: leaf width of the off-route
+    recursive driver (``None``: 128), clamped to [128, 512].
+    ``recursion_threshold`` is the JAX package's non-kernel leaf width,
+    kept for parity; the port always takes the kernel route.
     """
 
     block_size: int | None = None
@@ -32,7 +34,12 @@ class LltParams:
 
 @dataclasses.dataclass(frozen=True)
 class PartialPivLuParams:
-    """faer ``PartialPivLuParams`` (``lu/partial_pivoting/factor.rs:190``)."""
+    """faer ``PartialPivLuParams`` (``lu/partial_pivoting/factor.rs:190``).
+
+    ``block_size``: panel width of the off-route recursive driver (``None``:
+    512, 256, 64 or min(m, n) by size); ``kernel_leaf``: its leaf width
+    (``None``: 256), clamped to [128, 512].
+    """
 
     block_size: int | None = None
     recursion_threshold: int = 64
@@ -41,6 +48,23 @@ class PartialPivLuParams:
     @staticmethod
     def auto(dtype=torch.float32, shape=None) -> "PartialPivLuParams":
         return PartialPivLuParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class QrParams:
+    """faer ``QrParams`` (``qr/no_pivoting/factor.rs:119``).
+
+    ``block_size``: panel width (``None``: 512, 256, 128, 32 or min(m, n)
+    by size); ``kernel_leaf``: width handed to the ``qr_panel`` kernel
+    (``None``: 128), clamped to [128, 512].
+    """
+
+    block_size: int | None = None
+    kernel_leaf: int | None = None
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "QrParams":
+        return QrParams()
 
 
 @dataclasses.dataclass(frozen=True)

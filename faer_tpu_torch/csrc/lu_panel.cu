@@ -15,9 +15,13 @@
 // all m rows before the next column can start: the panel is latency-bound by
 // b grid-wide reductions, not by its 2 m b^2 / 2 FLOPs or its bytes.
 //
-// Design: one cooperative grid of G CTAs (about one per SM), CTA g holding
-// rows [g * rpc, (g + 1) * rpc) of the panel in shared memory for the whole
-// factorization (32 rows x 256 x 4 B = 32 KB at m = 4096). Per column: each
+// Design: one cooperative grid of G CTAs (about one per SM), CTA g owning
+// rows [g * rpc, (g + 1) * rpc) of the panel for the whole factorization.
+// When they fit, the rows live in shared memory (32 rows x 256 x 4 B = 32 KB
+// at m = 4096); past about 29 000 rows at b = 256 they do not, and each CTA
+// works on its rows in place in the output, in global memory, so every m
+// runs. Only the CTA's own threads touch its rows, so __syncthreads() orders
+// those accesses in either place. Per column: each
 // CTA reduces its own rows to a candidate (value, row) and publishes it with
 // a copy of the candidate's row; one grid.sync(); every CTA then reduces the
 // G candidates itself (the same order everywhere, so every CTA agrees),
@@ -76,13 +80,9 @@ __device__ void block_argmax(float& v, int& i, float* wv, int* wi) {
 __global__ void __launch_bounds__(kThreads)
 lu_panel_kernel(const float* __restrict__ panel, int lda, float* virt,
                 int* pidx, int* ok_out, float* cand_val, int* cand_idx,
-                float* cand_row, int m, int b, int rpc) {
+                float* cand_row, int m, int b, int rpc, int rows_in_smem) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
-  float* sV = smem;              // rpc x b, this CTA's rows
-  float* sPiv = sV + rpc * b;    // b, the pivot row
-  float* sMult = sPiv + b;       // rpc, multipliers of the current column
-  int* sUsed = reinterpret_cast<int*>(sMult + rpc);  // rpc
   __shared__ float wv[kWarps];
   __shared__ int wi[kWarps];
   __shared__ int s_p;
@@ -90,9 +90,13 @@ lu_panel_kernel(const float* __restrict__ panel, int lda, float* virt,
   const int G = gridDim.x, cta = blockIdx.x, tid = threadIdx.x;
   const int r_begin = cta * rpc;
   const int nrows = max(0, min(rpc, m - r_begin));
-  for (int idx = tid; idx < rpc * b; idx += kThreads) {
+  // this CTA's rows: rpc x b in shared memory, or in place in `virt`
+  float* sV = rows_in_smem ? smem : virt + (size_t)r_begin * b;
+  float* sPiv = rows_in_smem ? smem + rpc * b : smem;  // b, the pivot row
+  int* sUsed = reinterpret_cast<int*>(sPiv + b);      // rpc
+  for (int idx = tid; idx < nrows * b; idx += kThreads) {
     const int i = idx / b, j = idx % b;
-    sV[idx] = (i < nrows) ? panel[(size_t)(r_begin + i) * lda + j] : 0.0f;
+    sV[idx] = panel[(size_t)(r_begin + i) * lda + j];
   }
   for (int i = tid; i < rpc; i += kThreads) sUsed[i] = (i < nrows) ? 0 : 1;
   __syncthreads();
@@ -154,28 +158,27 @@ lu_panel_kernel(const float* __restrict__ panel, int lda, float* virt,
     ok &= (pv != 0.0f);
     const float inv = 1.0f / (pv == 0.0f ? 1.0f : pv);
 
-    // 3. multipliers of column r, then the rank-1 update of columns > r
-    for (int i = tid; i < nrows; i += kThreads) {
-      if (!sUsed[i]) {
-        const float mult = sV[i * b + r] * inv;
-        sV[i * b + r] = mult;
-        sMult[i] = mult;
-      }
-    }
+    // 3. multipliers of column r (kept in column r), then the rank-1 update
+    // of columns > r
+    for (int i = tid; i < nrows; i += kThreads)
+      if (!sUsed[i]) sV[i * b + r] *= inv;
     __syncthreads();
     const int w = b - r - 1;
     if (w > 0) {
       for (int idx = tid; idx < nrows * w; idx += kThreads) {
         const int i = idx / w, c = r + 1 + idx % w;
-        if (!sUsed[i]) sV[i * b + c] = fmaf(-sMult[i], sPiv[c], sV[i * b + c]);
+        if (!sUsed[i])
+          sV[i * b + c] = fmaf(-sV[i * b + r], sPiv[c], sV[i * b + c]);
       }
     }
     __syncthreads();
   }
 
-  for (int idx = tid; idx < nrows * b; idx += kThreads) {
-    const int i = idx / b, j = idx % b;
-    virt[(size_t)(r_begin + i) * b + j] = sV[idx];
+  if (rows_in_smem) {
+    for (int idx = tid; idx < nrows * b; idx += kThreads) {
+      const int i = idx / b, j = idx % b;
+      virt[(size_t)(r_begin + i) * b + j] = sV[idx];
+    }
   }
   if (cta == 0 && tid == 0) *ok_out = ok;
 }
@@ -185,30 +188,37 @@ lu_panel_kernel(const float* __restrict__ panel, int lda, float* virt,
 // panel: (m, b) f32 with row stride lda, m >= b; virt: (m, b) contiguous;
 // pidx: int[b]; ok: int[1]; cand_val / cand_idx: [2 * grid]; cand_row:
 // [2 * grid * b]; all on the current device (the caller selects it).
-// grid * rpc >= m. Returns the CUDA error of the launch, 100000 if the grid
-// cannot be co-resident, 0 on success.
+// grid * rpc >= m. The rows go to shared memory when rpc of them fit one
+// CTA's, else they stay in `virt`. Returns the CUDA error of the launch,
+// 100000 if the grid cannot be co-resident, 0 on success.
 extern "C" int faer_lu_panel(const float* panel, int lda, float* virt,
                              int* pidx, int* ok, float* cand_val,
                              int* cand_idx, float* cand_row, int m, int b,
                              int grid_size, int rpc, void* stream) {
   if (b < 1 || m < b || lda < b || grid_size < 1 || grid_size * rpc < m)
     return cudaErrorInvalidValue;
-  const size_t smem = ((size_t)rpc * b + b + 2 * (size_t)rpc) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lu_panel_kernel,
+  const size_t fixed = ((size_t)b + (size_t)rpc) * sizeof(float);
+  const size_t rows = (size_t)rpc * b * sizeof(float);
+  int per_sm = 0, sms = 0, device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  int rows_in_smem = rows + fixed <= (size_t)smem_max;
+  const size_t smem = rows_in_smem ? rows + fixed : fixed;
+  err = cudaFuncSetAttribute(lu_panel_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0, device = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lu_panel_kernel,
                                                       kThreads, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   if ((long)per_sm * sms < grid_size) return kNotCoResident;
   void* args[] = {&panel, &lda, &virt, &pidx, &ok, &cand_val,
-                  &cand_idx, &cand_row, &m, &b, &rpc};
+                  &cand_idx, &cand_row, &m, &b, &rpc, &rows_in_smem};
   err = cudaLaunchCooperativeKernel((const void*)lu_panel_kernel,
                                     dim3(grid_size), dim3(kThreads), args,
                                     smem, (cudaStream_t)stream);

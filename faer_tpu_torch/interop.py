@@ -45,3 +45,16 @@ def lu_to_numpy(lu, perm, info: LuInfo):
     JAX package's index type."""
     return (lu.detach().cpu().numpy(), perm.cpu().numpy().astype(np.int32),
             info.transposition_count.cpu().numpy(), info.success.cpu().numpy())
+
+
+def qr_from_numpy(packed, t_stack, block, device="cpu"):
+    """``(packed, t_stack, block)`` on ``device`` from the numpy outputs of
+    ``qr_in_place``."""
+    return (torch.tensor(np.asarray(packed)).to(device),
+            torch.tensor(np.asarray(t_stack)).to(device), int(block))
+
+
+def qr_to_numpy(packed, t_stack, block):
+    """``(packed, t_stack, block)`` as numpy arrays and an int."""
+    return (packed.detach().cpu().numpy(), t_stack.detach().cpu().numpy(),
+            int(block))

@@ -1,29 +1,35 @@
 """LLT (Cholesky) factor and solve (counterpart of ``faer_tpu/linalg/cholesky.py``).
 
 faer ``cholesky_in_place`` (``llt/factor.rs:67``) and ``llt/solve.rs:12``.
-This slice ports the fused-panel two-level strip driver (``_llt_factor_v5``)
-that the JAX package runs for f32 squares with ``n > block``,
-``n % 128 == 0`` and ``block % 128 == 0`` (``cholesky.py:140-143``). Other
-shapes and dtypes take the recursive driver and its ``leaf_v4`` kernel
-there; that driver is not ported yet (ROADMAP §1, "Off-route LLT/LU
-drivers") and raises ``NotImplementedError`` here.
+Two drivers, chosen as the JAX package's kernel route chooses them
+(``cholesky.py:119-143``):
+
+* f32 squares with ``n > block``, ``n % 128 == 0`` and ``block % 128 == 0``
+  take the fused-panel two-level strip driver (``_llt_factor_v5``), one
+  ``llt_panel`` kernel call per panel;
+* every other f32 square takes the recursive driver
+  (``_llt_factor_recursive``, ``cholesky.py:144-175``): panels of ``block``
+  columns, each factored by halving down to ``llt_leaf`` kernel leaves
+  (``_llt_panel_recursive``), with the panel TRSM as one product against the
+  panel's triangular inverse and a rank-``block`` trailing update.
+
+Other dtypes raise ``NotImplementedError`` (ROADMAP §1 item 5c).
 """
 from __future__ import annotations
 
 import torch
 
+from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core.errors import LltInfo, ShapeError
 from faer_tpu_torch.core.params import LltParams, LltRegularization
+from faer_tpu_torch.ops.kernels.leaf import llt_leaf
 from faer_tpu_torch.ops.kernels.llt_panel import llt_panel
 from faer_tpu_torch.ops.matmul import matmul
+from faer_tpu_torch.ops.triangular import invert_lower_triangular
 from faer_tpu_torch.ops.triangular_solve import (
     solve_lower_triangular,
     solve_lower_triangular_adjoint,
 )
-
-_OFF_ROUTE = ("llt_factor: only the fused-panel route is ported (float32, "
-              "n > block, n % 128 == 0, block % 128 == 0); the recursive "
-              "driver is ROADMAP §1 'Off-route LLT/LU drivers'")
 
 
 def llt_factor(a, *, reg: LltRegularization | None = None,
@@ -31,14 +37,65 @@ def llt_factor(a, *, reg: LltRegularization | None = None,
     """Blocked LLT of the lower triangle of ``a``: returns ``(L, LltInfo)``."""
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ShapeError(f"llt_factor: needs a square matrix, got {tuple(a.shape)}")
+    dtypes.require_f32(a, "llt_factor")
+    # the kernels read rows with unit stride: a strided input is copied once
+    a = a.contiguous()
     params = params or LltParams.auto(a.dtype, a.shape)
     reg = reg or LltRegularization()
     n = a.shape[0]
     block = params.block_size or (256 if n >= 1024 else 64 if n >= 128 else n)
-    if not (a.dtype == torch.float32 and n > block and n % 128 == 0
-            and block % 128 == 0):
-        raise NotImplementedError(_OFF_ROUTE)
-    return _llt_factor_v5(a, reg, block)
+    if n > block and n % 128 == 0 and block % 128 == 0:
+        return _llt_factor_v5(a, reg, block)
+    # kernel_leaf: None is unset; clamped to [128, 512], rounded up to 128
+    leaf = params.kernel_leaf if params.kernel_leaf is not None else 128
+    leaf = min(max(128, -(-leaf // 128) * 128), 512)
+    return _llt_factor_recursive(a, reg, block, min(leaf, block))
+
+
+def _llt_panel_recursive(a, reg: LltRegularization, base: int):
+    """LLT of a (b, b) block by halving down to ``llt_leaf`` leaves of at
+    most ``base`` columns; returns ``(L, count, ok)``.
+
+    Only the lower triangle of ``a`` is read, by the leaves as by the
+    couplings, so no mirror is needed (the JAX package mirrors because its
+    leaf kernel reads rows as columns).
+    """
+    b = a.shape[0]
+    if b <= base:
+        return llt_leaf(a, eps=reg.epsilon, delta=reg.delta)
+    h = (b + 1) // 2
+    d1, c1, o1 = _llt_panel_recursive(a[:h, :h], reg, base)
+    # SPD: ‖L11⁻¹‖ ≤ √cond(A), so the coupling is one product against the
+    # explicit inverse
+    l21 = matmul(a[h:, :h], invert_lower_triangular(d1).mT)
+    d2, c2, o2 = _llt_panel_recursive(a[h:, h:] - matmul(l21, l21.mT), reg, base)
+    # in place into a fresh output where the JAX package concatenates
+    out = a.new_zeros((b, b))
+    out[:h, :h] = d1
+    out[h:, :h] = l21
+    out[h:, h:] = d2
+    return out, c1 + c2, o1 & o2
+
+
+def _llt_factor_recursive(a, reg: LltRegularization, block: int, base: int):
+    """Right-looking over a shrinking trail: per panel, a recursive factor
+    of the diagonal block, L21 = A21·L11⁻ᵀ, and a rank-``block`` update.
+    Each finished strip is written once into a fresh output."""
+    n = a.shape[0]
+    l = a.new_zeros((n, n))
+    count = torch.zeros((), dtype=torch.int32, device=a.device)
+    ok = torch.ones((), dtype=torch.bool, device=a.device)
+    trail = a
+    for k in range(0, n, block):
+        bw = min(block, n - k)
+        d, c, o = _llt_panel_recursive(trail[:bw, :bw], reg, base)
+        count, ok = count + c, ok & o
+        l[k:k + bw, k:k + bw] = torch.tril(d)
+        if k + bw < n:
+            l21 = matmul(trail[bw:, :bw], invert_lower_triangular(d).mT)
+            l[k + bw:, k:k + bw] = l21
+            trail = trail[bw:, bw:] - matmul(l21, l21.mT)
+    return l, LltInfo(dynamic_regularization_count=count, success=ok)
 
 
 def _llt_factor_v5(a, reg: LltRegularization, block: int):

@@ -1,21 +1,30 @@
 """Partial-pivot LU factor and solve (counterpart of ``faer_tpu/linalg/lu.py``).
 
-faer ``lu_in_place`` (``lu/partial_pivoting/factor.rs:234``). This slice
-ports the fused-panel two-level strip driver (``_lu_factor_v5``) that the
-JAX package runs for f32 squares with ``n % 256 == 0`` and ``n ≥ 1024``
-(``lu.py:279-283``). Other shapes and dtypes take the recursive driver and
-its ``leaf_v4`` kernel there; that driver is not ported yet (ROADMAP §1,
-"Off-route LLT/LU drivers") and raises ``NotImplementedError`` here.
+faer ``lu_in_place`` (``lu/partial_pivoting/factor.rs:234``). Two drivers,
+chosen as the JAX package's kernel route chooses them (``lu.py:267-283``):
 
+* f32 squares with ``n % 256 == 0`` and ``n ≥ 1024`` take the fused-panel
+  two-level strip driver (``_lu_factor_v5``), one ``lu_panel`` kernel call
+  per panel;
+* every other f32 matrix, square or not, takes the recursive driver
+  (``_lu_factor_recursive``, ``lu.py:286-360``): panels of ``block``
+  columns, each factored by halving down to ``lu_leaf`` kernel leaves
+  (``_panel_lu_blocked``), U12 by one product against the unit-lower panel
+  inverse, and a rank-``block`` trailing update. The tournament (CALU)
+  leaf is left out: it is gated off at ``lu.py:84``.
+
+Other dtypes raise ``NotImplementedError`` (ROADMAP §1 item 5c).
 Permutations are int64 index tensors: ``A[perm] = L·U``.
 """
 from __future__ import annotations
 
 import torch
 
+from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core import perm as permod
 from faer_tpu_torch.core.errors import LuInfo, ShapeError
 from faer_tpu_torch.core.params import PartialPivLuParams
+from faer_tpu_torch.ops.kernels.leaf import lu_leaf
 from faer_tpu_torch.ops.kernels.lu_panel import lu_panel
 from faer_tpu_torch.ops.matmul import matmul
 from faer_tpu_torch.ops.triangular import invert_lower_triangular
@@ -23,10 +32,6 @@ from faer_tpu_torch.ops.triangular_solve import (
     solve_unit_lower_triangular,
     solve_upper_triangular,
 )
-
-_OFF_ROUTE = ("lu_in_place: only the fused-panel route is ported (float32 "
-              "squares, n % 256 == 0, n >= 1024); the recursive driver is "
-              "ROADMAP §1 'Off-route LLT/LU drivers'")
 
 
 def _unit_lower(x):
@@ -117,20 +122,99 @@ def _compose_tails(local_perms, widths):
     return tails
 
 
+def _panel_lu_blocked(panel, base: int):
+    """Panel LU by recursive column halving down to ``lu_leaf`` leaves of at
+    most ``base`` columns: returns ``(packed, perm, nt, ok)``. The halves
+    are coupled by a unit-lower solve and one product."""
+    m, b = panel.shape
+    if b <= base:
+        return lu_leaf(panel)
+    h = (b + 1) // 2
+    left, perm1, nt1, ok1 = _panel_lu_blocked(panel[:, :h], base)
+    right = panel[:, h:].index_select(0, perm1)
+    u12 = solve_unit_lower_triangular(_unit_lower(left[:h, :h]), right[:h])
+    bot, perm2, nt2, ok2 = _panel_lu_blocked(
+        right[h:] - matmul(left[h:, :h], u12), base)
+    # in place into a fresh output where the JAX package concatenates
+    out = panel.new_empty((m, b))
+    out[:h, :h] = left[:h]
+    out[h:, :h] = left[h:].index_select(0, perm2)
+    out[:h, h:] = u12
+    out[h:, h:] = bot
+    perm = torch.cat([perm1[:h], perm1[h:][perm2]])
+    return out, perm, nt1 + nt2, ok1 & ok2
+
+
+def _lu_factor_recursive(a, block: int, base: int):
+    """Right-looking over a shrinking trail (``faer_tpu/linalg/lu.py:286-360``).
+
+    Later panels' row permutations are composed backward
+    (``_compose_tails``) so that each finished panel is gathered once. Each
+    panel and its finished U12 rows are written once into a fresh output,
+    which takes the place of the JAX package's strip assembly, the wide
+    (n > m) tail included.
+    """
+    m, n = a.shape
+    kmax = min(m, n)
+    dev = a.device
+    perm = torch.arange(m, dtype=torch.long, device=dev)
+    nt = torch.zeros((), dtype=torch.int32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    out = a.new_zeros((m, n))
+    trail = a  # (m - k, n - k)
+    panels, local_perms = [], []
+    for k in range(0, kmax, block):
+        bw = min(block, kmax - k)
+        panel, lperm, pnt, pok = _panel_lu_blocked(trail[:, :bw], base)
+        nt = nt + pnt
+        ok = ok & pok
+        perm = torch.cat([perm[:k], perm[k:][lperm]])
+        local_perms.append(lperm)
+        if k + bw < n:
+            right = trail[:, bw:].index_select(0, lperm)
+            l11inv = invert_lower_triangular(_unit_lower(panel[:bw, :bw]),
+                                             unit=True)
+            u12 = matmul(l11inv, right[:bw])
+            out[k:k + bw, k + bw:] = u12
+            if m - k - bw > 0:
+                trail = right[bw:] - matmul(panel[bw:, :bw], u12)
+        panels.append(panel)
+    tails = _compose_tails(local_perms, [p.shape[1] for p in panels])
+    for panel, k, tail in zip(panels, range(0, kmax, block), tails):
+        bw = panel.shape[1]
+        out[k:k + bw, k:k + bw] = panel[:bw]
+        if m - k > bw:
+            below = panel[bw:] if tail is None else panel[bw:].index_select(0, tail)
+            out[k + bw:, k:k + bw] = below
+    return out, perm, LuInfo(transposition_count=nt, success=ok)
+
+
 def lu_in_place(a, params: PartialPivLuParams | None = None):
-    """Blocked partial-pivot LU: returns ``(lu, row_perm, LuInfo)``.
+    """Blocked partial-pivot LU of an (m, n) matrix: returns
+    ``(lu, row_perm, LuInfo)``.
 
     ``lu`` packs unit-lower L (strict) and U; ``a[row_perm] = L @ U``.
-    ``params`` is accepted for parity; the ported route fixes its blocking
-    (panels of 256, outer blocks of 1024 for n ≥ 2048) as the JAX one does.
+    ``params`` sets the recursive driver's panel and leaf widths; the
+    fused-panel route fixes its blocking (panels of 256, outer blocks of
+    1024 for n ≥ 2048) as the JAX one does.
     """
     if a.dim() != 2:
         raise ShapeError(f"lu_in_place: needs a matrix, got {tuple(a.shape)}")
+    dtypes.require_f32(a, "lu_in_place")
+    # the kernels read rows with unit stride: a strided input is copied once
+    a = a.contiguous()
+    params = params or PartialPivLuParams.auto(a.dtype, a.shape)
     m, n = a.shape
-    if not (a.dtype == torch.float32 and m == n and n % 256 == 0
-            and n >= 1024):
-        raise NotImplementedError(_OFF_ROUTE)
-    return _lu_factor_v5(a, block=256, ob=1024 if n >= 2048 else 256)
+    if m == n and n % 256 == 0 and n >= 1024:
+        return _lu_factor_v5(a, block=256, ob=1024 if n >= 2048 else 256)
+    kmax = min(m, n)
+    block = params.block_size or (512 if kmax >= 2048 else
+                                  256 if kmax >= 1024 else
+                                  64 if kmax >= 128 else kmax)
+    # kernel_leaf: None is unset; clamped to [128, 512], rounded up to 128
+    leaf = params.kernel_leaf if params.kernel_leaf is not None else 256
+    leaf = min(max(128, -(-leaf // 128) * 128), 512)
+    return _lu_factor_recursive(a, block, min(leaf, block))
 
 
 def lu_solve(lu, row_perm, b):

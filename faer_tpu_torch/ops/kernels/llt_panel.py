@@ -109,19 +109,11 @@ def llt_panel_plain(slab, *, eps: float = 0.0, delta: float = 0.0,
     return torch.cat([l11, l21], dim=0), cnt, ok
 
 
-def llt_panel(slab, *, eps: float = 0.0, delta: float = 0.0):
-    """Fused LLT panel step of an (m, b) float32 slab, m ≥ b.
-
-    Only the lower triangle of ``slab[:b]`` is read. On a CUDA tensor
-    ``b`` must be a multiple of 32 and at most 512, and rows must be
-    contiguous (any row stride); the result is a new (m, b) tensor.
-    """
-    _build.check_f32_matrix(slab, "llt_panel")
+def launch(slab, eps: float, delta: float):
+    """Launch ``faer_llt_panel`` on a CUDA slab (b a multiple of 32, at most
+    512, contiguous rows) and return ``(strip, count, ok)``. Counts nothing:
+    each wrapper that calls it counts its own launches."""
     m, b = slab.shape
-    if m < b or b < 1:
-        raise ShapeError(f"llt_panel: needs m ≥ b ≥ 1, got {(m, b)}")
-    if slab.device.type == "cpu":
-        return llt_panel_plain(slab, eps=eps, delta=delta)
     if b % SUB_BLOCK or b > MAX_B:
         raise ShapeError(f"llt_panel: b must be a multiple of {SUB_BLOCK} "
                          f"and ≤ {MAX_B}, got {b}")
@@ -136,5 +128,19 @@ def llt_panel(slab, *, eps: float = 0.0, delta: float = 0.0):
             cnt_ok.data_ptr(), m, b, float(eps), float(delta),
             _build.stream_of(slab))
     _build.check("llt_panel", code)
-    count_launch("llt_panel")
     return out, cnt_ok[0], cnt_ok[1] != 0
+
+
+def llt_panel(slab, *, eps: float = 0.0, delta: float = 0.0):
+    """Fused LLT panel step of an (m, b) float32 slab, m ≥ b.
+
+    Only the lower triangle of ``slab[:b]`` is read. On a CUDA tensor
+    ``b`` must be a multiple of 32 and at most 512, and rows must be
+    contiguous (any row stride); the result is a new (m, b) tensor.
+    """
+    _build.check_panel(slab, "llt_panel")
+    if slab.device.type == "cpu":
+        return llt_panel_plain(slab, eps=eps, delta=delta)
+    res = launch(slab, eps, delta)
+    count_launch("llt_panel")
+    return res

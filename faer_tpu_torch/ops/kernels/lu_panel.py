@@ -17,18 +17,14 @@ Neumann-coupled deferred updates across sub-blocks.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from faer_tpu_torch.core.config import count_launch
-from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.core.perm import perm_transposition_count
 from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.llt_panel import _neumann_unit_inv
 
 MIN_ROWS_PER_CTA = 8
-NOT_CO_RESIDENT = 100000  # error code of faer_lu_panel
 
 
 def _assemble(virt, pidx, ok):
@@ -95,29 +91,15 @@ def lu_panel_plain(panel, *, sb: int = 16):
     return _assemble(pt.mT, pidx, ok)
 
 
-def _grid(m: int, device) -> tuple[int, int]:
-    """(CTAs, rows per CTA): about one CTA per SM, at least 8 rows each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    g = max(1, min(sms, math.ceil(m / MIN_ROWS_PER_CTA)))
-    rpc = math.ceil(m / g)
-    return math.ceil(m / rpc), rpc
-
-
-def lu_panel(panel):
-    """Partial-pivot LU of an (m, b) float32 panel, m ≥ b.
-
-    On a CUDA tensor the rows must be contiguous (any row stride).
-    """
-    _build.check_f32_matrix(panel, "lu_panel")
-    m, b = panel.shape
-    if m < b or b < 1:
-        raise ShapeError(f"lu_panel: needs m ≥ b ≥ 1, got {(m, b)}")
-    if panel.device.type == "cpu":
-        return lu_panel_plain(panel)
+def launch(panel):
+    """Launch ``faer_lu_panel`` on a CUDA panel (contiguous rows) and return
+    ``(packed, perm, nt, ok)``. Counts nothing: each wrapper that calls it
+    counts its own launches."""
     if panel.stride(1) != 1:
         raise ValueError("lu_panel: rows of the panel must be contiguous")
+    m, b = panel.shape
     dev = panel.device
-    g, rpc = _grid(m, dev)
+    g, rpc = _build.grid(m, dev, MIN_ROWS_PER_CTA)
     virt = torch.empty((m, b), dtype=panel.dtype, device=dev)
     pidx = torch.empty(b, dtype=torch.int32, device=dev)
     okf = torch.empty(1, dtype=torch.int32, device=dev)
@@ -130,9 +112,18 @@ def lu_panel(panel):
             pidx.data_ptr(), okf.data_ptr(), cand_val.data_ptr(),
             cand_idx.data_ptr(), cand_row.data_ptr(), m, b, g, rpc,
             _build.stream_of(panel))
-    if code == NOT_CO_RESIDENT:
-        raise RuntimeError(f"lu_panel: a grid of {g} CTAs with {rpc} rows "
-                           f"each cannot be co-resident at b = {b}")
     _build.check("lu_panel", code)
-    count_launch("lu_panel")
     return _assemble(virt, pidx, okf[0] != 0)
+
+
+def lu_panel(panel):
+    """Partial-pivot LU of an (m, b) float32 panel, m ≥ b.
+
+    On a CUDA tensor the rows must be contiguous (any row stride).
+    """
+    _build.check_panel(panel, "lu_panel")
+    if panel.device.type == "cpu":
+        return lu_panel_plain(panel)
+    res = launch(panel)
+    count_launch("lu_panel")
+    return res

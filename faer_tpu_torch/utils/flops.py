@@ -18,5 +18,12 @@ def lu_flops(m: int, n: int) -> float:
     return n * m * m - m**3 / 3.0
 
 
+def qr_flops(m: int, n: int) -> float:
+    """Householder QR (factor only)."""
+    if m >= n:
+        return 2.0 * n * n * (m - n / 3.0)
+    return 2.0 * m * m * (n - m / 3.0)
+
+
 def trsm_flops(n: int, k: int) -> float:
     return float(n) * n * k

@@ -11,7 +11,8 @@ runs only the port need not have.)
 
 Shapes are small (the main-path shapes are checked by ``chip_smoke.py``).
 Tolerances: 8·n·eps_f32 relative to the largest entry, times the block's
-2-norm condition number for ``trtri`` (a forward error).
+2-norm condition number for ``trtri`` (a forward error); residuals for LU
+leaves on Gaussian panels, whose pivots may differ under rounding.
 """
 import numpy as np
 import pytest
@@ -107,8 +108,10 @@ def test_llt_panel_kernel_regularized(cuda, m, b):
     assert _rel(s1, s2) <= 8 * b * EPS32
 
 
-@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128)])
+@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128), (40000, 256)])
 def test_lu_panel_kernel(cuda, m, b):
+    """(40000, 256): a CTA's 304 rows (304 KiB) exceed its shared memory, so
+    the kernel keeps them in global memory."""
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
 
     gen = torch.Generator(device=cuda).manual_seed(m)
@@ -127,6 +130,134 @@ def test_lu_panel_kernel(cuda, m, b):
     assert torch.equal(p1, p2) and torch.equal(p1[:b], p[:b])
     assert int(n1) == int(n2) and bool(o1) and bool(o2)
     assert _rel(k1, k2) <= 8 * m * EPS32
+
+
+@pytest.mark.parametrize("m,b,zero_col", [(160, 32, None), (1000, 128, None),
+                                           (200, 44, 5), (60000, 128, None),
+                                           (16384, 512, None)])
+def test_qr_panel_kernel(cuda, m, b, zero_col):
+    """(60000, 128) and (16384, 512): a CTA's rows (455 × 129 × 4 B and
+    125 × 513 × 4 B) exceed its 227 KiB of shared memory, so the kernel keeps
+    them in global memory."""
+    from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    a = torch.randn(m, b, generator=gen, device=cuda)
+    if zero_col is not None:
+        a[:, zero_col] = 0.0
+    reset_launch_counts()
+    k1, t1 = qr_panel(a)
+    torch.cuda.synchronize()
+    assert launch_counts()["qr_panel"] == 1
+    k2, t2 = qr_panel_plain(a)
+    k3, t3 = torch.geqrf(a)
+    # Gaussian panels with m ≥ 4b have κ ≤ 3: R and the reflector tails V
+    # each within 8·m·eps relative to their own largest entry
+    tol = 8 * m * EPS32
+    r1, v1 = torch.triu(k1[:b]), torch.tril(k1, -1)
+    for k, t in ((k2, t2), (k3, t3)):
+        assert _rel(r1, torch.triu(k[:b])) <= tol
+        assert _rel(v1, torch.tril(k, -1)) <= tol
+        assert (t1 - t).abs().max().item() <= tol
+    # Q = I − V T Vᵀ orthogonal and Q·R = A, to 8·m·eps
+    v = v1 + torch.eye(m, b, device=cuda)
+    q = apply_block_on_left(v, form_block_t(v, t1), torch.eye(m, b, device=cuda),
+                            adjoint=False)
+    assert (q.T @ q - torch.eye(b, device=cuda)).abs().max().item() <= tol
+    assert ((q @ r1 - a).norm() / a.norm()).item() <= tol
+    if zero_col is not None:
+        assert t1[zero_col].item() == 0.0
+        assert bool((k1[zero_col:, zero_col] == 0).all())
+
+
+@pytest.mark.parametrize("b,reg", [(128, None), (80, None), (44, (1.0, 2.0))])
+def test_llt_leaf_kernel(cuda, b, reg):
+    """``reg``: eps > 0 with delta ≥ 1, so every real pivot below 2 and
+    none of the identity padding's is counted."""
+    from faer_tpu_torch.ops.kernels.leaf import llt_leaf, llt_leaf_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    g = torch.randn(b, b, generator=gen, device=cuda)
+    a = g @ g.T / b + torch.eye(b, device=cuda)
+    eps, delta = reg or (0.0, 0.0)
+    reset_launch_counts()
+    l1, c1, o1 = llt_leaf(a, eps=eps, delta=delta)
+    torch.cuda.synchronize()
+    assert launch_counts()["llt_leaf"] == 1 and launch_counts()["llt_panel"] == 0
+    l2, c2, o2 = llt_leaf_plain(a, eps=eps, delta=delta)
+    assert l1.shape == (b, b) and int(c1) == int(c2) and bool(o1) and bool(o2)
+    if reg:
+        assert 0 < int(c1) <= b
+    assert _rel(l1, l2) <= 8 * b * EPS32
+
+
+@pytest.mark.parametrize("m,b", [(1000, 64), (300, 44), (44, 44)])
+def test_lu_leaf_kernel(cuda, m, b):
+    from faer_tpu_torch.ops.kernels.leaf import lu_leaf, lu_leaf_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    a = torch.randn(m, b, generator=gen, device=cuda)
+    reset_launch_counts()
+    k1, p1, n1, o1 = lu_leaf(a)
+    torch.cuda.synchronize()
+    assert launch_counts()["lu_leaf"] == 1 and launch_counts()["lu_panel"] == 0
+    k2, p2, n2, o2 = lu_leaf_plain(a)
+    # residual of the kernel's factor, and the parity of nt against the plain
+    lo = torch.tril(k1, -1) + torch.eye(m, b, device=cuda)
+    res = (lo @ torch.triu(k1[:b]) - a[p1]).norm() / a.norm()
+    assert res.item() <= 8 * m * EPS32
+    assert int(n1) % 2 == int(n2) % 2 and bool(o1) and bool(o2)
+
+
+def test_qr_in_place_on_card(cuda):
+    from faer_tpu_torch import qr_compute_q, qr_in_place, qr_reconstruct
+
+    n = 1024
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(n, n, generator=gen, device=cuda)
+    reset_launch_counts()
+    pk, ts, blk = qr_in_place(a)
+    torch.cuda.synchronize()
+    # block 256, leaves of 128: one qr_panel launch per 128 columns
+    assert blk == 256 and launch_counts()["qr_panel"] == n // 128
+    rec = (qr_reconstruct(pk, ts, blk) - a).norm() / a.norm()
+    q = qr_compute_q(pk, ts, blk)
+    orth = (q.T @ q - torch.eye(n, device=cuda)).abs().max()
+    assert rec.item() <= 8 * n * EPS32 and orth.item() <= 8 * n * EPS32
+
+
+def test_qr_in_place_wide_leaves_on_card(cuda):
+    """kernel_leaf = 512 at 16384 × 2048: block 512, one 512-wide leaf per
+    panel, each with more rows per CTA than shared memory holds."""
+    from faer_tpu_torch import QrParams, qr_in_place, qr_solve_lstsq
+
+    m, n = 16384, 2048
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randn(m, n, generator=gen, device=cuda)
+    b = torch.randn(m, 4, generator=gen, device=cuda)
+    reset_launch_counts()
+    pk, ts, blk = qr_in_place(a, QrParams(kernel_leaf=512))
+    torch.cuda.synchronize()
+    assert blk == 512 and launch_counts()["qr_panel"] == n // 512
+    r = b - a @ qr_solve_lstsq(pk, ts, blk, b)
+    orth = (a.T @ r).norm() / (a.norm() * r.norm())
+    assert orth.item() <= 8 * m * EPS32
+
+
+def test_factors_of_transposed_inputs_on_card(cuda):
+    """A strided (transposed) input gives the same factor as its contiguous
+    copy, on the fused and the recursive routes."""
+    from faer_tpu_torch import llt_factor, lu_in_place, qr_in_place
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for n in (1024, 1000):
+        g = torch.randn(n, n, generator=gen, device=cuda)
+        spd = g @ g.T / n + torch.eye(n, device=cuda)
+        gt = g.T.contiguous()
+        for fn, x in ((llt_factor, spd), (lu_in_place, gt), (qr_in_place, gt)):
+            got, want = fn(x.mT), fn(x.mT.contiguous())
+            assert _rel(got[0], want[0]) <= 8 * n * EPS32, (fn.__name__, n)
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

@@ -3,9 +3,10 @@
 Each plain PyTorch version in ``faer_tpu_torch/ops/kernels`` (what a kernel
 wrapper runs for a CPU tensor) is compared with its Pallas kernel run in
 interpret mode on the CPU, on the same numpy inputs. The Pallas LLT panel's
-L21 product and the LU panel's deferred couplings are bf16x3 while the port
-is FP32, so those comparisons use the bf16x3 unit roundoff 2⁻¹⁶ in place of
-eps in faer's 8·n rule; everything else uses 8·n·eps_f32.
+L21 product and the LU and QR panels' deferred couplings are bf16x3 while
+the port is FP32, so those comparisons use the bf16x3 unit roundoff 2⁻¹⁶ in
+place of eps in faer's 8·n rule; everything else (the v4 leaves' dots are
+HIGHEST) uses 8·n·eps_f32.
 """
 import types
 
@@ -15,8 +16,12 @@ import pytest
 import torch
 
 from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
+from faer_tpu_torch.core.config import KERNELS
+from faer_tpu_torch.ops.kernels.leaf import (
+    llt_leaf, llt_leaf_plain, lu_leaf, lu_leaf_plain)
 from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
 from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
+from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
 from faer_tpu_torch.ops.kernels.trtri import trtri, trtri_plain
 from faer_tpu_torch.utils.approx import assert_approx_eq, size_scale
 
@@ -32,9 +37,11 @@ def interp(monkeypatch):
     tests/test_pallas_kernels.py) and drop cached traces of the kernels."""
     from jax.experimental import pallas as pl
 
+    import faer_tpu.ops.pallas.leaf_v4 as leaf4
     import faer_tpu.ops.pallas.llt_panel_v5 as llt5
     import faer_tpu.ops.pallas.lu_panel_v5 as lu5
     import faer_tpu.ops.pallas.panel_kernels as pk
+    import faer_tpu.ops.pallas.qr_panel_v5 as qr5
 
     orig = pl.pallas_call
 
@@ -44,10 +51,12 @@ def interp(monkeypatch):
         return orig(*args, **kwargs)
 
     monkeypatch.setattr(pl, "pallas_call", interp_call)
-    fns = (pk.trtri_pallas, llt5.llt_panel_v5_pallas, lu5.lu_panel_v5_pallas)
+    fns = (pk.trtri_pallas, llt5.llt_panel_v5_pallas, lu5.lu_panel_v5_pallas,
+           qr5.qr_panel_v5_pallas, leaf4.llt_block_v4_pallas,
+           leaf4.lu_panel_v4_pallas)
     for fn in fns:
         fn.clear_cache()
-    yield types.SimpleNamespace(pk=pk, llt5=llt5, lu5=lu5)
+    yield types.SimpleNamespace(pk=pk, llt5=llt5, lu5=lu5, qr5=qr5, leaf4=leaf4)
     for fn in fns:
         fn.clear_cache()
 
@@ -199,18 +208,113 @@ def test_lu_panel_zero_column_reports_failure():
     assert not bool(ok)
 
 
+@pytest.mark.parametrize("m,b,zero_col", [(160, 32, None), (200, 40, None),
+                                           (160, 32, 5)])
+def test_qr_panel_plain_matches_pallas(m, b, zero_col, interp):
+    """Gaussian panels; ``zero_col``: an all-zero column, whose tail stays
+    exactly zero under every reflector, so τ = 0 and β = α = 0 there."""
+    import scipy.linalg
+
+    rng = np.random.default_rng(m + b)
+    panel = rng.standard_normal((m, b)).astype(np.float32)
+    if zero_col is not None:
+        panel[:, zero_col] = 0.0
+    k_j, t_j = interp.qr5.qr_panel_v5_pallas(jnp.asarray(panel), sb=16)
+    k_t, t_t = qr_panel_plain(torch.from_numpy(panel), sb=16)
+    k_j, t_j = np.asarray(k_j), np.asarray(t_j)
+    k_t, t_t = k_t.numpy(), t_t.numpy()
+    k64, t64 = scipy.linalg.qr(panel.astype(np.float64), mode="raw")[0]
+
+    def assert_r_and_v_close(tol, want_k, want_t):
+        # R (upper) and the reflector tails V (strict lower) each relative to
+        # their own largest entry: the tails are much smaller than R
+        for part in (lambda k: np.triu(k[:b]), lambda k: np.tril(k, -1)):
+            want = part(want_k)
+            assert_approx_eq(part(k_t), want, abs_tol=tol * np.abs(want).max(),
+                             rel_tol=tol)
+        assert_approx_eq(t_t, want_t, abs_tol=tol, rel_tol=tol)
+
+    # the Pallas couplings are bf16x3: 8·m·u3
+    assert_r_and_v_close(8 * m * U3, k_j, t_j)
+    # f64 LAPACK geqrf (same larfg signs); a Gaussian (m, b) panel with
+    # m ≥ 4b has κ ≤ 3, so the f32 rule 8·m·eps holds for the factor itself
+    tol = 8 * m * EPS32
+    assert_r_and_v_close(tol, k64, t64)
+    # Q = H_0 ⋯ H_{b-1} (in f64) is orthogonal and Q·R = A, to 8·m·eps
+    v = np.tril(k_t, -1).astype(np.float64) + np.eye(m, b)
+    q = np.eye(m)
+    for j in range(b):
+        q -= np.outer(q @ v[:, j], v[:, j]) * float(t_t[j])
+    q = q[:, :b]
+    assert np.abs(q.T @ q - np.eye(b)).max() <= tol
+    rec = np.linalg.norm(q @ np.triu(k_t[:b]) - panel) / np.linalg.norm(panel)
+    assert rec <= tol
+    if zero_col is not None:
+        assert float(t_t[zero_col]) == float(t_j[zero_col]) == 0.0
+        assert np.all(k_t[zero_col:, zero_col] == 0.0)
+
+
+@pytest.mark.parametrize("b,reg", [(44, None), (64, None), (44, (1e-3, 1e-6))])
+def test_llt_leaf_plain_matches_pallas(b, reg, interp):
+    rng = np.random.default_rng(b)
+    blk = _spd_slab(b, b, rng, tiny_pivot=5 if reg else None)
+    eps, delta = reg or (0.0, 0.0)
+    l_j, c_j, o_j = interp.leaf4.llt_block_v4_pallas(jnp.asarray(blk), eps=eps,
+                                                     delta=delta)
+    l_t, c_t, o_t = llt_leaf_plain(torch.from_numpy(blk), eps=eps, delta=delta)
+    assert int(c_j) == int(c_t) == (1 if reg else 0)
+    assert bool(o_j) == bool(o_t) is True
+    # HIGHEST dots in the v4 kernel: the f32 rule 8·b·eps on both sides
+    assert_approx_eq(l_t.numpy(), np.asarray(l_j), scale=size_scale(b),
+                     tol_dtype=np.float32)
+    if reg is None:
+        l64 = np.linalg.cholesky(blk.astype(np.float64))
+        assert_approx_eq(l_t.numpy(), l64, scale=size_scale(b), tol_dtype=np.float32)
+
+
+def test_lu_leaf_plain_matches_pallas(interp):
+    m, b = 160, 32
+    rng = np.random.default_rng(8)
+    # separated pivots: the permutation must match exactly
+    panel, p = _separated_panel(m, b, rng)
+    k_j, p_j, n_j, o_j = interp.leaf4.lu_panel_v4_pallas(jnp.asarray(panel))
+    k_t, p_t, n_t, o_t = lu_leaf_plain(torch.from_numpy(panel))
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
+    np.testing.assert_array_equal(p_t.numpy()[:b], p[:b])
+    assert int(n_t) == int(n_j) and bool(o_t) and bool(o_j)
+    assert_approx_eq(k_t.numpy(), np.asarray(k_j), scale=size_scale(m),
+                     tol_dtype=np.float32)
+    # a Gaussian panel: pivots may differ under rounding, so compare the
+    # residual of each factor and the parity of nt
+    panel = rng.standard_normal((m, b)).astype(np.float32)
+    k_j, p_j, n_j, o_j = interp.leaf4.lu_panel_v4_pallas(jnp.asarray(panel))
+    k_t, p_t, n_t, o_t = lu_leaf_plain(torch.from_numpy(panel))
+    for packed, perm, nt in ((np.asarray(k_j), np.asarray(p_j), int(n_j)),
+                             (k_t.numpy(), p_t.numpy(), int(n_t))):
+        assert _lu_residual(panel, packed, perm) <= 8 * m * EPS32
+        assert nt % 2 == _perm_sign(perm)
+    assert bool(o_t) and bool(o_j)
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     rng = np.random.default_rng(2)
     t = torch.from_numpy(_lower_block(64, False, rng))
     slab = torch.from_numpy(_spd_slab(128, 32, rng))
     panel = torch.from_numpy(rng.standard_normal((128, 32)).astype(np.float32))
+    blk = torch.from_numpy(_spd_slab(44, 44, rng))
     reset_launch_counts()
     assert torch.equal(trtri(t), trtri_plain(t))
     for got, want in zip(llt_panel(slab), llt_panel_plain(slab)):
         assert torch.equal(got, want)
     for got, want in zip(lu_panel(panel), lu_panel_plain(panel)):
         assert torch.equal(got, want)
-    assert launch_counts() == {"trtri": 0, "llt_panel": 0, "lu_panel": 0}
+    for got, want in zip(qr_panel(panel), qr_panel_plain(panel)):
+        assert torch.equal(got, want)
+    for got, want in zip(llt_leaf(blk), llt_leaf_plain(blk)):
+        assert torch.equal(got, want)
+    for got, want in zip(lu_leaf(panel), lu_leaf_plain(panel)):
+        assert torch.equal(got, want)
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 @pytest.mark.parametrize("call", [
@@ -219,6 +323,10 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     lambda: trtri(torch.zeros(4, 5)),
     lambda: llt_panel(torch.zeros(16, 32)),
     lambda: lu_panel(torch.zeros(8)),
+    lambda: qr_panel(torch.zeros(16, 32)),
+    lambda: qr_panel(torch.zeros(32, 16, dtype=torch.float64)),
+    lambda: llt_leaf(torch.zeros(4, 5)),
+    lambda: lu_leaf(torch.zeros(8, 16)),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):

@@ -123,10 +123,42 @@ def test_llt_non_spd_reports_failure():
     ((512, 512), None),                       # default block 64: off route
     ((300, 300), LltParams(block_size=128)),  # n % 128 != 0
     ((128, 128), LltParams(block_size=128)),  # n == block
+    ((300, 300), LltParams(block_size=64)),   # ragged: the last leaf is 44
 ])
-def test_llt_off_route_raises(shape, params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchol.llt_factor(torch.eye(shape[0]), params=params)
+def test_llt_off_route_matches_jax(shape, params):
+    """The recursive driver (``llt_leaf`` leaves) against the JAX package's
+    recursive driver and the f64 factor; cond(A) ≤ 5, so 8·n·eps holds
+    elementwise."""
+    n = shape[0]
+    rng = np.random.default_rng(n + (params.block_size if params else 0))
+    a = _spd(n, rng)
+    jparams = JLltParams(block_size=params.block_size) if params else None
+    l_t, info_t = tchol.llt_factor(torch.from_numpy(a), params=params)
+    l_j, info_j = jchol.llt_factor(jnp.asarray(a), params=jparams)
+    assert bool(info_t.success) and bool(info_j.success)
+    assert int(info_t.dynamic_regularization_count) == 0
+    assert np.all(np.triu(l_t.numpy(), 1) == 0)
+    assert_approx_eq(l_t.numpy(), np.asarray(l_j), scale=size_scale(n),
+                     tol_dtype=np.float32)
+    assert_approx_eq(l_t.numpy(), np.linalg.cholesky(a.astype(np.float64)),
+                     scale=size_scale(n), tol_dtype=np.float32)
+
+
+def test_llt_off_route_regularization_matches_jax():
+    n = 300
+    a = np.eye(n, dtype=np.float32)
+    a[290, 290] = -1.0  # one non-positive pivot, in the ragged last leaf
+    reg = (1e-3, 1e-3)
+    l_t, info_t = tchol.llt_factor(torch.from_numpy(a),
+                                   reg=LltRegularization(*reg),
+                                   params=LltParams(block_size=64))
+    l_j, info_j = jchol.llt_factor(jnp.asarray(a), reg=JLltRegularization(*reg),
+                                   params=JLltParams(block_size=64))
+    assert int(info_t.dynamic_regularization_count) == \
+        int(info_j.dynamic_regularization_count) == 1
+    assert not bool(info_t.success) and not bool(info_j.success)
+    assert_approx_eq(l_t.numpy(), np.asarray(l_j), scale=size_scale(n),
+                     tol_dtype=np.float32)
 
 
 def test_llt_rejects_bad_shapes_and_dtypes():
@@ -135,6 +167,10 @@ def test_llt_rejects_bad_shapes_and_dtypes():
     with pytest.raises(NotImplementedError):
         tchol.llt_factor(torch.eye(512, dtype=torch.float64),
                          params=LltParams(block_size=128))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tchol.llt_factor(torch.eye(300, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlu.lu_in_place(torch.eye(300, dtype=torch.float64))
 
 
 def test_lu_generic_matches_jax():
@@ -194,10 +230,48 @@ def test_lu_singular_reports_failure():
     assert not bool(info.success)
 
 
-@pytest.mark.parametrize("shape", [(512, 512), (1000, 1000), (1024, 2048)])
-def test_lu_off_route_raises(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlu.lu_in_place(torch.zeros(shape))
+@pytest.mark.parametrize("shape", [(512, 512), (1000, 1000), (1024, 2048),
+                                   (200, 300), (300, 200)])
+def test_lu_off_route_matches_jax(shape):
+    """The recursive driver (``lu_leaf`` leaves) on squares off the fused
+    route, a wide and a tall matrix, against the JAX package's recursive
+    driver: both factors reconstruct A[perm] within 8·max(m, n)·eps, |L| ≤ 1,
+    and the parities of nt agree with each other and with perm."""
+    m, n = shape
+    rng = np.random.default_rng(m + 3 * n)
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    lu_t, perm_t, info_t = tlu.lu_in_place(torch.from_numpy(a))
+    lu_j, perm_j, info_j = jlu.lu_in_place(jnp.asarray(a))
+    assert bool(info_t.success) and bool(info_j.success)
+    assert lu_t.shape == (m, n)
+    k = min(m, n)
+    a64 = a.astype(np.float64)
+    for lu, perm in ((lu_t.numpy(), perm_t.numpy()),
+                     (np.asarray(lu_j), np.asarray(perm_j))):
+        lo = np.tril(lu[:, :k], -1) + np.eye(m, k)
+        assert _rel(lo @ np.triu(lu[:k]), a64[perm]) <= 8 * max(m, n) * EPS32
+        assert np.abs(np.tril(lu, -1)).max() <= 1 + 1e-6
+    assert int(info_t.transposition_count) % 2 == _perm_parity(perm_t.numpy())
+    assert int(info_t.transposition_count) % 2 == \
+        int(info_j.transposition_count) % 2
+    rec = tlu.lu_reconstruct(lu_t, perm_t).numpy()
+    assert _rel(rec, a64) <= 8 * max(m, n) * EPS32
+
+
+def test_lu_off_route_separated_pivots_match_jax_exactly():
+    n = 300
+    rng = np.random.default_rng(8)
+    a, p = _separated(n, rng)
+    lu_t, perm_t, info_t = tlu.lu_in_place(torch.from_numpy(a))
+    lu_j, perm_j, info_j = jlu.lu_in_place(jnp.asarray(a))
+    np.testing.assert_array_equal(perm_t.numpy(), p)
+    np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
+    # nt sums per-leaf counts, which the two packages take differently (the
+    # JAX CPU panel counts row swaps); the parity is the contract
+    assert int(info_t.transposition_count) % 2 == \
+        int(info_j.transposition_count) % 2 == _perm_parity(p)
+    assert_approx_eq(lu_t.numpy(), np.asarray(lu_j), scale=size_scale(n),
+                     tol_dtype=np.float32)
 
 
 def test_lu_factor_v5_small_blocks_direct():
