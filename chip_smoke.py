@@ -21,7 +21,14 @@ Phases, each printing lines; any failure exits non-zero:
    2048 × 512, and timings;
 6. off-route: ``llt_factor`` and ``lu_in_place`` on shapes the fused route
    does not take (the recursive drivers and their leaf kernels), launch
-   counts, reconstruction errors and timings.
+   counts, reconstruction errors and timings;
+7. spectral: ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)`` at n = 4096
+   f32 (``tools/bench_spectral.py``'s cells) on inputs made from seed 0,
+   sweep-kernel launch counts and host reads, residuals and orthogonality,
+   eigenvalues and singular values against an f64 oracle at n = 1024, the
+   direct QR-iteration route at n = 384, the tall SVD at 8192 × 2048 (QR
+   preprocessing), per-layer times and ``torch.linalg.eigh``/``svd``
+   yardsticks.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after. The second-to-last line is a JSON object with one entry
@@ -50,6 +57,12 @@ PEAK_BYTES = 3.35e12
 LLT_LEAVES = {4000: 32, 1000: 16}
 LU_LEAVES = {(4000, 4000): 16, (4096, 1024): 4, (1024, 4096): 4}
 QR_TRTRI = 96
+# operations per step of the sweep kernels' chains, counted from their source
+SWEEP_STEP_FLOPS = 28
+SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
+ORACLE_N = 1024  # spectral check against f64 eigvalsh / svdvals
+DIRECT_N = 384  # below 512: the QR iteration without D&C
+TALL = (8192, 2048)  # m/n > 11/6: the SVD's QR preprocessing
 
 
 def fail(msg: str) -> None:
@@ -77,6 +90,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` per call, in ms: ``reps`` calls captured in one
+    CUDA graph and replayed, timed by CUDA events, so the host's launch cost
+    (which ``cuda_ms`` includes for a kernel shorter than it) drops out."""
+    fn()  # outside the capture: lazy loads and first allocations
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def bound_of(flops: float, nbytes: float) -> dict:
@@ -361,10 +395,72 @@ def phase_kernels(gen) -> dict:
         plain_ms=cuda_ms(lambda: lu_leaf_plain(pan), 3),
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4000, 256), 2 * 4000 * 256 * 4 + 4000 * 8))
+    res.update(_sweep_kernels(gen))
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+              f"ms, library {lib}, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+    return res
+
+
+def _sweep_case(n: int, l: int, m: int, bidiag: bool, gen):
+    """(d, e, lm, mu) of one sweep on block [l, m] with the driver's shift."""
+    from faer_tpu_torch.linalg.bidiag_svd import _shift
+    from faer_tpu_torch.linalg.tridiag_evd import _wilkinson_shift
+
+    d = torch.randn(n, generator=gen, device=DEV) + (2.0 if bidiag else 0.0)
+    e = torch.randn(n - 1, generator=gen, device=DEV)
+    mu = _shift(d, e, m) if bidiag else _wilkinson_shift(d[m - 1], e[m - 1], d[m])
+    lm = torch.tensor([l, m], dtype=torch.int32, device=DEV)
+    return d, e, lm, mu.reshape(1)
+
+
+def _sweep_kernels(gen) -> dict:
+    """``tridiag_sweep`` and ``bidiag_sweep`` against their plain versions at
+    the D&C leaf shape (64), the direct route (384) and a length whose d and
+    e do not fit the 48 KB of shared memory (8192: global memory), each on
+    an inner block (l > 0, m < n−1); timed at a full leaf sweep (0, 63) by
+    graph replay (``graph_ms``)."""
+    from faer_tpu_torch.ops.kernels import sweep
+
+    res = {}
+    for name, bidiag, n_rot in (("tridiag_sweep", False, 2), ("bidiag_sweep", True, 4)):
+        kern, plain = getattr(sweep, name), getattr(sweep, f"{name}_plain")
+        errs = []
+        for n, l, m in ((64, 5, 60), (384, 7, 370), (8192, 3, 8000)):
+            args = _sweep_case(n, l, m, bidiag, gen)
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            # the two round alike (same operations in the same order), so
+            # they should agree to the bit; the tolerance is faer's 8·n·eps
+            # relative to the largest |d|, |e| (≥ 1: c and s are ≤ 1)
+            scale = max(1.0, args[0].abs().max().item(), args[1].abs().max().item())
+            tol = 8 * n * EPS32 * scale
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            outside = all(bool((r[:l] == v).all() and (r[m:] == v).all())
+                          for r, v in zip(got[2:], (1.0, 0.0) * 2))
+            errs.append(err)
+            check(err <= tol and outside,
+                  f"{name} n={n} (l, m) = ({l}, {m}) "
+                  f"[{'shared' if n <= 6144 else 'global'} memory]: max abs err "
+                  f"{err:.3e} <= tol {tol:.3e}, bitwise equal {same}, "
+                  f"rotations identity outside [l, m) {outside}")
+        # the kernel's device time (graph replay) and the wrapper's time per
+        # call as a driver sees it (CUDA events around each call: host-bound)
+        full = {n: _sweep_case(n, 0, n - 1, bidiag, gen) for n in (64, 384)}
+        ms = {n: graph_ms(lambda a=a: kern(*a), 50) for n, a in full.items()}
+        per_step = (ms[384] - ms[64]) / (383 - 63) * 1e3
+        print(f"time {name}: device {ms[64]:.4f} ms (64 steps), {ms[384]:.4f} ms "
+              f"(384 steps): chain latency {per_step:.4f} us per step; wrapper "
+              f"call {cuda_ms(lambda: kern(*full[64]), 50):.4f} ms")
+        n = 64
+        nbytes = (2 * n + 2 * (n - 1) + n_rot * (n - 1) + 3) * 4
+        res[name] = dict(
+            max_abs_err=max(errs), ms=ms[64],
+            plain_ms=cuda_ms(lambda: plain(*full[64]), 3),
+            library_ms=None,  # no PyTorch call computes one sweep
+            **bound_of(SWEEP_STEP_FLOPS * (n - 1), nbytes))
     return res
 
 
@@ -587,6 +683,194 @@ def phase_off_route(gen) -> dict:
     return total
 
 
+def _timed(fn, label: str, flops: float | None = None) -> float:
+    """One call to warm up (host clock), then the median of 3 by CUDA
+    events, or that one call's time if it took more than SPECTRAL_SLOW_S."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if first > SPECTRAL_SLOW_S:
+        ms, how = cuda_ms(fn, 1, warmup=0), "one timed call"
+    else:
+        ms, how = cuda_ms(fn, 3, warmup=0), "median of 3"
+    rate = "" if flops is None else f", {flops / ms / 1e6:.1f} GFLOP/s"
+    print(f"time {label}: {ms:.4f} ms ({how}){rate}")
+    return ms
+
+
+def _evd_checks(a, w, v, label: str) -> None:
+    n = a.shape[0]
+    tol = 8 * n * EPS32
+    res = (torch.linalg.matrix_norm(a @ v - v * w[None, :])
+           / torch.linalg.matrix_norm(a)).item()
+    orth = (v.T @ v - torch.eye(n, device=DEV)).abs().max().item()
+    check(tuple(w.shape) == (n,) and tuple(v.shape) == (n, n)
+          and bool(torch.isfinite(v).all()) and bool((w[1:] >= w[:-1]).all()),
+          f"{label}: finite, of the expected shapes, ascending")
+    check(res <= tol and orth <= tol,
+          f"{label}: |AV - VΛ|/|A| = {res:.3e}, max|VᵀV - I| = {orth:.3e}, "
+          f"both <= {tol:.3e}")
+
+
+def _svd_checks(a, u, s, v, label: str) -> None:
+    m, n = a.shape
+    k = min(m, n)
+    tol = 8 * max(m, n) * EPS32
+    res = rel_norm((u * s[None, :]) @ v.T, a)
+    eye = torch.eye(k, device=DEV)
+    orth_u = (u.T @ u - eye).abs().max().item()
+    orth_v = (v.T @ v - eye).abs().max().item()
+    check(tuple(u.shape) == (m, k) and tuple(v.shape) == (n, k)
+          and bool(torch.isfinite(u).all()) and bool((s[:-1] >= s[1:]).all())
+          and bool((s >= 0).all()),
+          f"{label}: finite, of the expected shapes, s descending ≥ 0")
+    check(res <= tol and orth_u <= tol and orth_v <= tol,
+          f"{label}: |U diag(s) Vᵀ - A|/|A| = {res:.3e}, max|UᵀU - I| = "
+          f"{orth_u:.3e}, max|VᵀV - I| = {orth_v:.3e}, all <= {tol:.3e}")
+
+
+def device_ms(fn) -> float:
+    """The card's busy time in one call of ``fn``, in ms: the sum of the
+    kernel spans ``torch.profiler`` records (one stream, so they do not
+    overlap). Beside the call's wall time it gives the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def _counted(fn):
+    """Run ``fn`` with every counter set to 0 just before and read just
+    after: (result, launch counts, host reads)."""
+    from faer_tpu_torch.core.config import host_reads, launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(), host_reads()
+
+
+def phase_spectral(gen) -> dict:
+    """The spectral path as ``tools/bench_spectral.py`` drives it:
+    ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)``."""
+    from faer_tpu_torch import (
+        self_adjoint_eigenvalues, self_adjoint_evd, singular_values, svd)
+    from faer_tpu_torch.linalg.bidiag import (
+        bidiag_apply_ql, bidiag_apply_qr_mat, bidiag_in_place)
+    from faer_tpu_torch.linalg.bidiag_svd import bidiag_svd
+    from faer_tpu_torch.linalg.tridiag import tridiag_apply_q, tridiag_in_place
+    from faer_tpu_torch.linalg.tridiag_evd import tridiag_evd
+    from faer_tpu_torch.utils import flops
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    n = N
+    g = torch.randn(n, n, generator=gen, device=DEV)
+    a = (g + g.T) / 2
+    (w, v, info), counts, reads = _counted(lambda: self_adjoint_evd(a))
+    add(counts)
+    print(f"launches in self_adjoint_evd n={n}: {counts}; host reads {reads}; "
+          f"info converged {bool(info.converged)}, iterations {int(info.iterations)}")
+    check(counts["tridiag_sweep"] > 0 and bool(info.converged),
+          f"self_adjoint_evd n={n} ran tridiag_sweep {counts['tridiag_sweep']} times")
+    _evd_checks(a, w, v, f"self_adjoint_evd n={n}")
+    (u, s, vs, sinfo), counts, reads = _counted(lambda: svd(g))
+    add(counts)
+    print(f"launches in svd n={n}: {counts}; host reads {reads}; "
+          f"info converged {bool(sinfo.converged)}, iterations {int(sinfo.iterations)}")
+    check(counts["bidiag_sweep"] > 0 and bool(sinfo.converged),
+          f"svd n={n} ran bidiag_sweep {counts['bidiag_sweep']} times")
+    _svd_checks(g, u, s, vs, f"svd n={n}")
+
+    # eigenvalues and singular values against an f64 oracle on the card
+    n1 = ORACLE_N
+    g1 = torch.randn(n1, n1, generator=gen, device=DEV)
+    a1 = (g1 + g1.T) / 2
+    tol1 = 8 * n1 * EPS32
+    w64 = torch.linalg.eigvalsh(a1.double())
+    err_w = ((self_adjoint_eigenvalues(a1).double() - w64).abs().max()
+             / w64.abs().max()).item()
+    s64 = torch.linalg.svdvals(g1.double())
+    err_s = ((singular_values(g1).double() - s64).abs().max() / s64[0]).item()
+    check(err_w <= tol1 and err_s <= tol1,
+          f"n={n1} vs f64 oracle: eigenvalues max err {err_w:.3e}, singular "
+          f"values {err_s:.3e} (relative to the largest), both <= {tol1:.3e}")
+
+    # the direct QR-iteration route (n < 512): the kernels sweep the full n
+    n2 = DIRECT_N
+    g2 = torch.randn(n2, n2, generator=gen, device=DEV)
+    a2 = (g2 + g2.T) / 2
+    (w2, v2, _), counts, reads = _counted(lambda: self_adjoint_evd(a2))
+    add(counts)
+    print(f"launches in self_adjoint_evd n={n2}: {counts}; host reads {reads}")
+    check(counts["tridiag_sweep"] > 0, f"self_adjoint_evd n={n2} ran tridiag_sweep")
+    _evd_checks(a2, w2, v2, f"self_adjoint_evd n={n2}")
+    (u2, s2, vs2, _), counts, reads = _counted(lambda: svd(g2))
+    add(counts)
+    print(f"launches in svd n={n2}: {counts}; host reads {reads}")
+    check(counts["bidiag_sweep"] > 0, f"svd n={n2} ran bidiag_sweep")
+    _svd_checks(g2, u2, s2, vs2, f"svd n={n2}")
+
+    # the tall SVD takes the QR preprocessing (m/n = 4 > 11/6)
+    mt, nt_ = TALL
+    gt = torch.randn(mt, nt_, generator=gen, device=DEV)
+    (ut, st, vt, _), counts, reads = _counted(lambda: svd(gt))
+    add(counts)
+    print(f"launches in svd {mt}x{nt_}: {counts}; host reads {reads}")
+    check(counts["bidiag_sweep"] > 0 and counts["qr_panel"] > 0,
+          f"svd {mt}x{nt_} ran qr_panel and bidiag_sweep")
+    _svd_checks(gt, ut, st, vt, f"svd {mt}x{nt_}")
+
+    # times: the entry points, their yardsticks, then the layers at 4096
+    _timed(lambda: self_adjoint_evd(a), f"self_adjoint_evd n={n}", flops.evd_flops(n))
+    _timed(lambda: torch.linalg.eigh(a), f"library eigh n={n}")
+    _timed(lambda: svd(g), f"svd n={n}", flops.svd_flops(n, n))
+    _timed(lambda: torch.linalg.svd(g, full_matrices=False), f"library svd n={n}")
+    for label, fn in ((f"self_adjoint_evd n={n2}", lambda: self_adjoint_evd(a2)),
+                      (f"svd n={n2}", lambda: svd(g2))):
+        wall = _timed(fn, label)
+        busy = device_ms(fn)
+        print(f"device busy in {label}: {busy:.4f} ms of {wall:.4f} ms "
+              f"({busy / wall:.3f}; torch.profiler kernel spans)")
+    _timed(lambda: torch.linalg.eigh(a2), f"library eigh n={n2}")
+    _timed(lambda: torch.linalg.svd(g2, full_matrices=False), f"library svd n={n2}")
+    _timed(lambda: svd(gt), f"svd {mt}x{nt_}", flops.svd_flops(mt, nt_))
+    _timed(lambda: torch.linalg.svd(gt, full_matrices=False), f"library svd {mt}x{nt_}")
+    d, e, hh, taus = tridiag_in_place(a)
+    _, z, _ = tridiag_evd(d, e)
+    layers = {
+        "tridiag_in_place": cuda_ms(lambda: tridiag_in_place(a), 1, warmup=0),
+        "tridiag_evd (D&C)": cuda_ms(lambda: tridiag_evd(d, e), 1, warmup=0),
+        "tridiag_apply_q": cuda_ms(lambda: tridiag_apply_q(hh, taus, z), 1, warmup=0),
+    }
+    bd = bidiag_in_place(g)
+    _, ub, vb, _ = bidiag_svd(bd[0], bd[1])
+    layers.update({
+        "bidiag_in_place": cuda_ms(lambda: bidiag_in_place(g), 1, warmup=0),
+        "bidiag_svd (D&C)": cuda_ms(lambda: bidiag_svd(bd[0], bd[1]), 1, warmup=0),
+        "bidiag_apply_ql + apply_qr_mat": cuda_ms(
+            lambda: (bidiag_apply_ql(bd[2], bd[3], ub), bidiag_apply_qr_mat(bd[4], bd[5], vb)),
+            1, warmup=0),
+    })
+    for k, ms in layers.items():
+        print(f"time layer {k} n={n}: {ms:.4f} ms (one call)")
+    print(f"launches in the spectral phase: {total}")
+    return total
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -598,8 +882,9 @@ def main() -> None:
     phase_build()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kern = phase_kernels(gen)
-    paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen)]
-    # each kernel's launches over the three paths' runs (trtri runs in all)
+    paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen),
+             phase_spectral(gen)]
+    # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
         "trtri": ("faer_tpu_torch/csrc/trtri.cu",
@@ -614,6 +899,10 @@ def main() -> None:
                      "faer_tpu/ops/pallas/leaf_v4.py:132"),
         "lu_leaf": ("faer_tpu_torch/csrc/lu_panel.cu",
                     "faer_tpu/ops/pallas/leaf_v4.py:228"),
+        "tridiag_sweep": ("faer_tpu_torch/csrc/tridiag_sweep.cu",
+                          "faer_tpu/ops/pallas/panel_kernels.py:390"),
+        "bidiag_sweep": ("faer_tpu_torch/csrc/bidiag_sweep.cu",
+                         "faer_tpu/ops/pallas/panel_kernels.py:502"),
     }
     check(all(launches[k] > 0 for k in sources), "every kernel ran on a main path")
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -9,6 +9,9 @@
 * **Launch counters.** Each kernel wrapper adds one to its counter where it
   launches its CUDA kernel, and nowhere else, so a run can show that the
   main path went through the kernels.
+* **Host reads.** The spectral drivers decide on the host when an iteration
+  is done; each such read of a tensor goes through :func:`host_read`,
+  which counts it, so a run can show how many host syncs a call made.
 
 The JAX package's ``platform_scope`` and ``effective_platform`` have no
 counterpart: the device is the input tensor's.
@@ -17,9 +20,11 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf")
+KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
+           "tridiag_sweep", "bidiag_sweep")
 
 _launches = dict.fromkeys(KERNELS, 0)
+_host_reads = 0
 
 
 def check_f32_policy() -> None:
@@ -44,5 +49,20 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Set every launch counter and the host-read counter to 0."""
+    global _host_reads
     for k in _launches:
         _launches[k] = 0
+    _host_reads = 0
+
+
+def host_read(t) -> list | int | float | bool:
+    """``t.tolist()``, counted: on a CUDA tensor this is one host sync."""
+    global _host_reads
+    _host_reads += 1
+    return t.tolist()
+
+
+def host_reads() -> int:
+    """How many :func:`host_read` calls were made since the last reset."""
+    return _host_reads

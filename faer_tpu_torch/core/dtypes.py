@@ -30,4 +30,4 @@ def require_f32(a, name: str) -> None:
         raise NotImplementedError(
             f"{name}: float32 only, got {a.dtype}; the f64 and complex "
             "factorizations take the JAX package's non-kernel panels, "
-            "ROADMAP §1 item 5c")
+            "ROADMAP §1 items 5c (f64) and 10 (complex)")

@@ -42,3 +42,11 @@ class LuInfo:
 
     transposition_count: torch.Tensor  # int32 scalar
     success: torch.Tensor  # bool scalar: no exactly-zero pivot
+
+
+@dataclasses.dataclass
+class SpectralInfo:
+    """SVD/EVD: convergence flag and QR-iteration count."""
+
+    converged: torch.Tensor  # bool scalar
+    iterations: torch.Tensor  # int32 scalar

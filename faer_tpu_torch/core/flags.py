@@ -1,10 +1,10 @@
 """Semantics flags (counterpart of ``faer_tpu/core/flags.py``).
 
-faer's ``Accum`` (``faer/src/lib.rs:869``) and ``Conj``: plain Python enums,
-read on the host when a function is called. No function of the LLT/LU slice
-takes them: its dtype is real f32 and every product replaces its
-destination. They keep the names for the complex dtypes and the
-accumulating front door of later slices.
+faer's ``Accum`` (``faer/src/lib.rs:869``), ``Conj`` and ``Side``: plain
+Python enums, read on the host when a function is called. ``Side`` says
+which triangle ``self_adjoint_eigenvalues`` reads. ``Accum`` and ``Conj``
+keep the names for the complex dtypes and the accumulating front door of
+later slices.
 """
 from __future__ import annotations
 
@@ -23,3 +23,10 @@ class Conj(enum.Enum):
 
     NO = 0
     YES = 1
+
+
+class Side(enum.Enum):
+    """Which triangle of a self-adjoint matrix the input data lives in."""
+
+    LOWER = 0
+    UPPER = 1

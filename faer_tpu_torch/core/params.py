@@ -68,6 +68,38 @@ class QrParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SvdParams:
+    """faer ``SvdParams`` (``svd/mod.rs:37-57``).
+
+    ``qr_ratio_threshold``: QR-preprocess when m/n exceeds it (faer 11/6).
+    ``max_iters_per_value``: the bidiagonal QR iteration's budget, times n.
+    ``max_sweeps`` and ``recursion_threshold`` are kept for parity with the
+    JAX package, which does not read them on this path either.
+    """
+
+    qr_ratio_threshold: float = 11.0 / 6.0
+    max_sweeps: int = 24
+    max_iters_per_value: int = 30
+    recursion_threshold: int = 128
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "SvdParams":
+        return SvdParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class EvdParams:
+    """Self-adjoint and general EVD budgets (faer ``evd/mod.rs``)."""
+
+    max_iters_per_value: int = 30
+    recursion_threshold: int = 32
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "EvdParams":
+        return EvdParams()
+
+
+@dataclasses.dataclass(frozen=True)
 class LltRegularization:
     """Dynamic regularization (faer ``cholesky/llt/factor.rs:8``).
 

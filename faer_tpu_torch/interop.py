@@ -58,3 +58,15 @@ def qr_to_numpy(packed, t_stack, block):
     """``(packed, t_stack, block)`` as numpy arrays and an int."""
     return (packed.detach().cpu().numpy(), t_stack.detach().cpu().numpy(),
             int(block))
+
+
+def tridiag_from_numpy(d, e, hh, taus, device="cpu"):
+    """``(d, e, hh, taus)`` on ``device`` from the numpy outputs of
+    ``tridiag_in_place``, so either package's reflectors can be applied by
+    the port's ``tridiag_apply_q``."""
+    return tuple(torch.tensor(np.asarray(x)).to(device) for x in (d, e, hh, taus))
+
+
+def tridiag_to_numpy(d, e, hh, taus):
+    """``(d, e, hh, taus)`` as numpy arrays."""
+    return tuple(x.detach().cpu().numpy() for x in (d, e, hh, taus))

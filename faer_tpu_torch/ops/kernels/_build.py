@@ -32,6 +32,8 @@ _SIGNATURES = {
     "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
     "faer_lu_panel": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "faer_qr_panel": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "faer_tridiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "faer_bidiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 NOT_CO_RESIDENT = 100000  # returned by the cooperative entry points

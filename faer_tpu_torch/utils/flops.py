@@ -25,5 +25,16 @@ def qr_flops(m: int, n: int) -> float:
     return 2.0 * m * m * (n - m / 3.0)
 
 
+def svd_flops(m: int, n: int, vectors: bool = True) -> float:
+    """Rough Golub-Kahan cost model."""
+    mn, mx = min(m, n), max(m, n)
+    base = 4.0 * mx * mn * mn - 4.0 * mn**3 / 3.0  # bidiagonalization
+    return base * (2.5 if vectors else 1.2)
+
+
+def evd_flops(n: int, vectors: bool = True) -> float:
+    return (10.0 if vectors else 4.0) * n**3
+
+
 def trsm_flops(n: int, k: int) -> float:
     return float(n) * n * k

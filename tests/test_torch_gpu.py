@@ -260,6 +260,74 @@ def test_factors_of_transposed_inputs_on_card(cuda):
             assert _rel(got[0], want[0]) <= 8 * n * EPS32, (fn.__name__, n)
 
 
+def _sweep_case(n, l, m, bidiag, cuda):
+    from faer_tpu_torch.linalg.bidiag_svd import _shift
+    from faer_tpu_torch.linalg.tridiag_evd import _wilkinson_shift
+
+    gen = torch.Generator(device=cuda).manual_seed(n + l)
+    d = torch.randn(n, generator=gen, device=cuda) + (2.0 if bidiag else 0.0)
+    e = torch.randn(n - 1, generator=gen, device=cuda)
+    mu = _shift(d, e, m) if bidiag else _wilkinson_shift(d[m - 1], e[m - 1], d[m])
+    return d, e, torch.tensor([l, m], dtype=torch.int32, device=cuda), mu.reshape(1)
+
+
+@pytest.mark.parametrize("name", ["tridiag_sweep", "bidiag_sweep"])
+@pytest.mark.parametrize("n,l,m", [(2, 0, 1), (64, 0, 63), (64, 5, 60), (384, 7, 370),
+                                   (8192, 3, 600), (8192, 7000, 8191), (40, 9, 9),
+                                   (40, 3, 40)])
+def test_sweep_kernel(cuda, name, n, l, m):
+    """Against the plain version, which rounds alike: equal to the bit. At
+    n = 8192, d and e exceed the kernel's 48 KB of shared memory and stay in
+    global memory; (9, 9) is an empty block and (3, 40) runs past n − 1:
+    both are the identity sweep."""
+    from faer_tpu_torch.ops.kernels import sweep
+
+    args = _sweep_case(n, l, min(m, n - 1), name == "bidiag_sweep", cuda)
+    args = (*args[:2], torch.tensor([l, m], dtype=torch.int32, device=cuda), args[3])
+    reset_launch_counts()
+    got = getattr(sweep, name)(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1
+    want = getattr(sweep, f"{name}_plain")(*args)
+    assert len(got) == len(want) == (4 if name == "tridiag_sweep" else 6)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for r, ident in zip(got[2:], (1.0, 0.0) * 2):
+        assert bool((r[:l] == ident).all()) and bool((r[m:] == ident).all())
+    if m > n - 1:
+        assert torch.equal(got[0], args[0]) and bool((got[2] == 1).all())
+
+
+def test_spectral_on_card(cuda):
+    """The EVD and the SVD on the card through their sweep kernels: the D&C
+    route (n = 600, leaves of 75 and less) and the direct QR route (n = 100)."""
+    from faer_tpu_torch import self_adjoint_evd, svd
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for n in (600, 100):
+        g = torch.randn(n, n, generator=gen, device=cuda)
+        a = (g + g.T) / 2
+        tol = 8 * n * EPS32
+        eye = torch.eye(n, device=cuda)
+        reset_launch_counts()
+        w, v, info = self_adjoint_evd(a)
+        torch.cuda.synchronize()
+        assert launch_counts()["tridiag_sweep"] > 0 and bool(info.converged)
+        assert ((a @ v - v * w).norm() / a.norm()).item() <= tol
+        assert (v.T @ v - eye).abs().max().item() <= tol
+        w64 = torch.linalg.eigvalsh(a.double())
+        assert ((w.double() - w64).abs().max() / w64.abs().max()).item() <= tol
+        reset_launch_counts()
+        u, s, vs, info = svd(g)
+        torch.cuda.synchronize()
+        assert launch_counts()["bidiag_sweep"] > 0 and bool(info.converged)
+        assert (((u * s) @ vs.T - g).norm() / g.norm()).item() <= tol
+        assert (u.T @ u - eye).abs().max().item() <= tol
+        assert (vs.T @ vs - eye).abs().max().item() <= tol
+        s64 = torch.linalg.svdvals(g.double())
+        assert ((s.double() - s64).abs().max() / s64[0]).item() <= tol
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     from faer_tpu_torch.ops.kernels.llt_panel import llt_panel
 

@@ -106,7 +106,7 @@ def test_triangular_solves(n, name, tri, unit):
 
 
 def test_flags_match_jax():
-    for name in ("Accum", "Conj"):
+    for name in ("Accum", "Conj", "Side"):
         want = {m.name: m.value for m in getattr(jflags, name)}
         assert {m.name: m.value for m in getattr(tflags, name)} == want
 
@@ -158,6 +158,10 @@ def test_approx_and_flops_match_jax():
         assert tflops.matmul_flops(n, 3, 5) == jflops.matmul_flops(n, 3, 5)
         for m in (n // 2, n, 2 * n):
             assert tflops.qr_flops(m, n) == jflops.qr_flops(m, n)
+            for vectors in (True, False):
+                assert tflops.svd_flops(m, n, vectors) == jflops.svd_flops(m, n, vectors)
+        for vectors in (True, False):
+            assert tflops.evd_flops(n, vectors) == jflops.evd_flops(n, vectors)
 
 
 def test_f32_policy_is_full_fp32(monkeypatch):
@@ -177,7 +181,9 @@ def test_cpu_path_launches_no_kernel():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, faer_tpu_torch, faer_tpu_torch.entry, "
             "faer_tpu_torch.interop, faer_tpu_torch.linalg.qr, "
-            "faer_tpu_torch.ops.kernels.leaf; "
+            "faer_tpu_torch.ops.kernels.leaf, faer_tpu_torch.ops.kernels.sweep, "
+            "faer_tpu_torch.linalg.evd, faer_tpu_torch.linalg.svd, "
+            "faer_tpu_torch.linalg.tridiag_dnc, faer_tpu_torch.linalg.bidiag_dnc; "
             "bad = sorted(m for m in sys.modules if m in ('jax', 'faer_tpu') "
             "or m.startswith(('jax.', 'faer_tpu.'))); "
             "assert not bad, bad")
