@@ -28,7 +28,16 @@ Phases, each printing lines; any failure exits non-zero:
    eigenvalues and singular values against an f64 oracle at n = 1024, the
    direct QR-iteration route at n = 384, the tall SVD at 8192 × 2048 (QR
    preprocessing), per-layer times and ``torch.linalg.eigh``/``svd``
-   yardsticks.
+   yardsticks;
+8. facade: ``Mat`` and the solver objects at n = 4096 f32 (seed 0) with the
+   tile GEMM switch on (``config.use_tile_matmul``, ``f32_precision =
+   "highest"``): ``Mat @ Mat``, ``llt()`` with ``solve``, ``inverse``,
+   ``determinant``/``logdet``, ``partial_piv_lu()`` with ``solve``,
+   ``solve_transpose``, ``inverse``, ``determinant``, ``qr().solve_lstsq``
+   at 4096 and 8192 × 2048, ``self_adjoint_eigen()`` and ``svd()`` at
+   1024; ``tile_matmul`` launches per call, residuals, the same calls with
+   the switch off (no launch), times with the switch off and on in turns,
+   and the GEMM and ``llt().solve`` errors with ``f32_precision = "high"``.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after. The second-to-last line is a JSON object with one entry
@@ -49,8 +58,10 @@ DEV = "cuda"  # every tensor of the run lives on the card
 N = 4096  # flagship size: a 64 MiB f32 matrix
 SEED = 0
 EPS32 = float(torch.finfo(torch.float32).eps)
-# NVIDIA's data sheet, H100 SXM at 700 W: FP32 outside the tensor cores, HBM3
+# NVIDIA's data sheet, H100 SXM at 700 W: FP32 outside the tensor cores, bf16
+# dense on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # launches the code predicts (PERF.md, PR 2): recursive-driver leaves per
 # off-route factor, and trtri in one qr_in_place + qr_solve_lstsq at N
@@ -63,6 +74,26 @@ SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
 ORACLE_N = 1024  # spectral check against f64 eigvalsh / svdvals
 DIRECT_N = 384  # below 512: the QR iteration without D&C
 TALL = (8192, 2048)  # m/n > 11/6: the SVD's QR preprocessing
+TILE = 128  # output tile side of tile_matmul and syrk_lower_sub
+# limits of the tile kernels' errors, relative to max‖a_i‖·max‖b_j‖ (PERF.md
+# §6). An FP32 result (FP32 FFMA, or bf16 operands' exact products summed
+# in f32) differs from the plain one only in the order of its sums: ≤ 16·eps,
+# where one TF32 pass errs ~3e-5 at k = 4096. bf16x3 errs ~1.4e-6 against the
+# plain split and against f64, where one bf16 pass errs ~2.5e-4.
+F32_TOL = 16 * EPS32
+BF16X3_TOL = 2e-5
+FACADE_SPECTRAL_N = 1024  # the facade's EVD and SVD (phase 7 runs 4096)
+# tile_matmul launches per facade call with the switch on (PERF.md §6):
+# the drivers' products, counted from their control flow, which does not
+# depend on the data (4096 unless the name says otherwise)
+FACADE_MATMUL = {
+    "Mat @ Mat": 1, "Mat @ Mat 1024": 1, "llt()": 18, "llt().solve": 30,
+    "llt().inverse()": 62, "llt().determinant()": 0, "partial_piv_lu()": 18,
+    "partial_piv_lu().solve": 30, "partial_piv_lu().solve_transpose": 30,
+    "partial_piv_lu().inverse()": 62, "partial_piv_lu().determinant()": 0,
+    "qr().solve_lstsq": 109 + 29, "qr().solve_lstsq 8192x2048": 53 + 8,
+    "self_adjoint_eigen() 1024": 24, "svd() 1024": 36,
+}
 
 
 def fail(msg: str) -> None:
@@ -113,11 +144,12 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_of(flops: float, nbytes: float) -> dict:
+def bound_of(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over the FP32 peak and the bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    over the peak rate of their type (FP32 unless ``peak`` says otherwise)
+    and the bytes (each input read once, each output written once) over the
+    memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -396,6 +428,7 @@ def phase_kernels(gen) -> dict:
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4000, 256), 2 * 4000 * 256 * 4 + 4000 * 8))
     res.update(_sweep_kernels(gen))
+    res.update(_tile_kernels(gen))
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -461,6 +494,130 @@ def _sweep_kernels(gen) -> dict:
             plain_ms=cuda_ms(lambda: plain(*full[64]), 3),
             library_ms=None,  # no PyTorch call computes one sweep
             **bound_of(SWEEP_STEP_FLOPS * (n - 1), nbytes))
+    return res
+
+
+def _row_col_scale(a, b) -> float:
+    """max_i ‖a_i‖₂ · max_j ‖b_j‖₂, a bound on every (|A||B|)_ij."""
+    return (a.float().norm(dim=1).max() * b.float().norm(dim=0).max()).item()
+
+
+def _tile_kernels(gen) -> dict:
+    """``tile_matmul`` in its three modes (f32 "highest" and "high", bf16)
+    and ``syrk_lower_sub`` in its two, against their plain versions: the
+    GEMM at 4096³ (the facade's product), a ragged (3000, 1000)·(1000, 2050),
+    both with transposed (strided) operands, and the main path's thin
+    products (a QR block apply Vᵀ·B, an 8-column TRSM update, an LLT
+    trailing update); the SYRK at (3840, 256), the trailing update of a 4096
+    LLT at block 256, and a ragged (300, 200). Limits ``F32_TOL`` and
+    ``BF16X3_TOL``; bf16x3 is also held against f64, and a bf16 result
+    against the plain f32 one, past one bf16 rounding of each entry. Timed
+    at 4096³ and (3840, 256)."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+
+    n = N
+    a, b = randn(n, n), randn(n, n)
+    ar, br = randn(3000, 1000), randn(1000, 2050)
+    v, w = randn(n, TILE), randn(n - 256, 256)
+    cases = {f"{n}^3": (a, b), "(3000, 1000)·(1000, 2050)": (ar, br),
+             f"{n}^3 .mT operands": (b.mT, a.mT),
+             "(2050, 1000)·(1000, 3000) .mT operands": (br.mT, ar.mT),
+             f"QR apply (128, {n})·({n}, {n - TILE}), .mT lhs": (v.mT, randn(n, n - TILE)),
+             f"TRSM update ({n - TILE}, 128)·(128, 8)": (randn(n - TILE, TILE), randn(TILE, 8)),
+             f"LLT update ({n - 256}, 256)·(256, {n - 256}), .mT rhs": (w, w.mT)}
+    errs, timed = [], {}
+    for mode in ("highest", "high", "bf16"):
+        config.f32_precision = "highest" if mode == "bf16" else mode
+        lim = BF16X3_TOL if mode == "high" else F32_TOL
+        for label, (x, y) in cases.items():
+            if mode == "bf16":
+                x, y = x.bfloat16(), y.bfloat16()
+            outs = (torch.float32, torch.bfloat16) if mode == "bf16" else (torch.float32,)
+            want = tile_matmul_plain(x, y, out_dtype=torch.float32)
+            scale = _row_col_scale(x, y)
+            for out in outs:
+                got = tile_matmul(x, y, out_dtype=out)
+                torch.cuda.synchronize()
+                diff = (got.float() - want).abs()
+                if out == torch.bfloat16:  # what exceeds one bf16 rounding of C
+                    diff = (diff - 2.0 ** -8 * want.abs()).clamp_min(0)
+                err = diff.max().item() / scale
+                if mode == "highest":
+                    errs.append(err * scale)
+                msg = f"{err:.3e} of max|a_i||b_j| vs plain"
+                ok = err <= lim
+                if mode == "high":
+                    err64 = (got.double() - x.double() @ y.double()).abs().max().item() / scale
+                    msg += f", {err64:.3e} vs f64"
+                    ok = ok and err64 <= lim
+                if out == torch.bfloat16:
+                    msg += " beyond one bf16 rounding"
+                check(ok, f"tile_matmul {mode} {label} -> {str(out)[6:]}: max abs err "
+                          f"{msg} <= {lim:.3e}")
+        x, y = cases[f"{n}^3"]
+        if mode == "bf16":
+            x, y = x.bfloat16(), y.bfloat16()
+        flops = 2 * n ** 3
+        nbytes = (2 * n * n) * x.element_size() + n * n * 4
+        peak = PEAK_F32_FLOPS if mode == "highest" else PEAK_BF16_FLOPS
+        passes = 3 if mode == "high" else 1
+        timed[mode] = dict(
+            ms=cuda_ms(lambda: tile_matmul(x, y), 10),
+            plain_ms=cuda_ms(lambda: tile_matmul_plain(x, y), 3),
+            library_ms=cuda_ms(lambda: torch.matmul(x, y), 10),
+            **bound_of(passes * flops, nbytes, peak))
+        r = timed[mode]
+        print(f"time tile_matmul {mode} {n}^3: kernel {r['ms']:.4f} ms "
+              f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
+              f"torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6g} ms "
+              f"({r['bound_by']}, {passes} pass{'es' if passes > 1 else ''})")
+    res = {"matmul": dict(max_abs_err=max(errs), **timed["highest"])}
+
+    errs, timed = [], {}
+    for mode in ("highest", "high"):
+        config.f32_precision = mode
+        tol = BF16X3_TOL if mode == "high" else F32_TOL
+        for m, k in ((n - 256, 256), (300, 200)):
+            c, x = randn(m, m), randn(m, k)
+            got, want = syrk_lower_sub(c, x), syrk_lower_sub_plain(c, x)
+            torch.cuda.synchronize()
+            scale = x.norm(dim=1).max().item() ** 2
+            err = torch.tril(got - want).abs().max().item() / scale
+            kept = torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+            if mode == "highest":
+                errs.append(err * scale)
+            msg = f"{err:.3e} of max|a_i|² vs plain"
+            ok = err <= tol and kept
+            if mode == "high":
+                ref = c.double() - x.double() @ x.double().mT
+                err64 = torch.tril(got.double() - ref).abs().max().item() / scale
+                msg += f", {err64:.3e} vs f64"
+                ok = ok and err64 <= tol
+            check(ok, f"syrk_lower_sub {mode} ({m}, {k}): lower max abs err {msg} "
+                      f"<= {tol:.3e}; upper triangle kept C's values {kept}")
+            if m != n - 256:
+                continue
+            # the function's work: the lower triangle with its diagonal,
+            # m(m+1)/2 dot products of length k, read and written once, and A
+            passes = 3 if mode == "high" else 1
+            peak = PEAK_BF16_FLOPS if mode == "high" else PEAK_F32_FLOPS
+            timed[mode] = dict(
+                ms=cuda_ms(lambda: syrk_lower_sub(c, x), 20),
+                plain_ms=cuda_ms(lambda: syrk_lower_sub_plain(c, x), 5),
+                library_ms=cuda_ms(lambda: torch.addmm(c, x, x.mT, alpha=-1), 20),
+                **bound_of(passes * m * (m + 1) * k, (m * (m + 1) + m * k) * 4, peak))
+            r = timed[mode]
+            print(f"time syrk_lower_sub {mode} ({m}, {k}): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, torch.addmm {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.6g} ms ({r['bound_by']}, {passes} "
+                  f"pass{'es' if passes > 1 else ''})")
+    config.f32_precision = "highest"
+    res["syrk"] = dict(max_abs_err=max(errs), **timed["highest"])
     return res
 
 
@@ -871,6 +1028,154 @@ def phase_spectral(gen) -> dict:
     return total
 
 
+def _res(mat, x, rhs) -> float:
+    """‖A x − b‖ / (‖A‖ ‖x‖), Frobenius norms."""
+    return (torch.linalg.matrix_norm(mat @ x - rhs) / (
+        torch.linalg.matrix_norm(mat) * torch.linalg.matrix_norm(x))).item()
+
+
+def phase_facade() -> dict:
+    """The facade as a user drives it, ``Mat(a).llt().solve(b)`` and its
+    siblings, at n = 4096 with the tile GEMM switch on and f32_precision
+    "highest": every front-door product above 128³ without a pinned
+    precision goes to ``tile_matmul``. Each call is counted on its own;
+    the counts of the switch-on calls are summed."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.reductions import log_abs_det_diag
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    n = N
+    tol = 8 * n * EPS32
+    a_spd, g, b = _inputs(n, gen)
+    h = torch.randn(n, n, generator=gen, device=DEV)
+    eye = torch.eye(n, device=DEV)
+    total = {}
+    config.use_tile_matmul = True
+    config.f32_precision = "highest"
+
+    def counted(key, fn):
+        out, counts, _ = _counted(fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        mm = counts["matmul"]
+        print(f"launches in {key}: {counts}")
+        check(mm == FACADE_MATMUL[key],
+              f"{key}: {mm} tile_matmul launches, {FACADE_MATMUL[key]} predicted")
+        return out, mm
+
+    prod, mm = counted("Mat @ Mat", lambda: Mat(g) @ Mat(h))
+    err = (prod.a - g @ h).abs().max().item() / _row_col_scale(g, h)
+    check(mm > 0 and err <= F32_TOL, f"Mat @ Mat n={n}: {mm} tile_matmul launch, max err "
+                                     f"vs torch.matmul {err:.3e} of max|a_i||b_j| <= "
+                                     f"{F32_TOL:.3e}")
+    g1 = torch.randn(ORACLE_N, ORACLE_N, generator=gen, device=DEV)
+    h1 = torch.randn(ORACLE_N, ORACLE_N, generator=gen, device=DEV)
+    p1, mm = counted("Mat @ Mat 1024", lambda: Mat(g1) @ Mat(h1))
+    err = ((p1.a.double() - g1.double() @ h1.double()).abs().max().item()
+           / _row_col_scale(g1, h1))
+    check(mm > 0 and err <= F32_TOL, f"Mat @ Mat n={ORACLE_N} vs f64: max err {err:.3e} "
+                                     f"of max|a_i||b_j| <= {F32_TOL:.3e}")
+
+    llt, mm = counted("llt()", lambda: Mat(a_spd).llt())
+    rec = rel_norm(llt.reconstruct(), a_spd)
+    check(mm > 0 and rec <= tol, f"llt(): {mm} tile_matmul launches, |LLᵀ-A|/|A| "
+                                 f"{rec:.3e} <= {tol:.3e}")
+    x, mm = counted("llt().solve", lambda: llt.solve(b))
+    r = _res(a_spd, x, b)
+    check(r <= tol, f"llt().solve: {mm} launches, |Ax-b|/(|A||x|) {r:.3e} <= {tol:.3e}")
+    inv, mm = counted("llt().inverse()", lambda: llt.inverse())
+    r = _res(a_spd, inv, eye)
+    check(r <= tol, f"llt().inverse(): {mm} launches, |AX-I|/(|A||X|) {r:.3e} <= {tol:.3e}")
+    (det, logdet), mm = counted("llt().determinant()",
+                                lambda: (llt.determinant(), llt.logdet()))
+    sign, ref = torch.linalg.slogdet(a_spd.double())
+    err = abs(logdet.item() - ref.item()) / abs(ref.item())
+    check(sign.item() == 1 and det.item() > 0 and err <= tol,
+          f"llt(): determinant {det.item():.4g}, logdet {logdet.item():.6f} "
+          f"vs slogdet {ref.item():.6f}: rel err {err:.3e} <= {tol:.3e}")
+
+    lu, mm = counted("partial_piv_lu()", lambda: Mat(g).partial_piv_lu())
+    rec = rel_norm(lu.reconstruct(), g)
+    check(mm > 0 and rec <= tol, f"partial_piv_lu(): {mm} tile_matmul launches, "
+                                 f"|A[perm]-LU|/|A| {rec:.3e} <= {tol:.3e}")
+    x, mm = counted("partial_piv_lu().solve", lambda: lu.solve(b))
+    r = _res(g, x, b)
+    check(r <= tol, f"partial_piv_lu().solve: {mm} launches, residual {r:.3e} <= {tol:.3e}")
+    x, mm = counted("partial_piv_lu().solve_transpose", lambda: lu.solve_transpose(b))
+    r = _res(g.T, x, b)
+    check(r <= tol, f"solve_transpose: {mm} launches, |Aᵀx-b|/(|A||x|) {r:.3e} <= {tol:.3e}")
+    inv, mm = counted("partial_piv_lu().inverse()", lambda: lu.inverse())
+    r = _res(g, inv, eye)
+    check(r <= tol, f"partial_piv_lu().inverse(): {mm} launches, |AX-I|/(|A||X|) "
+                    f"{r:.3e} <= {tol:.3e}")
+    det, mm = counted("partial_piv_lu().determinant()", lambda: lu.determinant())
+    s_u, log_u = log_abs_det_diag(lu.U)
+    sign_lu = s_u.item() * (1 - 2 * (int(lu.info.transposition_count) % 2))
+    sign, ref = torch.linalg.slogdet(g.double())
+    err = abs(log_u.item() - ref.item()) / abs(ref.item())
+    check(float(torch.sign(det)) == sign.item() == sign_lu and err <= tol,
+          f"partial_piv_lu(): determinant {det.item():.4g}, sign "
+          f"{sign_lu:+.0f} vs slogdet {sign.item():+.0f}; log|det| of the factor "
+          f"{log_u.item():.4f} vs {ref.item():.4f}: rel err {err:.3e} <= {tol:.3e}")
+
+    x, mm = counted("qr().solve_lstsq", lambda: Mat(g).qr().solve_lstsq(b))
+    r = _res(g, x, b)
+    check(mm > 0 and r <= tol, f"qr().solve_lstsq n={n}: {mm} launches, residual "
+                               f"{r:.3e} <= {tol:.3e}")
+    mt, nt_ = TALL
+    at = torch.randn(mt, nt_, generator=gen, device=DEV)
+    bt = torch.randn(mt, 8, generator=gen, device=DEV)
+    xt, mm = counted(f"qr().solve_lstsq {mt}x{nt_}",
+                     lambda: Mat(at).qr().solve_lstsq(bt))
+    rt = bt - at @ xt
+    orth = (torch.linalg.matrix_norm(at.T @ rt) / (
+        torch.linalg.matrix_norm(at) * torch.linalg.matrix_norm(rt))).item()
+    check(mm > 0 and orth <= 8 * mt * EPS32,
+          f"qr().solve_lstsq {mt}x{nt_}: {mm} launches, |Aᵀr|/(|A||r|) {orth:.3e} "
+          f"<= {8 * mt * EPS32:.3e}")
+
+    ns = FACADE_SPECTRAL_N
+    gs = torch.randn(ns, ns, generator=gen, device=DEV)
+    sym = (gs + gs.T) / 2
+    eig, mm = counted(f"self_adjoint_eigen() {ns}", lambda: Mat(sym).self_adjoint_eigen())
+    _evd_checks(sym, eig.eigenvalues, eig.eigenvectors, f"self_adjoint_eigen() n={ns}")
+    sv, mm = counted(f"svd() {ns}", lambda: Mat(gs).svd())
+    _svd_checks(gs, sv.U, sv.S, sv.V, f"svd() n={ns}")
+
+    calls = {
+        "Mat @ Mat": lambda: Mat(g) @ Mat(h),
+        "Mat(spd).llt().solve(b)": lambda: Mat(a_spd).llt().solve(b),
+        "Mat(g).partial_piv_lu().solve(b)": lambda: Mat(g).partial_piv_lu().solve(b),
+        "Mat(g).qr().solve_lstsq(b)": lambda: Mat(g).qr().solve_lstsq(b),
+    }
+    config.use_tile_matmul = False
+    for label, fn in calls.items():
+        _, counts, _ = _counted(fn)
+        check(counts["matmul"] == 0, f"switch off: {label} n={n} made no tile_matmul launch")
+    for label, fn in calls.items():  # in turns on one card: off, on, on, off
+        ms = []
+        for on in (False, True, True, False):
+            config.use_tile_matmul = on
+            ms.append(cuda_ms(fn, 3))
+        print(f"time facade {label} n={n}: switch off {ms[0]:.4f} / on {ms[1]:.4f} / "
+              f"on {ms[2]:.4f} / off {ms[3]:.4f} ms (median of 3 each)")
+
+    config.use_tile_matmul = True
+    config.f32_precision = "high"
+    p_hi = (Mat(g) @ Mat(h)).a
+    err = (p_hi.double() - g.double() @ h.double()).abs().max().item() / _row_col_scale(g, h)
+    x_hi = Mat(a_spd).llt().solve(b)
+    r = _res(a_spd, x_hi, b)
+    check(err <= BF16X3_TOL and r <= tol,
+          f"f32_precision 'high' (bf16x3): Mat @ Mat n={n} max err vs f64 {err:.3e} of "
+          f"max|a_i||b_j| <= {BF16X3_TOL:.3e}; llt().solve residual {r:.3e} <= {tol:.3e}")
+    config.f32_precision = "highest"
+    config.use_tile_matmul = False
+    print(f"launches in the facade phase: {total}")
+    return total
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -883,7 +1188,7 @@ def main() -> None:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kern = phase_kernels(gen)
     paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen),
-             phase_spectral(gen)]
+             phase_spectral(gen), phase_facade()]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -903,12 +1208,19 @@ def main() -> None:
                           "faer_tpu/ops/pallas/panel_kernels.py:390"),
         "bidiag_sweep": ("faer_tpu_torch/csrc/bidiag_sweep.cu",
                          "faer_tpu/ops/pallas/panel_kernels.py:502"),
+        "matmul": ("faer_tpu_torch/csrc/matmul.cu",
+                   "faer_tpu/ops/pallas/matmul_kernel.py:92"),
+        "syrk": ("faer_tpu_torch/csrc/syrk.cu",
+                 "faer_tpu/ops/pallas/syrk_kernel.py:108"),
     }
-    check(all(launches[k] > 0 for k in sources), "every kernel ran on a main path")
+    # syrk_lower_sub is on no path: the JAX package keeps it unwired too
+    off_path = {"syrk"}
+    check(all(launches[k] > 0 for k in sources if k not in off_path),
+          "every kernel but the off-path syrk ran on a main path")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=launches[k], **kern[k])
+             launches=launches[k], off_path=k in off_path, **kern[k])
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -11,8 +11,13 @@ The ported slices: the LLT and partial-pivot LU factor-and-solve path,
 every float32 shape; the Householder QR path, ``linalg.qr``
 (``qr_in_place``, then ``qr_solve_lstsq`` and its siblings); and the
 self-adjoint EVD and the SVD, ``linalg.evd`` (``self_adjoint_evd`` and its
-siblings) and ``linalg.svd`` (``svd`` and its siblings).
+siblings) and ``linalg.svd`` (``svd`` and its siblings); and the facade over
+them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale`` and the solver objects
+``Llt``, ``PartialPivLu``, ``Qr``, ``Svd``, ``SelfAdjointEigen``, whose
+products go through the GEMM front door (``ops.matmul``) and, with the
+switch ``core.config.config.use_tile_matmul`` on, its tile kernel.
 """
+from faer_tpu_torch.core.config import config
 from faer_tpu_torch.core.errors import (
     LltInfo,
     LuInfo,
@@ -20,8 +25,16 @@ from faer_tpu_torch.core.errors import (
     ShapeError,
     SpectralInfo,
 )
+from faer_tpu_torch.core.flags import Accum, Conj, Norm, Side
+from faer_tpu_torch.core.mat import Mat, Scale
 from faer_tpu_torch.core.params import EvdParams, QrParams, SvdParams
-from faer_tpu_torch.linalg.cholesky import llt_factor, llt_reconstruct, llt_solve
+from faer_tpu_torch.core.vec import Col, Diag, Row
+from faer_tpu_torch.linalg.cholesky import (
+    llt_factor,
+    llt_inverse,
+    llt_reconstruct,
+    llt_solve,
+)
 from faer_tpu_torch.linalg.evd import (
     self_adjoint_eigenvalues,
     self_adjoint_evd,
@@ -30,8 +43,10 @@ from faer_tpu_torch.linalg.evd import (
 from faer_tpu_torch.linalg.lu import (
     lu_determinant,
     lu_in_place,
+    lu_inverse,
     lu_reconstruct,
     lu_solve,
+    lu_solve_transpose,
 )
 from faer_tpu_torch.linalg.qr import (
     qr_apply_q,
@@ -42,17 +57,42 @@ from faer_tpu_torch.linalg.qr import (
     qr_solve,
     qr_solve_lstsq,
 )
+from faer_tpu_torch.linalg.solvers import (
+    Llt,
+    PartialPivLu,
+    Qr,
+    SelfAdjointEigen,
+    Svd,
+)
 from faer_tpu_torch.linalg.svd import (
     pseudoinverse,
     pseudoinverse_from_svd,
     singular_values,
     svd,
 )
+from faer_tpu_torch.ops.matmul import matmul, matvec, rank_update
+from faer_tpu_torch.ops.reductions import (
+    log_abs_det_diag,
+    norm,
+    norm_l1,
+    norm_l2,
+    norm_l2_sqr,
+    norm_max,
+    prod_diag,
+    sum_all,
+)
 
 __all__ = [
     "LltInfo", "LuInfo", "NonPositivePivotError", "ShapeError",
-    "llt_factor", "llt_solve", "llt_reconstruct",
-    "lu_in_place", "lu_solve", "lu_reconstruct", "lu_determinant",
+    "config", "Accum", "Conj", "Norm", "Side",
+    "Mat", "Scale", "Col", "Row", "Diag",
+    "Llt", "PartialPivLu", "Qr", "Svd", "SelfAdjointEigen",
+    "matmul", "matvec", "rank_update",
+    "norm", "norm_l1", "norm_l2", "norm_l2_sqr", "norm_max", "sum_all",
+    "prod_diag", "log_abs_det_diag",
+    "llt_factor", "llt_solve", "llt_reconstruct", "llt_inverse",
+    "lu_in_place", "lu_solve", "lu_solve_transpose", "lu_inverse",
+    "lu_reconstruct", "lu_determinant",
     "QrParams", "qr_in_place", "qr_solve_lstsq", "qr_solve", "qr_reconstruct",
     "qr_compute_q", "qr_apply_q", "qr_inverse",
     "SpectralInfo", "EvdParams", "SvdParams",

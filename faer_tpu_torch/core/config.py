@@ -1,11 +1,20 @@
 """Numerical policy and kernel launch counters (counterpart of
 ``faer_tpu/core/config.py``).
 
-* **f32 GEMM policy: full FP32.** Every f32 product of the port runs in
-  IEEE float32 with float32 accumulation: no TF32. The JAX package's default
-  is bf16x3 (``faer_tpu/ops/matmul.py:33-44``); on the GPU PyTorch's own
-  default is already full FP32, and :func:`check_f32_policy` refuses to run
-  if a caller switched TF32 on. The hand-written kernels use FP32 FMA only.
+* **f32 GEMM policy: full FP32 by default.** Every ``torch.matmul`` of the
+  port runs in IEEE float32 with float32 accumulation: no TF32.
+  :func:`check_f32_policy` refuses to run if a caller switched TF32 on.
+* **The tile GEMM switch** (``config``, counterpart of the JAX package's
+  ``_Config``). ``use_tile_matmul`` (``None``: read ``FAER_TPU_USE_PALLAS``,
+  the JAX package's own variable, so that one setting drives both packages;
+  off when unset, as there) sends the front door's 2-D f32/bf16 products
+  above 128³ to the hand-written ``tile_matmul``
+  kernel. ``f32_precision`` (``FAER_TPU_F32_PRECISION``) picks that kernel's
+  f32 mode: ``"highest"``, full FP32, the port's default since its first
+  slice, which keeps every earlier path's numbers; or ``"high"``, the bf16x3
+  split ``ah·bh + ah·bl + al·bh`` of the JAX package's default. ``"high"``
+  changes only ``tile_matmul`` and ``syrk_lower_sub``: ``torch.matmul`` has
+  no bf16x3 mode.
 * **Launch counters.** Each kernel wrapper adds one to its counter where it
   launches its CUDA kernel, and nowhere else, so a run can show that the
   main path went through the kernels.
@@ -18,10 +27,35 @@ counterpart: the device is the input tensor's.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
-           "tridiag_sweep", "bidiag_sweep")
+           "tridiag_sweep", "bidiag_sweep", "matmul", "syrk")
+F32_PRECISIONS = ("highest", "high")
+
+
+class _Config:
+    def __init__(self):
+        self.use_tile_matmul: bool | None = None  # None: FAER_TPU_USE_PALLAS, else off
+        self.f32_precision: str = os.environ.get("FAER_TPU_F32_PRECISION", "highest")
+
+    def tile_matmul_enabled(self) -> bool:
+        if self.use_tile_matmul is None:
+            return os.environ.get("FAER_TPU_USE_PALLAS", "0") not in ("0", "false",
+                                                                      "False", "")
+        return self.use_tile_matmul
+
+    def tile_precision(self) -> str:
+        """``f32_precision``, checked: ``"highest"`` or ``"high"``."""
+        if self.f32_precision not in F32_PRECISIONS:
+            raise ValueError(f"f32_precision must be one of {F32_PRECISIONS}, "
+                             f"got {self.f32_precision!r}")
+        return self.f32_precision
+
+
+config = _Config()
 
 _launches = dict.fromkeys(KERNELS, 0)
 _host_reads = 0

@@ -1,10 +1,10 @@
 """Semantics flags (counterpart of ``faer_tpu/core/flags.py``).
 
-faer's ``Accum`` (``faer/src/lib.rs:869``), ``Conj`` and ``Side``: plain
-Python enums, read on the host when a function is called. ``Side`` says
-which triangle ``self_adjoint_eigenvalues`` reads. ``Accum`` and ``Conj``
-keep the names for the complex dtypes and the accumulating front door of
-later slices.
+faer's ``Accum`` (``faer/src/lib.rs:869``), ``Conj``, ``Side`` and
+``Norm``: plain Python enums, read on the host when a function is called.
+``Accum`` and ``Conj`` are the GEMM front door's options (``ops/matmul.py``),
+``Side`` says which triangle a self-adjoint routine reads, and ``Norm``
+selects ``ops.reductions.norm``.
 """
 from __future__ import annotations
 
@@ -30,3 +30,12 @@ class Side(enum.Enum):
 
     LOWER = 0
     UPPER = 1
+
+
+class Norm(enum.Enum):
+    """Norm selector for ``faer_tpu_torch.ops.reductions.norm``."""
+
+    L1 = 0
+    L2 = 1
+    L2_SQR = 2
+    MAX = 3

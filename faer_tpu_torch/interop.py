@@ -1,16 +1,18 @@
 """Carrying factor state between ``faer_tpu`` and the port.
 
 The library has no weights: its state is factor objects. These functions
-turn the JAX package's factor outputs, as numpy arrays, into the port's
-tensors and info dataclasses, and back, so that a factor computed by one
-package can be solved by the other.
+turn the JAX package's factor outputs and solver objects, as numpy arrays,
+into the port's tensors, info dataclasses and solver objects, and back, so
+that a factor computed by one package can be solved by the other.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from faer_tpu_torch.core.errors import LltInfo, LuInfo
+from faer_tpu_torch.core.errors import LltInfo, LuInfo, SpectralInfo
 
 
 def _scalar(x, dtype, device):
@@ -70,3 +72,55 @@ def tridiag_from_numpy(d, e, hh, taus, device="cpu"):
 def tridiag_to_numpy(d, e, hh, taus):
     """``(d, e, hh, taus)`` as numpy arrays."""
     return tuple(x.detach().cpu().numpy() for x in (d, e, hh, taus))
+
+
+_INFO_TYPES = {"Llt": LltInfo, "PartialPivLu": LuInfo, "Svd": SpectralInfo,
+               "SelfAdjointEigen": SpectralInfo}
+_INDEX_FIELDS = ("row_perm",)  # int32 in the JAX package, int64 in the port
+_INFO_DTYPES = {"dynamic_regularization_count": torch.int32,
+                "transposition_count": torch.int32, "iterations": torch.int32,
+                "success": torch.bool, "converged": torch.bool}
+
+
+def solver_from_numpy(kind: str, *, device="cuda", **fields):
+    """A port solver object (``linalg/solvers.py``) of class ``kind``
+    (``"Llt"``, ``"PartialPivLu"``, ``"Qr"``, ``"Svd"`` or
+    ``"SelfAdjointEigen"``) from the fields of the JAX package's solver
+    dataclass of the same name, as numpy arrays: ``info`` as a mapping of
+    its field names to arrays, ``Qr.block`` as an int. Data goes to
+    ``device``."""
+    from faer_tpu_torch.linalg.solvers import SOLVERS
+
+    cls = SOLVERS[kind]
+    out = {}
+    for name, value in fields.items():
+        if name == "info":
+            out[name] = _INFO_TYPES[kind](**{
+                k: _scalar(v, _INFO_DTYPES[k], device) for k, v in value.items()})
+        elif name == "block":
+            out[name] = int(value)
+        else:
+            arr = np.asarray(value)
+            if name in _INDEX_FIELDS:
+                arr = arr.astype(np.int64)
+            out[name] = torch.tensor(arr).to(device)
+    return cls(**out)
+
+
+def solver_to_numpy(obj):
+    """``(kind, fields)`` of a port solver object: the fields of the JAX
+    dataclass of the same name as numpy arrays (``row_perm`` as int32, the
+    JAX index type; ``info`` as a dict; ``block`` as an int), for
+    ``faer_tpu.linalg.solvers.<kind>(**fields)`` once converted to arrays."""
+    fields = {}
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if f.name == "info":
+            fields[f.name] = {k.name: getattr(value, k.name).cpu().numpy()
+                              for k in dataclasses.fields(value)}
+        elif f.name == "block":
+            fields[f.name] = int(value)
+        else:
+            arr = value.detach().cpu().numpy()
+            fields[f.name] = arr.astype(np.int32) if f.name in _INDEX_FIELDS else arr
+    return type(obj).__name__, fields

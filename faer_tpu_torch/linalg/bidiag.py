@@ -129,8 +129,8 @@ def bidiag_in_place(a, *, block: int = 128):
         d[j0:j0 + bw] = d_p
         e[j0:j0 + bw] = e_p
         # trailing rank-2b update as two GEMMs
-        t = t[bw:, bw:] - matmul(vl_p[bw:], y_p[bw:].T) \
-            - matmul(x_p[bw:], vr_p[bw:].T)
+        t = t[bw:, bw:] - matmul(None, vl_p[bw:], y_p[bw:].T) \
+            - matmul(None, x_p[bw:], vr_p[bw:].T)
         j0 += bw
     d_t, e_t, vl_t, taul_t, vr_t, taur_t = bidiag_in_place_unblocked(t)
     vl[j0:, j0:] = vl_t

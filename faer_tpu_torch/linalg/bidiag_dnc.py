@@ -127,11 +127,11 @@ def _leaf(d, e, sqre: int):
         return u, s, v
     d2, e2, w0 = _chase_extra_column(d, e)
     s, u, v, _ = bidiag_svd(d2, e2)
-    w = torch.cat([matmul(w0[:, :m], v), w0[:, m:]], dim=1)
+    w = torch.cat([matmul(None, w0[:, :m], v), w0[:, m:]], dim=1)
     return u, s, w
 
 
-def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int):
+def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int, hi: bool = False):
     """Combine the sub-SVDs across the torn middle row: in the permuted
     column order [W1-null, σ1…, σ2…(, W2-null)] the merged matrix is
     ``M' = [diag(d) pattern] + e₁ zᵀ`` with d = (0, s1, s2[, 0])."""
@@ -240,12 +240,17 @@ def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int):
     u_sc[rowp] = u_m
     v_sc = torch.empty_like(v)
     v_sc[colp] = v
-    u_out = torch.cat([matmul(u1, u_sc[:k]), u_sc[k:k + 1], matmul(u2, u_sc[k + 1:])])
-    w_out = torch.cat([matmul(w1, v_sc[:k + 1]), matmul(w2, v_sc[k + 1:])])
+    # the top-level merge (hi) pins full-FP32 back-transforms, as the
+    # reference does (bidiag_dnc.py:351-357)
+    prec = "highest" if hi else None
+    u_out = torch.cat([matmul(None, u1, u_sc[:k], precision=prec), u_sc[k:k + 1],
+                       matmul(None, u2, u_sc[k + 1:], precision=prec)])
+    w_out = torch.cat([matmul(None, w1, v_sc[:k + 1], precision=prec),
+                       matmul(None, w2, v_sc[k + 1:], precision=prec)])
     return u_out, s_all, w_out
 
 
-def _dnc(d, e, sqre: int):
+def _dnc(d, e, sqre: int, hi: bool = False):
     """Recursive solve of the (m, m+sqre) upper bidiagonal B: ``(u, s, w)``,
     s descending (m + sqre entries, the last the ≈0 null root when sqre = 1),
     ``B = u @ [diag(s[:m]) | 0] @ wᵀ``."""
@@ -259,7 +264,7 @@ def _dnc(d, e, sqre: int):
     u1, s1, w1 = _dnc(d[:k], e[:k], 1)
     u2, s2, w2 = _dnc(d[k + 1:], e[k + 1:], sqre)
     # the merge takes only each sub-block's m genuine singular values
-    return _svd_merge(u1, s1[:k], w1, u2, s2[:m - k - 1], w2, d[k], e[k], sqre)
+    return _svd_merge(u1, s1[:k], w1, u2, s2[:m - k - 1], w2, d[k], e[k], sqre, hi)
 
 
 def bidiag_svd_dnc(d, e, *, want_u: bool = True, want_v: bool = True):
@@ -272,6 +277,6 @@ def bidiag_svd_dnc(d, e, *, want_u: bool = True, want_v: bool = True):
     if n > 1:
         nrm = torch.maximum(nrm, e.abs().max())
     nrm = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-    u, s, w = _dnc(d / nrm, e / nrm, 0)
+    u, s, w = _dnc(d / nrm, e / nrm, 0, hi=True)
     return (s * nrm, (u if want_u else None), (w if want_v else None),
             _info(True, 0, d.device))

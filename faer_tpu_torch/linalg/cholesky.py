@@ -67,8 +67,8 @@ def _llt_panel_recursive(a, reg: LltRegularization, base: int):
     d1, c1, o1 = _llt_panel_recursive(a[:h, :h], reg, base)
     # SPD: ‖L11⁻¹‖ ≤ √cond(A), so the coupling is one product against the
     # explicit inverse
-    l21 = matmul(a[h:, :h], invert_lower_triangular(d1).mT)
-    d2, c2, o2 = _llt_panel_recursive(a[h:, h:] - matmul(l21, l21.mT), reg, base)
+    l21 = matmul(None, a[h:, :h], invert_lower_triangular(d1).mT)
+    d2, c2, o2 = _llt_panel_recursive(a[h:, h:] - matmul(None, l21, l21.mT), reg, base)
     # in place into a fresh output where the JAX package concatenates
     out = a.new_zeros((b, b))
     out[:h, :h] = d1
@@ -92,9 +92,9 @@ def _llt_factor_recursive(a, reg: LltRegularization, block: int, base: int):
         count, ok = count + c, ok & o
         l[k:k + bw, k:k + bw] = torch.tril(d)
         if k + bw < n:
-            l21 = matmul(trail[bw:, :bw], invert_lower_triangular(d).mT)
+            l21 = matmul(None, trail[bw:, :bw], invert_lower_triangular(d).mT)
             l[k + bw:, k:k + bw] = l21
-            trail = trail[bw:, bw:] - matmul(l21, l21.mT)
+            trail = trail[bw:, bw:] - matmul(None, l21, l21.mT)
     return l, LltInfo(dynamic_regularization_count=count, success=ok)
 
 
@@ -128,14 +128,14 @@ def _llt_factor_v5(a, reg: LltRegularization, block: int):
             if w2 > 0:
                 l21 = strip[bw:]
                 # remaining columns of this block: in place on the strip copy
-                pblock[bw:, bw:] -= matmul(l21, l21[:w2].mT)
+                pblock[bw:, bw:] -= matmul(None, l21, l21[:w2].mT)
                 pblock = pblock[bw:, bw:]
             l[kk + k:, kk + k:kk + k + bw] = strip
         lblock = l[kk:, kk:kk + obw]
         for j in range(jj + 1, len(starts)):
             r0 = starts[j] - kk
             wj = strips[j].shape[1]
-            strips[j] -= matmul(lblock[r0:], lblock[r0:r0 + wj].mT)
+            strips[j] -= matmul(None, lblock[r0:], lblock[r0:r0 + wj].mT)
     return l, LltInfo(dynamic_regularization_count=count, success=ok)
 
 
@@ -145,5 +145,11 @@ def llt_solve(l, b):
     return solve_lower_triangular_adjoint(l, y)
 
 
+def llt_inverse(l):
+    """A⁻¹ from the LLT factor: ``llt_solve(L, I)``
+    (``faer_tpu/linalg/cholesky.py:244-247``)."""
+    return llt_solve(l, torch.eye(l.shape[0], dtype=l.dtype, device=l.device))
+
+
 def llt_reconstruct(l):
-    return matmul(l, l.mH)
+    return matmul(None, l, l.mH)

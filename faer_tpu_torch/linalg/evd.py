@@ -62,4 +62,4 @@ def self_adjoint_pseudoinverse(a, tol=None):
         tol = aw.max() * a.shape[0] * dtypes.eps(a.dtype)
     winv = torch.where(aw > tol, 1.0 / torch.where(w == 0, torch.ones_like(w), w),
                        torch.zeros_like(w))
-    return matmul(v * winv[None, :], v.T)
+    return matmul(None, v * winv[None, :], v.T)

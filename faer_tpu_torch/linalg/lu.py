@@ -29,8 +29,10 @@ from faer_tpu_torch.ops.kernels.lu_panel import lu_panel
 from faer_tpu_torch.ops.matmul import matmul
 from faer_tpu_torch.ops.triangular import invert_lower_triangular
 from faer_tpu_torch.ops.triangular_solve import (
+    solve_lower_triangular_transpose,
     solve_unit_lower_triangular,
     solve_upper_triangular,
+    solve_upper_triangular_transpose,
 )
 
 
@@ -76,9 +78,9 @@ def _lu_factor_v5(a, block: int, ob: int):
             if k + bw < ow:
                 l11inv = invert_lower_triangular(_unit_lower(packed[:bw, :bw]),
                                                  unit=True)
-                u12 = matmul(l11inv, tp[:bw, k + bw:])
+                u12 = matmul(None, l11inv, tp[:bw, k + bw:], precision="highest")
                 top.append(u12)
-                bot.append(tp[bw:, k + bw:] - matmul(packed[bw:], u12))
+                bot.append(tp[bw:, k + bw:] - matmul(None, packed[bw:], u12))
             t = torch.cat([t[:k], torch.cat(top, 1), torch.cat(bot, 1)], 0)
         strips[jj] = torch.cat([strips[jj][:kk], t], 0) if kk else t
         perm = torch.cat([perm[:kk], perm[kk:][gperm]])
@@ -88,8 +90,8 @@ def _lu_factor_v5(a, block: int, ob: int):
                                                unit=True)
             for j in range(jj + 1, len(starts)):
                 rj = strips[j][kk:].index_select(0, gperm)
-                u12j = matmul(l11o_inv, rj[:ow])
-                lowj = rj[ow:] - matmul(t[ow:, :ow], u12j)
+                u12j = matmul(None, l11o_inv, rj[:ow], precision="highest")
+                lowj = rj[ow:] - matmul(None, t[ow:, :ow], u12j)
                 strips[j] = torch.cat([strips[j][:kk], u12j, lowj], 0)
 
     # later blocks' permutations, composed backward, applied once per strip
@@ -134,7 +136,7 @@ def _panel_lu_blocked(panel, base: int):
     right = panel[:, h:].index_select(0, perm1)
     u12 = solve_unit_lower_triangular(_unit_lower(left[:h, :h]), right[:h])
     bot, perm2, nt2, ok2 = _panel_lu_blocked(
-        right[h:] - matmul(left[h:, :h], u12), base)
+        right[h:] - matmul(None, left[h:, :h], u12), base)
     # in place into a fresh output where the JAX package concatenates
     out = panel.new_empty((m, b))
     out[:h, :h] = left[:h]
@@ -174,10 +176,10 @@ def _lu_factor_recursive(a, block: int, base: int):
             right = trail[:, bw:].index_select(0, lperm)
             l11inv = invert_lower_triangular(_unit_lower(panel[:bw, :bw]),
                                              unit=True)
-            u12 = matmul(l11inv, right[:bw])
+            u12 = matmul(None, l11inv, right[:bw], precision="highest")
             out[k:k + bw, k + bw:] = u12
             if m - k - bw > 0:
-                trail = right[bw:] - matmul(panel[bw:, :bw], u12)
+                trail = right[bw:] - matmul(None, panel[bw:, :bw], u12)
         panels.append(panel)
     tails = _compose_tails(local_perms, [p.shape[1] for p in panels])
     for panel, k, tail in zip(panels, range(0, kmax, block), tails):
@@ -224,6 +226,21 @@ def lu_solve(lu, row_perm, b):
     return solve_upper_triangular(lu[:lu.shape[1], :], y)
 
 
+def lu_solve_transpose(lu, row_perm, b):
+    """Solve Aᵀ x = b: with A[perm] = L·U, x = P⁻¹ L⁻ᵀ U⁻ᵀ b
+    (``faer_tpu/linalg/lu.py:514-524``)."""
+    y = solve_upper_triangular_transpose(lu, b)
+    z = solve_lower_triangular_transpose(lu, y, unit=True)
+    return permod.permute_rows_inverse(z, row_perm)
+
+
+def lu_inverse(lu, row_perm):
+    """A⁻¹ from the packed LU of a square matrix: ``lu_solve(lu, perm, I)``
+    (faer ``inverse.rs``, ``lu.py:537-541``)."""
+    n = lu.shape[0]
+    return lu_solve(lu, row_perm, torch.eye(n, dtype=lu.dtype, device=lu.device))
+
+
 def lu_reconstruct(lu, row_perm):
     """Rebuild A from the packed LU (faer ``reconstruct.rs``)."""
     m, n = lu.shape
@@ -231,7 +248,7 @@ def lu_reconstruct(lu, row_perm):
     l = torch.tril(lu[:, :k], -1) + torch.eye(m, k, dtype=lu.dtype,
                                                 device=lu.device)
     u = torch.triu(lu[:k, :])
-    return permod.permute_rows_inverse(matmul(l, u), row_perm)
+    return permod.permute_rows_inverse(matmul(None, l, u), row_perm)
 
 
 def lu_determinant(lu, row_perm, nt):

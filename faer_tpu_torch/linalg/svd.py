@@ -46,7 +46,7 @@ def _svd_tall(a, params: SvdParams, want_u: bool, want_v: bool):
         ub_full[:n] = ub
         u = bidiag_apply_ql(vl, taul, ub_full)
         if q_pre is not None:
-            u = matmul(q_pre, u)
+            u = matmul(None, q_pre, u)
     if want_v:
         v = bidiag_apply_qr_mat(vr, taur, vb)
     return u, s, v, info
@@ -102,7 +102,7 @@ def pseudoinverse_from_svd(u, s, v, tol=None):
         tol = s.max() * max(u.shape[0], v.shape[0]) * dtypes.eps(u.dtype)
     sinv = torch.where(s > tol, 1.0 / torch.where(s == 0, torch.ones_like(s), s),
                        torch.zeros_like(s))
-    return matmul(v * sinv[None, :], u.T)
+    return matmul(None, v * sinv[None, :], u.T)
 
 
 def pseudoinverse(a, tol=None):

@@ -120,7 +120,7 @@ def tridiag_in_place(a, *, block: int = 128):
         d[j0:j0 + bw] = d_p
         # trailing two-sided rank-2b update as two GEMMs
         v2, w2 = v_p[bw:], w_p[bw:]
-        t = t[bw:, bw:] - matmul(v2, w2.T) - matmul(w2, v2.T)
+        t = t[bw:, bw:] - matmul(None, v2, w2.T) - matmul(None, w2, v2.T)
         j0 += bw
     d_t, e_t, hh_t, taus_t = tridiag_in_place_unblocked(t)
     hh[j0:, j0:] = hh_t

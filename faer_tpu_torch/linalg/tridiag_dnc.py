@@ -138,7 +138,7 @@ def _log_abs(x):
     return torch.log(torch.abs(x))
 
 
-def _merge(d1, q1, d2, q2, beta):
+def _merge(d1, q1, d2, q2, beta, hi: bool = False):
     """Eigen of ``blkdiag(T1, T2) + β (e_k + e_{k+1})(e_k + e_{k+1})ᵀ`` from
     the sub-solutions (the standard rank-one-tear formulation): ``(w, v)``.
     The reference's eigenvalues-only mode of this function is never called
@@ -204,12 +204,16 @@ def _merge(d1, q1, d2, q2, beta):
     # undo the sort permutation on rows, then back-transform with blkdiag(Q1, Q2)
     inv = torch.argsort(order)
     u = u[inv, :].to(out_dt)
-    v = torch.cat([matmul(q1, u[:n1]), matmul(q2, u[n1:])], dim=0)
+    # the top-level merge (hi) pins full-FP32 back-transforms, as the
+    # reference does (tridiag_dnc.py:257-259)
+    prec = "highest" if hi else None
+    v = torch.cat([matmul(None, q1, u[:n1], precision=prec),
+                   matmul(None, q2, u[n1:], precision=prec)], dim=0)
     srt = torch.argsort(w, stable=True)
     return w[srt], v[:, srt]
 
 
-def tridiag_evd_dnc(d, e, *, want_vectors: bool = True):
+def tridiag_evd_dnc(d, e, *, want_vectors: bool = True, hi: bool = True):
     """D&C eigendecomposition of tridiag(d, e): ``(w, z, info)``."""
     from faer_tpu_torch.linalg.tridiag_evd import tridiag_evd
 
@@ -223,9 +227,9 @@ def tridiag_evd_dnc(d, e, *, want_vectors: bool = True):
     d1[k - 1] -= beta
     d2 = d[k:].clone()
     d2[0] -= beta
-    w1, q1, i1 = tridiag_evd_dnc(d1, e[:k - 1])
-    w2, q2, i2 = tridiag_evd_dnc(d2, e[k:])
-    w, v = _merge(w1, q1, w2, q2, beta)
+    w1, q1, i1 = tridiag_evd_dnc(d1, e[:k - 1], hi=False)
+    w2, q2, i2 = tridiag_evd_dnc(d2, e[k:], hi=False)
+    w, v = _merge(w1, q1, w2, q2, beta, hi)
     info = SpectralInfo(converged=i1.converged & i2.converged,
                         iterations=i1.iterations + i2.iterations)
     return w, (v if want_vectors else None), info

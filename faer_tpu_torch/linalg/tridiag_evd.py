@@ -103,7 +103,9 @@ def _apply_rotation_chain(z, c_arr, s_arr, chunk: int = 64):
     zp = torch.cat([z, z.new_zeros((rows, nchunks * chunk + 1 - ncols))], dim=1)
     for k in range(nchunks):
         j0 = k * chunk
-        zp[:, j0:j0 + chunk + 1] = matmul(zp[:, j0:j0 + chunk + 1], p[k])
+        # full FP32 as the reference's HIGHEST dot (tridiag_evd.py:79)
+        zp[:, j0:j0 + chunk + 1] = matmul(None, zp[:, j0:j0 + chunk + 1], p[k],
+                                          precision="highest")
     return zp[:, :ncols]
 
 
@@ -120,7 +122,9 @@ def _apply_rotation_chain_rows(u, c_arr, s_arr, chunk: int = 64):
     up = torch.cat([u, u.new_zeros((nchunks * chunk + 1 - nrows, u.shape[1]))])
     for k in range(nchunks - 1, -1, -1):
         j0 = k * chunk
-        up[j0:j0 + chunk + 1] = matmul(p[k], up[j0:j0 + chunk + 1])
+        # full FP32: the reference applies these rotations elementwise
+        up[j0:j0 + chunk + 1] = matmul(None, p[k], up[j0:j0 + chunk + 1],
+                                       precision="highest")
     return up[:nrows]
 
 

@@ -47,21 +47,21 @@ def form_block_t(v, tau):
     a zero row and column in T.
     """
     tau_safe = torch.where(tau == 0, torch.ones_like(tau), tau)
-    tinv = torch.triu(matmul(v.mT, v), 1) + torch.diag(1.0 / tau_safe)
+    tinv = torch.triu(matmul(None, v.mT, v), 1) + torch.diag(1.0 / tau_safe)
     live = (tau != 0).to(v.dtype)
     return invert_upper_triangular(tinv) * live[None, :] * live[:, None]
 
 
 def apply_block_on_left(v, t, b_mat, *, adjoint: bool):
     """``Q B`` or ``Qᵀ B`` with ``Q = I − V T Vᵀ``, as a new tensor."""
-    tw = matmul(t.mT if adjoint else t, matmul(v.mT, b_mat))
-    return b_mat - matmul(v, tw)
+    tw = matmul(None, t.mT if adjoint else t, matmul(None, v.mT, b_mat))
+    return b_mat - matmul(None, v, tw)
 
 
 def apply_block_on_right(v, t, b_mat, *, adjoint: bool):
     """``B Q`` or ``B Qᵀ``, as a new tensor."""
-    tw = matmul(matmul(b_mat, v), t.mT if adjoint else t)
-    return b_mat - matmul(tw, v.mT)
+    tw = matmul(None, matmul(None, b_mat, v), t.mT if adjoint else t)
+    return b_mat - matmul(None, tw, v.mT)
 
 
 def _extract_panel_v(h_mat, j0: int, b: int):

@@ -3,8 +3,9 @@
 The ``.cu`` files have a plain C interface. At first use each is compiled
 with ``nvcc`` for ``sm_90a`` in its own process, all at once, and the
 objects are linked into one shared library under ``build/faer_tpu_torch/``
-at the root of the checkout, named by a hash of the sources so that an edit
-rebuilds and an unchanged tree reuses the library. The library is loaded
+at the root of the checkout, named by a hash of the sources and of the
+shared ``.cuh`` headers they include, so that an edit rebuilds and an
+unchanged tree reuses the library. The library is loaded
 with ``ctypes``. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -25,9 +26,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (all return an int error code)
+    "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
     "faer_trtri": [_P, _P, _I, _I, _P],
     "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
     "faer_lu_panel": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -49,7 +52,8 @@ def _sources() -> list[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    # the shared headers too, so that an edit to one rebuilds
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())

@@ -12,7 +12,8 @@ runs only the port need not have.)
 Shapes are small (the main-path shapes are checked by ``chip_smoke.py``).
 Tolerances: 8·n·eps_f32 relative to the largest entry, times the block's
 2-norm condition number for ``trtri`` (a forward error); residuals for LU
-leaves on Gaussian panels, whose pivots may differ under rounding.
+leaves on Gaussian panels, whose pivots may differ under rounding; for the
+tile kernels 16·eps (FP32 sums) or 2e-5 (bf16x3) of max‖a_i‖·max‖b_j‖.
 """
 import numpy as np
 import pytest
@@ -333,3 +334,138 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
 
     with pytest.raises(ValueError):
         llt_panel(torch.zeros(64, 48, device=cuda))  # b not a multiple of 32
+
+
+# tile kernels' limits relative to max‖a_i‖·max‖b_j‖: an FP32 result differs
+# from the plain one only in the order of its sums; bf16x3 drops al·bl and
+# rounds the low halves, ≤ 3·2⁻¹⁸ of each |a_i b_i|, where one bf16 pass
+# errs ~2⁻⁹ of each
+F32_TOL = 16 * EPS32
+BF16X3_TOL = 2e-5
+
+
+def _row_col_scale(a, b):
+    """max_i ‖a_i‖₂ · max_j ‖b_j‖₂: bounds |(|A||B|)_ij| by Cauchy–Schwarz."""
+    return (a.float().norm(dim=1).max() * b.float().norm(dim=0).max()).item()
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("layout", ["nn", "tn", "nt", "tt"])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 256), (300, 200, 260), (1, 33, 7),
+                                   (129, 1, 130)])
+def test_tile_matmul_kernel(cuda, monkeypatch, precision, layout, m, k, n):
+    """f32 in both modes, with transposed (strided) operands and ragged
+    edges: against the plain version and f64 within 16·eps of
+    max‖a_i‖·max‖b_j‖ ("highest") or within 2e-5 ("high", bf16x3)."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
+
+    monkeypatch.setattr(config, "f32_precision", precision)
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k * 3 + n)
+    a = torch.randn(m, k, generator=gen, device=cuda)
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    if layout[0] == "t":
+        a = a.T.contiguous().mT
+    if layout[1] == "t":
+        b = b.T.contiguous().mT
+    reset_launch_counts()
+    got = tile_matmul(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul"] == 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    scale = _row_col_scale(a, b)
+    tol = BF16X3_TOL if precision == "high" else F32_TOL
+    assert (got - tile_matmul_plain(a, b)).abs().max().item() <= tol * scale
+    want64 = a.double() @ b.double()
+    assert (got.double() - want64).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 256), (300, 200, 260)])
+def test_tile_matmul_kernel_bf16(cuda, out, m, k, n):
+    """bf16 operands, one pass, f32 sums: against the plain version within
+    16·eps of max‖a_i‖·max‖b_j‖, past one bf16 rounding of each entry for
+    a bf16 result."""
+    from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(k, n, generator=gen, device=cuda).bfloat16().T.contiguous().mT
+    got = tile_matmul(a, b, out_dtype=out)
+    want = tile_matmul_plain(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == out
+    diff = (got.float() - want).abs()
+    if out == torch.bfloat16:
+        diff = (diff - 2.0 ** -8 * want.abs()).clamp_min(0)
+    assert diff.max().item() <= F32_TOL * _row_col_scale(a, b)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("m,k", [(256, 128), (300, 200), (129, 1), (520, 64)])
+def test_syrk_lower_sub_kernel(cuda, monkeypatch, precision, m, k):
+    """The lower triangle against the plain version within 16·eps
+    ("highest") or 2e-5 ("high") of max‖a_i‖²; above the diagonal C's
+    values, exactly."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain
+
+    monkeypatch.setattr(config, "f32_precision", precision)
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    c = torch.randn(m, m, generator=gen, device=cuda)
+    a = torch.randn(k, m, generator=gen, device=cuda).mT  # strided
+    reset_launch_counts()
+    got = syrk_lower_sub(c, a)
+    torch.cuda.synchronize()
+    assert launch_counts()["syrk"] == 1
+    want = syrk_lower_sub_plain(c, a)
+    scale = a.norm(dim=1).max().item() ** 2
+    tol = BF16X3_TOL if precision == "high" else F32_TOL
+    assert (torch.tril(got - want)).abs().max().item() <= tol * scale
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+
+
+def test_tile_wrappers_raise_instead_of_falling_back(cuda):
+    from faer_tpu_torch.ops.kernels.matmul import tile_matmul
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub
+
+    x = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        tile_matmul(x.double(), x.double())
+    with pytest.raises(TypeError):
+        tile_matmul(x, x.bfloat16())
+    with pytest.raises(ValueError):
+        tile_matmul(x, x.cpu())
+    with pytest.raises(TypeError):
+        syrk_lower_sub(x.double(), x.double())
+
+
+def test_facade_on_card_with_tile_switch(cuda, monkeypatch):
+    """``Mat`` and the solvers on the card with the tile GEMM switch on:
+    the products above 128³ take ``tile_matmul``, residuals within 8·n·eps;
+    with the switch off no product does."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import config
+
+    n = 512
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = torch.randn(n, n, generator=gen, device=cuda)
+    spd = g @ g.T / n + torch.eye(n, device=cuda)
+    b = torch.randn(n, 64, generator=gen, device=cuda)
+    tol = 8 * n * EPS32
+
+    def rel_res(a, x):
+        return ((a @ x - b).norm() / (a.norm() * x.norm())).item()
+
+    for on in (True, False):
+        monkeypatch.setattr(config, "use_tile_matmul", on)
+        reset_launch_counts()
+        prod = (Mat(g) @ Mat(b)).a
+        x1 = Mat(spd).llt().solve(b)
+        x2 = Mat(g).partial_piv_lu().solve(b)
+        x3 = Mat(g).qr().solve_lstsq(b)
+        torch.cuda.synchronize()
+        launches = launch_counts()["matmul"]
+        assert (launches > 0) if on else (launches == 0)
+        assert ((prod - g @ b).abs().max() / (g.abs().max() * b.abs().max())).item() <= tol
+        assert max(rel_res(spd, x1), rel_res(g, x2), rel_res(g, x3)) <= tol

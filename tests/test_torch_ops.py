@@ -106,7 +106,7 @@ def test_triangular_solves(n, name, tri, unit):
 
 
 def test_flags_match_jax():
-    for name in ("Accum", "Conj", "Side"):
+    for name in ("Accum", "Conj", "Side", "Norm"):
         want = {m.name: m.value for m in getattr(jflags, name)}
         assert {m.name: m.value for m in getattr(tflags, name)} == want
 
@@ -116,7 +116,7 @@ def test_matmul_front_door(m, k, n):
     rng = np.random.default_rng(m + k + n)
     a = rng.standard_normal((m, k)).astype(np.float32)
     b = rng.standard_normal((k, n)).astype(np.float32)
-    got = matmul(torch.from_numpy(a), torch.from_numpy(b))
+    got = matmul(None, torch.from_numpy(a), torch.from_numpy(b))
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     assert_approx_eq(got.numpy(), a.astype(np.float64) @ b, scale=size_scale(k),
                      tol_dtype=np.float32)
@@ -183,7 +183,9 @@ def test_import_leaves_jax_unloaded():
             "faer_tpu_torch.interop, faer_tpu_torch.linalg.qr, "
             "faer_tpu_torch.ops.kernels.leaf, faer_tpu_torch.ops.kernels.sweep, "
             "faer_tpu_torch.linalg.evd, faer_tpu_torch.linalg.svd, "
-            "faer_tpu_torch.linalg.tridiag_dnc, faer_tpu_torch.linalg.bidiag_dnc; "
+            "faer_tpu_torch.linalg.tridiag_dnc, faer_tpu_torch.linalg.bidiag_dnc, "
+            "faer_tpu_torch.linalg.solvers, faer_tpu_torch.core.vec, "
+            "faer_tpu_torch.ops.reductions, faer_tpu_torch.ops.kernels.syrk; "
             "bad = sorted(m for m in sys.modules if m in ('jax', 'faer_tpu') "
             "or m.startswith(('jax.', 'faer_tpu.'))); "
             "assert not bad, bad")
