@@ -37,7 +37,14 @@ Phases, each printing lines; any failure exits non-zero:
    at 4096 and 8192 × 2048, ``self_adjoint_eigen()`` and ``svd()`` at
    1024; ``tile_matmul`` launches per call, residuals, the same calls with
    the switch off (no launch), times with the switch off and on in turns,
-   and the GEMM and ``llt().solve`` errors with ``f32_precision = "high"``.
+   and the GEMM and ``llt().solve`` errors with ``f32_precision = "high"``;
+9. calu: the tournament (CALU) leaf, ``lu_in_place`` on a Gaussian
+   65536 × 1024 f32 (seed 0) with ``_CALU_GROUP`` = 4096 (4 leaves of 16
+   groups, each leaf one batched ``lu_panel_v2`` launch and one more for
+   its stacked candidates), launch counts against the code's prediction,
+   ‖A[perm] − LU‖/‖A‖ and max|L|, ``lu_solve`` after ``lu_in_place`` on a
+   4000² with the gate at 1024, and the 65536 × 1024 factor's time beside
+   the default gate's (``lu_leaf`` leaves) and ``torch.linalg.lu_factor_ex``.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after. The second-to-last line is a JSON object with one entry
@@ -83,6 +90,13 @@ TILE = 128  # output tile side of tile_matmul and syrk_lower_sub
 F32_TOL = 16 * EPS32
 BF16X3_TOL = 2e-5
 FACADE_SPECTRAL_N = 1024  # the facade's EVD and SVD (phase 7 runs 4096)
+CALU = (65536, 1024)  # the tall-skinny LU that the CALU leaf was kept for
+CALU_GROUP = 4096  # _CALU_GROUP for phase 9's tall factor: 16 groups a leaf
+CALU_SOLVE = (4000, 1024)  # (n, gate) of phase 9's square factor and solve
+# launches per lu_in_place in phase 9 (PERF.md §6), counted from the
+# drivers' control flow, which does not depend on the data
+CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=14),
+                 (4000, 4000): dict(lu_panel_v2=24, lu_leaf=4, trtri=68)}
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -302,8 +316,8 @@ def phase_kernels(gen) -> dict:
         **bound_of(256 ** 3 / 3 + (4096 - 256) * 256 ** 2, 2 * 4096 * 256 * 4))
 
     # lu_panel: separated pivots, so perm must match exactly; packed within
-    # 8·m·eps relative to max|packed|. At m = 40000 a CTA's 304 rows (304 KiB)
-    # exceed its shared memory, so the kernel keeps them in global memory
+    # 8·m·eps relative to max|packed|. At m = 40000 the rows (40 MiB) exceed
+    # the card's shared memory, so the kernel keeps them in global memory
     errs = []
     for m in (4096, 1024, 256, 40000):
         pan = _separated_panel(m, 256, gen)
@@ -427,12 +441,102 @@ def phase_kernels(gen) -> dict:
         plain_ms=cuda_ms(lambda: lu_leaf_plain(pan), 3),
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4000, 256), 2 * 4000 * 256 * 4 + 4000 * 8))
+    res.update(_lu_panel_family(gen))
     res.update(_sweep_kernels(gen))
     res.update(_tile_kernels(gen))
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {lib}, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+    return res
+
+
+def _lu_rec(a, packed, perm) -> float:
+    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor, m ≥ b."""
+    m, b = a.shape
+    lo = torch.tril(packed, -1) + torch.eye(m, b, device=DEV)
+    return rel_norm(lo @ torch.triu(packed[:b]), a[perm])
+
+
+def _lu_panel_family(gen) -> dict:
+    """``lu_panel_v2`` (one panel, and a batch in one launch), ``lu_panel_v3``
+    and ``lu_panel_swap`` against their plain versions on separated pivots:
+    perm, nt and ok exactly, packed within 8·m·eps of its largest entry, and
+    ‖A[perm] − LU‖/‖A‖ ≤ 8·m·eps. Shapes: the CALU group (4096, 256), 16 of
+    them in one batched launch, the v1 kernel's measured shape (4096, 128),
+    and ragged (1000, 100) panels. Timed on Gaussian panels beside
+    ``torch.linalg.lu_factor_ex`` on the same panel (or the same batch)."""
+    from faer_tpu_torch.ops.kernels.lu_panel_swap import lu_panel_swap, lu_panel_swap_plain
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import (
+        lu_panel_v2, lu_panel_v2_batched, lu_panel_v2_batched_plain, lu_panel_v2_plain)
+    from faer_tpu_torch.ops.kernels.lu_panel_v3 import lu_panel_v3, lu_panel_v3_plain
+    from faer_tpu_torch.utils import flops
+
+    def held(name, k1, p1, n1, o1, k2, p2, n2, o2, a) -> float:
+        m, b = a.shape
+        tol = 8 * m * EPS32
+        err, rel = _max_rel(k1, k2)
+        rec = _lu_rec(a, k1, p1)
+        same = bool((p1 == p2).all())
+        check(same and int(n1) == int(n2) and bool(o1) and bool(o2) and rel <= tol
+              and rec <= tol,
+              f"{name} ({m}, {b}): perm equal {same}, nt {int(n1)} vs {int(n2)}, ok "
+              f"{bool(o1)}, max abs err {err:.3e}, rel {rel:.3e}, bitwise equal "
+              f"{torch.equal(k1, k2)}; |A[perm]-LU|/|A| {rec:.3e}; <= tol {tol:.3e}")
+        return err
+
+    def bound(g, m, b):
+        return bound_of(g * flops.lu_flops(m, b), g * (2 * m * b * 4 + m * 8))
+
+    res = {}
+    for name, kern, plain, shapes in (
+            ("lu_panel_v2", lu_panel_v2, lu_panel_v2_plain, ((4096, 256), (1000, 100))),
+            ("lu_panel_v3", lu_panel_v3, lu_panel_v3_plain, ((4096, 256), (1000, 100))),
+            ("lu_panel_swap", lu_panel_swap, lu_panel_swap_plain,
+             ((4096, 128), (1000, 100)))):
+        errs = []
+        for m, b in shapes:
+            a = _separated_panel(m, b, gen)
+            out1, out2 = kern(a), plain(a)
+            torch.cuda.synchronize()
+            errs.append(held(name, *out1, *out2, a))
+        m, b = shapes[0]
+        pan = torch.randn(m, b, generator=gen, device=DEV)
+        res[name] = dict(
+            max_abs_err=max(errs), ms=cuda_ms(lambda: kern(pan), 10),
+            plain_ms=cuda_ms(lambda: plain(pan), 3),
+            library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
+            **bound(1, m, b))
+
+    # the batch: each panel held against its plain version, and equal to the
+    # one-panel launch to the bit (the same arithmetic on every row)
+    for g, m, b in ((16, 4096, 256), (5, 1000, 100)):
+        stack = torch.stack([_separated_panel(m, b, gen) for _ in range(g)])
+        got, want = lu_panel_v2_batched(stack), lu_panel_v2_batched_plain(stack)
+        torch.cuda.synchronize()
+        errs = [held(f"lu_panel_v2_batched [{q}]", *(x[q] for x in got),
+                     *(x[q] for x in want), stack[q]) for q in range(g)]
+        one = [lu_panel_v2(stack[q]) for q in range(g)]
+        bitwise = all(torch.equal(x[q], y) for q in range(g) for x, y in zip(got, one[q]))
+        check(bitwise, f"lu_panel_v2_batched {g} x ({m}, {b}): one launch equals "
+                       f"lu_panel_v2 on each panel to the bit; max abs err vs plain "
+                       f"{max(errs):.3e}")
+        res["lu_panel_v2"]["max_abs_err"] = max(res["lu_panel_v2"]["max_abs_err"], *errs)
+    from faer_tpu_torch.ops.kernels.lu_panel import batched_grid
+
+    for g, m in ((1, 4096), (16, 4096), (1, 40000), (1, 65536), (16, 1000)):
+        ctas, rpc = batched_grid(g, m, 256, DEV)
+        print(f"lu_panel_batched grid for {g} x ({m}, 256): {ctas} CTAs a panel, "
+              f"{rpc} rows ({rpc} KiB) each")
+    stack = torch.randn(16, 4096, 256, generator=gen, device=DEV)
+    ms = cuda_ms(lambda: lu_panel_v2_batched(stack), 10)
+    plain_ms = cuda_ms(lambda: lu_panel_v2_batched_plain(stack), 1, warmup=0)
+    lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(stack), 10)
+    bnd = bound(16, 4096, 256)
+    print(f"time lu_panel_v2_batched 16 x (4096, 256): kernel {ms:.4f} ms (one "
+          f"panel alone {res['lu_panel_v2']['ms']:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"lu_factor_ex (batched) {lib_ms:.4f} ms, bound {bnd['bound_ms']:.6g} ms "
+          f"({bnd['bound_by']})")
     return res
 
 
@@ -842,14 +946,15 @@ def phase_off_route(gen) -> dict:
 
 def _timed(fn, label: str, flops: float | None = None) -> float:
     """One call to warm up (host clock), then the median of 3 by CUDA
-    events, or that one call's time if it took more than SPECTRAL_SLOW_S."""
+    events; a call that took more than SPECTRAL_SLOW_S is not repeated:
+    its host-clock time, which ends in a synchronize, is the time."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     if first > SPECTRAL_SLOW_S:
-        ms, how = cuda_ms(fn, 1, warmup=0), "one timed call"
+        ms, how = first * 1e3, "one call, host clock"
     else:
         ms, how = cuda_ms(fn, 3, warmup=0), "median of 3"
     rate = "" if flops is None else f", {flops / ms / 1e6:.1f} GFLOP/s"
@@ -1176,6 +1281,80 @@ def phase_facade() -> dict:
     return total
 
 
+def phase_calu(gen) -> dict:
+    """The tournament (CALU) leaf through ``lu_in_place``, with the module
+    gate ``faer_tpu_torch.linalg.lu._CALU_GROUP`` set for the phase and
+    restored after it. Each call is counted on its own; the counts are
+    summed."""
+    from faer_tpu_torch import lu_in_place, lu_reconstruct, lu_solve
+    from faer_tpu_torch.linalg import lu as tlu
+    from faer_tpu_torch.utils import flops
+
+    total = {}
+
+    def counted(label, fn, want):
+        out, counts, _ = _counted(fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        got = {k: counts[k] for k in want}
+        print(f"launches in {label}: {counts}")
+        check(got == want, f"{label}: launches {got}, predicted {want}")
+        return out
+
+    gate = tlu._CALU_GROUP
+    try:
+        # the tall-skinny factor: panels of 256, each leaf 64768–65536 rows
+        m, n = CALU
+        a = torch.randn(m, n, generator=gen, device=DEV)
+        tlu._CALU_GROUP = CALU_GROUP
+        lu, perm, info = counted(f"lu_in_place {m}x{n} (group {CALU_GROUP})",
+                                 lambda: lu_in_place(a), CALU_LAUNCHES[CALU])
+        tol = 8 * max(m, n) * EPS32
+        rec = rel_norm(lu_reconstruct(lu, perm), a)
+        lmax = torch.tril(lu, -1).abs().max().item()
+        check(tuple(lu.shape) == (m, n) and bool(torch.isfinite(lu).all())
+              and bool(info.success) and rec <= tol,
+              f"CALU lu_in_place {m}x{n}: |A[perm]-LU|/|A| = {rec:.3e} <= {tol:.3e}; "
+              f"max|L| = {lmax:.4f} (tournament pivots do not bound it by 1)")
+        calu_ms = cuda_ms(lambda: lu_in_place(a), 3)
+        tlu._CALU_GROUP = gate
+        (lu0, perm0, _), counts, _ = _counted(lambda: lu_in_place(a))
+        rec0 = rel_norm(lu_reconstruct(lu0, perm0), a)
+        check(counts["lu_leaf"] == 4 and counts["lu_panel_v2"] == 0 and rec0 <= tol,
+              f"default gate lu_in_place {m}x{n}: {counts['lu_leaf']} lu_leaf, "
+              f"{counts['lu_panel_v2']} lu_panel_v2 launches; |A[perm]-LU|/|A| = "
+              f"{rec0:.3e}")
+        leaf_ms = cuda_ms(lambda: lu_in_place(a), 3)
+        lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(a), 3)
+        fl = flops.lu_flops(m, n)
+        print(f"time lu_in_place {m}x{n}: CALU {calu_ms:.4f} ms "
+              f"({fl / calu_ms / 1e6:.1f} GFLOP/s), default gate (lu_leaf) "
+              f"{leaf_ms:.4f} ms ({fl / leaf_ms / 1e6:.1f} GFLOP/s), library "
+              f"lu_factor_ex {lib_ms:.4f} ms")
+
+        # a square factor and solve: 256-wide leaves of up to 4000 rows,
+        # each past the gate a tournament of up to 4 groups
+        n2, gate2 = CALU_SOLVE
+        g2 = torch.randn(n2, n2, generator=gen, device=DEV)
+        b2 = torch.randn(n2, 8, generator=gen, device=DEV)
+        tlu._CALU_GROUP = gate2
+        lu2, perm2, info2 = counted(f"lu_in_place {n2}x{n2} (group {gate2})",
+                                    lambda: lu_in_place(g2), CALU_LAUNCHES[(n2, n2)])
+        x = lu_solve(lu2, perm2, b2)
+        tol2 = 8 * n2 * EPS32
+        rec2 = rel_norm(lu_reconstruct(lu2, perm2), g2)
+        res2 = _res(g2, x, b2)
+        check(bool(info2.success) and bool(torch.isfinite(x).all()) and rec2 <= tol2
+              and res2 <= tol2,
+              f"CALU lu_in_place {n2}x{n2} + lu_solve (8 rhs): |A[perm]-LU|/|A| = "
+              f"{rec2:.3e}, |Ax-b|/(|A||x|) = {res2:.3e}, both <= {tol2:.3e}; max|L| "
+              f"{torch.tril(lu2, -1).abs().max().item():.4f}")
+    finally:
+        tlu._CALU_GROUP = gate
+    print(f"launches in the calu phase: {total}")
+    return total
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1188,7 +1367,7 @@ def main() -> None:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kern = phase_kernels(gen)
     paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen),
-             phase_spectral(gen), phase_facade()]
+             phase_spectral(gen), phase_facade(), phase_calu(gen)]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -1196,13 +1375,13 @@ def main() -> None:
                   "faer_tpu/ops/pallas/panel_kernels.py:302"),
         "llt_panel": ("faer_tpu_torch/csrc/llt_panel.cu",
                       "faer_tpu/ops/pallas/llt_panel_v5.py:176"),
-        "lu_panel": ("faer_tpu_torch/csrc/lu_panel.cu",
+        "lu_panel": ("faer_tpu_torch/csrc/lu_panel_batched.cu",
                      "faer_tpu/ops/pallas/lu_panel_v5.py:157"),
         "qr_panel": ("faer_tpu_torch/csrc/qr_panel.cu",
                      "faer_tpu/ops/pallas/qr_panel_v5.py:144"),
         "llt_leaf": ("faer_tpu_torch/csrc/llt_panel.cu",
                      "faer_tpu/ops/pallas/leaf_v4.py:132"),
-        "lu_leaf": ("faer_tpu_torch/csrc/lu_panel.cu",
+        "lu_leaf": ("faer_tpu_torch/csrc/lu_panel_batched.cu",
                     "faer_tpu/ops/pallas/leaf_v4.py:228"),
         "tridiag_sweep": ("faer_tpu_torch/csrc/tridiag_sweep.cu",
                           "faer_tpu/ops/pallas/panel_kernels.py:390"),
@@ -1212,11 +1391,18 @@ def main() -> None:
                    "faer_tpu/ops/pallas/matmul_kernel.py:92"),
         "syrk": ("faer_tpu_torch/csrc/syrk.cu",
                  "faer_tpu/ops/pallas/syrk_kernel.py:108"),
+        "lu_panel_v2": ("faer_tpu_torch/csrc/lu_panel_batched.cu",
+                        "faer_tpu/ops/pallas/lu_panel_v2.py:152"),
+        "lu_panel_v3": ("faer_tpu_torch/csrc/lu_panel_batched.cu",
+                        "faer_tpu/ops/pallas/lu_panel_v3.py:125"),
+        "lu_panel_swap": ("faer_tpu_torch/csrc/lu_panel_swap.cu",
+                          "faer_tpu/ops/pallas/panel_kernels.py:81"),
     }
-    # syrk_lower_sub is on no path: the JAX package keeps it unwired too
-    off_path = {"syrk"}
+    # on no path, as in the JAX package: syrk_lower_sub is unwired, the v3
+    # and v1 LU panels are called by nothing
+    off_path = {"syrk", "lu_panel_v3", "lu_panel_swap"}
     check(all(launches[k] > 0 for k in sources if k not in off_path),
-          "every kernel but the off-path syrk ran on a main path")
+          f"every kernel but the off-path {sorted(off_path)} ran on a main path")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,

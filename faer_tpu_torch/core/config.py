@@ -32,7 +32,8 @@ import os
 import torch
 
 KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
-           "tridiag_sweep", "bidiag_sweep", "matmul", "syrk")
+           "tridiag_sweep", "bidiag_sweep", "matmul", "syrk", "lu_panel_v2",
+           "lu_panel_v3", "lu_panel_swap")
 F32_PRECISIONS = ("highest", "high")
 
 

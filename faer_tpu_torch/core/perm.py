@@ -29,15 +29,16 @@ def perm_transposition_count(perm):
 
     Pointer doubling over cycle-minimum labels, as at
     ``faer_tpu/core/perm.py:74-96``: ⌈log2 n⌉ rounds of two gathers, no
-    sequential walk and no host sync. Returns an int32 scalar tensor.
+    sequential walk and no host sync. Returns an int32 tensor: a scalar for
+    one permutation, one count each for a (..., n) stack of them.
     """
-    n = perm.shape[0]
+    n = perm.shape[-1]
     nxt = perm.long()
-    idx = torch.arange(n, dtype=torch.long, device=perm.device)
+    idx = torch.arange(n, dtype=torch.long, device=perm.device).expand(perm.shape)
     mn = idx
     for _ in range(max(1, int(n - 1).bit_length())):
-        mn = torch.minimum(mn, torch.gather(mn, 0, nxt))
-        nxt = torch.gather(nxt, 0, nxt)
+        mn = torch.minimum(mn, torch.gather(mn, -1, nxt))
+        nxt = torch.gather(nxt, -1, nxt)
     # one position per cycle holds its cycle's minimum label
-    ncyc = (mn == idx).sum()
+    ncyc = (mn == idx).sum(-1)
     return (n - ncyc).to(torch.int32)

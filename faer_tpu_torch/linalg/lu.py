@@ -10,8 +10,14 @@ chosen as the JAX package's kernel route chooses them (``lu.py:267-283``):
   (``_lu_factor_recursive``, ``lu.py:286-360``): panels of ``block``
   columns, each factored by halving down to ``lu_leaf`` kernel leaves
   (``_panel_lu_blocked``), U12 by one product against the unit-lower panel
-  inverse, and a rank-``block`` trailing update. The tournament (CALU)
-  leaf is left out: it is gated off at ``lu.py:84``.
+  inverse, and a rank-``block`` trailing update.
+
+A leaf taller than ``_CALU_GROUP`` rows takes the tournament (CALU) leaf
+``_lu_leaf_calu`` (``lu.py:79-128``) instead of ``lu_leaf``: its row groups
+of ``_CALU_GROUP`` are factored in one ``lu_panel_v2_batched`` launch, their
+stacked pivot candidates by ``lu_panel_v2``. As in the JAX package the gate
+is a module constant, ``1 << 30`` (off for every shape a card holds); set
+``faer_tpu_torch.linalg.lu._CALU_GROUP`` to route tall leaves through it.
 
 Other dtypes raise ``NotImplementedError`` (ROADMAP §1 item 5c).
 Permutations are int64 index tensors: ``A[perm] = L·U``.
@@ -26,8 +32,9 @@ from faer_tpu_torch.core.errors import LuInfo, ShapeError
 from faer_tpu_torch.core.params import PartialPivLuParams
 from faer_tpu_torch.ops.kernels.leaf import lu_leaf
 from faer_tpu_torch.ops.kernels.lu_panel import lu_panel
+from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2, lu_panel_v2_batched
 from faer_tpu_torch.ops.matmul import matmul
-from faer_tpu_torch.ops.triangular import invert_lower_triangular
+from faer_tpu_torch.ops.triangular import invert_lower_triangular, invert_upper_triangular
 from faer_tpu_torch.ops.triangular_solve import (
     solve_lower_triangular_transpose,
     solve_unit_lower_triangular,
@@ -124,12 +131,62 @@ def _compose_tails(local_perms, widths):
     return tails
 
 
+# Leaves taller than this take the tournament leaf. The JAX package gates
+# CALU off for every bench size (``lu.py:79-84``, "kept for m >> 4096"); so
+# does the port: the constant is the same.
+_CALU_GROUP = 1 << 30
+
+
+def _lu_leaf_calu(panel, group: int = _CALU_GROUP):
+    """Tournament (CALU) pivoting for a tall (m, b) leaf (``lu.py:87-128``).
+
+    The rows, padded with zeros to ``ng · group``, form ``ng`` groups; each
+    group's ``b`` pivot rows are its candidates, and the stacked (ng·b, b)
+    candidates, re-factored, give the ``b`` winners: U₁₁ and the first rows
+    of the permutation (winners in elimination order, then every other row
+    in its order). L₂₁ is then one product of the other rows against U₁₁⁻¹.
+    The groups' factors go through one ``lu_panel_v2_batched`` launch where
+    the JAX package loops. A winner that is a padding row (only when a
+    column is exactly zero) gets no rank, as ``.at[...].set(mode="drop")``
+    gives it none there. Pivots differ from partial pivoting's, and |L| is
+    not bounded by 1.
+    """
+    m, b = panel.shape
+    dev = panel.device
+    ng = -(-m // group)
+    mp = ng * group
+    padded = panel if mp == m else torch.cat([panel, panel.new_zeros((mp - m, b))])
+    _, perm_g, _, _ = lu_panel_v2_batched(padded.view(ng, group, b))
+    offsets = torch.arange(0, mp, group, dtype=torch.long, device=dev)
+    cand = (perm_g[:, :b] + offsets[:, None]).reshape(-1)  # (ng·b,) row indices
+    packed2, perm2, _, ok = lu_panel_v2(padded.index_select(0, cand))
+    win = cand[perm2[:b]]  # the pivot rows, in elimination order
+    big = m + b
+    # one slot past the end takes the padding rows' ranks, then is dropped
+    ranks = torch.full((m + 1,), big, dtype=torch.long, device=dev)
+    ranks[torch.clamp(win, max=m)] = torch.arange(b, dtype=torch.long, device=dev)
+    ranks = ranks[:m]
+    ranks = torch.where(ranks < big, ranks,
+                        b + torch.arange(m, dtype=torch.long, device=dev))
+    perm = torch.argsort(ranks)
+    u11inv = invert_upper_triangular(torch.triu(packed2[:b, :b]))
+    l21 = matmul(None, panel.index_select(0, perm[b:]), u11inv, precision="highest")
+    packed = torch.cat([packed2[:b], l21])
+    return packed, perm, permod.perm_transposition_count(perm), ok
+
+
 def _panel_lu_blocked(panel, base: int):
     """Panel LU by recursive column halving down to ``lu_leaf`` leaves of at
-    most ``base`` columns: returns ``(packed, perm, nt, ok)``. The halves
-    are coupled by a unit-lower solve and one product."""
+    most ``base`` columns, or to ``_lu_leaf_calu`` leaves where they are
+    taller than ``_CALU_GROUP`` (``lu.py:139-147``): returns ``(packed,
+    perm, nt, ok)``. The halves are coupled by a unit-lower solve and one
+    product."""
     m, b = panel.shape
     if b <= base:
+        if m > _CALU_GROUP:
+            # the constant as it is now sizes the groups too (the JAX
+            # package's default group is bound when its module loads)
+            return _lu_leaf_calu(panel, _CALU_GROUP)
         return lu_leaf(panel)
     h = (b + 1) // 2
     left, perm1, nt1, ok1 = _panel_lu_blocked(panel[:, :h], base)

@@ -27,13 +27,18 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (all return an int error code)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
     "faer_trtri": [_P, _P, _I, _I, _P],
     "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
-    "faer_lu_panel": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "faer_lu_panel_batched_grid": [_I, _I, _I, _I, _IP, _IP],
+    "faer_lu_panel_batched": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
+    "faer_lu_panel_swap": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _P],
     "faer_qr_panel": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "faer_tridiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "faer_bidiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],

@@ -10,7 +10,7 @@ Counterparts of ``faer_tpu/ops/pallas/leaf_v4.py``:
 Each computes the same function as a fused panel kernel the port already
 has: the v4 and v5 kernels differ only in their sub-block width (8 against
 16 or 32), that is, in the order of rounding. So both launch the existing
-CUDA code (``csrc/lu_panel.cu``, ``csrc/llt_panel.cu`` with m = b), each
+CUDA code (``csrc/lu_panel_batched.cu``, ``csrc/llt_panel.cu`` with m = b), each
 behind its own launch counter, and each plain version is the fused panel's
 plain version at ``sb = 8``. ``llt_panel.cu`` factors 32-wide sub-blocks, so
 a ragged leaf (b not a multiple of 32) is padded with an identity diagonal:

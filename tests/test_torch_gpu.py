@@ -9,7 +9,8 @@ import. Run them on the card with
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which a machine that
 runs only the port need not have.)
 
-Shapes are small (the main-path shapes are checked by ``chip_smoke.py``).
+Shapes are small (the main-path shapes are checked by ``chip_smoke.py``),
+except for the LU panels of the CALU leaf, which run at its shapes.
 Tolerances: 8·n·eps_f32 relative to the largest entry, times the block's
 2-norm condition number for ``trtri`` (a forward error); residuals for LU
 leaves on Gaussian panels, whose pivots may differ under rounding; for the
@@ -111,7 +112,7 @@ def test_llt_panel_kernel_regularized(cuda, m, b):
 
 @pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128), (40000, 256)])
 def test_lu_panel_kernel(cuda, m, b):
-    """(40000, 256): a CTA's 304 rows (304 KiB) exceed its shared memory, so
+    """(40000, 256): the rows (40 MiB) exceed the card's shared memory, so
     the kernel keeps them in global memory."""
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
 
@@ -209,6 +210,101 @@ def test_lu_leaf_kernel(cuda, m, b):
     res = (lo @ torch.triu(k1[:b]) - a[p1]).norm() / a.norm()
     assert res.item() <= 8 * m * EPS32
     assert int(n1) % 2 == int(n2) % 2 and bool(o1) and bool(o2)
+
+
+def _separated_panel(m, b, gen, cuda):
+    """P·L·U with |L| ≤ 1/(2√b) below a unit diagonal: the pivot order is
+    the same under any rounding (as in chip_smoke.py)."""
+    lo = torch.tril((torch.rand(m, b, generator=gen, device=cuda) - 0.5) / b ** 0.5, -1)
+    lo = lo + torch.eye(m, b, device=cuda)
+    up = torch.triu(torch.randn(b, b, generator=gen, device=cuda), 1) / b ** 0.5
+    up = up + torch.diag(1 + torch.rand(b, generator=gen, device=cuda))
+    p = torch.randperm(m, generator=gen, device=cuda)
+    a = torch.empty(m, b, device=cuda)
+    a[p] = lo @ up
+    return a, p
+
+
+def _lu_rec(a, packed, perm):
+    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor."""
+    m, b = a.shape
+    lo = torch.tril(packed, -1) + torch.eye(m, b, device=a.device)
+    return ((lo @ torch.triu(packed[:b]) - a[perm]).norm() / a.norm()).item()
+
+
+@pytest.mark.parametrize("name", ["lu_panel_v2", "lu_panel_v3", "lu_panel_swap"])
+@pytest.mark.parametrize("m,b", [(4096, 256), (4096, 128), (1000, 100), (40000, 256)])
+def test_lu_panel_v2_v3_swap_kernels(cuda, name, m, b):
+    """Against the plain version on separated pivots: perm, nt and ok
+    exactly, packed within 8·m·eps of its largest entry. (40000, 256): the
+    rows (40 MiB) exceed the card's shared memory, so they stay in global
+    memory."""
+    import importlib
+
+    mod = importlib.import_module(f"faer_tpu_torch.ops.kernels.{name}")
+    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    a, p = _separated_panel(m, b, gen, cuda)
+    reset_launch_counts()
+    k1, p1, n1, o1 = kern(a)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1
+    assert sum(launch_counts().values()) == 1
+    k2, p2, n2, o2 = plain(a)
+    assert torch.equal(p1, p2) and torch.equal(p1[:b], p[:b])
+    assert int(n1) == int(n2) and bool(o1) and bool(o2)
+    assert _rel(k1, k2) <= 8 * m * EPS32
+    assert _lu_rec(a, k1, p1) <= 8 * m * EPS32
+
+
+@pytest.mark.parametrize("g,m,b", [(16, 4096, 256), (5, 1000, 100), (3, 256, 256)])
+def test_lu_panel_v2_batched_kernel(cuda, g, m, b):
+    """One launch for the stack; each panel equals ``lu_panel_v2`` on it to
+    the bit (the same kernel, whatever the CTAs per panel: every row is
+    updated by the same operations, and the pivot search is exact) and its
+    plain version within 8·m·eps."""
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import (
+        lu_panel_v2, lu_panel_v2_batched, lu_panel_v2_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(g * m + b)
+    stack = torch.stack([_separated_panel(m, b, gen, cuda)[0] for _ in range(g)])
+    reset_launch_counts()
+    got = lu_panel_v2_batched(stack)
+    torch.cuda.synchronize()
+    assert launch_counts()["lu_panel_v2"] == 1
+    for q in range(g):
+        for x, y in zip(got, lu_panel_v2(stack[q])):
+            assert torch.equal(x[q], y)
+        k2, p2, n2, o2 = lu_panel_v2_plain(stack[q])
+        assert torch.equal(got[1][q], p2) and int(got[2][q]) == int(n2)
+        assert bool(got[3][q]) and bool(o2)
+        assert _rel(got[0][q], k2) <= 8 * m * EPS32
+
+
+def test_lu_in_place_through_calu_on_card(cuda, monkeypatch):
+    """The gate at 512 sends each of a (3000, 256) matrix's four 64-wide
+    leaves (2808–3000 rows) through the tournament: 6 groups in one batched
+    launch, then the stacked candidates; no lu_leaf launch."""
+    from faer_tpu_torch import lu_in_place
+    from faer_tpu_torch.linalg import lu as tlu
+
+    monkeypatch.setattr(tlu, "_CALU_GROUP", 512)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(3000, 256, generator=gen, device=cuda)
+    reset_launch_counts()
+    lu, perm, info = lu_in_place(a)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["lu_panel_v2"] == 8 and counts["lu_leaf"] == 0
+    assert bool(info.success)
+    assert _lu_rec(a, lu, perm) <= 8 * 3000 * EPS32
+
+
+def test_lu_panel_v2_batched_raises_past_co_residency(cuda):
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2_batched
+
+    with pytest.raises(RuntimeError, match="co-resident"):
+        lu_panel_v2_batched(torch.ones(4000, 64, 64, device=cuda))
 
 
 def test_qr_in_place_on_card(cuda):
