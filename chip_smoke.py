@@ -9,7 +9,10 @@ Phases, each printing lines; any failure exits non-zero:
 2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, with the tolerance stated, and its
-   time beside its plain version's, its bound and a library yardstick;
+   time beside its plain version's, its bound and a library yardstick; the
+   QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
+   ``qr_leaf``) at (4096, 128) and (4096, 256); and every panel wrapper on
+   wide panels (m < b) at (64, 200) and (1000, 1024);
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
@@ -27,8 +30,9 @@ Phases, each printing lines; any failure exits non-zero:
    sweep-kernel launch counts and host reads, residuals and orthogonality,
    eigenvalues and singular values against an f64 oracle at n = 1024, the
    direct QR-iteration route at n = 384, the tall SVD at 8192 × 2048 (QR
-   preprocessing), per-layer times and ``torch.linalg.eigh``/``svd``
-   yardsticks;
+   preprocessing), the wide bidiagonal D&C ``_dnc(d, e, 1)`` on the golden
+   fixture ``tests/data/svd/svd512.txt`` (‖UᵀU − I‖_F ≤ 2e-4·n), per-layer
+   times and ``torch.linalg.eigh``/``svd`` yardsticks;
 8. facade: ``Mat`` and the solver objects at n = 4096 f32 (seed 0) with the
    tile GEMM switch on (``config.use_tile_matmul``, ``f32_precision =
    "highest"``): ``Mat @ Mat``, ``llt()`` with ``solve``, ``inverse``,
@@ -44,7 +48,13 @@ Phases, each printing lines; any failure exits non-zero:
    its stacked candidates), launch counts against the code's prediction,
    ‖A[perm] − LU‖/‖A‖ and max|L|, ``lu_solve`` after ``lu_in_place`` on a
    4000² with the gate at 1024, and the 65536 × 1024 factor's time beside
-   the default gate's (``lu_leaf`` leaves) and ``torch.linalg.lu_factor_ex``.
+   the default gate's (``lu_leaf`` leaves) and ``torch.linalg.lu_factor_ex``;
+10. panel lab: ``tools/torch_qr_panels.py``, the QR panel lab (the
+   counterpart of ``tools/r5qr.py`` and ``tools/r4lab.py``): ``qr_panel``,
+   ``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3`` and ``qr_leaf`` (sb 8
+   and 16) at (m, b) ∈ {4096, 2048, 1024} × {128, 256, 512} on one Gaussian
+   4096² matrix: times, ‖QR − A‖/‖A‖ ≤ 8·m·eps, differences from
+   ``qr_panel``, and each counter's launches against the tool's calls.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after. The second-to-last line is a JSON object with one entry
@@ -97,6 +107,10 @@ CALU_SOLVE = (4000, 1024)  # (n, gate) of phase 9's square factor and solve
 # drivers' control flow, which does not depend on the data
 CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=14),
                  (4000, 4000): dict(lu_panel_v2=24, lu_leaf=4, trtri=68)}
+# phase 10's timing: each panel wrapper is called 1 + warmup + reps times a
+# shape (tools/torch_qr_panels.py)
+LAB_REPS, LAB_WARMUP = 10, 2
+WIDE = ((64, 200), (1000, 1024))  # phase 3's wide panels (m < b)
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -216,11 +230,13 @@ def _separated_panel(m: int, b: int, gen):
     """P·L·U with |L| ≤ 1/(2√b) below a unit diagonal: every pivot beats the
     other candidates by 2√b. Off-diagonal entries are O(1/√b) so that L and
     U stay well conditioned, and the pivot order is the same under any
-    rounding."""
-    lo = (torch.rand(m, b, generator=gen, device=DEV) - 0.5) / b ** 0.5
-    lo = torch.tril(lo, -1) + torch.eye(m, b, device=DEV)
-    up = torch.triu(torch.randn(b, b, generator=gen, device=DEV), 1) / b ** 0.5
-    up = up + torch.diag(1.0 + torch.rand(b, generator=gen, device=DEV))
+    rounding. A wide panel (m < b) has an (m, m) L and an (m, b) U."""
+    k = min(m, b)
+    lo = (torch.rand(m, k, generator=gen, device=DEV) - 0.5) / b ** 0.5
+    lo = torch.tril(lo, -1) + torch.eye(m, k, device=DEV)
+    up = torch.triu(torch.randn(k, b, generator=gen, device=DEV), 1) / b ** 0.5
+    up = up + torch.eye(k, b, device=DEV) * (
+        1.0 + torch.rand(k, generator=gen, device=DEV))[:, None]
     p = torch.randperm(m, generator=gen, device=DEV)
     a = torch.empty(m, b, device=DEV)
     a[p] = lo @ up
@@ -442,6 +458,8 @@ def phase_kernels(gen) -> dict:
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4000, 256), 2 * 4000 * 256 * 4 + 4000 * 8))
     res.update(_lu_panel_family(gen))
+    res.update(_qr_panel_family(gen))
+    _wide_panels(gen)
     res.update(_sweep_kernels(gen))
     res.update(_tile_kernels(gen))
     for name, r in res.items():
@@ -452,10 +470,11 @@ def phase_kernels(gen) -> dict:
 
 
 def _lu_rec(a, packed, perm) -> float:
-    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor, m ≥ b."""
+    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor (wide too)."""
     m, b = a.shape
-    lo = torch.tril(packed, -1) + torch.eye(m, b, device=DEV)
-    return rel_norm(lo @ torch.triu(packed[:b]), a[perm])
+    k = min(m, b)
+    lo = torch.tril(packed[:, :k], -1) + torch.eye(m, k, device=DEV)
+    return rel_norm(lo @ torch.triu(packed[:k]), a[perm])
 
 
 def _lu_panel_family(gen) -> dict:
@@ -538,6 +557,137 @@ def _lu_panel_family(gen) -> dict:
           f"lu_factor_ex (batched) {lib_ms:.4f} ms, bound {bnd['bound_ms']:.6g} ms "
           f"({bnd['bound_by']})")
     return res
+
+
+QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")
+
+
+def _qr_wrapper(name: str):
+    """(wrapper, plain version) of a QR panel wrapper of the port."""
+    import importlib
+
+    mod = importlib.import_module("faer_tpu_torch.ops.kernels." + (
+        "leaf" if name == "qr_leaf" else name))
+    return getattr(mod, name), getattr(mod, f"{name}_plain")
+
+
+def _qr_checks(a, packed, taus) -> tuple[float, float]:
+    """(max|QᵀQ − I|, ‖Q·R − A‖/‖A‖) of a packed (m, b) panel factor in f64,
+    Q = H_0 ⋯ H_{k−1} (m, m), R = triu(packed) (m, b)."""
+    m, b = a.shape
+    k = taus.shape[0]
+    pk = packed.double()
+    v = torch.tril(pk[:, :k], -1) + torch.eye(m, k, dtype=torch.float64, device=DEV)
+    q = torch.eye(m, dtype=torch.float64, device=DEV)
+    for j in range(k - 1, -1, -1):
+        q -= taus[j].double() * torch.outer(v[:, j], v[:, j] @ q)
+    orth = (q.T @ q - torch.eye(m, dtype=torch.float64, device=DEV)).abs().max().item()
+    return orth, rel_norm(q @ torch.triu(pk), a.double())
+
+
+def _qr_panel_family(gen) -> dict:
+    """``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3`` and ``qr_leaf``
+    (rows 18, 14, 15, 7), which launch ``csrc/qr_panel.cu`` behind their own
+    counters, against their plain versions on Gaussian panels at (4096, 128)
+    (the QR driver's leaf), (4096, 256) and (200, 44) with a zero column: R
+    and V each within 8·m·eps of their own largest entry, τ within 8·m·eps,
+    QᵀQ = I and Q·R = A to 8·m·eps in f64, and the result equal to
+    ``qr_panel``'s to the bit (one kernel). Timed at (4096, 128) and
+    (4096, 256) beside ``torch.geqrf`` and the bound (2mb² − 2b³/3 FP32
+    operations, the panel read and written once)."""
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel
+    from faer_tpu_torch.utils import flops
+
+    res = {}
+    for name in QR_FAMILY:
+        kern, plain = _qr_wrapper(name)
+        errs = []
+        for m, b, zero in ((4096, 128, None), (4096, 256, None), (200, 44, 5)):
+            a = torch.randn(m, b, generator=gen, device=DEV)
+            if zero is not None:
+                a[:, zero] = 0.0
+            (k1, t1), (k2, t2), (k0, t0) = kern(a), plain(a), qr_panel(a)
+            torch.cuda.synchronize()
+            tol = 8 * m * EPS32
+            err_r = _max_rel(torch.triu(k1[:b]), torch.triu(k2[:b]))[1]
+            err_v = _max_rel(torch.tril(k1, -1), torch.tril(k2, -1))[1]
+            terr = (t1 - t2).abs().max().item()
+            orth, rec = _qr_checks(a, k1, t1)
+            same = torch.equal(k1, k0) and torch.equal(t1, t0)
+            zero_ok = zero is None or (t1[zero].item() == 0.0
+                                       and bool((k1[zero:, zero] == 0).all()))
+            err = (k1 - k2).abs().max().item()
+            errs.append(err)
+            check(max(err_r, err_v, terr, orth, rec) <= tol and same and zero_ok,
+                  f"{name} ({m}, {b}){' zero column' if zero else ''}: max abs err "
+                  f"{err:.3e} vs plain; rel R {err_r:.3e}, rel V {err_v:.3e}, taus "
+                  f"{terr:.3e}; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| {rec:.3e}; all <= "
+                  f"{tol:.3e}; equal to qr_panel to the bit {same}")
+        for m, b in ((4096, 128), (4096, 256)):
+            pan = torch.randn(m, b, generator=gen, device=DEV)
+            r = dict(max_abs_err=max(errs), ms=cuda_ms(lambda: kern(pan), 10),
+                     plain_ms=cuda_ms(lambda: plain(pan), 3),
+                     library_ms=cuda_ms(lambda: torch.geqrf(pan), 10),
+                     **bound_of(flops.qr_flops(m, b), 2 * m * b * 4 + b * 4))
+            print(f"time {name} ({m}, {b}): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, geqrf {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.6g} ms ({r['bound_by']})")
+            res.setdefault(name, r)  # the JSON line keeps (4096, 128)
+    return res
+
+
+def _wide_panels(gen) -> None:
+    """Every panel wrapper on wide panels (m < b), which its Pallas kernel
+    takes: min(m, b) steps inside the kernel, the whole (m, b) panel back.
+    LU (``lu_panel``, ``lu_leaf``, ``lu_panel_v2`` and its batch of 3,
+    ``lu_panel_v3``, ``lu_panel_swap``): separated pivots, so perm, nt and
+    ok exactly, packed within 8·b·eps of its largest entry, A[perm] = L·U
+    to 8·b·eps. QR (``qr_panel`` and the family): I + G/(4√m), κ ≤ 3, R and
+    V within 8·b·eps of the plain version's, τ (length m) within 8·b·eps,
+    QᵀQ = I and Q·R = A to 8·b·eps in f64."""
+    import importlib
+
+    lu = {"lu_panel": "lu_panel", "lu_leaf": "leaf", "lu_panel_v2": "lu_panel_v2",
+          "lu_panel_v3": "lu_panel_v3", "lu_panel_swap": "lu_panel_swap",
+          "lu_panel_v2_batched": "lu_panel_v2"}
+    for m, b in WIDE:
+        tol = 8 * b * EPS32
+        for name, base in lu.items():
+            mod = importlib.import_module(f"faer_tpu_torch.ops.kernels.{base}")
+            kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            batched = name == "lu_panel_v2_batched"
+            stack = torch.stack([_separated_panel(m, b, gen)
+                                 for _ in range(3 if batched else 1)])
+            got = kern(stack) if batched else tuple(x[None] for x in kern(stack[0]))
+            want = plain(stack) if batched else tuple(x[None] for x in plain(stack[0]))
+            torch.cuda.synchronize()
+            for q, a in enumerate(stack):
+                k1, p1, n1, o1 = (x[q] for x in got)
+                k2, p2, n2, o2 = (x[q] for x in want)
+                err, rel = _max_rel(k1, k2)
+                rec = _lu_rec(a, k1, p1)
+                same = bool((p1 == p2).all())
+                check(tuple(k1.shape) == (m, b) and same and int(n1) == int(n2)
+                      and bool(o1) and bool(o2) and rel <= tol and rec <= tol,
+                      f"wide {name}{f' [{q}]' if batched else ''} ({m}, {b}): perm "
+                      f"equal {same}, nt {int(n1)} vs {int(n2)}, ok {bool(o1)}, max abs "
+                      f"err {err:.3e}, rel {rel:.3e}; |A[perm]-LU|/|A| {rec:.3e}; "
+                      f"<= {tol:.3e}")
+        for name in ("qr_panel",) + QR_FAMILY:
+            kern, plain = _qr_wrapper(name)
+            a = torch.randn(m, b, generator=gen, device=DEV) / (4 * m ** 0.5)
+            a += torch.eye(m, b, device=DEV)
+            (k1, t1), (k2, t2) = kern(a), plain(a)
+            torch.cuda.synchronize()
+            err_r = _max_rel(torch.triu(k1), torch.triu(k2))[1]
+            err_v = _max_rel(torch.tril(k1, -1), torch.tril(k2, -1))[1]
+            terr = (t1 - t2).abs().max().item()
+            orth, rec = _qr_checks(a, k1, t1)
+            check(tuple(k1.shape) == (m, b) and tuple(t1.shape) == (m,)
+                  and max(err_r, err_v, terr, orth, rec) <= tol,
+                  f"wide {name} ({m}, {b}): rel R {err_r:.3e}, rel V {err_v:.3e}, "
+                  f"taus {terr:.3e} vs plain; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| "
+                  f"{rec:.3e}; all <= {tol:.3e}")
 
 
 def _sweep_case(n: int, l: int, m: int, bidiag: bool, gen):
@@ -1021,6 +1171,50 @@ def _counted(fn):
     return out, launch_counts(), host_reads()
 
 
+def _wide_dnc_check() -> dict:
+    """The wide (n, n+1) bidiagonal D&C ``_dnc(d, e, 1)`` on the golden
+    fixture ``tests/data/svd/svd512.txt`` (the reference's hard-convergence
+    regression, an (n+1)×n lower bidiagonal read as its transpose), under
+    the reference's bounds (``tests/test_bidiag_dnc.py:107-126``): ‖UᵀU −
+    I‖_F ≤ 2e-4·n, ‖WᵀW − I‖_F ≤ 2e-4·(n+1), ‖U Σ Wᵀ − B‖ ≤ 2e-4·‖B‖, and
+    no zero column of U. Returns the call's launch counts."""
+    from faer_tpu_torch.linalg.bidiag_dnc import _dnc
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data", "svd", "svd512.txt")
+    vals = {"diag": [], "subdiag": []}
+    cur = None
+    with open(path) as f:
+        for line in f:
+            line = line.strip().rstrip(",")
+            if line in vals:
+                cur = vals[line]
+            elif line:
+                cur.append(float(line))
+    d64 = torch.tensor(vals["diag"], dtype=torch.float64, device=DEV)
+    e64 = torch.tensor(vals["subdiag"], dtype=torch.float64, device=DEV)
+    n = d64.shape[0]
+    (u, s, w), counts, reads = _counted(lambda: _dnc(d64.float(), e64.float(), 1))
+    b = torch.zeros(n, n + 1, dtype=torch.float64, device=DEV)
+    idx = torch.arange(n, device=DEV)
+    b[idx, idx], b[idx, idx + 1] = d64, e64
+    sig = torch.zeros(n, n + 1, dtype=torch.float64, device=DEV)
+    sig[idx, idx] = s[:n].double()
+    un, wn = u.double(), w.double()
+    fro = torch.linalg.matrix_norm
+    orth_u = fro(un.T @ un - torch.eye(n, dtype=torch.float64, device=DEV)).item()
+    orth_w = fro(wn.T @ wn - torch.eye(n + 1, dtype=torch.float64, device=DEV)).item()
+    rec = (fro(un @ sig @ wn.T - b) / max(1.0, fro(b).item())).item()
+    min_col = un.norm(dim=0).min().item()
+    print(f"launches in _dnc(svd512.txt, sqre=1): {counts}; host reads {reads}")
+    check(orth_u <= 2e-4 * n and orth_w <= 2e-4 * (n + 1) and rec <= 2e-4
+          and min_col >= 0.5,
+          f"_dnc svd512.txt ({n}, {n + 1}): |UᵀU-I|_F {orth_u:.3e} <= "
+          f"{2e-4 * n:.3e}, |WᵀW-I|_F {orth_w:.3e}, |UΣWᵀ-B|/|B| {rec:.3e}, "
+          f"smallest column norm of U {min_col:.6f}")
+    return counts
+
+
 def phase_spectral(gen) -> dict:
     """The spectral path as ``tools/bench_spectral.py`` drives it:
     ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)``."""
@@ -1095,6 +1289,7 @@ def phase_spectral(gen) -> dict:
     check(counts["bidiag_sweep"] > 0 and counts["qr_panel"] > 0,
           f"svd {mt}x{nt_} ran qr_panel and bidiag_sweep")
     _svd_checks(gt, ut, st, vt, f"svd {mt}x{nt_}")
+    add(_wide_dnc_check())
 
     # times: the entry points, their yardsticks, then the layers at 4096
     _timed(lambda: self_adjoint_evd(a), f"self_adjoint_evd n={n}", flops.evd_flops(n))
@@ -1355,6 +1550,32 @@ def phase_calu(gen) -> dict:
     return total
 
 
+def phase_panel_lab() -> dict:
+    """``tools/torch_qr_panels.py``'s panel lab on the card: every QR panel
+    wrapper at its nine shapes, each residual within 8·m·eps, and each
+    counter's launches equal to the tool's calls (one launch a call)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_qr_panels.py")
+    spec = importlib.util.spec_from_file_location("torch_qr_panels", path)
+    lab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lab)
+    rows, counts, _ = _counted(lambda: lab.panel_lab(LAB_REPS, LAB_WARMUP))
+    want = {k: v * len(lab.SHAPES)
+            for k, v in lab.calls_per_shape(LAB_REPS, LAB_WARMUP).items()}
+    got = {k: v for k, v in counts.items() if v}
+    print(f"launches in the panel lab: {counts}")
+    check(got == want, f"panel lab launches {got}, predicted {want}")
+    check(len(rows) == len(lab.SHAPES) * 6 and all(r["ok"] for r in rows),
+          f"panel lab: {len(rows)} panels, every |QR-A|/|A| <= 8 m eps (largest "
+          f"{max(r['resid'] / (8 * r['m'] * EPS32) for r in rows):.3e} of its "
+          f"bound); largest difference from qr_panel: packed "
+          f"{max(r['packed_diff'] for r in rows):.3e}, tau "
+          f"{max(r['tau_diff'] for r in rows):.3e}")
+    return counts
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1368,6 +1589,8 @@ def main() -> None:
     kern = phase_kernels(gen)
     paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen),
              phase_spectral(gen), phase_facade(), phase_calu(gen)]
+    lab = phase_panel_lab()
+    paths.append(lab)
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -1397,12 +1620,24 @@ def main() -> None:
                         "faer_tpu/ops/pallas/lu_panel_v3.py:125"),
         "lu_panel_swap": ("faer_tpu_torch/csrc/lu_panel_swap.cu",
                           "faer_tpu/ops/pallas/panel_kernels.py:81"),
+        "qr_panel_v1": ("faer_tpu_torch/csrc/qr_panel.cu",
+                        "faer_tpu/ops/pallas/panel_kernels.py:224"),
+        "qr_panel_v2": ("faer_tpu_torch/csrc/qr_panel.cu",
+                        "faer_tpu/ops/pallas/qr_panel_v2.py:141"),
+        "qr_panel_v3": ("faer_tpu_torch/csrc/qr_panel.cu",
+                        "faer_tpu/ops/pallas/qr_panel_v3.py:127"),
+        "qr_leaf": ("faer_tpu_torch/csrc/qr_panel.cu",
+                    "faer_tpu/ops/pallas/leaf_v4.py:351"),
     }
-    # on no path, as in the JAX package: syrk_lower_sub is unwired, the v3
-    # and v1 LU panels are called by nothing
-    off_path = {"syrk", "lu_panel_v3", "lu_panel_swap"}
+    # on no library path, as in the JAX package: syrk_lower_sub is unwired,
+    # the v3 and v1 LU panels are called by nothing, and the QR panels v1,
+    # v2, v3 and the v4 leaf only by the panel lab (phase 10)
+    off_path = {"syrk", "lu_panel_v3", "lu_panel_swap", *QR_FAMILY}
     check(all(launches[k] > 0 for k in sources if k not in off_path),
           f"every kernel but the off-path {sorted(off_path)} ran on a main path")
+    check(all(lab[k] > 0 for k in QR_FAMILY),
+          f"the panel lab launched {', '.join(QR_FAMILY)}: "
+          f"{[lab[k] for k in QR_FAMILY]}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,

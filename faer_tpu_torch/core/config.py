@@ -33,7 +33,8 @@ import torch
 
 KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
            "tridiag_sweep", "bidiag_sweep", "matmul", "syrk", "lu_panel_v2",
-           "lu_panel_v3", "lu_panel_swap")
+           "lu_panel_v3", "lu_panel_swap", "qr_panel_v1", "qr_panel_v2",
+           "qr_panel_v3", "qr_leaf")
 F32_PRECISIONS = ("highest", "high")
 
 

@@ -8,8 +8,10 @@
 // the recursive driver's leaves), lu_panel_v2.py `lu_panel_v2_pallas` (:152,
 // body `_lu_panel_v2_kernel` :58; the CALU leaf's groups and candidates)
 // and lu_panel_v3.py `lu_panel_v3_pallas` (:125, body :51; v2 unrolled).
-// The TPU kernels factor one panel a call, and the CALU leaf
-// (faer_tpu/linalg/lu.py:87-128) calls v2 once for each row group; here the
+// Like them it takes kmax = min(m, b) steps, so a wide panel (m < b) comes
+// back whole: each step still updates all b columns, and U12 = L11^-1 A12
+// lands in the columns right of m. The TPU kernels factor one panel a
+// call, and the CALU leaf (faer_tpu/linalg/lu.py:87-128) calls v2 once for each row group; here the
 // groups are one batch. Per column r of each panel: the unused row p with
 // the largest |V[p, r]| (ties to the lowest row, as jax.lax.argmax), the
 // other unused rows' entries of column r scaled by 1/V[p, r], and the
@@ -99,7 +101,8 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
   __syncthreads();
 
   int ok = 1;
-  for (int r = 0; r < b; ++r) {
+  const int kmax = min(m, b);
+  for (int r = 0; r < kmax; ++r) {
     const int half = (r & 1) * slots + mine;
     const int slot = half + cta;
     // 1. this CTA's candidate: the largest |V[i, r]| over its unused rows
@@ -219,7 +222,7 @@ cudaError_t sm_count(int* sms) {
 // global memory and the panels share every CTA that fits co-resident.
 extern "C" int faer_lu_panel_batched_grid(int g, int m, int b, int min_rows,
                                           int* ctas, int* rpc) {
-  if (g < 1 || b < 1 || m < b || min_rows < 1) return cudaErrorInvalidValue;
+  if (g < 1 || b < 1 || m < 1 || min_rows < 1) return cudaErrorInvalidValue;
   int sms = 0, per_sm = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -240,7 +243,8 @@ extern "C" int faer_lu_panel_batched_grid(int g, int m, int b, int min_rows,
 }
 
 // panels: g panels of (m, b) f32, panel q at panels + q * batch_stride, row
-// stride lda, m >= b; virt: (g, m, b) contiguous; pidx: int[g * b]; ok:
+// stride lda, m, b >= 1; virt: (g, m, b) contiguous; pidx: int[g * b], of
+// which each panel's first min(m, b) are its pivot rows; ok:
 // int[g]; cand_val / cand_idx: [2 * g * ctas]; cand_row: [2 * g * ctas * b];
 // all on the current device (the caller selects it). ctas * rpc >= m: each
 // panel gets `ctas` CTAs of rpc rows (faer_lu_panel_batched_grid). The rows
@@ -252,7 +256,7 @@ extern "C" int faer_lu_panel_batched(const float* panels, long long batch_stride
                                      float* cand_val, int* cand_idx,
                                      float* cand_row, int g, int m, int b,
                                      int ctas, int rpc, void* stream) {
-  if (g < 1 || b < 1 || m < b || lda < b || ctas < 1 || (long)ctas * rpc < m ||
+  if (g < 1 || b < 1 || m < 1 || lda < b || ctas < 1 || (long)ctas * rpc < m ||
       g > 65535)
     return cudaErrorInvalidValue;
   int sms = 0, per_sm = 0;

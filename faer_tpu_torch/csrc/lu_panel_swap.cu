@@ -81,7 +81,10 @@ lu_panel_swap_kernel(const float* __restrict__ panel, int lda, float* out,
 
   const bool counts = cta == 0 && tid == 0;
   int ok = 1, nt = 0;
-  for (int j = 0; j < b; ++j) {
+  // kmax = min(m, b) steps, each updating all b columns, as the Pallas body
+  // does: a wide panel (m < b) comes back whole, U12 right of column m
+  const int kmax = min(m, b);
+  for (int j = 0; j < kmax; ++j) {
     const int half = (j & 1) * G;
     const int slot = half + cta;
     // 1. this CTA's candidate over its positions >= j, and row j
@@ -190,7 +193,7 @@ lu_panel_swap_kernel(const float* __restrict__ panel, int lda, float* out,
 
 }  // namespace
 
-// panel: (m, b) f32 with row stride lda, m >= b; out: (m, b) contiguous;
+// panel: (m, b) f32 with row stride lda, m, b >= 1; out: (m, b) contiguous;
 // perm: int[m]; nt, ok: int[1]; cand_val / cand_idx / cand_perm: [2 * grid];
 // cand_row: [2 * grid * b]; rowj: [2 * b]; rowj_perm: int[2]; all on the
 // current device (the caller selects it). grid * rpc >= m. The rows go to
@@ -202,7 +205,7 @@ extern "C" int faer_lu_panel_swap(const float* panel, int lda, float* out,
                                   int* cand_idx, int* cand_perm, float* cand_row,
                                   float* rowj, int* rowj_perm, int m, int b,
                                   int grid_size, int rpc, void* stream) {
-  if (b < 1 || m < b || lda < b || grid_size < 1 || (long)grid_size * rpc < m)
+  if (b < 1 || m < 1 || lda < b || grid_size < 1 || (long)grid_size * rpc < m)
     return cudaErrorInvalidValue;
   const size_t fixed = ((size_t)b + (size_t)rpc) * sizeof(float);
   const size_t rows = (size_t)rpc * b * sizeof(float);

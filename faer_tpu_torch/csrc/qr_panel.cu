@@ -1,13 +1,24 @@
-// qr_panel: Householder QR of an (m, b) f32 panel, m >= b, b <= 512.
+// qr_panel: Householder QR of an (m, b) f32 panel, b <= 4096, any m >= 1.
 //
-// Replaces: faer_tpu/ops/pallas/qr_panel_v5.py `qr_panel_v5_pallas` (:144,
-// body `_qr_v5_kernel` :73). Contract: out holds beta on the diagonal, the
-// reflector tails v (v[j] = 1 implied) strictly below it and R above it;
-// taus[j] = tau_j, with H_j = I - tau_j v v^T. Signs as in the TPU kernel
-// (qr_panel_v5.py:92-108) and LAPACK larfg: beta = -sign(alpha) * norm with
-// sign = +1 for alpha >= 0 (so -0.0 counts as >= 0), norm = sqrt(alpha^2 +
-// sum(tail^2)) unscaled, tau = (beta - alpha) / beta, v = x / (alpha - beta);
-// a zero tail gives tau = 0, beta = alpha and v = e_j.
+// Replaces every Householder QR panel of faer_tpu/ops/pallas/, which
+// compute one function in different orders of rounding:
+// qr_panel_v5.py `qr_panel_v5_pallas` (:144, body `_qr_v5_kernel` :73; the
+// QR driver's leaves), panel_kernels.py `qr_panel_pallas` (:224, body
+// `_qr_panel_kernel` :185; v1, one eager rank-1 update a column, the order
+// of this kernel), qr_panel_v2.py `qr_panel_v2_pallas` (:141, body :44),
+// qr_panel_v3.py `qr_panel_v3_pallas` (:127, body :41) and leaf_v4.py
+// `qr_panel_v4_pallas` (:351, body :281). Contract: the kmax = min(m, b)
+// reflectors of the panel's leading columns; out holds beta on the diagonal,
+// the reflector tails v (v[j] = 1 implied) strictly below it and R above it,
+// Q^T A in the columns right of m when the panel is wide (m < b);
+// taus[j] = tau_j (kmax of them), with H_j = I - tau_j v v^T. Signs as in
+// the TPU kernels (qr_panel_v5.py:92-108) and LAPACK larfg: beta =
+// -sign(alpha) * norm with sign = +1 for alpha >= 0 (so -0.0 counts as
+// >= 0), norm = sqrt(alpha^2 + sum(tail^2)) unscaled, tau = (beta - alpha)
+// / beta, v = x / (alpha - beta); a zero tail gives tau = 0, beta = alpha
+// and v = e_j. So the last step of a wide panel (j = m - 1, no tail) has
+// tau = 0, and every step still updates all b columns, as the Pallas
+// bodies do.
 //
 // What bounds it on the H100: a (4096, 128) panel is 2 MiB, far more than
 // one SM's 227 KB of shared memory, and every column needs two reductions
@@ -52,7 +63,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxB = 512;
+constexpr int kMaxB = 4096;  // 9 b floats of fixed shared memory: 147 KB
 constexpr int kNotCoResident = 100000;
 
 // Block-wide sum in a fixed order; the result is valid in thread 0.
@@ -76,6 +87,7 @@ qr_panel_kernel(const float* __restrict__ panel, int lda, float* out,
                 float* taus, float* part_sq, float* part_w, float* alpha_buf,
                 int m, int b, int rpc, int rows_in_smem) {
   cg::grid_group grid = cg::this_grid();
+  const int kmax = min(m, b);
   extern __shared__ float smem[];
   __shared__ float red[kWarps];
   __shared__ float s_tau, s_beta, s_sinv;
@@ -96,7 +108,7 @@ qr_panel_kernel(const float* __restrict__ panel, int lda, float* out,
   }
   __syncthreads();
 
-  for (int j = 0; j < b; ++j) {
+  for (int j = 0; j < kmax; ++j) {
     // 1. this CTA's share of the tail's sum of squares (its rows > j)
     float s = 0.0f;
     for (int i = max(0, j + 1 - r_begin) + tid; i < nrows; i += kThreads) {
@@ -194,9 +206,9 @@ qr_panel_kernel(const float* __restrict__ panel, int lda, float* out,
 
 }  // namespace
 
-// panel: (m, b) f32 with row stride lda, m >= b, b <= 512; out: (m, b)
-// contiguous; taus: [b]; part_sq: [grid]; part_w: [grid * b]; alpha: [1];
-// all on the current device (the caller selects it). grid * rpc >= m.
+// panel: (m, b) f32 with row stride lda, m >= 1, 1 <= b <= 4096; out:
+// (m, b) contiguous; taus: [min(m, b)]; part_sq: [grid]; part_w: [grid * b];
+// alpha: [1]; all on the current device (the caller selects it). grid * rpc >= m.
 // The rows go to shared memory when rpc of them fit one CTA's, else they
 // stay in `out`. Returns the CUDA error of the launch, 100000 if the grid
 // cannot be co-resident, 0 on success.
@@ -204,7 +216,7 @@ extern "C" int faer_qr_panel(const float* panel, int lda, float* out,
                              float* taus, float* part_sq, float* part_w,
                              float* alpha, int m, int b, int grid_size,
                              int rpc, void* stream) {
-  if (b < 1 || b > kMaxB || m < b || lda < b || grid_size < 1 ||
+  if (b < 1 || b > kMaxB || m < 1 || lda < b || grid_size < 1 ||
       grid_size * rpc < m)
     return cudaErrorInvalidValue;
   const size_t fixed = ((size_t)b + (size_t)kWarps * b) * sizeof(float);

@@ -146,7 +146,17 @@ def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int, hi: bool = False)
     zw2 = beta * w2[0, :]
     z = torch.cat([zw1[k:k + 1], zw1[:k], zw2]).to(_F64)
     dd = torch.cat([z.new_zeros(1), s1.to(_F64), s2.to(_F64), z.new_zeros(sqre)])
-    order = torch.argsort(dd, stable=True)
+    # the row-less zero poles (the z row's and, when wide, the extra
+    # column's) sort side by side, ahead of any exact-zero σ of the
+    # sub-blocks, so that they always pair-deflate: the extra column's z
+    # rotates onto the z row's, as LAPACK dlasd2 rotates it, and its root
+    # is the null root. Sorted apart, a zero σ between them, the extra pole
+    # kept a tiny z, and the root beside it took a left vector made of its
+    # row-less component alone: a zero column of U.
+    seq = torch.arange(nt, device=dev)
+    if sqre:
+        seq = torch.cat([seq[:1], seq[-1:], seq[1:-1]])
+    order = seq[torch.argsort(dd[seq], stable=True)]
     d_s = dd[order]
     z_s = z[order]
     # a pole owns a U row iff its unsorted M'-index is a σ row (1..mm−1)

@@ -153,13 +153,15 @@ def check_f32_matrix(x, name: str) -> None:
 
 
 def check_panel(x, name: str) -> None:
-    """Raise unless ``x`` is an (m, b) float32 panel with m ≥ b ≥ 1."""
+    """Raise unless ``x`` is an (m, b) float32 panel with m, b ≥ 1. A wide
+    panel (m < b) is one: the panel kernels factor its min(m, b) leading
+    columns and carry the rest along, as the Pallas kernels do."""
     from faer_tpu_torch.core.errors import ShapeError
 
     check_f32_matrix(x, name)
     m, b = x.shape
-    if m < b or b < 1:
-        raise ShapeError(f"{name}: needs m ≥ b ≥ 1, got {(m, b)}")
+    if m < 1 or b < 1:
+        raise ShapeError(f"{name}: needs m, b ≥ 1, got {(m, b)}")
 
 
 def grid(m: int, device, min_rows: int) -> tuple[int, int]:

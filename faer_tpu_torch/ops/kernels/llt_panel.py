@@ -139,6 +139,8 @@ def llt_panel(slab, *, eps: float = 0.0, delta: float = 0.0):
     contiguous (any row stride); the result is a new (m, b) tensor.
     """
     _build.check_panel(slab, "llt_panel")
+    if slab.shape[0] < slab.shape[1]:  # the slab holds its (b, b) diagonal block
+        raise ShapeError(f"llt_panel: needs m ≥ b, got {tuple(slab.shape)}")
     if slab.device.type == "cpu":
         return llt_panel_plain(slab, eps=eps, delta=delta)
     res = launch(slab, eps, delta)

@@ -115,8 +115,8 @@ def _launch(panels):
     """Launch ``faer_lu_panel_batched`` on a CUDA (g, m, b) stack whose rows
     are contiguous (any row and panel strides), on the grid of
     :func:`batched_grid`: the virtual-pivot panels (g, m, b), the pivot rows
-    (g, b) and ``ok`` (g,) as int32. Raises when g panels cannot be
-    co-resident even at one CTA each."""
+    of the min(m, b) steps (g, min(m, b)) and ``ok`` (g,) as int32. Raises
+    when g panels cannot be co-resident even at one CTA each."""
     if panels.stride(2) != 1:
         raise ValueError("lu_panel: rows of the panels must be contiguous")
     g, m, b = panels.shape
@@ -136,7 +136,7 @@ def _launch(panels):
             cand_idx.data_ptr(), cand_row.data_ptr(), g, m, b, ctas, rpc,
             _build.stream_of(panels))
     _build.check("lu_panel", code)
-    return virt, pidx, okf
+    return virt, pidx[:, :min(m, b)], okf
 
 
 def launch_batched(panels):
@@ -155,7 +155,9 @@ def launch(panel):
 
 
 def lu_panel(panel):
-    """Partial-pivot LU of an (m, b) float32 panel, m ≥ b.
+    """Partial-pivot LU of an (m, b) float32 panel, m, b ≥ 1. A wide panel
+    (m < b) takes m steps and comes back whole, U₁₂ = L₁₁⁻¹·A₁₂ right of
+    column m, as the Pallas kernel returns it.
 
     On a CUDA tensor the rows must be contiguous (any row stride).
     """

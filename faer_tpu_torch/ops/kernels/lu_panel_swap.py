@@ -58,8 +58,8 @@ def lu_panel_swap_plain(panel):
 
 def lu_panel_swap(panel):
     """Partial-pivot LU with row swaps of an (m, b) float32 panel,
-    m ≥ b ≥ 1. On a CUDA tensor the rows must be contiguous (any row
-    stride)."""
+    m, b ≥ 1 (wide too: min(m, b) steps). On a CUDA tensor the rows must
+    be contiguous (any row stride)."""
     _build.check_panel(panel, "lu_panel_swap")
     if panel.device.type == "cpu":
         return lu_panel_swap_plain(panel)

@@ -41,21 +41,21 @@ def lu_panel_v2_batched_plain(panels):
 
 
 def _check_stack(panels, name: str) -> None:
-    """Raise unless ``panels`` is a (g, m, b) float32 stack, m ≥ b ≥ 1, g ≥ 1."""
+    """Raise unless ``panels`` is a (g, m, b) float32 stack, m, b, g ≥ 1."""
     if panels.dtype != torch.float32:
         raise TypeError(f"{name}: needs float32, got {panels.dtype}")
     if panels.dim() != 3:
         raise ShapeError(f"{name}: needs a (g, m, b) stack, got shape {tuple(panels.shape)}")
     g, m, b = panels.shape
-    if g < 1 or m < b or b < 1:
-        raise ShapeError(f"{name}: needs g ≥ 1 and m ≥ b ≥ 1, got {(g, m, b)}")
+    if g < 1 or m < 1 or b < 1:
+        raise ShapeError(f"{name}: needs g, m, b ≥ 1, got {(g, m, b)}")
     if panels.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {panels.device}")
 
 
 def lu_panel_v2(panel):
-    """Partial-pivot LU of an (m, b) float32 panel, m ≥ b ≥ 1, with the
-    contract of ``lu_panel``. On a CUDA tensor the rows must be contiguous
+    """Partial-pivot LU of an (m, b) float32 panel, m, b ≥ 1 (wide too), with
+    the contract of ``lu_panel``. On a CUDA tensor the rows must be contiguous
     (any row stride)."""
     _build.check_panel(panel, "lu_panel_v2")
     if panel.device.type == "cpu":

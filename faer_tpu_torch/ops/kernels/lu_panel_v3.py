@@ -23,8 +23,8 @@ def lu_panel_v3_plain(panel):
 
 
 def lu_panel_v3(panel):
-    """Partial-pivot LU of an (m, b) float32 panel, m ≥ b ≥ 1, with the
-    contract of ``lu_panel``. On a CUDA tensor the rows must be contiguous
+    """Partial-pivot LU of an (m, b) float32 panel, m, b ≥ 1 (wide too), with
+    the contract of ``lu_panel``. On a CUDA tensor the rows must be contiguous
     (any row stride)."""
     _build.check_panel(panel, "lu_panel_v3")
     if panel.device.type == "cpu":

@@ -3,7 +3,9 @@
 Counterpart of ``qr_panel_v5_pallas`` (``faer_tpu/ops/pallas/qr_panel_v5.py:144``,
 body ``:73``). Returns ``(packed, taus)``: ``packed`` holds β on the
 diagonal, the reflector tails strictly below it and the panel's R entries
-above it; ``taus`` has one τ per column. Reflector j is ``H = I − τ v vᵀ``
+above it; ``taus`` has one τ for each of the kmax = min(m, b) reflectors. A
+wide panel (m < b) comes back whole, Qᵀ·A right of column m, as the Pallas
+kernel returns it. Reflector j is ``H = I − τ v vᵀ``
 with ``v[j] = 1`` and the LAPACK ``larfg`` signs: β = −sign(α)·‖x‖ with
 sign(α) = +1 for α ≥ 0 (−0.0 included), τ = (β − α)/β, v = x/(α − β), and a
 zero tail gives τ = 0, β = α, v = e_j.
@@ -14,6 +16,9 @@ at once. :func:`qr_panel_plain` follows the Pallas body: transposed panel,
 ``sb``-column sub-blocks of rank-1 reflector steps, then the sub-block's
 compact-WY T (Neumann inverse) and a deferred block update of the later
 columns. The two orders of rounding differ; the function is the same.
+:func:`launch` is the CUDA route that every QR panel wrapper of the port
+takes (``qr_panel`` here, ``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``
+and ``qr_leaf``), each behind its own launch counter.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.llt_panel import _neumann_unit_inv
 
 MIN_ROWS_PER_CTA = 64
-MAX_B = 512
+MAX_B = 4096  # the kernel's fixed shared memory, 9·b floats, must fit a CTA
 
 
 def qr_panel_plain(panel, *, sb: int = 16):
@@ -82,17 +87,10 @@ def qr_panel_plain(panel, *, sb: int = 16):
     return pt.mT.contiguous(), taus
 
 
-def qr_panel(panel):
-    """Householder QR of an (m, b) float32 panel, m ≥ b ≥ 1.
-
-    On a CUDA tensor ``b`` must be at most 512 and rows must be contiguous
-    (any row stride); ``m`` may be any size. The result is a new (m, b)
-    tensor and a (b,) tensor of τ.
-    """
-    _build.check_panel(panel, "qr_panel")
+def launch(panel):
+    """``(packed, taus)`` of one CUDA (m, b) panel, in one launch of
+    ``csrc/qr_panel.cu``. Counts nothing: each wrapper counts its own."""
     m, b = panel.shape
-    if panel.device.type == "cpu":
-        return qr_panel_plain(panel)
     if b > MAX_B:
         raise ShapeError(f"qr_panel: b must be ≤ {MAX_B}, got {b}")
     if panel.stride(1) != 1:
@@ -100,7 +98,7 @@ def qr_panel(panel):
     dev = panel.device
     g, rpc = _build.grid(m, dev, MIN_ROWS_PER_CTA)
     packed = torch.empty((m, b), dtype=panel.dtype, device=dev)
-    taus = torch.empty(b, dtype=panel.dtype, device=dev)
+    taus = torch.empty(min(m, b), dtype=panel.dtype, device=dev)
     part_sq = torch.empty(g, dtype=torch.float32, device=dev)
     part_w = torch.empty((g, b), dtype=torch.float32, device=dev)
     alpha = torch.empty(1, dtype=torch.float32, device=dev)
@@ -110,5 +108,19 @@ def qr_panel(panel):
             taus.data_ptr(), part_sq.data_ptr(), part_w.data_ptr(),
             alpha.data_ptr(), m, b, g, rpc, _build.stream_of(panel))
     _build.check("qr_panel", code)
-    count_launch("qr_panel")
     return packed, taus
+
+
+def qr_panel(panel):
+    """Householder QR of an (m, b) float32 panel, m, b ≥ 1 (wide too).
+
+    On a CUDA tensor ``b`` must be at most 4096 and rows must be contiguous
+    (any row stride); ``m`` may be any size. The result is a new (m, b)
+    tensor and a (min(m, b),) tensor of τ.
+    """
+    _build.check_panel(panel, "qr_panel")
+    if panel.device.type == "cpu":
+        return qr_panel_plain(panel)
+    res = launch(panel)
+    count_launch("qr_panel")
+    return res

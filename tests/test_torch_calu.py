@@ -59,10 +59,12 @@ def interp(monkeypatch):
 
 def _separated_panel(m, b, rng):
     """P·L·U with |L| ≤ 1/(2√b) below a unit diagonal: every pivot beats the
-    other candidates by 2√b, under any rounding (as in chip_smoke.py)."""
-    lo = np.tril(rng.uniform(-0.5, 0.5, (m, b)) / np.sqrt(b), -1) + np.eye(m, b)
-    up = (np.triu(rng.standard_normal((b, b)), 1) / np.sqrt(b)
-          + np.diag(1 + rng.uniform(size=b)))
+    other candidates by 2√b, under any rounding (as in chip_smoke.py). A
+    wide panel (m < b) has an (m, m) L and an (m, b) U."""
+    k = min(m, b)
+    lo = np.tril(rng.uniform(-0.5, 0.5, (m, k)) / np.sqrt(b), -1) + np.eye(m, k)
+    up = (np.triu(rng.standard_normal((k, b)), 1) / np.sqrt(b)
+          + np.eye(k, b) * (1 + rng.uniform(size=k))[:, None])
     p = rng.permutation(m)
     a = np.empty((m, b))
     a[p] = lo @ up
@@ -114,6 +116,26 @@ def test_plain_matches_pallas(kernel, m, b, interp):
     assert _lu_residual(panel, k_t.numpy(), p_t) <= 8 * m * EPS32
 
 
+@pytest.mark.parametrize("kernel", ["v2", "v3", "swap"])
+@pytest.mark.parametrize("m,b", [(16, 40), (20, 33)])
+def test_wide_plain_matches_pallas(kernel, m, b, interp):
+    """Wide panels (m < b; (16, 40) is the probe of ROADMAP §3): m steps,
+    the whole (m, b) panel back with U₁₂ right of column m, perm, nt and ok
+    exactly, packed within 8·m·eps, A[perm] = L·U to 8·b·eps in f64."""
+    rng = np.random.default_rng(m * b + 1)
+    panel, p = _separated_panel(m, b, rng)
+    k_j, p_j, n_j, o_j = getattr(interp, kernel)(jnp.asarray(panel))
+    k_t, p_t, n_t, o_t = PLAIN[kernel](torch.from_numpy(panel))
+    p_t = p_t.numpy()
+    assert k_t.shape == (m, b)
+    np.testing.assert_array_equal(p_t, np.asarray(p_j))
+    assert int(n_t) == int(n_j) and bool(o_t) and bool(o_j)
+    assert int(n_t) % 2 == _perm_parity(p_t)
+    assert_approx_eq(k_t.numpy(), np.asarray(k_j), scale=size_scale(m),
+                     tol_dtype=np.float32)
+    assert _lu_residual(panel, k_t.numpy(), p_t) <= 8 * b * EPS32
+
+
 def test_swap_counts_swaps_and_v2_counts_transpositions():
     """The two contracts of nt on one panel: v1 counts the steps whose pivot
     was not in place, v2 the minimal transpositions of its perm."""
@@ -133,11 +155,12 @@ def test_swap_counts_swaps_and_v2_counts_transpositions():
     np.testing.assert_array_equal(p1.numpy()[:20], p2.numpy()[:20])
 
 
-def test_batched_plain_is_each_panel_plain():
+@pytest.mark.parametrize("m,b", [(64, 16), (12, 30)])
+def test_batched_plain_is_each_panel_plain(m, b):
     rng = np.random.default_rng(6)
-    panels = np.stack([_separated_panel(64, 16, rng)[0] for _ in range(3)])
+    panels = np.stack([_separated_panel(m, b, rng)[0] for _ in range(3)])
     got = lu_panel_v2_batched(torch.from_numpy(panels))
-    assert [tuple(x.shape) for x in got] == [(3, 64, 16), (3, 64), (3,), (3,)]
+    assert [tuple(x.shape) for x in got] == [(3, m, b), (3, m), (3,), (3,)]
     for q in range(3):
         for g, w in zip(got, lu_panel_v2(torch.from_numpy(panels[q]))):
             assert torch.equal(g[q], w)
@@ -236,7 +259,7 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     lambda: lu_panel_swap(torch.zeros(8)),
     lambda: lu_panel_v2_batched(torch.zeros(2, 16, 8, dtype=torch.float64)),
     lambda: lu_panel_v2_batched(torch.zeros(16, 8)),
-    lambda: lu_panel_v2_batched(torch.zeros(2, 8, 16)),
+    lambda: lu_panel_v2_batched(torch.zeros(0, 8, 16)),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ShapeError)):

@@ -214,11 +214,14 @@ def test_lu_leaf_kernel(cuda, m, b):
 
 def _separated_panel(m, b, gen, cuda):
     """P·L·U with |L| ≤ 1/(2√b) below a unit diagonal: the pivot order is
-    the same under any rounding (as in chip_smoke.py)."""
-    lo = torch.tril((torch.rand(m, b, generator=gen, device=cuda) - 0.5) / b ** 0.5, -1)
-    lo = lo + torch.eye(m, b, device=cuda)
-    up = torch.triu(torch.randn(b, b, generator=gen, device=cuda), 1) / b ** 0.5
-    up = up + torch.diag(1 + torch.rand(b, generator=gen, device=cuda))
+    the same under any rounding (as in chip_smoke.py). A wide panel (m < b)
+    has an (m, m) L and an (m, b) U."""
+    k = min(m, b)
+    lo = torch.tril((torch.rand(m, k, generator=gen, device=cuda) - 0.5) / b ** 0.5, -1)
+    lo = lo + torch.eye(m, k, device=cuda)
+    up = torch.triu(torch.randn(k, b, generator=gen, device=cuda), 1) / b ** 0.5
+    up = up + torch.eye(k, b, device=cuda) * (
+        1 + torch.rand(k, generator=gen, device=cuda))[:, None]
     p = torch.randperm(m, generator=gen, device=cuda)
     a = torch.empty(m, b, device=cuda)
     a[p] = lo @ up
@@ -226,10 +229,11 @@ def _separated_panel(m, b, gen, cuda):
 
 
 def _lu_rec(a, packed, perm):
-    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor."""
+    """‖A[perm] − L·U‖ / ‖A‖ of a packed (m, b) panel factor (wide too)."""
     m, b = a.shape
-    lo = torch.tril(packed, -1) + torch.eye(m, b, device=a.device)
-    return ((lo @ torch.triu(packed[:b]) - a[perm]).norm() / a.norm()).item()
+    k = min(m, b)
+    lo = torch.tril(packed[:, :k], -1) + torch.eye(m, k, device=a.device)
+    return ((lo @ torch.triu(packed[:k]) - a[perm]).norm() / a.norm()).item()
 
 
 @pytest.mark.parametrize("name", ["lu_panel_v2", "lu_panel_v3", "lu_panel_swap"])
@@ -305,6 +309,117 @@ def test_lu_panel_v2_batched_raises_past_co_residency(cuda):
 
     with pytest.raises(RuntimeError, match="co-resident"):
         lu_panel_v2_batched(torch.ones(4000, 64, 64, device=cuda))
+
+
+QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")
+
+
+def _qr_wrapper(name):
+    """(wrapper, plain version) of a QR panel wrapper of the port."""
+    import importlib
+
+    mod = importlib.import_module("faer_tpu_torch.ops.kernels." + (
+        "leaf" if name == "qr_leaf" else name))  # qr_panel too
+    return getattr(mod, name), getattr(mod, f"{name}_plain")
+
+
+def _qr_checks(a, packed, taus):
+    """(max|QᵀQ − I|, ‖Q·R − A‖/‖A‖) of a packed panel factor, Q (m, m)."""
+    m, b = a.shape
+    k = min(m, b)
+    v = torch.tril(packed[:, :k], -1) + torch.eye(m, k, device=a.device)
+    q = torch.eye(m, device=a.device)
+    for j in range(k - 1, -1, -1):  # Q = H_0 ⋯ H_{k−1}
+        q -= taus[j] * torch.outer(v[:, j], v[:, j] @ q)
+    orth = (q.T @ q - torch.eye(m, device=a.device)).abs().max().item()
+    return orth, ((q @ torch.triu(packed) - a).norm() / a.norm()).item()
+
+
+@pytest.mark.parametrize("name", QR_FAMILY)
+@pytest.mark.parametrize("m,b,zero_col", [(4096, 128, None), (1000, 100, None),
+                                           (200, 44, 5)])
+def test_qr_panel_family_kernels(cuda, name, m, b, zero_col):
+    """v1, v2, v3 and the v4 leaf launch ``csrc/qr_panel.cu``, each behind
+    its own counter: equal to ``qr_panel`` to the bit, and within 8·m·eps of
+    their plain versions (R and V each relative to their own largest entry;
+    Gaussian panels with m ≥ 4b have κ ≤ 3)."""
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel
+
+    kern, plain = _qr_wrapper(name)
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    a = torch.randn(m, b, generator=gen, device=cuda)
+    if zero_col is not None:
+        a[:, zero_col] = 0.0
+    reset_launch_counts()
+    k1, t1 = kern(a)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1 and sum(launch_counts().values()) == 1
+    k0, t0 = qr_panel(a)
+    assert torch.equal(k1, k0) and torch.equal(t1, t0)
+    k2, t2 = plain(a)
+    tol = 8 * m * EPS32
+    assert _rel(torch.triu(k1[:b]), torch.triu(k2[:b])) <= tol
+    assert _rel(torch.tril(k1, -1), torch.tril(k2, -1)) <= tol
+    assert (t1 - t2).abs().max().item() <= tol
+    orth, rec = _qr_checks(a, k1, t1)
+    assert orth <= tol and rec <= tol
+    if zero_col is not None:
+        assert t1[zero_col].item() == 0.0
+        assert bool((k1[zero_col:, zero_col] == 0).all())
+
+
+LU_WRAPPERS = ("lu_panel", "lu_leaf", "lu_panel_v2", "lu_panel_v3", "lu_panel_swap",
+               "lu_panel_v2_batched")
+
+
+@pytest.mark.parametrize("name", LU_WRAPPERS + ("qr_panel",) + QR_FAMILY)
+@pytest.mark.parametrize("m,b", [(16, 40), (64, 200), (1000, 1024)])
+def test_wide_panels_on_card(cuda, name, m, b):
+    """A wide panel (m < b) through every panel wrapper: min(m, b) steps in
+    the kernel, the whole (m, b) panel back, against the plain version. LU:
+    separated pivots, so perm, nt and ok exactly, packed within 8·b·eps of
+    its largest entry, A[perm] = L·U to 8·b·eps. QR: I + G/(4√m) (κ ≤ 3),
+    R and V within 8·b·eps, taus (length m), QᵀQ = I and Q·R = A to 8·b·eps.
+    (1000, 1024): the LU rows fit shared memory at 8 a CTA, the QR rows
+    (63 a CTA × 1025 × 4 B) do not."""
+    import importlib
+
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    tol = 8 * b * EPS32
+    if name.startswith("lu_"):
+        base = {"lu_leaf": "leaf", "lu_panel_v2_batched": "lu_panel_v2"}.get(name, name)
+        mod = importlib.import_module(f"faer_tpu_torch.ops.kernels.{base}")
+        kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        batched = name == "lu_panel_v2_batched"
+        stack = torch.stack([_separated_panel(m, b, gen, cuda)[0]
+                             for _ in range(3 if batched else 1)])
+        reset_launch_counts()
+        got = kern(stack) if batched else tuple(x[None] for x in kern(stack[0]))
+        torch.cuda.synchronize()
+        counter = "lu_panel_v2" if batched else name
+        assert launch_counts()[counter] == 1 and sum(launch_counts().values()) == 1
+        want = plain(stack) if batched else tuple(x[None] for x in plain(stack[0]))
+        for q, a in enumerate(stack):
+            k1, p1, n1, o1 = (x[q] for x in got)
+            k2, p2, n2, o2 = (x[q] for x in want)
+            assert k1.shape == (m, b) and p1.shape == (m,)
+            assert torch.equal(p1, p2) and int(n1) == int(n2) and bool(o1) and bool(o2)
+            assert _rel(k1, k2) <= tol and _lu_rec(a, k1, p1) <= tol
+        return
+    kern, plain = _qr_wrapper(name)
+    a = torch.randn(m, b, generator=gen, device=cuda) / (4 * m ** 0.5)
+    a += torch.eye(m, b, device=cuda)
+    reset_launch_counts()
+    k1, t1 = kern(a)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1 and sum(launch_counts().values()) == 1
+    k2, t2 = plain(a)
+    assert k1.shape == (m, b) and t1.shape == (m,)
+    assert _rel(torch.triu(k1), torch.triu(k2)) <= tol
+    assert _rel(torch.tril(k1, -1), torch.tril(k2, -1)) <= tol
+    assert (t1 - t2).abs().max().item() <= tol
+    orth, rec = _qr_checks(a, k1, t1)
+    assert orth <= tol and rec <= tol
 
 
 def test_qr_in_place_on_card(cuda):

@@ -137,10 +137,12 @@ def _separated_panel(m, b, rng):
     """P·L·U with |L| ≤ 1/(2√b) below a unit diagonal: every pivot beats the
     other candidates by 2√b. Off-diagonal entries are O(1/√b) so that L and
     U stay well conditioned (random triangular matrices with O(1) entries
-    are exponentially ill conditioned, and rounding would reorder pivots)."""
-    lo = np.tril(rng.uniform(-0.5, 0.5, (m, b)) / np.sqrt(b), -1) + np.eye(m, b)
-    up = (np.triu(rng.standard_normal((b, b)), 1) / np.sqrt(b)
-          + np.diag(1 + rng.uniform(size=b)))
+    are exponentially ill conditioned, and rounding would reorder pivots).
+    A wide panel (m < b) has an (m, m) L and an (m, b) U."""
+    k = min(m, b)
+    lo = np.tril(rng.uniform(-0.5, 0.5, (m, k)) / np.sqrt(b), -1) + np.eye(m, k)
+    up = (np.triu(rng.standard_normal((k, b)), 1) / np.sqrt(b)
+          + np.eye(k, b) * (1 + rng.uniform(size=k))[:, None])
     p = rng.permutation(m)
     a = np.empty((m, b))
     a[p] = lo @ up
@@ -162,10 +164,11 @@ def _perm_sign(perm):
 
 def _lu_residual(panel, packed, perm):
     m, b = panel.shape
+    k = min(m, b)
     pk = packed.astype(np.float64)
-    lo = np.tril(pk, -1) + np.eye(m, b)
+    lo = np.tril(pk[:, :k], -1) + np.eye(m, k)
     ref = panel.astype(np.float64)[perm]
-    return np.linalg.norm(lo @ np.triu(pk[:b]) - ref) / np.linalg.norm(ref)
+    return np.linalg.norm(lo @ np.triu(pk[:k]) - ref) / np.linalg.norm(ref)
 
 
 @pytest.mark.parametrize("m,b,sb", [(160, 32, 16), (256, 64, 16)])
@@ -296,6 +299,52 @@ def test_lu_leaf_plain_matches_pallas(interp):
     assert bool(o_t) and bool(o_j)
 
 
+@pytest.mark.parametrize("m,b", [(16, 40), (24, 56)])
+def test_lu_wide_panels_match_pallas(m, b, interp):
+    """Wide panels (m < b; (16, 40) is the probe of ROADMAP §3): the v5 panel
+    and the v4 leaf take m steps and return the whole (m, b) panel, U₁₂
+    right of column m. Separated pivots: perm, nt and ok exactly; the v5
+    packed factor under its bf16x3 couplings' rule, the v4 leaf's (HIGHEST
+    dots) within 8·m·eps; A[perm] = L·U to 8·b·eps in f64."""
+    rng = np.random.default_rng(m + b)
+    panel, p = _separated_panel(m, b, rng)
+    for pallas, plain, tol in (
+            (interp.lu5.lu_panel_v5_pallas, lu_panel, 8 * m * U3),
+            (interp.leaf4.lu_panel_v4_pallas, lu_leaf, 8 * m * EPS32)):
+        k_j, p_j, n_j, o_j = pallas(jnp.asarray(panel))
+        k_t, p_t, n_t, o_t = plain(torch.from_numpy(panel))
+        k_j, k_t, p_t = np.asarray(k_j), k_t.numpy(), p_t.numpy()
+        assert k_t.shape == (m, b)
+        np.testing.assert_array_equal(p_t, np.asarray(p_j))
+        np.testing.assert_array_equal(p_t, p)
+        assert int(n_t) == int(n_j) and bool(o_t) and bool(o_j)
+        assert_approx_eq(k_t, k_j, abs_tol=tol * np.abs(k_j).max(), rel_tol=tol)
+        assert _lu_residual(panel, k_t, p_t) <= 8 * b * EPS32
+
+
+def test_qr_wide_panel_matches_pallas(interp):
+    """The (16, 40) probe through the v5 QR panel: 16 reflectors, τ of
+    length 16, Qᵀ·A right of column 16; R, V and τ under the bf16x3 rule,
+    Q·R = A and QᵀQ = I to 8·b·eps in f64."""
+    m, b = 16, 40
+    panel = np.random.default_rng(40).standard_normal((m, b)).astype(np.float32)
+    k_j, t_j = (np.asarray(x) for x in interp.qr5.qr_panel_v5_pallas(jnp.asarray(panel)))
+    k_t, t_t = (x.numpy() for x in qr_panel(torch.from_numpy(panel)))
+    assert k_t.shape == (m, b) and t_t.shape == t_j.shape == (m,)
+    tol = 8 * m * U3
+    for part in (np.triu, lambda k: np.tril(k, -1)):
+        want = part(k_j)
+        assert_approx_eq(part(k_t), want, abs_tol=tol * np.abs(want).max(), rel_tol=tol)
+    assert_approx_eq(t_t, t_j, abs_tol=tol, rel_tol=tol)
+    v = np.tril(k_t.astype(np.float64), -1) + np.eye(m, b)
+    q = np.eye(m)
+    for j in range(m - 1, -1, -1):
+        q -= float(t_t[j]) * np.outer(v[:, j], v[:, j] @ q)
+    assert np.abs(q.T @ q - np.eye(m)).max() <= 8 * b * EPS32
+    rec = np.linalg.norm(q @ np.triu(k_t) - panel) / np.linalg.norm(panel)
+    assert rec <= 8 * b * EPS32
+
+
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     rng = np.random.default_rng(2)
     t = torch.from_numpy(_lower_block(64, False, rng))
@@ -323,10 +372,10 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     lambda: trtri(torch.zeros(4, 5)),
     lambda: llt_panel(torch.zeros(16, 32)),
     lambda: lu_panel(torch.zeros(8)),
-    lambda: qr_panel(torch.zeros(16, 32)),
+    lambda: qr_panel(torch.zeros(16, 0)),
     lambda: qr_panel(torch.zeros(32, 16, dtype=torch.float64)),
     lambda: llt_leaf(torch.zeros(4, 5)),
-    lambda: lu_leaf(torch.zeros(8, 16)),
+    lambda: lu_leaf(torch.zeros(0, 16)),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):

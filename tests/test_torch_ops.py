@@ -187,7 +187,10 @@ def test_import_leaves_jax_unloaded():
             "faer_tpu_torch.linalg.solvers, faer_tpu_torch.core.vec, "
             "faer_tpu_torch.ops.reductions, faer_tpu_torch.ops.kernels.syrk, "
             "faer_tpu_torch.ops.kernels.lu_panel_v2, faer_tpu_torch.ops.kernels.lu_panel_v3, "
-            "faer_tpu_torch.ops.kernels.lu_panel_swap; "
+            "faer_tpu_torch.ops.kernels.lu_panel_swap, "
+            "faer_tpu_torch.ops.kernels.qr_panel_v1, faer_tpu_torch.ops.kernels.qr_panel_v2, "
+            "faer_tpu_torch.ops.kernels.qr_panel_v3, runpy; "
+            "runpy.run_path('tools/torch_qr_panels.py')['_panels'](); "
             "bad = sorted(m for m in sys.modules if m in ('jax', 'faer_tpu') "
             "or m.startswith(('jax.', 'faer_tpu.'))); "
             "assert not bad, bad")
