@@ -11,8 +11,11 @@ Phases, each printing lines; any failure exits non-zero:
    the card, at the main paths' shapes, with the tolerance stated, and its
    time beside its plain version's, its bound and a library yardstick; the
    QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
-   ``qr_leaf``) at (4096, 128) and (4096, 256); and every panel wrapper on
-   wide panels (m < b) at (64, 200) and (1000, 1024);
+   ``qr_leaf``) at (4096, 128) and (4096, 256); every panel wrapper on
+   wide panels (m < b) at (64, 200) and (1000, 1024); the LLT blocks
+   ``llt_block`` and ``llt_block_v3`` at b ∈ {128, 256, 512, 200} and on a
+   regularized block; ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3),
+   (64, 4, 24), (128, 8, 24)} and on a zero-tail window;
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
@@ -54,11 +57,25 @@ Phases, each printing lines; any failure exits non-zero:
    ``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3`` and ``qr_leaf`` (sb 8
    and 16) at (m, b) ∈ {4096, 2048, 1024} × {128, 256, 512} on one Gaussian
    4096² matrix: times, ‖QR − A‖/‖A‖ ≤ 8·m·eps, differences from
-   ``qr_panel``, and each counter's launches against the tool's calls.
+   ``qr_panel``, and each counter's launches against the tool's calls;
+11. LLT block lab: ``tools/torch_llt_blocks.py`` (the counterpart of
+   ``tools/r4parts.py``, ``r4lab.py`` and ``r4lab2.py``): ``llt_block``,
+   ``llt_block_v3``, ``llt_leaf``, ``_llt_panel_recursive`` and
+   ``cholesky_ex`` at b ∈ {128, 256, 512}, a regularized block, and twelve
+   4096² factors whose leaves are ``llt_block``, ``llt_block_v3`` or
+   ``llt_leaf`` at leaf width 128 or 256 and block 256 or 512, beside
+   ``llt_factor``; residuals, and each counter against the tool's
+   prediction;
+12. chase lab: ``tools/torch_chase.py`` (the counterpart of
+   ``tools/r5chase.py``): ``chase_probe`` at b ∈ {64, 128}, g ∈ {1, 4, 8},
+   steps ∈ {256, 1024}, µs per step and per window, and whether a
+   two-stage reduction could pay at 4096 against phase 7's one-stage
+   reduction and ``eigh``; launches against the tool's calls.
 
 Each path is driven with the launch counters set to 0 just before it and
-read just after. The second-to-last line is a JSON object with one entry
-per kernel; the last is ``{"ok": true, "device": {...}}``.
+read just after; each phase prints its own time. The second-to-last line is
+a JSON object with one entry per kernel; the last is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -111,6 +128,14 @@ CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=14),
 # shape (tools/torch_qr_panels.py)
 LAB_REPS, LAB_WARMUP = 10, 2
 WIDE = ((64, 200), (1000, 1024))  # phase 3's wide panels (m < b)
+LLT_BLOCKS = (128, 256, 512, 200)  # phase 3's LLT blocks: the labs' sizes, one ragged
+# phase 3's chase cases (b, g, steps): one and eight cycles of the three
+# windows; the values grow with the steps (the strip is not symmetric), so
+# the kernel is held to its plain version at these short step counts only
+CHASE_CASES = ((64, 1, 3), (64, 4, 24), (128, 8, 24))
+# phases 11 and 12: each timed call 1 + warmup + reps times
+LLT_LAB_REPS, LLT_LAB_WARMUP = 10, 2
+CHASE_LAB_REPS, CHASE_LAB_WARMUP = 5, 1
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -462,6 +487,8 @@ def phase_kernels(gen) -> dict:
     _wide_panels(gen)
     res.update(_sweep_kernels(gen))
     res.update(_tile_kernels(gen))
+    res.update(_llt_block_kernels(gen))
+    res.update(_chase_kernel(gen))
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -875,6 +902,123 @@ def _tile_kernels(gen) -> dict:
     return res
 
 
+def _mirrored(a):
+    """The symmetric matrix of ``a``'s lower triangle, in full storage."""
+    lo = torch.tril(a)
+    return lo + torch.tril(lo, -1).mT
+
+
+def _llt_block_kernels(gen) -> dict:
+    """``llt_block`` and ``llt_block_v3`` (rows 17, 19), one CTA per block,
+    against their plain versions on mirrored SPD blocks (cond ≤ 5) at
+    ``LLT_BLOCKS`` (shared memory up to b = 340, global memory at 512) and
+    on a regularized block (``_regularized_spd`` with eps = delta = 1:
+    three pivots replaced and counted, the first negative): L within 8·b·eps
+    of its largest entry, ‖LLᵀ − A‖/‖A‖ ≤ 8·b·eps in f64, count and ok
+    equal. Timed at b ∈ {128, 256, 512} beside ``cholesky_ex`` and the
+    bound (b³/3 FP32 operations, the block read and L written once); the
+    JSON row keeps b = 128, row 6's shape."""
+    from faer_tpu_torch.ops.kernels.llt_block import (
+        llt_block, llt_block_plain, llt_block_v3, llt_block_v3_plain,
+        staged_in_shared_memory)
+
+    res = {}
+    for name, kern, plain in (("llt_block", llt_block, llt_block_plain),
+                              ("llt_block_v3", llt_block_v3, llt_block_v3_plain)):
+        errs = []
+        for b, bad in [(b, None) for b in LLT_BLOCKS] + [(128, [3, 20, 77])]:
+            if bad is None:
+                a, reg, want = _mirrored(_spd(b, gen)), {}, (0, True)
+            else:
+                a = _mirrored(_regularized_spd(b, torch.tensor(bad, device=DEV), gen))
+                reg, want = dict(eps=1.0, delta=1.0), (len(bad), False)
+            (l1, c1, o1), (l2, c2, o2) = kern(a, **reg), plain(a, **reg)
+            torch.cuda.synchronize()
+            tol = 8 * b * EPS32
+            err, rel = _max_rel(l1, l2)
+            l64 = l1.double()
+            resid = rel_norm(l64 @ l64.T, a.double())
+            errs.append(err)
+            tallies = (int(c1), bool(o1))
+            check(rel <= tol and (bad is not None or resid <= tol)
+                  and tallies == (int(c2), bool(o2)) == want
+                  and bool((torch.triu(l1, 1) == 0).all()),
+                  f"{name} b={b}{' eps=1 delta=1' if bad else ''} "
+                  f"[{'shared' if staged_in_shared_memory(b) else 'global'} memory]: "
+                  f"max abs err {err:.3e}, rel {rel:.3e} vs plain, |LLᵀ-A|/|A| "
+                  f"{resid:.3e}, all <= {tol:.3e}; (count, ok) {tallies}; bitwise "
+                  f"equal {torch.equal(l1, l2)}")
+        for b in LLT_BLOCKS[:3]:
+            a = _mirrored(_spd(b, gen))
+            r = dict(max_abs_err=max(errs), ms=cuda_ms(lambda: kern(a), 20),
+                     plain_ms=cuda_ms(lambda: plain(a), 3),
+                     library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(a), 20),
+                     **bound_of(b ** 3 / 3, 2 * b * b * 4))
+            print(f"time {name} b={b}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, cholesky_ex {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+            res.setdefault(name, r)
+    return res
+
+
+def chase_step_flops(b: int) -> int:
+    """Operations of one chase window step, counted from ``_window_step``:
+    ‖x‖² 2b, v b, u = τ W v 4b² + 2b, vᵀu 2b, w̃ 4b, the rank-2 update 16b²."""
+    return 20 * b * b + 11 * b
+
+
+def _chase_kernel(gen) -> dict:
+    """``chase_probe`` (row 20), one CTA per strip, against its plain
+    version at ``CHASE_CASES`` (the strip in shared memory at b = 64, in
+    global memory at 128) within 8·2b·eps of the output's largest entry
+    (the values grow with the steps, so only short runs are held), and on a
+    zero-tail window (α = 0.75, rows 2..b of column 0 zero: τ = 0), which
+    one step must leave unchanged to the bit. Timed at (128, 8, 24); no
+    PyTorch call computes a chase step; the bound counts
+    ``chase_step_flops`` and the strip read and written once (PERF.md §6
+    gives the chain latency per step from phase 12)."""
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe, chase_probe_plain
+
+    errs = []
+    for b, g, steps in CHASE_CASES:
+        band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
+        got = chase_probe(band, b=b, steps=steps, g=g)
+        want = chase_probe_plain(band, b=b, steps=steps, g=g)
+        torch.cuda.synchronize()
+        top = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        errs.append(err)
+        tol = 8 * 2 * b * EPS32 * top
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"chase_probe b={b} g={g} steps={steps}: max abs err {err:.3e} <= "
+              f"{tol:.3e} (8·2b·eps of max|out| {top:.4g}); bitwise equal "
+              f"{torch.equal(got, want)}")
+    b, g = 64, 2
+    band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
+    for gi in range(g):
+        band[gi * 4 * b + 1, 0] = 0.75
+        band[gi * 4 * b + 2:gi * 4 * b + b + 1, 0] = 0.0
+    one = chase_probe(band, b=b, steps=1, g=g)
+    got, want = chase_probe(band, b=b, steps=3, g=g), chase_probe_plain(band, b=b, steps=3, g=g)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 8 * 2 * b * EPS32 * want.abs().max().item()
+    check(torch.equal(one, band) and err <= tol,
+          f"chase_probe zero-tail window b={b} g={g}: one step leaves the strip "
+          f"unchanged {torch.equal(one, band)}; 3 steps max abs err {err:.3e} <= {tol:.3e}")
+    b, g, steps = CHASE_CASES[-1]
+    band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
+    r = dict(max_abs_err=max(errs),
+             ms=cuda_ms(lambda: chase_probe(band, b=b, steps=steps, g=g), 10),
+             plain_ms=cuda_ms(lambda: chase_probe_plain(band, b=b, steps=steps, g=g), 3),
+             library_ms=None,  # no PyTorch call computes a chase step
+             **bound_of(steps * g * chase_step_flops(b), 2 * g * 8 * b * b * 4))
+    print(f"time chase_probe b={b} g={g} steps={steps}: kernel {r['ms']:.4f} ms "
+          f"({r['ms'] * 1e3 / steps:.3f} us/step), plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+    return {"chase_probe": r}
+
+
 def _inputs(n: int, gen):
     a_spd = _spd(n, gen)
     g = torch.randn(n, n, generator=gen, device=DEV)
@@ -1215,9 +1359,10 @@ def _wide_dnc_check() -> dict:
     return counts
 
 
-def phase_spectral(gen) -> dict:
+def phase_spectral(gen) -> tuple[dict, dict]:
     """The spectral path as ``tools/bench_spectral.py`` drives it:
-    ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)``."""
+    ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)``. Returns the launch
+    counts and the times, ms, of ``tridiag_in_place`` and ``eigh`` at N."""
     from faer_tpu_torch import (
         self_adjoint_eigenvalues, self_adjoint_evd, singular_values, svd)
     from faer_tpu_torch.linalg.bidiag import (
@@ -1293,7 +1438,7 @@ def phase_spectral(gen) -> dict:
 
     # times: the entry points, their yardsticks, then the layers at 4096
     _timed(lambda: self_adjoint_evd(a), f"self_adjoint_evd n={n}", flops.evd_flops(n))
-    _timed(lambda: torch.linalg.eigh(a), f"library eigh n={n}")
+    eigh_ms = _timed(lambda: torch.linalg.eigh(a), f"library eigh n={n}")
     _timed(lambda: svd(g), f"svd n={n}", flops.svd_flops(n, n))
     _timed(lambda: torch.linalg.svd(g, full_matrices=False), f"library svd n={n}")
     for label, fn in ((f"self_adjoint_evd n={n2}", lambda: self_adjoint_evd(a2)),
@@ -1325,7 +1470,7 @@ def phase_spectral(gen) -> dict:
     for k, ms in layers.items():
         print(f"time layer {k} n={n}: {ms:.4f} ms (one call)")
     print(f"launches in the spectral phase: {total}")
-    return total
+    return total, {"tridiag_in_place": layers["tridiag_in_place"], "eigh": eigh_ms}
 
 
 def _res(mat, x, rhs) -> float:
@@ -1550,17 +1695,22 @@ def phase_calu(gen) -> dict:
     return total
 
 
+def _tool(name: str):
+    """The module ``tools/<name>.py``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_panel_lab() -> dict:
     """``tools/torch_qr_panels.py``'s panel lab on the card: every QR panel
     wrapper at its nine shapes, each residual within 8·m·eps, and each
     counter's launches equal to the tool's calls (one launch a call)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tools", "torch_qr_panels.py")
-    spec = importlib.util.spec_from_file_location("torch_qr_panels", path)
-    lab = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(lab)
+    lab = _tool("torch_qr_panels")
     rows, counts, _ = _counted(lambda: lab.panel_lab(LAB_REPS, LAB_WARMUP))
     want = {k: v * len(lab.SHAPES)
             for k, v in lab.calls_per_shape(LAB_REPS, LAB_WARMUP).items()}
@@ -1576,6 +1726,54 @@ def phase_panel_lab() -> dict:
     return counts
 
 
+def phase_llt_lab() -> dict:
+    """``tools/torch_llt_blocks.py``'s lab on the card: the five LLT calls at
+    b ∈ {128, 256, 512}, each residual within 8·b·eps, the regularized block
+    (the three kernels agree on count and ok), the twelve plugged-leaf 4096²
+    factors and ``llt_factor``, each within 8·n·eps, and every counter equal
+    to the tool's prediction, ``trtri`` and ``llt_panel`` included."""
+    lab = _tool("torch_llt_blocks")
+    rows, counts, _ = _counted(lambda: (lab.block_lab(LLT_LAB_REPS, LLT_LAB_WARMUP)
+                                        + lab.factor_lab(LLT_LAB_REPS, LLT_LAB_WARMUP)))
+    want = lab.predicted_launches(LLT_LAB_REPS, LLT_LAB_WARMUP)
+    got = {k: v for k, v in counts.items() if v}
+    print(f"launches in the LLT block lab: {counts}")
+    check(got == want, f"LLT block lab launches {got}, predicted {want}")
+    factors = [r for r in rows if "factor" in r]
+    check(len(factors) == 13 and all(r["ok"] for r in rows),
+          f"LLT block lab: {len(rows) - len(factors)} block rows and {len(factors)} "
+          f"factors, every check held (largest residual of a factor "
+          f"{max(r['resid'] for r in factors):.3e} <= {8 * N * EPS32:.3e})")
+    return counts
+
+
+def phase_chase_lab(spectral_ms: dict) -> dict:
+    """``tools/torch_chase.py``'s lab on the card: ``chase_probe`` over its
+    12-point grid, every output finite, launches equal to the tool's calls,
+    the chain latency per step (two step counts at g = 1) and the two-stage
+    verdict against phase 7's one-stage reduction and ``eigh``
+    (``spectral_ms``)."""
+    lab = _tool("torch_chase")
+    rows, counts, _ = _counted(lambda: lab.chase_lab(CHASE_LAB_REPS, CHASE_LAB_WARMUP))
+    want = lab.predicted_launches(CHASE_LAB_REPS, CHASE_LAB_WARMUP)
+    got = {k: v for k, v in counts.items() if v}
+    print(f"launches in the chase lab: {counts}")
+    check(got == want, f"chase lab launches {got}, predicted {want}")
+    check(len(rows) == len(lab.GRID) and all(r["ok"] for r in rows),
+          f"chase lab: {len(rows)} grid points, every output finite (largest "
+          f"max|out| {max(r['max_abs'] for r in rows):.4g})")
+    for b in (64, 128):
+        t = {r["steps"]: r["ms"] for r in rows if r["b"] == b and r["g"] == 1}
+        (s0, t0), (s1, t1) = sorted(t.items())
+        print(f"chase_probe chain latency b={b}, g=1: {(t1 - t0) / (s1 - s0) * 1e3:.4f} "
+              f"us per step ({s0} and {s1} steps)")
+    decision = lab.verdict(rows, spectral_ms["tridiag_in_place"], spectral_ms["eigh"])
+    print(f"two-stage verdict at n={lab.N}, b={lab.BAND}: "
+          f"{'a chase fits' if decision['pays'] else 'no chase fits'} in "
+          f"{lab.BUDGET_SHARE} of the one-stage reduction for any g")
+    return counts
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1584,13 +1782,24 @@ def main() -> None:
     check_f32_policy()
     print("f32 policy: full FP32 matmuls (allow_tf32 False, precision 'highest')")
     t0 = time.perf_counter()
-    phase_build()
+
+    def timed(phase: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    timed("2 build", phase_build)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    kern = phase_kernels(gen)
-    paths = [phase_flagship(gen), phase_qr(gen), phase_off_route(gen),
-             phase_spectral(gen), phase_facade(), phase_calu(gen)]
-    lab = phase_panel_lab()
-    paths.append(lab)
+    kern = timed("3 kernels", phase_kernels, gen)
+    paths = [timed("4 flagship", phase_flagship, gen), timed("5 qr", phase_qr, gen),
+             timed("6 off-route", phase_off_route, gen)]
+    spectral, spectral_ms = timed("7 spectral", phase_spectral, gen)
+    paths += [spectral, timed("8 facade", phase_facade), timed("9 calu", phase_calu, gen)]
+    lab = timed("10 panel lab", phase_panel_lab)
+    llt_lab = timed("11 LLT block lab", phase_llt_lab)
+    chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
+    paths += [lab, llt_lab, chase_lab]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -1628,16 +1837,28 @@ def main() -> None:
                         "faer_tpu/ops/pallas/qr_panel_v3.py:127"),
         "qr_leaf": ("faer_tpu_torch/csrc/qr_panel.cu",
                     "faer_tpu/ops/pallas/leaf_v4.py:351"),
+        "llt_block": ("faer_tpu_torch/csrc/llt_block.cu",
+                      "faer_tpu/ops/pallas/panel_kernels.py:151"),
+        "llt_block_v3": ("faer_tpu_torch/csrc/llt_block.cu",
+                         "faer_tpu/ops/pallas/panel_kernels.py:586"),
+        "chase_probe": ("faer_tpu_torch/csrc/band_chase.cu",
+                        "faer_tpu/ops/pallas/band_chase.py:89"),
     }
     # on no library path, as in the JAX package: syrk_lower_sub is unwired,
-    # the v3 and v1 LU panels are called by nothing, and the QR panels v1,
-    # v2, v3 and the v4 leaf only by the panel lab (phase 10)
-    off_path = {"syrk", "lu_panel_v3", "lu_panel_swap", *QR_FAMILY}
+    # the v3 and v1 LU panels are called by nothing, the QR panels v1, v2,
+    # v3 and the v4 leaf only by the panel lab (phase 10), the LLT blocks
+    # only by the LLT block lab (phase 11), the chase probe only by the
+    # chase lab (phase 12)
+    lab_kernels = {"panel lab": (lab, QR_FAMILY),
+                   "LLT block lab": (llt_lab, ("llt_block", "llt_block_v3")),
+                   "chase lab": (chase_lab, ("chase_probe",))}
+    off_path = {"syrk", "lu_panel_v3", "lu_panel_swap",
+                *(k for _, ks in lab_kernels.values() for k in ks)}
     check(all(launches[k] > 0 for k in sources if k not in off_path),
           f"every kernel but the off-path {sorted(off_path)} ran on a main path")
-    check(all(lab[k] > 0 for k in QR_FAMILY),
-          f"the panel lab launched {', '.join(QR_FAMILY)}: "
-          f"{[lab[k] for k in QR_FAMILY]}")
+    for label, (counts, ks) in lab_kernels.items():
+        check(all(counts[k] > 0 for k in ks),
+              f"the {label} launched {', '.join(ks)}: {[counts[k] for k in ks]}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep,

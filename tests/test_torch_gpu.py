@@ -16,6 +16,8 @@ Tolerances: 8·n·eps_f32 relative to the largest entry, times the block's
 leaves on Gaussian panels, whose pivots may differ under rounding; for the
 tile kernels 16·eps (FP32 sums) or 2e-5 (bf16x3) of max‖a_i‖·max‖b_j‖.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
 pytestmark = pytest.mark.gpu
 
 EPS32 = float(np.finfo(np.float32).eps)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -680,3 +683,134 @@ def test_facade_on_card_with_tile_switch(cuda, monkeypatch):
         assert (launches > 0) if on else (launches == 0)
         assert ((prod - g @ b).abs().max() / (g.abs().max() * b.abs().max())).item() <= tol
         assert max(rel_res(spd, x1), rel_res(g, x2), rel_res(g, x3)) <= tol
+
+
+def _mirrored_spd(b, gen, device):
+    """g gᵀ/b + 2I from its lower triangle: symmetric in full storage."""
+    g = torch.randn(b, b, generator=gen, device=device)
+    lo = torch.tril(g @ g.T / b + 2 * torch.eye(b, device=device))
+    return lo + torch.tril(lo, -1).mT
+
+
+@pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
+@pytest.mark.parametrize("b", [1, 7, 128, 200, 256, 340, 341, 512, 1024])
+def test_llt_block_kernels(cuda, name, b):
+    """One CTA per block, in shared memory up to b = 340 and in global
+    memory above: L within 8·b·eps of the plain version's and of an f64
+    factor, (count, ok) = (0, True), zeros above the diagonal."""
+    from faer_tpu_torch.ops.kernels import llt_block as mod
+
+    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    a = _mirrored_spd(b, torch.Generator(device=cuda).manual_seed(b), cuda)
+    reset_launch_counts()
+    l1, c1, o1 = kern(a)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1 and launch_counts()["llt_panel"] == 0
+    l2, c2, o2 = plain(a)
+    assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == (0, True)
+    assert bool((torch.triu(l1, 1) == 0).all())
+    tol = 8 * b * EPS32
+    assert _rel(l1, l2) <= tol
+    assert _rel(l1.double(), torch.linalg.cholesky(a.double())) <= tol
+
+
+@pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
+@pytest.mark.parametrize("b,reg,want", [(128, (1.0, 1.0), (3, False)),
+                                        (40, (0.0, 0.0), (0, False)),
+                                        (512, (1.0, 1.0), (3, False))])
+def test_llt_block_kernels_regularized(cuda, name, b, reg, want):
+    """L Lᵀ with three zero diagonal entries of L, less 1e-3 there: with
+    eps = delta = 1 the three pivots are replaced and counted; with eps = 0
+    the first (negative) pivot becomes 1. ok is False either way."""
+    from faer_tpu_torch.ops.kernels import llt_block as mod
+
+    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    gen = torch.Generator(device=cuda).manual_seed(b + 1)
+    bad = [3, 20, b - 3]
+    lo = torch.tril(torch.randn(b, b, generator=gen, device=cuda) / b ** 0.5, -1)
+    diag = 1.5 + torch.rand(b, generator=gen, device=cuda)
+    diag[bad] = 0.0
+    lo = lo + torch.diag(diag)
+    a = torch.tril(lo @ lo.T)
+    a = a + torch.tril(a, -1).mT
+    a[bad, bad] -= 1e-3
+    eps, delta = reg
+    l1, c1, o1 = kern(a, eps=eps, delta=delta)
+    l2, c2, o2 = plain(a, eps=eps, delta=delta)
+    torch.cuda.synchronize()
+    assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == want
+    assert bool(torch.isfinite(l1).all()) and _rel(l1, l2) <= 8 * b * EPS32
+
+
+@pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
+def test_llt_block_plugged_into_a_4096_factor(cuda, name):
+    """``tools/torch_llt_blocks.py``'s factor with the kernel at every leaf
+    (leaf width 128, block 256): 32 leaf launches, ‖LLᵀ − A‖/‖A‖ ≤ 8·n·eps."""
+    import runpy
+
+    from faer_tpu_torch.ops.kernels import llt_block as mod
+
+    lab = runpy.run_path(os.path.join(REPO, "tools", "torch_llt_blocks.py"))
+    n = 4096
+    a = lab["spd"](n, torch.Generator(device=cuda).manual_seed(12), cuda)
+    kern = getattr(mod, name)
+    reset_launch_counts()
+    l = lab["llt_factor_variant"](a, block=256, leaf=128, leaf_fn=lambda x: kern(x)[0])
+    torch.cuda.synchronize()
+    leaves, trtri = lab["variant_calls"](n, 256, 128)
+    assert launch_counts()[name] == leaves == 32
+    assert launch_counts()["trtri"] == trtri
+    assert lab["llt_residual"](l, a) <= 8 * n * EPS32
+
+
+@pytest.mark.parametrize("b,g,steps", [(16, 2, 6), (64, 1, 3), (64, 4, 24),
+                                       (84, 1, 24), (85, 2, 24), (128, 8, 24),
+                                       (64, 1, 0)])
+def test_chase_kernel(cuda, b, g, steps):
+    """One CTA per strip, the strip in shared memory up to b = 84 and in
+    global memory above: within 8·2b·eps of the plain version, relative to
+    the output's largest entry; one launch a call."""
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe, chase_probe_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(b * g + steps)
+    band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=cuda)
+    reset_launch_counts()
+    got = chase_probe(band, b=b, steps=steps, g=g)
+    torch.cuda.synchronize()
+    assert launch_counts()["chase_probe"] == 1
+    want = chase_probe_plain(band, b=b, steps=steps, g=g)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 8 * 2 * b * EPS32 * want.abs().max().item()
+    if steps == 0:
+        assert torch.equal(got, band)
+
+
+@pytest.mark.parametrize("b", [64, 128])
+def test_chase_kernel_zero_tail_is_the_identity(cuda, b):
+    """α = 0.75 and rows 2..b of column 0 zero in every strip's first
+    window: tail_sq = 0, τ = 0, one step leaves the strip unchanged."""
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe
+
+    g = 2
+    band = torch.randn(g * 4 * b, 2 * b, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda)
+    for gi in range(g):
+        band[gi * 4 * b + 1, 0] = 0.75
+        band[gi * 4 * b + 2:gi * 4 * b + b + 1, 0] = 0.0
+    assert torch.equal(chase_probe(band, b=b, steps=1, g=g), band)
+
+
+def test_new_wrappers_raise_past_their_limits(cuda):
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe
+    from faer_tpu_torch.ops.kernels.llt_block import llt_block, llt_block_v3
+
+    for kern in (llt_block, llt_block_v3):
+        with pytest.raises(ShapeError):
+            kern(torch.eye(1025, device=cuda))
+        with pytest.raises(ValueError):  # rows not contiguous
+            kern(torch.eye(64, device=cuda).mT.contiguous().mT)
+    with pytest.raises(ShapeError):
+        chase_probe(torch.zeros(4 * 1025, 2 * 1025, device=cuda), b=1025, steps=1)
+    with pytest.raises(ShapeError):
+        chase_probe(torch.zeros(256, 128, device=cuda), b=64, steps=1, g=2)
