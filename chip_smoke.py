@@ -12,9 +12,11 @@ Phases, each printing lines; any failure exits non-zero:
    time beside its plain version's, its bound and a library yardstick; the
    QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
    ``qr_leaf``) at (4096, 128) and (4096, 256); every panel wrapper on
-   wide panels (m < b) at (64, 200) and (1000, 1024); the LLT blocks
-   ``llt_block`` and ``llt_block_v3`` at b ∈ {128, 256, 512, 200} and on a
-   regularized block; ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3),
+   wide panels (m < b) at (64, 200) and (1000, 1024); the three wrappers of
+   the blocked LLT diagonal-block kernel, ``llt_leaf``, ``llt_block`` and
+   ``llt_block_v3``, at b ∈ {44, 80, 128, 200, 256, 337, 338, 512, 1024}
+   and on regularized blocks, timed per call and on the device (CUDA-graph
+   replay) beside ``cholesky_ex``; ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3),
    (64, 4, 24), (128, 8, 24)} and on a zero-tail window;
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
@@ -65,7 +67,8 @@ Phases, each printing lines; any failure exits non-zero:
    4096² factors whose leaves are ``llt_block``, ``llt_block_v3`` or
    ``llt_leaf`` at leaf width 128 or 256 and block 256 or 512, beside
    ``llt_factor``; residuals, and each counter against the tool's
-   prediction;
+   prediction. The three leaf wrappers launch one kernel, so the lab
+   compares leaf widths and block sizes;
 12. chase lab: ``tools/torch_chase.py`` (the counterpart of
    ``tools/r5chase.py``): ``chase_probe`` at b ∈ {64, 128}, g ∈ {1, 4, 8},
    steps ∈ {256, 1024}, µs per step and per window, and whether a
@@ -128,7 +131,15 @@ CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=14),
 # shape (tools/torch_qr_panels.py)
 LAB_REPS, LAB_WARMUP = 10, 2
 WIDE = ((64, 200), (1000, 1024))  # phase 3's wide panels (m < b)
-LLT_BLOCKS = (128, 256, 512, 200)  # phase 3's LLT blocks: the labs' sizes, one ragged
+# phase 3's LLT blocks: the labs' sizes, ragged ones, both sides of the
+# shared-memory edge (337), the largest; the regularized ones (b, the bad
+# pivots, eps = delta); the timed sizes, each device time a CUDA graph of
+# LLT_GRAPH_REPS calls
+LLT_BLOCKS = (128, 256, 512, 200, 80, 44, 337, 338, 1024)
+LLT_REGULARIZED = ((128, (3, 20, 77), 1.0), (512, (3, 20, 509), 1.0),
+                   (44, (3, 20, 41), 0.0))
+LLT_TIMED = (128, 256, 512)
+LLT_GRAPH_REPS = 30
 # phase 3's chase cases (b, g, steps): one and eight cycles of the three
 # windows; the values grow with the steps (the strip is not symmetric), so
 # the kernel is held to its plain version at these short step counts only
@@ -299,8 +310,7 @@ def _regularized_spd(b: int, bad, gen) -> torch.Tensor:
 
 def phase_kernels(gen) -> dict:
     from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
-    from faer_tpu_torch.ops.kernels.leaf import (
-        llt_leaf, llt_leaf_plain, lu_leaf, lu_leaf_plain)
+    from faer_tpu_torch.ops.kernels.leaf import lu_leaf, lu_leaf_plain
     from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
     from faer_tpu_torch.ops.kernels import _build
@@ -432,34 +442,6 @@ def phase_kernels(gen) -> dict:
         plain_ms=cuda_ms(lambda: qr_panel_plain(pq), 3),
         library_ms=cuda_ms(lambda: torch.geqrf(pq), 10),
         **bound_of(flops.qr_flops(4096, 128), 2 * 4096 * 128 * 4 + 128 * 4))
-
-    # llt_leaf: SPD blocks (cond ≤ 5) and one regularized ragged block with
-    # delta = 1, where the identity padding's unit pivots must not count;
-    # tolerance 8·b·eps relative to max|L|
-    errs = []
-    for b, reg in ((128, False), (80, False), (44, False), (44, True)):
-        if reg:
-            bad = torch.tensor([3, 20, 43], device=DEV)
-            a, eps, delta = _regularized_spd(b, bad, gen), 1.0, 1.0
-        else:
-            a, eps, delta = _spd(b, gen), 0.0, 0.0
-        (l1, c1, o1), (l2, c2, o2) = (llt_leaf(a, eps=eps, delta=delta),
-                                      llt_leaf_plain(a, eps=eps, delta=delta))
-        torch.cuda.synchronize()
-        tol = 8 * b * EPS32
-        err, rel = _max_rel(l1, l2)
-        errs.append(err)
-        want = (3, False) if reg else (0, True)
-        check(rel <= tol and (int(c1), bool(o1)) == (int(c2), bool(o2)) == want,
-              f"llt_leaf ({b}, {b}){' eps=1 delta=1' if reg else ''}: max abs "
-              f"err {err:.3e}, rel {rel:.3e} <= tol {tol:.3e}, count {int(c1)}, "
-              f"ok {bool(o1)}")
-    blk = _spd(128, gen)
-    res["llt_leaf"] = dict(
-        max_abs_err=max(errs), ms=cuda_ms(lambda: llt_leaf(blk), 50),
-        plain_ms=cuda_ms(lambda: llt_leaf_plain(blk), 3),
-        library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(blk), 50),
-        **bound_of(128 ** 3 / 3, 2 * 128 * 128 * 4))
 
     # lu_leaf: separated pivots, so perm must match exactly; packed within
     # 8·m·eps relative to max|packed|
@@ -909,54 +891,73 @@ def _mirrored(a):
 
 
 def _llt_block_kernels(gen) -> dict:
-    """``llt_block`` and ``llt_block_v3`` (rows 17, 19), one CTA per block,
-    against their plain versions on mirrored SPD blocks (cond ≤ 5) at
-    ``LLT_BLOCKS`` (shared memory up to b = 340, global memory at 512) and
-    on a regularized block (``_regularized_spd`` with eps = delta = 1:
-    three pivots replaced and counted, the first negative): L within 8·b·eps
-    of its largest entry, ‖LLᵀ − A‖/‖A‖ ≤ 8·b·eps in f64, count and ok
-    equal. Timed at b ∈ {128, 256, 512} beside ``cholesky_ex`` and the
-    bound (b³/3 FP32 operations, the block read and L written once); the
-    JSON row keeps b = 128, row 6's shape."""
+    """``llt_leaf``, ``llt_block`` and ``llt_block_v3`` (rows 6, 17, 19), the
+    three wrappers of the one blocked kernel ``csrc/llt_block.cu``, on
+    mirrored SPD blocks (cond ≤ 5) at ``LLT_BLOCKS`` (shared memory up to
+    b = 337, L2 above) and on the regularized blocks ``LLT_REGULARIZED``
+    (``_regularized_spd``: with eps = delta = 1 three pivots replaced and
+    counted; with eps = 0 the first negative pivot becomes 1): L within
+    8·b·eps of its largest entry from each wrapper's plain version and
+    within b·eps from the kernel's own order (``llt_block_blocked_plain``),
+    ‖LLᵀ − A‖/‖A‖ ≤ 8·b·eps in f64, count and ok as wanted, zeros above
+    the diagonal. Timed at b ∈ {128, 256, 512} beside ``cholesky_ex`` two
+    ways: per call (``cuda_ms``, what a caller pays, the host's wrapper
+    included) and on the device (``graph_ms``), with the bound (b³/3 FP32
+    operations, the block read and L written once); the JSON rows keep
+    b = 128, row 6's shape."""
+    from faer_tpu_torch.ops.kernels.leaf import llt_leaf, llt_leaf_plain
     from faer_tpu_torch.ops.kernels.llt_block import (
-        llt_block, llt_block_plain, llt_block_v3, llt_block_v3_plain,
-        staged_in_shared_memory)
+        llt_block, llt_block_blocked_plain, llt_block_plain, llt_block_v3,
+        llt_block_v3_plain, route)
 
-    res = {}
-    for name, kern, plain in (("llt_block", llt_block, llt_block_plain),
-                              ("llt_block_v3", llt_block_v3, llt_block_v3_plain)):
-        errs = []
-        for b, bad in [(b, None) for b in LLT_BLOCKS] + [(128, [3, 20, 77])]:
-            if bad is None:
-                a, reg, want = _mirrored(_spd(b, gen)), {}, (0, True)
-            else:
-                a = _mirrored(_regularized_spd(b, torch.tensor(bad, device=DEV), gen))
-                reg, want = dict(eps=1.0, delta=1.0), (len(bad), False)
+    kernels = {"llt_leaf": (llt_leaf, llt_leaf_plain),
+               "llt_block": (llt_block, llt_block_plain),
+               "llt_block_v3": (llt_block_v3, llt_block_v3_plain)}
+    errs = {name: [] for name in kernels}
+    cases = ([(b, None, 0.0) for b in LLT_BLOCKS]
+             + [(b, bad, eps) for b, bad, eps in LLT_REGULARIZED])
+    for b, bad, eps in cases:
+        if bad is None:
+            a, reg, want = _mirrored(_spd(b, gen)), {}, (0, True)
+        else:
+            a = _mirrored(_regularized_spd(b, torch.tensor(bad, device=DEV), gen))
+            reg = dict(eps=eps, delta=eps)
+            want = (len(bad) if eps > 0 else 0, False)
+        l3, c3, o3 = llt_block_blocked_plain(a, **reg)
+        for name, (kern, plain) in kernels.items():
             (l1, c1, o1), (l2, c2, o2) = kern(a, **reg), plain(a, **reg)
             torch.cuda.synchronize()
             tol = 8 * b * EPS32
             err, rel = _max_rel(l1, l2)
+            _, rel3 = _max_rel(l1, l3)
             l64 = l1.double()
             resid = rel_norm(l64 @ l64.T, a.double())
-            errs.append(err)
+            errs[name].append(err)
             tallies = (int(c1), bool(o1))
-            check(rel <= tol and (bad is not None or resid <= tol)
-                  and tallies == (int(c2), bool(o2)) == want
+            check(rel <= tol and rel3 <= b * EPS32 and (bad is not None or resid <= tol)
+                  and tallies == (int(c2), bool(o2)) == (int(c3), bool(o3)) == want
                   and bool((torch.triu(l1, 1) == 0).all()),
-                  f"{name} b={b}{' eps=1 delta=1' if bad else ''} "
-                  f"[{'shared' if staged_in_shared_memory(b) else 'global'} memory]: "
-                  f"max abs err {err:.3e}, rel {rel:.3e} vs plain, |LLᵀ-A|/|A| "
-                  f"{resid:.3e}, all <= {tol:.3e}; (count, ok) {tallies}; bitwise "
-                  f"equal {torch.equal(l1, l2)}")
-        for b in LLT_BLOCKS[:3]:
-            a = _mirrored(_spd(b, gen))
-            r = dict(max_abs_err=max(errs), ms=cuda_ms(lambda: kern(a), 20),
-                     plain_ms=cuda_ms(lambda: plain(a), 3),
-                     library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(a), 20),
+                  f"{name} b={b}{f' eps=delta={eps:g}' if bad else ''} "
+                  f"[{route(b)}]: max abs err {err:.3e}, rel {rel:.3e} vs plain "
+                  f"(<= {tol:.3e}), {rel3:.3e} vs the blocked order (<= "
+                  f"{b * EPS32:.3e}), |LLᵀ-A|/|A| {resid:.3e}; (count, ok) {tallies}")
+    res = {}
+    for b in LLT_TIMED:
+        a = _mirrored(_spd(b, gen))
+        chol = lambda: torch.linalg.cholesky_ex(a)
+        lib_ms, lib_dev = cuda_ms(chol, 20), graph_ms(chol, LLT_GRAPH_REPS)
+        print(f"time cholesky_ex b={b}: per call {lib_ms:.4f} ms, device "
+              f"{lib_dev:.4f} ms")
+        for name, (kern, plain) in kernels.items():
+            r = dict(max_abs_err=max(errs[name]), ms=cuda_ms(lambda: kern(a), 20),
+                     device_ms=graph_ms(lambda: kern(a), LLT_GRAPH_REPS),
+                     plain_ms=cuda_ms(lambda: plain(a), 3) if b == LLT_TIMED[0] else None,
+                     library_ms=lib_ms, library_device_ms=lib_dev,
                      **bound_of(b ** 3 / 3, 2 * b * b * 4))
-            print(f"time {name} b={b}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, cholesky_ex {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+            print(f"time {name} b={b} [{route(b)}]: per call {r['ms']:.4f} ms, "
+                  f"device {r['device_ms']:.4f} ms; cholesky_ex {lib_ms:.4f} / "
+                  f"{lib_dev:.4f} ms; bound {r['bound_ms']:.6g} ms ({r['bound_by']})"
+                  + ("" if r["plain_ms"] is None else f"; plain {r['plain_ms']:.4f} ms"))
             res.setdefault(name, r)
     return res
 
@@ -1729,9 +1730,11 @@ def phase_panel_lab() -> dict:
 def phase_llt_lab() -> dict:
     """``tools/torch_llt_blocks.py``'s lab on the card: the five LLT calls at
     b ∈ {128, 256, 512}, each residual within 8·b·eps, the regularized block
-    (the three kernels agree on count and ok), the twelve plugged-leaf 4096²
+    (the three wrappers agree on count and ok), the twelve plugged-leaf 4096²
     factors and ``llt_factor``, each within 8·n·eps, and every counter equal
-    to the tool's prediction, ``trtri`` and ``llt_panel`` included."""
+    to the tool's prediction, ``trtri`` and ``llt_panel`` included. The three
+    leaf wrappers launch one kernel (``csrc/llt_block.cu``), so the lab
+    compares leaf widths and block sizes, not leaf designs."""
     lab = _tool("torch_llt_blocks")
     rows, counts, _ = _counted(lambda: (lab.block_lab(LLT_LAB_REPS, LLT_LAB_WARMUP)
                                         + lab.factor_lab(LLT_LAB_REPS, LLT_LAB_WARMUP)))
@@ -1811,7 +1814,7 @@ def main() -> None:
                      "faer_tpu/ops/pallas/lu_panel_v5.py:157"),
         "qr_panel": ("faer_tpu_torch/csrc/qr_panel.cu",
                      "faer_tpu/ops/pallas/qr_panel_v5.py:144"),
-        "llt_leaf": ("faer_tpu_torch/csrc/llt_panel.cu",
+        "llt_leaf": ("faer_tpu_torch/csrc/llt_block.cu",
                      "faer_tpu/ops/pallas/leaf_v4.py:132"),
         "lu_leaf": ("faer_tpu_torch/csrc/lu_panel_batched.cu",
                     "faer_tpu/ops/pallas/leaf_v4.py:228"),

@@ -1,152 +1,491 @@
-// llt_block: unblocked LLT of one (b, b) f32 symmetric block in one CTA,
+// llt_block: blocked LLT of one (b, b) f32 symmetric block in one CTA,
 // b <= 1024.
 //
-// Replaces: faer_tpu/ops/pallas/panel_kernels.py `llt_block_pallas` (:151,
-// body `_llt_block_kernel` :116) at SB = 1, and `llt_block_v3_pallas` (:586,
-// body `_llt_block_v3_kernel` :530) at SB = 8. Contract: out = L (lower,
-// zeros above), cnt_ok = {regularization count, every pivot > 0}, with
-// (eps, delta) applied per pivot as at :126-133 and :556-563.
+// Replaces three Pallas functions that compute the same function in other
+// orders of rounding: faer_tpu/ops/pallas/panel_kernels.py
+// `llt_block_pallas` (:151, body `_llt_block_kernel` :116) and
+// `llt_block_v3_pallas` (:586, body `_llt_block_v3_kernel` :530), and
+// faer_tpu/ops/pallas/leaf_v4.py `llt_block_v4_pallas` (:132, body :73).
+// Contract: out = L (lower, zeros above); cnt_ok = {regularization count as
+// an int32, then one byte: every pivot > 0}. Only the lower triangle of a is
+// read. Per pivot, as at panel_kernels.py:126-133: ok &= pj > 0 before any
+// replacement; with use_eps a pivot <= delta becomes eps and is counted;
+// without, a pivot <= 0 becomes 1.
 //
-// What bounds it on the H100: neither bytes (2 b^2 floats) nor FLOPs (b^3/3)
-// but the chain of b dependent pivots, each a square root, a divide and an
-// update that the next pivot reads. The Pallas kernels are one program with
-// no grid over a block resident in VMEM; here one CTA walks the chain, and
-// every step costs barriers.
+// What bounds it on the H100: b^3/3 FP32 operations (88 us at b = 512 on
+// one SM's share of the 67 TFLOP/s), the chain of b dependent pivots (each
+// a reciprocal square root, a product and an update that the next pivot
+// reads), and the shared-memory reads that feed the FFMAs. The bytes
+// (2 b^2 floats) are nothing. The earlier unblocked kernel paid two block
+// barriers a column; this one pays three a 32-column panel.
 //
-// Design: one CTA of 512 threads holds the lower triangle column-major:
-// packed in shared memory when b(b+1)/2 floats fit the 227 KiB a CTA can
-// use (b <= 340), else in a b x b global-memory scratch that stays in L2
-// (4 MiB at b = 1024). Per column j every thread reads the pivot, the CTA
-// scales column j (IEEE divide, as `colj / piv`), and after a barrier:
-//  - SB = 1 (v1): the trailing lower triangle gets the rank-1 update
-//    L[r, c] -= L[c, j] * L[r, j], the product rounded, then subtracted, as
-//    `o - col * colT`;
-//  - SB = 8 (v3): the rest of the 8-column sub-block gets the same eager
-//    update, and once per sub-block the trailing lower triangle gets
-//    L[r, c] -= sum_k L[c, k] L[r, k] over its 8 columns, an FFMA chain in
-//    place of the body's HIGHEST dot.
-// The update maps a warp to a column and its lanes to consecutive rows, so
-// loads are unit-stride in either memory. The diagonal entry is written by
-// thread 0 after the barrier, when no thread reads it. FP32 only, no TF32.
+// Design: one CTA of 512 threads walks the block in 32-column panels,
+// right-looking:
+//  1. the 32 x 32 diagonal tile is factored by one warp in registers, lane
+//     i holding row i. Row j + 1's pivot needs only that row's own entries
+//     (its diagonal is kept in a register of its own), so it is formed and
+//     shuffled to the warp first; the scaled column j
+//     then goes to the other lanes through a 32-float shared buffer, four
+//     entries a load, for the rest of the rank-1 update. No block barrier
+//     inside the 32-pivot chain;
+//  2. the rows below the tile are solved against it by substitution
+//     (L21 = A21 L11^-T, no explicit inverse; the divide by L[j][j] is a
+//     product with 1/sqrt(pivot j), kept from step 1): G threads share a
+//     row (G = 8, 4, 2 or 1, the most that keep every row in one pass of
+//     512 threads), each owning the columns j = q (mod G), each finished x_j
+//     shuffled within the group;
+//  3. the trailing lower triangle gets the rank-32 update C -= P P^T, an
+//     FFMA chain from C over the 32 panel columns. Lookahead: all threads
+//     update the next diagonal tile first, then warp 0 factors it (step 1
+//     of the next panel) while warps 1..15 update the rest, one 128 x 8
+//     tile each: lane l holds rows l, l + 32, l + 64, l + 96 and the 8
+//     columns are the same across the warp, so the row reads are
+//     unit-stride and the column reads two aligned float4 broadcasts, with
+//     no bank conflicts.
+// Three block barriers a panel: after step 2, after the next tile's update
+// and after step 3 (10 at b = 128 with the first tile's, against 256 in
+// the unblocked kernel).
+//
+// Routes, fixed by b (no route gives way to another at run time):
+//  - b <= 337 (shared): the lower triangle, column-major, in shared memory,
+//    packed with each column's row 0 at a 16-byte boundary (at most 3 floats
+//    of padding a column, and 32 at the end), so that the panel's column
+//    reads are float4; every step works there.
+//  - 338 <= b <= 1024 (L2): the lower triangle lives column-major in the
+//    output buffer itself (L's column c in out's row c, 4 MiB at 1024, in
+//    L2), and each panel's 32 columns and diagonal tile are copied to
+//    shared memory as the solve writes them, so the update reads the panel
+//    from shared memory and streams C through L2 once a panel (16 passes at
+//    512, against the unblocked kernel's 512 (v1) and 64 (v3)).
+//    Warp-private 32 x 33 tiles stage the block in and transpose it back in
+//    place at the end, with zeros above the diagonal, so that every global
+//    access is coalesced.
+//    A thread-block cluster with the triangle dealt over its CTAs' shared
+//    memory would also split the FMAs over SMs; it was left for a later
+//    change: eight portable CTAs do not hold a 1024 triangle, so the L2
+//    route is needed in any case, and one route covers 338..1024.
+// The unblocked kernel's sub-block template (1 for v1, 8 for v3) meant the
+// order of rounding only; this kernel has one order, so the entry point no
+// longer takes it. FP32 only, no TF32.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kNb = 32;                 // panel width
 constexpr int kMaxB = 1024;
-constexpr size_t kSmemBytes = 232448;  // 227 KiB
+constexpr int kSmemBytes = 232448;      // 227 KiB
+constexpr int kTileLd = 33;             // padded 32 x 32 tile
+constexpr int kTileFloats = 32 * kTileLd;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+constexpr size_t kStaticBytes = 3 * kNb * sizeof(float);  // rs and cb
 
-// The lower triangle, column-major: element (r, c), r >= c, at col(c)[r].
+// Offset of column c's row 0 in the shared route's packed layout: the
+// packed offset plus up to 3c + 3 floats, rounded to a multiple of 4.
+// Column c holds rows c .. b - 1, and never reaches column c + 1's row c + 1.
+__host__ __device__ inline int packed_col(int c, int b) {
+  return (c * b - c * (c - 1) / 2 + 2 * c + 3) & ~3;
+}
+
+// Floats of the shared route's layout: the last column's end and 32 floats
+// that a float4 read past the last row may touch.
+__host__ __device__ inline int packed_floats(int b) {
+  return packed_col(b - 1, b) + b + 32;
+}
+
+// The lower triangle, column-major: element (r, c), r >= c, at col(c)[r]:
+// packed in shared memory, or with column stride b in global memory.
 struct Lower {
   float* base;
   int b;
   bool packed;
   __device__ __forceinline__ float* col(int c) const {
-    const long long cc = c;
-    return packed ? base + (cc * b - cc * (cc - 1) / 2 - cc) : base + cc * b;
+    return base + (packed ? packed_col(c, b) : c * b);
   }
 };
 
-template <int SB>
+// Shared memory of the L2 route: the panel (32 columns of b rows, column
+// stride panel_ld(b), a multiple of 8 so that 8 columns' entries of a row
+// are two aligned float4), also room for 16 warp tiles while staging, then
+// the diagonal tile.
+__host__ __device__ inline int panel_ld(int b) { return (b + 7) & ~7; }
+__host__ __device__ inline int panel_floats(int b) {
+  return 32 * panel_ld(b) > kWarps * kTileFloats ? 32 * panel_ld(b)
+                                                 : kWarps * kTileFloats;
+}
+
+// Column kk of the panel at k0, indexed by row: in place on the shared
+// route, the copy in sp on the L2 route. Row 0 sits on a 16-byte boundary.
+template <bool kStaged>
+__device__ __forceinline__ const float* panel_col(const Lower& L, const float* sp,
+                                                  int k0, int kk) {
+  return kStaged ? L.col(k0 + kk) : sp + kk * panel_ld(L.b);
+}
+
+// Row I >= column J of the t-th lower 32 x 32 tile, t = I (I + 1) / 2 + J.
+__device__ __forceinline__ void tile_of(int t, int& I, int& J) {
+  I = (int)((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+  while ((I + 1) * (I + 2) / 2 <= t) ++I;
+  while (I * (I + 1) / 2 > t) --I;
+  J = t - I * (I + 1) / 2;
+}
+
+// L2 route, staging: the lower triangle of a (row-major, stride lda) into
+// out column-major (out[c * b + r] = a[r][c], r >= c).
+__device__ void stage_in_l2(const float* __restrict__ a, int lda, float* out,
+                            int b, float* tile, int warp, int lane) {
+  const int nt = (b + 31) / 32, pairs = nt * (nt + 1) / 2;
+  for (int t = warp; t < pairs; t += kWarps) {
+    int I, J;
+    tile_of(t, I, J);
+    const int c = J * 32 + lane;
+    float v[32];  // all 32 loads in flight before the first store
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = I * 32 + i;
+      v[i] = (r < b && c < b) ? a[(size_t)r * lda + c] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tile[i * kTileLd + lane] = v[i];
+    __syncwarp();
+    const int r = I * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int cj = J * 32 + j;
+      if (r < b && cj <= r) out[(size_t)cj * b + r] = tile[lane * kTileLd + j];
+    }
+    __syncwarp();
+  }
+}
+
+// L2 route, the end: out holds L column-major (L's column c in row c, on
+// and right of the diagonal); transpose it in place to row-major with zeros
+// above the diagonal. Each warp owns a pair of tiles, (I, J) and (J, I).
+__device__ void unstage_l2(float* out, int b, float* tile, int warp, int lane) {
+  const int nt = (b + 31) / 32, pairs = nt * (nt + 1) / 2;
+  for (int t = warp; t < pairs; t += kWarps) {
+    int I, J;
+    tile_of(t, I, J);
+    const int ci = I * 32 + lane;  // a row of L, read along out's row J*32+j
+    float v[32];  // all 32 loads in flight before the first store
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int rj = J * 32 + j;
+      v[j] = (rj < b && ci < b) ? out[(size_t)rj * b + ci] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) tile[j * kTileLd + lane] = v[j];
+    __syncwarp();
+    const int c = J * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = I * 32 + i;
+      if (r < b && c < b) out[(size_t)r * b + c] = c <= r ? tile[lane * kTileLd + i] : 0.0f;
+    }
+    if (I != J) {  // the source tile lies above the diagonal: zeros
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int rj = J * 32 + j;
+        if (rj < b && ci < b) out[(size_t)rj * b + ci] = 0.0f;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Step 3 for the next diagonal tile (rows and columns k1 .. k1 + 31), by
+// all 512 threads, two entries each: thread t owns row k1 + t / 16 and
+// columns k1 + 2 (t % 16) + {0, 1}; the same FFMA chain from C as
+// update_trailing, written back in place (lower entries only).
+template <bool kStaged>
+__device__ void update_tile(const Lower& L, const float* sp, int k0, int tid) {
+  const int b = L.b, k1 = k0 + kNb, r = k1 + (tid >> 4), c0 = k1 + 2 * (tid & 15);
+  const int rc = min(r, b - 1);
+  float acc0 = L.col(min(c0, b - 1))[rc], acc1 = L.col(min(c0 + 1, b - 1))[rc];
+#pragma unroll 8
+  for (int kk = 0; kk < kNb; ++kk) {
+    const float* p = panel_col<kStaged>(L, sp, k0, kk);
+    const float av = p[rc];
+    const float2 v = reinterpret_cast<const float2*>(p + c0)[0];
+    acc0 = fmaf(-av, v.x, acc0);
+    acc1 = fmaf(-av, v.y, acc1);
+  }
+  if (r < b) {
+    if (c0 <= r) L.col(c0)[r] = acc0;
+    if (c0 + 1 <= r) L.col(c0 + 1)[r] = acc1;
+  }
+}
+
+// Step 1: warp 0 factors the diagonal tile at k1 (w <= 32 columns) in
+// registers, lane i holding row i. Writes L11 to its home and, on the L2
+// route, to sd (row-major, stride kTileLd); rs[j] = 1/sqrt(pivot j), by
+// which column j was scaled. Every load is clamped into the block, every
+// store masked; entries above the diagonal are updated too (they feed only
+// entries above it) and never stored.
+template <bool kStaged>
+__device__ void factor_tile(const Lower& L, float* sd, float* rs, float (*cb)[kNb],
+                            int k1, int w, int lane, float eps, float delta,
+                            int use_eps, int& cnt, int& ok) {
+  const int i = lane, b = L.b;
+  const bool live = i < w;
+  const int ri = min(k1 + i, b - 1);
+  float x[kNb];
+#pragma unroll
+  for (int c = 0; c < kNb; ++c) x[c] = L.col(min(k1 + c, b - 1))[ri];
+  // the lane's own diagonal entry, kept apart (x[i] needs a dynamic index):
+  // it needs only the lane's own entries, so the pivot chain runs through
+  // registers and shuffles alone, beside the column broadcast
+  float dg = L.col(min(k1 + i, b - 1))[ri];
+  float pj = __shfl_sync(kFull, x[0], 0);
+#pragma unroll
+  for (int j = 0; j < kNb; ++j) {
+    if (j < w) {  // uniform across the warp
+      const bool needs = pj <= delta;
+      ok &= pj > 0.0f;
+      cnt += use_eps && needs;
+      if (use_eps ? needs : pj <= 0.0f) pj = use_eps ? eps : 1.0f;  // 1: keep finite
+      const float r = rsqrtf(pj);  // one MUFU op on the chain, not a divide
+      if (i == j) {
+        x[j] = pj * r;
+        rs[j] = r;
+      } else {
+        x[j] *= r;
+      }
+      dg = fmaf(-x[j], x[j], dg);  // the same FMA as x[i] gets below
+      if (j + 1 < kNb) pj = __shfl_sync(kFull, dg, j + 1);
+      float* col = cb[j & 1];  // lane c's L[c][j] at col[c]
+      col[i] = x[j];
+      __syncwarp();
+#pragma unroll
+      for (int c4 = (j + 1) / 4; c4 < kNb / 4; ++c4) {
+        const float4 v = reinterpret_cast<const float4*>(col)[c4];
+        const float lc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * c4 + u > j) x[4 * c4 + u] = fmaf(-x[j], lc[u], x[4 * c4 + u]);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < kNb; ++c) {
+      if (c <= i) {
+        L.col(k1 + c)[k1 + i] = x[c];
+        if (!kStaged) sd[i * kTileLd + c] = x[c];
+      }
+    }
+  }
+}
+
+// L11[j][c] (c <= j) of the panel at k0: from its home in shared memory, or
+// from sd on the L2 route.
+template <bool kStaged>
+__device__ __forceinline__ float diag_at(const Lower& L, const float* sd, int k0,
+                                         int j, int c) {
+  return kStaged ? L.col(k0 + c)[k0 + j] : sd[j * kTileLd + c];
+}
+
+// Step 2: rows k0 + 32 .. b - 1 of the panel's 32 columns solved against
+// L11 by substitution, G threads a row. On the L2 route each result also
+// goes to the shared panel sp (column c at sp + c * panel_ld(b), indexed
+// by row).
+template <int G, bool kStaged>
+__device__ void solve_rows(const Lower& L, const float* sd, const float* rs,
+                           float* sp, int k0, int tid) {
+  constexpr int M = kNb / G;
+  const int b = L.b, q = tid & (G - 1);
+  for (int r0 = k0 + kNb; r0 < b; r0 += kThreads / G) {  // uniform
+    const int r = r0 + tid / G;
+    const int rc = min(r, b - 1);
+    float x[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) x[m] = L.col(k0 + q + G * m)[rc];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j) {
+      const int mj = j / G, oj = j % G;
+      float xj = x[mj] * rs[j];  // x_j = a_j / L[j][j]
+      if constexpr (G > 1) xj = __shfl_sync(kFull, xj, oj, G);  // the owner's
+      if (q == oj) x[mj] = xj;
+#pragma unroll
+      for (int m = mj; m < M; ++m) {
+        const int c = q + G * m;
+        if (c > j) x[m] = fmaf(-xj, diag_at<kStaged>(L, sd, k0, c, j), x[m]);
+      }
+    }
+    if (r < b) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int c = q + G * m;
+        L.col(k0 + c)[r] = x[m];
+        if (!kStaged) sp[c * panel_ld(b) + r] = x[m];
+      }
+    }
+  }
+}
+
+// Step 3 without the next diagonal tile (warp 0's): the trailing lower
+// triangle (rows and columns k1 .. b - 1, k1 = k0 + 32) minus P P^T, by
+// warps 1 .. 15. Row tile rt covers 128 rows and needs column groups of 8
+// up to its last row: min(ncg, 16 (rt + 1)). Loads are clamped into the
+// block, stores masked.
+template <bool kStaged>
+__device__ void update_trailing(const Lower& L, const float* sp, int k0, int warp,
+                                int lane) {
+  const int b = L.b, k1 = k0 + kNb, n2 = b - k1;
+  const int ncg = (n2 + 7) / 8, nrt = (n2 + 127) / 128;
+  // warps 4, 8 and 12 share a scheduler with warp 0, which factors the next
+  // tile meanwhile: they take tiles only when 12 warps do not cover them
+  int t = (warp & 3) ? warp - 1 - (warp >> 2) : 11 + (warp >> 2), first = 0;
+  for (int rt = 0; rt < nrt; ++rt) {
+    const int tiles = min(ncg, 16 * (rt + 1));
+    for (; t < first + tiles; t += kWarps - 1) {
+      const int cg = t - first;
+      const int rbase = k1 + rt * 128 + lane, c0 = k1 + cg * 8;
+      const int i0 = (rt == 0 && cg < kNb / 8) ? 1 : 0;  // rows of the next tile
+      // acc starts from C, loaded before the products so that its latency
+      // (L2 on that route) overlaps them; then one FFMA a product
+      float acc[4][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* cc = L.col(min(c0 + j, b - 1));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = cc[min(rbase + 32 * i, b - 1)];
+      }
+#pragma unroll 8
+      for (int kk = 0; kk < kNb; ++kk) {
+        const float* p = panel_col<kStaged>(L, sp, k0, kk);
+        float av[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = p[min(rbase + 32 * i, b - 1)];
+        const float4 u = reinterpret_cast<const float4*>(p + c0)[0];
+        const float4 v = reinterpret_cast<const float4*>(p + c0)[1];
+        const float bv[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(-av[i], bv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + j;
+        if (c >= b) break;
+        float* cc = L.col(c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rbase + 32 * i;
+          if (i >= i0 && r < b && r >= c) cc[r] = acc[i][j];
+        }
+      }
+    }
+    first += tiles;
+  }
+}
+
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-llt_block_kernel(const float* __restrict__ a, int lda, float* __restrict__ out,
-                 float* work, int* cnt_ok, int b, float eps, float delta,
+llt_block_kernel(const float* __restrict__ a, int lda, float* out,
+                 unsigned char* cnt_ok, int b, float eps, float delta,
                  int use_eps) {
-  extern __shared__ float smem[];
-  const bool packed = work == nullptr;
-  const Lower L{packed ? smem : work, b, packed};
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float rs[kNb];
+  __shared__ __align__(16) float cb[2][kNb];
+  const Lower L{kStaged ? smem : out, b, kStaged};
+  float* sp = smem;  // L2 route: the panel, or the warp tiles while staging
+  float* sd = kStaged ? nullptr : smem + panel_floats(b);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int r = idx / b, c = idx - r * b;
-    if (c <= r) L.col(c)[r] = a[(size_t)r * lda + c];
+  // the shared route walks the (b, b) block row-major, thread tid at
+  // element tid + 512 k, its (row, column) advanced without a divide
+  const int step_r = kThreads / b, step_c = kThreads - step_r * b;
+  if (kStaged) {  // 16 loads in flight a thread before their stores
+    int r = tid / b, c = tid - (tid / b) * b;
+    while (r < b) {
+      float v[16];
+      int rr[16], cc[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        rr[u] = r, cc[u] = c;
+        v[u] = (r < b && c <= r) ? a[(size_t)r * lda + c] : 0.0f;
+        r += step_r, c += step_c;
+        if (c >= b) c -= b, ++r;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (rr[u] < b && cc[u] <= rr[u]) L.col(cc[u])[rr[u]] = v[u];
+    }
+  } else {
+    stage_in_l2(a, lda, out, b, smem + warp * kTileFloats, warp, lane);
   }
   __syncthreads();
 
-  int cnt = 0, ok = 1;  // every thread tallies alike; thread 0 stores them
-  for (int s0 = 0; s0 < b; s0 += SB) {
-    const int s1 = min(s0 + SB, b);
-    for (int j = s0; j < s1; ++j) {
-      float* cj = L.col(j);
-      float pj = cj[j];
-      const bool needs = pj <= delta;
-      ok &= pj > 0.0f;
-      if (use_eps) {
-        if (needs) {
-          pj = eps;
-          ++cnt;
-        }
-      } else if (pj <= 0.0f) {
-        pj = 1.0f;  // keep finite
-      }
-      const float piv = __fsqrt_rn(pj);
-      for (int r = j + 1 + tid; r < b; r += kThreads)
-        cj[r] = __fdiv_rn(cj[r], piv);
-      __syncthreads();
-      if (tid == 0) cj[j] = piv;
-      if (j + 1 < s1) {  // eager update of the sub-block's later columns
-        for (int r = j + 1 + tid; r < b; r += kThreads) {
-          const float lrj = cj[r];
-          const int cend = min(r, s1 - 1);
-          for (int c = j + 1; c <= cend; ++c) {
-            float* cc = L.col(c);
-            cc[r] = __fsub_rn(cc[r], __fmul_rn(cj[c], lrj));
-          }
-        }
-        __syncthreads();
-      }
-    }
-    if (s1 < b) {  // a full sub-block: update the trailing lower triangle
-      for (int c = s1 + warp; c < b; c += kWarps) {
-        float lc[SB];
-#pragma unroll
-        for (int k = 0; k < SB; ++k) lc[k] = L.col(s0 + k)[c];
-        float* cc = L.col(c);
-        for (int r = c + lane; r < b; r += 32) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < SB; ++k) acc = fmaf(lc[k], L.col(s0 + k)[r], acc);
-          cc[r] = __fsub_rn(cc[r], acc);
-        }
-      }
-      __syncthreads();
-    }
+  int cnt = 0, ok = 1;  // warp 0 tallies alike; thread 0 stores them
+  if (warp == 0)
+    factor_tile<kStaged>(L, sd, rs, cb, 0, min(kNb, b), lane, eps, delta, use_eps,
+                         cnt, ok);
+  __syncthreads();
+  for (int k0 = 0; k0 + kNb < b; k0 += kNb) {
+    const int k1 = k0 + kNb, nt = b - k1;
+    if (nt <= kThreads / 8) solve_rows<8, kStaged>(L, sd, rs, sp, k0, tid);
+    else if (nt <= kThreads / 4) solve_rows<4, kStaged>(L, sd, rs, sp, k0, tid);
+    else if (nt <= kThreads / 2) solve_rows<2, kStaged>(L, sd, rs, sp, k0, tid);
+    else solve_rows<1, kStaged>(L, sd, rs, sp, k0, tid);
+    __syncthreads();
+    update_tile<kStaged>(L, sp, k0, tid);  // the next tile first, by all
+    __syncthreads();
+    if (warp == 0)
+      factor_tile<kStaged>(L, sd, rs, cb, k1, min(kNb, nt), lane, eps, delta,
+                           use_eps, cnt, ok);
+    else
+      update_trailing<kStaged>(L, sp, k0, warp, lane);
+    __syncthreads();
   }
-  __syncthreads();  // the last diagonal entry
 
-  for (int idx = tid; idx < b * b; idx += kThreads) {
-    const int r = idx / b, c = idx - r * b;
-    out[idx] = (c <= r) ? L.col(c)[r] : 0.0f;
+  if (kStaged) {
+    for (int r = tid / b, c = tid - (tid / b) * b; r < b;) {
+      out[(size_t)r * b + c] = c <= r ? L.col(c)[r] : 0.0f;
+      r += step_r, c += step_c;
+      if (c >= b) c -= b, ++r;
+    }
+  } else {
+    unstage_l2(out, b, smem + warp * kTileFloats, warp, lane);
   }
   if (tid == 0) {
-    cnt_ok[0] = cnt;
-    cnt_ok[1] = ok;
+    *reinterpret_cast<int*>(cnt_ok) = cnt;
+    cnt_ok[4] = (unsigned char)ok;
   }
 }
 
 }  // namespace
 
 // a: (b, b) f32 with row stride lda (lower triangle read); out: (b, b)
-// contiguous; work: b * b floats of scratch, or null when the packed lower
-// triangle fits shared memory; cnt_ok: int[2]; sb: 1 (v1) or 8 (v3); all on
-// the current device (the caller selects it). Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int faer_llt_block(const float* a, int lda, float* out, float* work,
-                              int* cnt_ok, int b, int sb, float eps,
-                              float delta, int use_eps, void* stream) {
-  if (b < 1 || b > kMaxB || lda < b || (sb != 1 && sb != 8))
-    return cudaErrorInvalidValue;
-  const size_t packed = (size_t)b * (b + 1) / 2 * sizeof(float);
-  const bool staged = packed <= kSmemBytes;
-  if (!staged && work == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = staged ? packed : 0;
-  void (*kern)(const float*, int, float*, float*, int*, int, float, float, int) =
-      sb == 1 ? llt_block_kernel<1> : llt_block_kernel<8>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// contiguous, also the L2 route's scratch; cnt_ok: 8 bytes, the count as an
+// int32 at 0 and ok as one byte at 4; all on the current device (the caller
+// selects it). Returns the CUDA error of the launch (0 on success).
+extern "C" int faer_llt_block(const float* a, int lda, float* out,
+                              void* cnt_ok, int b, float eps, float delta,
+                              int use_eps, void* stream) {
+  if (b < 1 || b > kMaxB || lda < b) return cudaErrorInvalidValue;
+  const size_t staged_bytes = (size_t)packed_floats(b) * sizeof(float);
+  const bool staged = staged_bytes + kStaticBytes <= (size_t)kSmemBytes;
+  const size_t smem = staged ? staged_bytes
+                             : (size_t)(panel_floats(b) + kTileFloats) * sizeof(float);
+  void (*kern)(const float*, int, float*, unsigned char*, int, float, float, int) =
+      staged ? llt_block_kernel<true> : llt_block_kernel<false>;
+  // the dynamic shared-memory ceiling is raised to what the 227 KiB leave
+  // beside the static rs and cb, once per device and route, not on every call
+  static bool raised[kMaxDevices][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !raised[dev][staged]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes - (int)kStaticBytes);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) raised[dev][staged] = true;
+  }
   kern<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      a, lda, out, staged ? nullptr : work, cnt_ok, b, eps, delta, use_eps);
+      a, lda, out, static_cast<unsigned char*>(cnt_ok), b, eps, delta, use_eps);
   return cudaGetLastError();
 }

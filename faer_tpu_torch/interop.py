@@ -19,7 +19,7 @@ def _scalar(x, dtype, device):
     return torch.tensor(np.asarray(x)).to(dtype=dtype, device=device)
 
 
-def llt_from_numpy(l, count, success, device="cpu"):
+def llt_from_numpy(l, count, success, device="cuda"):
     """``(L, LltInfo)`` on ``device`` from the numpy outputs of ``llt_factor``."""
     info = LltInfo(dynamic_regularization_count=_scalar(count, torch.int32, device),
                    success=_scalar(success, torch.bool, device))
@@ -33,7 +33,7 @@ def llt_to_numpy(l, info: LltInfo):
             info.success.cpu().numpy())
 
 
-def lu_from_numpy(lu, perm, nt, success, device="cpu"):
+def lu_from_numpy(lu, perm, nt, success, device="cuda"):
     """``(lu, perm, LuInfo)`` on ``device`` from the numpy outputs of
     ``lu_in_place``; ``perm`` becomes an int64 index tensor."""
     info = LuInfo(transposition_count=_scalar(nt, torch.int32, device),
@@ -49,7 +49,7 @@ def lu_to_numpy(lu, perm, info: LuInfo):
             info.transposition_count.cpu().numpy(), info.success.cpu().numpy())
 
 
-def qr_from_numpy(packed, t_stack, block, device="cpu"):
+def qr_from_numpy(packed, t_stack, block, device="cuda"):
     """``(packed, t_stack, block)`` on ``device`` from the numpy outputs of
     ``qr_in_place``."""
     return (torch.tensor(np.asarray(packed)).to(device),
@@ -62,7 +62,7 @@ def qr_to_numpy(packed, t_stack, block):
             int(block))
 
 
-def tridiag_from_numpy(d, e, hh, taus, device="cpu"):
+def tridiag_from_numpy(d, e, hh, taus, device="cuda"):
     """``(d, e, hh, taus)`` on ``device`` from the numpy outputs of
     ``tridiag_in_place``, so either package's reflectors can be applied by
     the port's ``tridiag_apply_q``."""

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "faer_qr_panel": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "faer_tridiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "faer_bidiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "faer_llt_block": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "faer_llt_block": [_P, _I, _P, _P, _I, _F, _F, _I, _P],
     "faer_chase_probe": [_P, _P, _I, _I, _I, _P],
 }
 

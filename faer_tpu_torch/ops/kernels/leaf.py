@@ -10,24 +10,23 @@ Counterparts of ``faer_tpu/ops/pallas/leaf_v4.py``:
   Householder QR of an (m, b) panel, which no driver calls (as in the JAX
   package: its callers are the panel-lab tools).
 
-Each computes the same function as a fused panel kernel the port already
-has: the v4 and v5 kernels differ only in their sub-block width (8 against
-16 or 32) and their coupling dots, that is, in the order of rounding. So
-each launches the existing CUDA code (``csrc/lu_panel_batched.cu``,
-``csrc/llt_panel.cu`` with m = b, ``csrc/qr_panel.cu``), behind its own
-launch counter, and each plain version is the fused panel's plain version
-at the v4 sub-block width (``sb = 8``; ``qr_leaf`` takes it as an argument,
-as its Pallas kernel does). ``llt_panel.cu`` factors 32-wide sub-blocks, so
-a ragged leaf (b not a multiple of 32) is padded with an identity diagonal:
-the Cholesky factor of blockdiag(A, I) is blockdiag(L, I).
+Each computes the same function as a kernel the port already has: the v4
+and v5 kernels differ only in their sub-block width (8 against 16 or 32)
+and their coupling dots, that is, in the order of rounding. So each
+launches existing CUDA code behind its own launch counter: ``lu_leaf``
+``csrc/lu_panel_batched.cu``, ``qr_leaf`` ``csrc/qr_panel.cu``, and
+``llt_leaf`` the blocked diagonal-block kernel ``csrc/llt_block.cu``
+(through ``llt_block.launch``, as ``llt_block`` and ``llt_block_v3`` do),
+which takes any b up to 1024 as it is: no padding, no inverse. Each plain
+version is the fused panel's plain version at the v4 sub-block width
+(``sb = 8``; ``qr_leaf`` takes it as an argument, as its Pallas kernel
+does).
 """
 from __future__ import annotations
 
-import torch
-
 from faer_tpu_torch.core.config import count_launch
-from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels import _build
+from faer_tpu_torch.ops.kernels import llt_block as _blk
 from faer_tpu_torch.ops.kernels import llt_panel as _llt
 from faer_tpu_torch.ops.kernels import lu_panel as _lu
 from faer_tpu_torch.ops.kernels import qr_panel as _qr
@@ -41,33 +40,17 @@ def llt_leaf_plain(block, *, eps: float = 0.0, delta: float = 0.0):
 
 
 def llt_leaf(block, *, eps: float = 0.0, delta: float = 0.0):
-    """Regularized LLT of a (b, b) float32 symmetric block, 1 ≤ b ≤ 512.
+    """Regularized LLT of a (b, b) float32 symmetric block.
 
     Only the lower triangle is read. Returns ``(L, count, ok)``: L lower
     triangular, the dynamic-regularization count (int32) and whether every
-    pivot was positive (bool). On a CUDA tensor the rows must be contiguous.
+    pivot was positive (bool). On a CUDA tensor b must be at most
+    ``llt_block.MAX_B`` (1024) and the rows contiguous (any row stride).
     """
-    _build.check_f32_matrix(block, "llt_leaf")
-    b = block.shape[0]
-    if block.shape[1] != b or b < 1:
-        raise ShapeError(f"llt_leaf: needs a square block, got {tuple(block.shape)}")
+    _blk.check_block(block, "llt_leaf")
     if block.device.type == "cpu":
         return llt_leaf_plain(block, eps=eps, delta=delta)
-    if b > _llt.MAX_B:
-        raise ShapeError(f"llt_leaf: b must be ≤ {_llt.MAX_B}, got {b}")
-    bp = -(-b // _llt.SUB_BLOCK) * _llt.SUB_BLOCK
-    if bp == b:
-        res = _llt.launch(block, eps, delta)
-    else:
-        padded = block.new_zeros((bp, bp))
-        padded[:b, :b] = block
-        padded.diagonal()[b:] = 1.0
-        out, cnt, ok = _llt.launch(padded, eps, delta)
-        # the padded pivots are exactly 1: positive, and counted only when
-        # regularization replaces pivots ≤ delta with delta ≥ 1
-        if eps > 0 and delta >= 1.0:
-            cnt = cnt - (bp - b)
-        res = out[:b, :b], cnt, ok
+    res = _blk.launch(block, eps, delta, "llt_leaf")
     count_launch("llt_leaf")
     return res
 

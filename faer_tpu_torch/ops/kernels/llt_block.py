@@ -1,4 +1,4 @@
-"""Kernels 17 and 19: the unblocked LLT of one (b, b) diagonal block.
+"""Kernels 17 and 19 (and 6): the LLT of one (b, b) diagonal block.
 
 Counterparts of ``faer_tpu/ops/pallas/panel_kernels.py``:
 
@@ -22,10 +22,17 @@ so the padding changes nothing; neither route here pads.
 The plain versions follow the two bodies: v1 reads column j and row j of
 the full storage (the two agree on a symmetric block); v3 works in
 transposed storage (rows hold L's columns) and returns ``tril(out.T)``.
-Both wrappers launch one CUDA kernel (``csrc/llt_block.cu``), one CTA per
-block as the Pallas kernels are one program with no grid, templated on the
-sub-block width: 1 for v1, 8 for v3. It reads the lower triangle only (the
-contract's block is symmetric, so that is the bodies' column read).
+
+On a CUDA tensor both wrappers, and ``leaf.llt_leaf`` (``llt_block_v4_pallas``,
+the same function again), launch one blocked kernel,
+``csrc/llt_block.cu``, through :func:`launch`, each behind its own launch
+counter: one CTA a block, as the Pallas kernels are one program with no
+grid, walking 32-column panels (a warp-register diagonal tile, a
+substitution solve of the rows below it, a rank-32 update of the trailing
+lower triangle). It reads the lower triangle only. Its order of rounding is
+neither body's: :func:`llt_block_blocked_plain` follows it, for the tests;
+no wrapper runs it. Blocks up to b = 337 stay in shared memory, larger ones
+(to 1024) in an L2-resident copy in the output (:func:`route`).
 """
 from __future__ import annotations
 
@@ -36,17 +43,35 @@ from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels import _build
 
 MAX_B = 1024  # the largest block the CUDA route takes
-V1_SUB_BLOCK, V3_SUB_BLOCK = 1, 8  # the kernel's template widths
+V3_SUB_BLOCK = 8  # the v3 body's sub-block width
 V3_ROW_CHUNK = 128  # the v3 body's rows per cross-sub-block product
-# a CTA's shared memory on the H100 (227 KiB); a block whose packed lower
-# triangle fits there is staged in it, a larger one stays in global memory
+PANEL = 32  # the kernel's panel width
+# a CTA's shared memory on the H100 (227 KiB), of which the kernel's static
+# arrays take STATIC_BYTES; a block whose lower triangle fits the rest in
+# the kernel's packed layout is staged in it, a larger one stays in L2
 SMEM_BYTES = 232448
+STATIC_BYTES = 3 * PANEL * 4
+
+
+def _packed_floats(b: int) -> int:
+    """Floats of the kernel's shared-memory layout of a (b, b) block: the
+    packed lower triangle, column-major, each column's row 0 on a 16-byte
+    boundary, and 32 floats past the end (``csrc/llt_block.cu``
+    ``packed_floats``)."""
+    c = b - 1
+    return ((c * b - c * (c - 1) // 2 + 2 * c + 3) & ~3) + b + 32
 
 
 def staged_in_shared_memory(b: int) -> bool:
-    """Whether the kernel keeps a (b, b) block's packed lower triangle in
-    shared memory (b ≤ 340), else in a global-memory scratch."""
-    return b * (b + 1) // 2 * 4 <= SMEM_BYTES
+    """Whether the kernel keeps a (b, b) block in shared memory (b ≤ 337),
+    else in an L2-resident global-memory scratch."""
+    return _packed_floats(b) * 4 + STATIC_BYTES <= SMEM_BYTES
+
+
+def route(b: int) -> str:
+    """The kernel's route for a (b, b) block: ``"shared"`` (b ≤ 337) or
+    ``"L2"`` (338 ≤ b ≤ 1024), fixed by b."""
+    return "shared" if staged_in_shared_memory(b) else "L2"
 
 
 def _pivot(pj, cnt, ok, eps: float, delta: float):
@@ -117,54 +142,87 @@ def llt_block_v3_plain(block, *, eps: float = 0.0, delta: float = 0.0):
     return torch.tril(o.mT), cnt, ok
 
 
-def _check(block, name: str) -> None:
+def llt_block_blocked_plain(block, *, eps: float = 0.0, delta: float = 0.0,
+                            nb: int = PANEL):
+    """Plain PyTorch version of the CUDA kernel's order, for the tests: the
+    lower triangle in ``nb``-column panels; the diagonal tile column by
+    column, each column scaled by rs = 1/√pivot; the rows below it by
+    substitution, x_j = a_j·rs_j then a_c −= x_j·L[c, j] for c > j; the
+    trailing block minus P·Pᵀ."""
+    b = block.shape[0]
+    cnt = torch.zeros((), dtype=torch.int32, device=block.device)
+    ok = torch.ones((), dtype=torch.bool, device=block.device)
+    o = torch.tril(block)
+    for k0 in range(0, b, nb):
+        k1 = min(k0 + nb, b)
+        d = o[k0:k1, k0:k1]
+        rs = []
+        for j in range(k1 - k0):
+            pj, cnt, ok = _pivot(d[j, j].clone(), cnt, ok, eps, delta)
+            rs.append(torch.rsqrt(pj))
+            d[j, j] = pj * rs[j]
+            d[j + 1:, j] *= rs[j]
+            d[j + 1:, j + 1:] -= d[j + 1:, j, None] * d[None, j + 1:, j]
+        if k1 == b:
+            break
+        x = o[k1:, k0:k1]
+        for j in range(k1 - k0):
+            x[:, j] *= rs[j]
+            x[:, j + 1:] -= x[:, j, None] * d[None, j + 1:, j]
+        o[k1:, k1:] -= x @ x.mT
+    return torch.tril(o), cnt, ok
+
+
+def check_block(block, name: str) -> None:
+    """Raise unless ``block`` is a square float32 (b, b) tensor, b ≥ 1, on
+    the CPU or a CUDA card."""
     _build.check_f32_matrix(block, name)
     b = block.shape[0]
     if block.shape[1] != b or b < 1:
         raise ShapeError(f"{name}: needs a square block, got {tuple(block.shape)}")
 
 
-def _launch(block, sb: int, eps: float, delta: float, name: str):
-    """Launch ``faer_llt_block`` at sub-block width ``sb`` on a CUDA block
-    and return ``(L, count, ok)``."""
+def launch(block, eps: float, delta: float, name: str):
+    """Launch ``faer_llt_block`` on a CUDA block (b ≤ ``MAX_B``, contiguous
+    rows, any row stride) and return ``(L, count, ok)``. The kernel writes
+    the count and ok into one 8-byte buffer, returned as two views, so no
+    second launch reads them. Counts nothing: each wrapper that calls it
+    counts its own launches."""
     b = block.shape[0]
     if b > MAX_B:
         raise ShapeError(f"{name}: b must be ≤ {MAX_B}, got {b}")
     if block.stride(1) != 1:
         raise ValueError(f"{name}: rows of the block must be contiguous")
     out = torch.empty((b, b), dtype=block.dtype, device=block.device)
-    work = (None if staged_in_shared_memory(b)
-            else torch.empty(b * b, dtype=block.dtype, device=block.device))
-    cnt_ok = torch.empty(2, dtype=torch.int32, device=block.device)
+    tallies = torch.empty(8, dtype=torch.uint8, device=block.device)
     with torch.cuda.device(block.device):  # the C entry uses the current device
         code = _build.library().faer_llt_block(
-            block.data_ptr(), block.stride(0), out.data_ptr(),
-            None if work is None else work.data_ptr(), cnt_ok.data_ptr(), b, sb,
-            float(eps), float(delta), int(eps > 0), _build.stream_of(block))
+            block.data_ptr(), block.stride(0), out.data_ptr(), tallies.data_ptr(),
+            b, float(eps), float(delta), int(eps > 0), _build.stream_of(block))
     _build.check(name, code)
-    return out, cnt_ok[0], cnt_ok[1] != 0
+    return out, tallies[:4].view(torch.int32)[0], tallies[4:5].view(torch.bool)[0]
 
 
 def llt_block(block, *, eps: float = 0.0, delta: float = 0.0):
-    """Unblocked LLT of a (b, b) float32 symmetric block, v1 order.
+    """LLT of a (b, b) float32 symmetric block; on the CPU in the v1 order.
 
     Returns ``(L, count, ok)``. On a CUDA tensor b must be at most
     ``MAX_B`` and the rows contiguous (any row stride).
     """
-    _check(block, "llt_block")
+    check_block(block, "llt_block")
     if block.device.type == "cpu":
         return llt_block_plain(block, eps=eps, delta=delta)
-    res = _launch(block, V1_SUB_BLOCK, eps, delta, "llt_block")
+    res = launch(block, eps, delta, "llt_block")
     count_launch("llt_block")
     return res
 
 
 def llt_block_v3(block, *, eps: float = 0.0, delta: float = 0.0):
-    """Unblocked LLT of a (b, b) float32 symmetric block, v3 order (8-column
-    sub-blocks). Same contract and limits as :func:`llt_block`."""
-    _check(block, "llt_block_v3")
+    """LLT of a (b, b) float32 symmetric block; on the CPU in the v3 order
+    (8-column sub-blocks). Same contract and limits as :func:`llt_block`."""
+    check_block(block, "llt_block_v3")
     if block.device.type == "cpu":
         return llt_block_v3_plain(block, eps=eps, delta=delta)
-    res = _launch(block, V3_SUB_BLOCK, eps, delta, "llt_block_v3")
+    res = launch(block, eps, delta, "llt_block_v3")
     count_launch("llt_block_v3")
     return res

@@ -449,6 +449,20 @@ def test_solver_objects_cross_between_packages(kind):
     assert np.linalg.norm(got2 - want2) <= tol * np.linalg.norm(want2)
 
 
+@pytest.mark.parametrize("name", ["llt_from_numpy", "lu_from_numpy", "qr_from_numpy",
+                                  "tridiag_from_numpy", "solver_from_numpy"])
+def test_interop_from_numpy_defaults_to_the_card(name):
+    """Every ``*_from_numpy`` puts its tensors on the card unless the caller
+    asks for the CPU, as ``Mat`` does (read from the signature: no card
+    needed)."""
+    import inspect
+
+    assert inspect.signature(getattr(interop, name)).parameters["device"].default == "cuda"
+    assert {n for n in dir(interop) if n.endswith("_from_numpy")} == {
+        "llt_from_numpy", "lu_from_numpy", "qr_from_numpy", "tridiag_from_numpy",
+        "solver_from_numpy"}
+
+
 @pytest.mark.parametrize("kind", ["Svd", "SelfAdjointEigen"])
 def test_spectral_solver_objects_cross_between_packages(kind):
     n = 40

@@ -178,8 +178,9 @@ def test_qr_panel_kernel(cuda, m, b, zero_col):
 
 @pytest.mark.parametrize("b,reg", [(128, None), (80, None), (44, (1.0, 2.0))])
 def test_llt_leaf_kernel(cuda, b, reg):
-    """``reg``: eps > 0 with delta ≥ 1, so every real pivot below 2 and
-    none of the identity padding's is counted."""
+    """``reg``: eps > 0 with delta ≥ 1, so every pivot below 2 is counted.
+    One launch of the blocked kernel and nothing else: no padding, no
+    ``llt_panel``."""
     from faer_tpu_torch.ops.kernels.leaf import llt_leaf, llt_leaf_plain
 
     gen = torch.Generator(device=cuda).manual_seed(b)
@@ -189,7 +190,9 @@ def test_llt_leaf_kernel(cuda, b, reg):
     reset_launch_counts()
     l1, c1, o1 = llt_leaf(a, eps=eps, delta=delta)
     torch.cuda.synchronize()
-    assert launch_counts()["llt_leaf"] == 1 and launch_counts()["llt_panel"] == 0
+    counts = launch_counts()
+    assert counts["llt_leaf"] == 1 and counts["llt_panel"] == 0
+    assert sum(counts.values()) == 1
     l2, c2, o2 = llt_leaf_plain(a, eps=eps, delta=delta)
     assert l1.shape == (b, b) and int(c1) == int(c2) and bool(o1) and bool(o2)
     if reg:
@@ -692,29 +695,49 @@ def _mirrored_spd(b, gen, device):
     return lo + torch.tril(lo, -1).mT
 
 
-@pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
-@pytest.mark.parametrize("b", [1, 7, 128, 200, 256, 340, 341, 512, 1024])
-def test_llt_block_kernels(cuda, name, b):
-    """One CTA per block, in shared memory up to b = 340 and in global
-    memory above: L within 8·b·eps of the plain version's and of an f64
-    factor, (count, ok) = (0, True), zeros above the diagonal."""
+LLT_BLOCK_KERNELS = ("llt_leaf", "llt_block", "llt_block_v3")
+
+
+def _llt_block_kernel(name):
+    """(wrapper, its plain version) of one of the three wrappers of
+    ``csrc/llt_block.cu``."""
+    from faer_tpu_torch.ops.kernels import leaf
     from faer_tpu_torch.ops.kernels import llt_block as mod
 
-    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    owner = leaf if name == "llt_leaf" else mod
+    return getattr(owner, name), getattr(owner, f"{name}_plain")
+
+
+# the shared-memory route ends at b = 337 (staged_in_shared_memory); 338
+# takes the L2 route
+@pytest.mark.parametrize("name", LLT_BLOCK_KERNELS)
+@pytest.mark.parametrize("b", [1, 7, 31, 33, 128, 200, 256, 337, 338, 512, 1024])
+def test_llt_block_kernels(cuda, name, b):
+    """One CTA per block, in shared memory up to b = 337 and in L2 above:
+    L within 8·b·eps of the wrapper's plain version and of an f64 factor,
+    and within b·eps of the kernel's own order
+    (``llt_block_blocked_plain``: the same operations, FMAs rounded once);
+    (count, ok) = (0, True), zeros above the diagonal, one launch."""
+    from faer_tpu_torch.ops.kernels.llt_block import llt_block_blocked_plain
+
+    kern, plain = _llt_block_kernel(name)
     a = _mirrored_spd(b, torch.Generator(device=cuda).manual_seed(b), cuda)
     reset_launch_counts()
     l1, c1, o1 = kern(a)
     torch.cuda.synchronize()
-    assert launch_counts()[name] == 1 and launch_counts()["llt_panel"] == 0
+    assert launch_counts()[name] == 1 and sum(launch_counts().values()) == 1
     l2, c2, o2 = plain(a)
     assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == (0, True)
     assert bool((torch.triu(l1, 1) == 0).all())
     tol = 8 * b * EPS32
     assert _rel(l1, l2) <= tol
     assert _rel(l1.double(), torch.linalg.cholesky(a.double())) <= tol
+    l3, c3, o3 = llt_block_blocked_plain(a)
+    assert (int(c3), bool(o3)) == (0, True)
+    assert _rel(l1, l3) <= b * EPS32
 
 
-@pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
+@pytest.mark.parametrize("name", LLT_BLOCK_KERNELS)
 @pytest.mark.parametrize("b,reg,want", [(128, (1.0, 1.0), (3, False)),
                                         (40, (0.0, 0.0), (0, False)),
                                         (512, (1.0, 1.0), (3, False))])
@@ -722,9 +745,9 @@ def test_llt_block_kernels_regularized(cuda, name, b, reg, want):
     """L Lᵀ with three zero diagonal entries of L, less 1e-3 there: with
     eps = delta = 1 the three pivots are replaced and counted; with eps = 0
     the first (negative) pivot becomes 1. ok is False either way."""
-    from faer_tpu_torch.ops.kernels import llt_block as mod
+    from faer_tpu_torch.ops.kernels.llt_block import llt_block_blocked_plain
 
-    kern, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    kern, plain = _llt_block_kernel(name)
     gen = torch.Generator(device=cuda).manual_seed(b + 1)
     bad = [3, 20, b - 3]
     lo = torch.tril(torch.randn(b, b, generator=gen, device=cuda) / b ** 0.5, -1)
@@ -737,9 +760,11 @@ def test_llt_block_kernels_regularized(cuda, name, b, reg, want):
     eps, delta = reg
     l1, c1, o1 = kern(a, eps=eps, delta=delta)
     l2, c2, o2 = plain(a, eps=eps, delta=delta)
+    l3, c3, o3 = llt_block_blocked_plain(a, eps=eps, delta=delta)
     torch.cuda.synchronize()
-    assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == want
+    assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == (int(c3), bool(o3)) == want
     assert bool(torch.isfinite(l1).all()) and _rel(l1, l2) <= 8 * b * EPS32
+    assert _rel(l1, l3) <= b * EPS32
 
 
 @pytest.mark.parametrize("name", ["llt_block", "llt_block_v3"])
@@ -803,9 +828,8 @@ def test_chase_kernel_zero_tail_is_the_identity(cuda, b):
 def test_new_wrappers_raise_past_their_limits(cuda):
     from faer_tpu_torch.core.errors import ShapeError
     from faer_tpu_torch.ops.kernels.band_chase import chase_probe
-    from faer_tpu_torch.ops.kernels.llt_block import llt_block, llt_block_v3
 
-    for kern in (llt_block, llt_block_v3):
+    for kern in (_llt_block_kernel(name)[0] for name in LLT_BLOCK_KERNELS):
         with pytest.raises(ShapeError):
             kern(torch.eye(1025, device=cuda))
         with pytest.raises(ValueError):  # rows not contiguous

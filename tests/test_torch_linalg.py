@@ -321,7 +321,7 @@ def test_interop_round_trip():
     l_j, info_j = jchol.llt_factor(jnp.asarray(a), params=JLltParams(block_size=128))
     l_t, info_t = interop.llt_from_numpy(np.asarray(l_j),
                                          np.asarray(info_j.dynamic_regularization_count),
-                                         np.asarray(info_j.success))
+                                         np.asarray(info_j.success), device="cpu")
     assert bool(info_t.success) and info_t.success.dtype == torch.bool
     x = tchol.llt_solve(l_t, torch.from_numpy(b)).numpy()
     assert_approx_eq(x, x64, scale=size_scale(n), tol_dtype=np.float32)
@@ -334,7 +334,7 @@ def test_interop_round_trip():
     g64 = g.astype(np.float64)
     assert _rel(xg, np.linalg.solve(g64, bg)) <= 8 * 1024 * EPS32 * np.linalg.cond(g64)
     # and back: numpy -> port tensors unchanged
-    lu2, perm2, info2 = interop.lu_from_numpy(lu_n, perm_n, nt_n, ok_n)
+    lu2, perm2, info2 = interop.lu_from_numpy(lu_n, perm_n, nt_n, ok_n, device="cpu")
     assert torch.equal(lu2, lu_t) and torch.equal(perm2, perm_t)
     assert int(info2.transposition_count) == int(linfo.transposition_count)
     l_back, cnt, ok = interop.llt_to_numpy(l_t, info_t)

@@ -158,9 +158,10 @@ def test_wrappers_reject_bad_inputs(wrapper, x, err):
 
 
 def test_shared_memory_edge():
-    """The packed lower triangle fits a CTA's 227 KiB up to b = 340."""
-    assert staged_in_shared_memory(1) and staged_in_shared_memory(340)
-    assert not staged_in_shared_memory(341) and not staged_in_shared_memory(1024)
+    """The kernel's aligned packed lower triangle and its static arrays fit
+    a CTA's 227 KiB up to b = 337."""
+    assert staged_in_shared_memory(1) and staged_in_shared_memory(337)
+    assert not staged_in_shared_memory(338) and not staged_in_shared_memory(1024)
 
 
 def _reference_variant():

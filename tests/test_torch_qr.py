@@ -154,7 +154,8 @@ def test_qr_interop_round_trip(factor):
     x64 = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64), rcond=None)[0]
     tol = 8 * 300 * EPS32 * KAPPA ** 2
     # JAX factor -> port solve
-    pk, ts, bl = interop.qr_from_numpy(np.asarray(pk_j), np.asarray(ts_j), blk_j)
+    pk, ts, bl = interop.qr_from_numpy(np.asarray(pk_j), np.asarray(ts_j), blk_j,
+                                        device="cpu")
     assert pk.dtype == torch.float32 and bl == blk_j
     x = tqr.qr_solve_lstsq(pk, ts, bl, torch.from_numpy(b)).numpy()
     assert _rel(x, x64) <= tol
@@ -164,7 +165,7 @@ def test_qr_interop_round_trip(factor):
                                        bl_n, jnp.asarray(b)))
     assert _rel(xj, x64) <= tol
     # and back: numpy -> port tensors unchanged
-    pk2, ts2, bl2 = interop.qr_from_numpy(pk_n, ts_n, bl_n)
+    pk2, ts2, bl2 = interop.qr_from_numpy(pk_n, ts_n, bl_n, device="cpu")
     assert torch.equal(pk2, pk_t) and torch.equal(ts2, ts_t) and bl2 == blk
 
 

@@ -263,14 +263,16 @@ def test_tridiag_in_place_matches_jax(n):
     _close(q @ t @ q.T, a, n, scale)
     _close(q.T @ q, np.eye(n), n, 1.0)
     # tridiag_apply_q on the JAX package's reflectors, carried over by interop
-    dj, ej, hhj, tausj = interop.tridiag_from_numpy(*(np.asarray(x) for x in out_j))
+    dj, ej, hhj, tausj = interop.tridiag_from_numpy(*(np.asarray(x) for x in out_j),
+                                                    device="cpu")
     assert dj.dtype == hhj.dtype == torch.float32
     b = rng.standard_normal((n, 3)).astype(np.float32)
     _close(ttr.tridiag_apply_q(hhj, tausj, _t(b)).numpy(),
            np.asarray(jtr.tridiag_apply_q(out_j[2], out_j[3], jnp.asarray(b))), n,
            np.abs(b).max())
     # and back: port tensors -> numpy -> port tensors unchanged
-    back = interop.tridiag_from_numpy(*interop.tridiag_to_numpy(d, e, hh, taus))
+    back = interop.tridiag_from_numpy(*interop.tridiag_to_numpy(d, e, hh, taus),
+                                      device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(back, (d, e, hh, taus)))
 
 

@@ -4,8 +4,13 @@
 
 The port's counterpart of ``tools/r4parts.py`` section ``llt``,
 ``tools/r4lab.py`` section ``check`` (its LLT part) and ``tools/r4lab2.py``
-sections ``lltleaf`` and ``lltfac``. Two parts, on inputs made on the card
-from a seed (torch's generator gives other numbers than JAX's keys):
+sections ``lltleaf`` and ``lltfac``. In the JAX package the three leaf
+kernels are three designs; in the port ``llt_block``, ``llt_block_v3`` and
+``llt_leaf`` launch one blocked kernel (``csrc/llt_block.cu``) behind three
+counters, so on a card the lab compares leaf widths and block sizes, and
+the three leaves of one width differ only by run-to-run noise. Two parts,
+on inputs made on the card from a seed (torch's generator gives other
+numbers than JAX's keys):
 
 * **Blocks** (:func:`block_lab`). For b in {128, 256, 512}, on
   A = g gᵀ/b + 2I (mirrored from its lower triangle, so exactly symmetric),
