@@ -15,9 +15,10 @@ Phases, each printing lines; any failure exits non-zero:
    wide panels (m < b) at (64, 200) and (1000, 1024); the three wrappers of
    the blocked LLT diagonal-block kernel, ``llt_leaf``, ``llt_block`` and
    ``llt_block_v3``, at b ∈ {44, 80, 128, 200, 256, 337, 338, 512, 1024}
-   and on regularized blocks, timed per call and on the device (CUDA-graph
-   replay) beside ``cholesky_ex``; ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3),
-   (64, 4, 24), (128, 8, 24)} and on a zero-tail window;
+   on regularized blocks and on row-strided views at b ∈ {125, 338}, timed
+   per call and on the device (CUDA-graph replay) beside ``cholesky_ex``;
+   ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3), (64, 4, 24),
+   (128, 8, 24)} and on a zero-tail window;
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
@@ -133,12 +134,16 @@ LAB_REPS, LAB_WARMUP = 10, 2
 WIDE = ((64, 200), (1000, 1024))  # phase 3's wide panels (m < b)
 # phase 3's LLT blocks: the labs' sizes, ragged ones, both sides of the
 # shared-memory edge (337), the largest; the regularized ones (b, the bad
-# pivots, eps = delta); the timed sizes, each device time a CUDA graph of
-# LLT_GRAPH_REPS calls
+# pivots, eps = delta); (b, b) views with a row stride of b + 3, as the
+# recursive driver hands its leaves over, on both routes; the timed sizes,
+# each per-call time the median of LLT_CALL_REPS calls and each device time
+# a CUDA graph of LLT_GRAPH_REPS calls
 LLT_BLOCKS = (128, 256, 512, 200, 80, 44, 337, 338, 1024)
 LLT_REGULARIZED = ((128, (3, 20, 77), 1.0), (512, (3, 20, 509), 1.0),
                    (44, (3, 20, 41), 0.0))
+LLT_STRIDED = (125, 338)
 LLT_TIMED = (128, 256, 512)
+LLT_CALL_REPS = 20
 LLT_GRAPH_REPS = 30
 # phase 3's chase cases (b, g, steps): one and eight cycles of the three
 # windows; the values grow with the steps (the strip is not symmetric), so
@@ -896,7 +901,10 @@ def _llt_block_kernels(gen) -> dict:
     mirrored SPD blocks (cond ≤ 5) at ``LLT_BLOCKS`` (shared memory up to
     b = 337, L2 above) and on the regularized blocks ``LLT_REGULARIZED``
     (``_regularized_spd``: with eps = delta = 1 three pivots replaced and
-    counted; with eps = 0 the first negative pivot becomes 1): L within
+    counted; with eps = 0 the first negative pivot becomes 1), and on
+    (b, b) views of (b + 3, b + 3) blocks at ``LLT_STRIDED`` (the recursive
+    driver's leaves are such views), which must also give the bits of a
+    contiguous copy: L within
     8·b·eps of its largest entry from each wrapper's plain version and
     within b·eps from the kernel's own order (``llt_block_blocked_plain``),
     ‖LLᵀ − A‖/‖A‖ ≤ 8·b·eps in f64, count and ok as wanted, zeros above
@@ -914,11 +922,13 @@ def _llt_block_kernels(gen) -> dict:
                "llt_block": (llt_block, llt_block_plain),
                "llt_block_v3": (llt_block_v3, llt_block_v3_plain)}
     errs = {name: [] for name in kernels}
-    cases = ([(b, None, 0.0) for b in LLT_BLOCKS]
-             + [(b, bad, eps) for b, bad, eps in LLT_REGULARIZED])
-    for b, bad, eps in cases:
+    cases = ([(b, None, 0.0, False) for b in LLT_BLOCKS]
+             + [(b, bad, eps, False) for b, bad, eps in LLT_REGULARIZED]
+             + [(b, None, 0.0, True) for b in LLT_STRIDED])
+    for b, bad, eps, strided in cases:
         if bad is None:
-            a, reg, want = _mirrored(_spd(b, gen)), {}, (0, True)
+            full = _mirrored(_spd(b + 3 if strided else b, gen))
+            a, reg, want = full[:b, :b], {}, (0, True)
         else:
             a = _mirrored(_regularized_spd(b, torch.tensor(bad, device=DEV), gen))
             reg = dict(eps=eps, delta=eps)
@@ -934,10 +944,12 @@ def _llt_block_kernels(gen) -> dict:
             resid = rel_norm(l64 @ l64.T, a.double())
             errs[name].append(err)
             tallies = (int(c1), bool(o1))
+            same = not strided or torch.equal(l1, kern(a.contiguous(), **reg)[0])
             check(rel <= tol and rel3 <= b * EPS32 and (bad is not None or resid <= tol)
                   and tallies == (int(c2), bool(o2)) == (int(c3), bool(o3)) == want
-                  and bool((torch.triu(l1, 1) == 0).all()),
-                  f"{name} b={b}{f' eps=delta={eps:g}' if bad else ''} "
+                  and bool((torch.triu(l1, 1) == 0).all()) and same,
+                  f"{name} b={b}{f' eps=delta={eps:g}' if bad else ''}"
+                  f"{' row stride b+3 (= a contiguous copy)' if strided else ''} "
                   f"[{route(b)}]: max abs err {err:.3e}, rel {rel:.3e} vs plain "
                   f"(<= {tol:.3e}), {rel3:.3e} vs the blocked order (<= "
                   f"{b * EPS32:.3e}), |LLᵀ-A|/|A| {resid:.3e}; (count, ok) {tallies}")
@@ -945,11 +957,11 @@ def _llt_block_kernels(gen) -> dict:
     for b in LLT_TIMED:
         a = _mirrored(_spd(b, gen))
         chol = lambda: torch.linalg.cholesky_ex(a)
-        lib_ms, lib_dev = cuda_ms(chol, 20), graph_ms(chol, LLT_GRAPH_REPS)
+        lib_ms, lib_dev = cuda_ms(chol, LLT_CALL_REPS), graph_ms(chol, LLT_GRAPH_REPS)
         print(f"time cholesky_ex b={b}: per call {lib_ms:.4f} ms, device "
               f"{lib_dev:.4f} ms")
         for name, (kern, plain) in kernels.items():
-            r = dict(max_abs_err=max(errs[name]), ms=cuda_ms(lambda: kern(a), 20),
+            r = dict(max_abs_err=max(errs[name]), ms=cuda_ms(lambda: kern(a), LLT_CALL_REPS),
                      device_ms=graph_ms(lambda: kern(a), LLT_GRAPH_REPS),
                      plain_ms=cuda_ms(lambda: plain(a), 3) if b == LLT_TIMED[0] else None,
                      library_ms=lib_ms, library_device_ms=lib_dev,

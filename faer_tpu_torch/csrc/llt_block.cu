@@ -49,8 +49,8 @@
 // Routes, fixed by b (no route gives way to another at run time):
 //  - b <= 337 (shared): the lower triangle, column-major, in shared memory,
 //    packed with each column's row 0 at a 16-byte boundary (at most 3 floats
-//    of padding a column, and 32 at the end), so that the panel's column
-//    reads are float4; every step works there.
+//    of padding a column), so that the panel's column reads are float4;
+//    every step works there.
 //  - 338 <= b <= 1024 (L2): the lower triangle lives column-major in the
 //    output buffer itself (L's column c in out's row c, 4 MiB at 1024, in
 //    L2), and each panel's 32 columns and diagonal tile are copied to
@@ -64,10 +64,43 @@
 //    memory would also split the FMAs over SMs; it was left for a later
 //    change: eight portable CTAs do not hold a 1024 triangle, so the L2
 //    route is needed in any case, and one route covers 338..1024.
+// The route is decided here alone: faer_llt_block_route(b) tells callers
+// which one a launch takes.
+//
+// No thread reads an entry that another thread writes in the same phase
+// (between two block barriers), nor anything past the block: a load above
+// the diagonal, past the last row or column, or in the rows of the tile
+// warp 0 is factoring is skipped and its register starts at 0 (warp 0
+// itself reads its own rows and zeroes what lies above the diagonal).
+// Such values are never stored and never reach the pivot chain.
+//
 // The unblocked kernel's sub-block template (1 for v1, 8 for v3) meant the
 // order of rounding only; this kernel has one order, so the entry point no
 // longer takes it. FP32 only, no TF32.
+//
+// Built with -DFAER_LLT_PROFILE (tools/torch_llt_profile.py does, into a
+// library of its own), the kernel also sums the SM cycles of each phase as
+// thread 0 sees them into g_prof, read by faer_llt_block_profile_read.
 #include <cuda_runtime.h>
+
+#ifdef FAER_LLT_PROFILE
+// 0 stage, 1 first tile, 2 solves, 3 next-tile updates, 4 factors and
+// trailing updates, 5 warp 0's factors, 6 warp 15's trailing updates, 7 out
+__device__ long long g_prof[8];
+#define PROF_START long long t_prof = clock64();
+#define PROF_MARK(k) \
+  if (threadIdx.x == 0) { const long long u = clock64(); g_prof[k] += u - t_prof; t_prof = u; }
+#define PROF_SPAN_START const long long s_prof = clock64();
+#define PROF_SPAN(k, thread) \
+  if (threadIdx.x == (thread)) g_prof[k] += clock64() - s_prof;
+#define PROF_SYNC __syncthreads();
+#else
+#define PROF_START
+#define PROF_MARK(k)
+#define PROF_SPAN_START
+#define PROF_SPAN(k, thread)
+#define PROF_SYNC
+#endif
 
 namespace {
 
@@ -89,10 +122,15 @@ __host__ __device__ inline int packed_col(int c, int b) {
   return (c * b - c * (c - 1) / 2 + 2 * c + 3) & ~3;
 }
 
-// Floats of the shared route's layout: the last column's end and 32 floats
-// that a float4 read past the last row may touch.
+// Floats of the shared route's layout, to the last column's end.
 __host__ __device__ inline int packed_floats(int b) {
-  return packed_col(b - 1, b) + b + 32;
+  return packed_col(b - 1, b) + b;
+}
+
+// The route of a (b, b) block: shared memory when the packed layout and the
+// static arrays fit a CTA's 227 KiB (b <= 337), else L2.
+inline bool staged_route(int b) {
+  return (size_t)packed_floats(b) * sizeof(float) + kStaticBytes <= (size_t)kSmemBytes;
 }
 
 // The lower triangle, column-major: element (r, c), r >= c, at col(c)[r]:
@@ -195,49 +233,94 @@ __device__ void unstage_l2(float* out, int b, float* tile, int warp, int lane) {
   }
 }
 
-// Step 3 for the next diagonal tile (rows and columns k1 .. k1 + 31), by
-// all 512 threads, two entries each: thread t owns row k1 + t / 16 and
-// columns k1 + 2 (t % 16) + {0, 1}; the same FFMA chain from C as
-// update_trailing, written back in place (lower entries only).
-template <bool kStaged>
-__device__ void update_tile(const Lower& L, const float* sp, int k0, int tid) {
-  const int b = L.b, k1 = k0 + kNb, r = k1 + (tid >> 4), c0 = k1 + 2 * (tid & 15);
-  const int rc = min(r, b - 1);
-  float acc0 = L.col(min(c0, b - 1))[rc], acc1 = L.col(min(c0 + 1, b - 1))[rc];
+// N consecutive rows c0 .. c0 + N - 1 of a panel column p (N = 2 or 8,
+// c0 a multiple of N): as aligned vectors when kWhole says they all lie in
+// the block, else one by one, none past the last row b - 1 (past it, the
+// packed layout holds the next column, which another warp may be writing).
+template <int N, bool kWhole>
+__device__ __forceinline__ void panel_rows(const float* p, int c0, int b, float (&v)[N]) {
+  if constexpr (kWhole && N == 2) {
+    const float2 u = reinterpret_cast<const float2*>(p + c0)[0];
+    v[0] = u.x, v[1] = u.y;
+  } else if constexpr (kWhole) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 u = reinterpret_cast<const float4*>(p + c0 + q)[0];
+      v[q] = u.x, v[q + 1] = u.y, v[q + 2] = u.z, v[q + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = c0 + j < b ? p[c0 + j] : 0.0f;
+  }
+}
+
+// acc[i][j] -= P[rows[i]][:] . P[c0 + j][:] over the panel's 32 columns: one
+// FFMA a product, the panel read-only in this phase (rows clamped into it).
+template <int R, int N, bool kStaged, bool kWhole>
+__device__ __forceinline__ void panel_products(const Lower& L, const float* sp, int k0,
+                                               const int (&rows)[R], int c0,
+                                               float (&acc)[R][N]) {
 #pragma unroll 8
   for (int kk = 0; kk < kNb; ++kk) {
     const float* p = panel_col<kStaged>(L, sp, k0, kk);
-    const float av = p[rc];
-    const float2 v = reinterpret_cast<const float2*>(p + c0)[0];
-    acc0 = fmaf(-av, v.x, acc0);
-    acc1 = fmaf(-av, v.y, acc1);
+    float av[R], bv[N];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = p[rows[i]];
+    panel_rows<N, kWhole>(p, c0, L.b, bv);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[i][j] = fmaf(-av[i], bv[j], acc[i][j]);
   }
-  if (r < b) {
-    if (c0 <= r) L.col(c0)[r] = acc0;
-    if (c0 + 1 <= r) L.col(c0 + 1)[r] = acc1;
-  }
+}
+
+// Step 3 for the next diagonal tile (rows and columns k1 .. k1 + 31), by
+// all 512 threads, two entries each: thread t owns row k1 + t / 16 and
+// columns k1 + 2 (t % 16) + {0, 1}; the same FFMA chain from C as
+// update_trailing, written back in place (lower entries only, and only
+// those are loaded).
+template <bool kStaged>
+__device__ void update_tile(const Lower& L, const float* sp, int k0, int tid) {
+  const int b = L.b, k1 = k0 + kNb, r = k1 + (tid >> 4), c0 = k1 + 2 * (tid & 15);
+  const int rows[1] = {min(r, b - 1)};
+  const bool lo0 = r < b && c0 <= r, lo1 = r < b && c0 + 1 <= r;
+  float acc[1][2] = {{lo0 ? L.col(c0)[r] : 0.0f, lo1 ? L.col(c0 + 1)[r] : 0.0f}};
+  if (k1 + kNb <= b)  // uniform across the block: a whole tile
+    panel_products<1, 2, kStaged, true>(L, sp, k0, rows, c0, acc);
+  else
+    panel_products<1, 2, kStaged, false>(L, sp, k0, rows, c0, acc);
+  if (lo0) L.col(c0)[r] = acc[0][0];
+  if (lo1) L.col(c0 + 1)[r] = acc[0][1];
 }
 
 // Step 1: warp 0 factors the diagonal tile at k1 (w <= 32 columns) in
 // registers, lane i holding row i. Writes L11 to its home and, on the L2
 // route, to sd (row-major, stride kTileLd); rs[j] = 1/sqrt(pivot j), by
-// which column j was scaled. Every load is clamped into the block, every
-// store masked; entries above the diagonal are updated too (they feed only
-// entries above it) and never stored.
+// which column j was scaled. Only the lower entries of the tile's rows are
+// loaded; the others (above the diagonal, or in lanes past the block) start
+// at 0, are updated too (they feed only entries above the diagonal) and are
+// never stored.
 template <bool kStaged>
 __device__ void factor_tile(const Lower& L, float* sd, float* rs, float (*cb)[kNb],
                             int k1, int w, int lane, float eps, float delta,
                             int use_eps, int& cnt, int& ok) {
-  const int i = lane, b = L.b;
+  const int i = lane;
   const bool live = i < w;
-  const int ri = min(k1 + i, b - 1);
+  // every lane loads from its row (row b - 1, of this tile, past the
+  // block), at most up to the diagonal: only this warp writes those rows
+  // in this phase; the loads need no branch, the selects zero the rest
+  const int ri = min(k1 + i, L.b - 1);
   float x[kNb];
 #pragma unroll
-  for (int c = 0; c < kNb; ++c) x[c] = L.col(min(k1 + c, b - 1))[ri];
+  for (int c = 0; c < kNb; ++c) {
+    const float v = L.col(min(k1 + c, ri))[ri];
+    x[c] = live && c <= i ? v : 0.0f;
+  }
   // the lane's own diagonal entry, kept apart (x[i] needs a dynamic index):
   // it needs only the lane's own entries, so the pivot chain runs through
   // registers and shuffles alone, beside the column broadcast
-  float dg = L.col(min(k1 + i, b - 1))[ri];
+  const float d = L.col(ri)[ri];
+  float dg = live ? d : 0.0f;
   float pj = __shfl_sync(kFull, x[0], 0);
 #pragma unroll
   for (int j = 0; j < kNb; ++j) {
@@ -298,10 +381,9 @@ __device__ void solve_rows(const Lower& L, const float* sd, const float* rs,
   const int b = L.b, q = tid & (G - 1);
   for (int r0 = k0 + kNb; r0 < b; r0 += kThreads / G) {  // uniform
     const int r = r0 + tid / G;
-    const int rc = min(r, b - 1);
-    float x[M];
+    float x[M];  // rows past the block solve zeros
 #pragma unroll
-    for (int m = 0; m < M; ++m) x[m] = L.col(k0 + q + G * m)[rc];
+    for (int m = 0; m < M; ++m) x[m] = r < b ? L.col(k0 + q + G * m)[r] : 0.0f;
 #pragma unroll
     for (int j = 0; j < kNb; ++j) {
       const int mj = j / G, oj = j % G;
@@ -328,8 +410,9 @@ __device__ void solve_rows(const Lower& L, const float* sd, const float* rs,
 // Step 3 without the next diagonal tile (warp 0's): the trailing lower
 // triangle (rows and columns k1 .. b - 1, k1 = k0 + 32) minus P P^T, by
 // warps 1 .. 15. Row tile rt covers 128 rows and needs column groups of 8
-// up to its last row: min(ncg, 16 (rt + 1)). Loads are clamped into the
-// block, stores masked.
+// up to its last row: min(ncg, 16 (rt + 1)). C is loaded only where it is
+// stored: lower entries of the block, not in the next tile's rows; the
+// panel (read-only in this phase) is read with clamped rows.
 template <bool kStaged>
 __device__ void update_trailing(const Lower& L, const float* sp, int k0, int warp,
                                 int lane) {
@@ -347,35 +430,27 @@ __device__ void update_trailing(const Lower& L, const float* sp, int k0, int war
       // acc starts from C, loaded before the products so that its latency
       // (L2 on that route) overlaps them; then one FFMA a product
       float acc[4][8];
+      int rows[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rows[i] = min(rbase + 32 * i, b - 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float* cc = L.col(min(c0 + j, b - 1));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = cc[min(rbase + 32 * i, b - 1)];
-      }
-#pragma unroll 8
-      for (int kk = 0; kk < kNb; ++kk) {
-        const float* p = panel_col<kStaged>(L, sp, k0, kk);
-        float av[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = p[min(rbase + 32 * i, b - 1)];
-        const float4 u = reinterpret_cast<const float4*>(p + c0)[0];
-        const float4 v = reinterpret_cast<const float4*>(p + c0)[1];
-        const float bv[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(-av[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + j;
-        if (c >= b) break;
-        float* cc = L.col(c);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = rbase + 32 * i;
-          if (i >= i0 && r < b && r >= c) cc[r] = acc[i][j];
+          acc[i][j] = i >= i0 && r < b && c0 + j <= r ? L.col(c0 + j)[r] : 0.0f;
+        }
+      }
+      if (c0 + 8 <= b)  // uniform across the warp: all 8 columns in the block
+        panel_products<4, 8, kStaged, true>(L, sp, k0, rows, c0, acc);
+      else
+        panel_products<4, 8, kStaged, false>(L, sp, k0, rows, c0, acc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rbase + 32 * i;
+          if (i >= i0 && r < b && c0 + j <= r) L.col(c0 + j)[r] = acc[i][j];
         }
       }
     }
@@ -395,6 +470,7 @@ llt_block_kernel(const float* __restrict__ a, int lda, float* out,
   float* sp = smem;  // L2 route: the panel, or the warp tiles while staging
   float* sd = kStaged ? nullptr : smem + panel_floats(b);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  PROF_START
 
   // the shared route walks the (b, b) block row-major, thread tid at
   // element tid + 512 k, its (row, column) advanced without a divide
@@ -419,12 +495,14 @@ llt_block_kernel(const float* __restrict__ a, int lda, float* out,
     stage_in_l2(a, lda, out, b, smem + warp * kTileFloats, warp, lane);
   }
   __syncthreads();
+  PROF_MARK(0)
 
   int cnt = 0, ok = 1;  // warp 0 tallies alike; thread 0 stores them
   if (warp == 0)
     factor_tile<kStaged>(L, sd, rs, cb, 0, min(kNb, b), lane, eps, delta, use_eps,
                          cnt, ok);
   __syncthreads();
+  PROF_MARK(1)
   for (int k0 = 0; k0 + kNb < b; k0 += kNb) {
     const int k1 = k0 + kNb, nt = b - k1;
     if (nt <= kThreads / 8) solve_rows<8, kStaged>(L, sd, rs, sp, k0, tid);
@@ -432,14 +510,21 @@ llt_block_kernel(const float* __restrict__ a, int lda, float* out,
     else if (nt <= kThreads / 2) solve_rows<2, kStaged>(L, sd, rs, sp, k0, tid);
     else solve_rows<1, kStaged>(L, sd, rs, sp, k0, tid);
     __syncthreads();
+    PROF_MARK(2)
     update_tile<kStaged>(L, sp, k0, tid);  // the next tile first, by all
     __syncthreads();
-    if (warp == 0)
+    PROF_MARK(3)
+    PROF_SPAN_START
+    if (warp == 0) {
       factor_tile<kStaged>(L, sd, rs, cb, k1, min(kNb, nt), lane, eps, delta,
                            use_eps, cnt, ok);
-    else
+      PROF_SPAN(5, 0)
+    } else {
       update_trailing<kStaged>(L, sp, k0, warp, lane);
+      PROF_SPAN(6, 480)
+    }
     __syncthreads();
+    PROF_MARK(4)
   }
 
   if (kStaged) {
@@ -451,6 +536,8 @@ llt_block_kernel(const float* __restrict__ a, int lda, float* out,
   } else {
     unstage_l2(out, b, smem + warp * kTileFloats, warp, lane);
   }
+  PROF_SYNC
+  PROF_MARK(7)
   if (tid == 0) {
     *reinterpret_cast<int*>(cnt_ok) = cnt;
     cnt_ok[4] = (unsigned char)ok;
@@ -467,10 +554,9 @@ extern "C" int faer_llt_block(const float* a, int lda, float* out,
                               void* cnt_ok, int b, float eps, float delta,
                               int use_eps, void* stream) {
   if (b < 1 || b > kMaxB || lda < b) return cudaErrorInvalidValue;
-  const size_t staged_bytes = (size_t)packed_floats(b) * sizeof(float);
-  const bool staged = staged_bytes + kStaticBytes <= (size_t)kSmemBytes;
-  const size_t smem = staged ? staged_bytes
-                             : (size_t)(panel_floats(b) + kTileFloats) * sizeof(float);
+  const bool staged = staged_route(b);
+  const size_t smem = (size_t)(staged ? packed_floats(b) : panel_floats(b) + kTileFloats) *
+                      sizeof(float);
   void (*kern)(const float*, int, float*, unsigned char*, int, float, float, int) =
       staged ? llt_block_kernel<true> : llt_block_kernel<false>;
   // the dynamic shared-memory ceiling is raised to what the 227 KiB leave
@@ -489,3 +575,21 @@ extern "C" int faer_llt_block(const float* a, int lda, float* out,
       a, lda, out, static_cast<unsigned char*>(cnt_ok), b, eps, delta, use_eps);
   return cudaGetLastError();
 }
+
+// The route faer_llt_block takes for a (b, b) block: 1 shared memory, 0 L2,
+// -1 for a b it refuses.
+extern "C" int faer_llt_block_route(int b) {
+  if (b < 1 || b > kMaxB) return -1;
+  return staged_route(b) ? 1 : 0;
+}
+
+#ifdef FAER_LLT_PROFILE
+// Copies the 8 phase counters (SM cycles summed over launches) to the host
+// and zeroes them. Returns the CUDA error (0 on success).
+extern "C" int faer_llt_block_profile_read(long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+  const long long zero[8] = {0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

@@ -29,7 +29,8 @@ LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # name: argtypes (all return an int error code)
+    # name: argtypes (each returns an int: a CUDA error code, or the route
+    # for faer_llt_block_route)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
     "faer_trtri": [_P, _P, _I, _I, _P],
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "faer_tridiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "faer_bidiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "faer_llt_block": [_P, _I, _P, _P, _I, _F, _F, _I, _P],
+    "faer_llt_block_route": [_I],
     "faer_chase_probe": [_P, _P, _I, _I, _I, _P],
 }
 

@@ -32,7 +32,8 @@ substitution solve of the rows below it, a rank-32 update of the trailing
 lower triangle). It reads the lower triangle only. Its order of rounding is
 neither body's: :func:`llt_block_blocked_plain` follows it, for the tests;
 no wrapper runs it. Blocks up to b = 337 stay in shared memory, larger ones
-(to 1024) in an L2-resident copy in the output (:func:`route`).
+(to 1024) in an L2-resident copy in the output; the kernel's C entry alone
+decides which, and :func:`route` asks it.
 """
 from __future__ import annotations
 
@@ -46,32 +47,17 @@ MAX_B = 1024  # the largest block the CUDA route takes
 V3_SUB_BLOCK = 8  # the v3 body's sub-block width
 V3_ROW_CHUNK = 128  # the v3 body's rows per cross-sub-block product
 PANEL = 32  # the kernel's panel width
-# a CTA's shared memory on the H100 (227 KiB), of which the kernel's static
-# arrays take STATIC_BYTES; a block whose lower triangle fits the rest in
-# the kernel's packed layout is staged in it, a larger one stays in L2
-SMEM_BYTES = 232448
-STATIC_BYTES = 3 * PANEL * 4
-
-
-def _packed_floats(b: int) -> int:
-    """Floats of the kernel's shared-memory layout of a (b, b) block: the
-    packed lower triangle, column-major, each column's row 0 on a 16-byte
-    boundary, and 32 floats past the end (``csrc/llt_block.cu``
-    ``packed_floats``)."""
-    c = b - 1
-    return ((c * b - c * (c - 1) // 2 + 2 * c + 3) & ~3) + b + 32
-
-
-def staged_in_shared_memory(b: int) -> bool:
-    """Whether the kernel keeps a (b, b) block in shared memory (b ≤ 337),
-    else in an L2-resident global-memory scratch."""
-    return _packed_floats(b) * 4 + STATIC_BYTES <= SMEM_BYTES
 
 
 def route(b: int) -> str:
-    """The kernel's route for a (b, b) block: ``"shared"`` (b ≤ 337) or
-    ``"L2"`` (338 ≤ b ≤ 1024), fixed by b."""
-    return "shared" if staged_in_shared_memory(b) else "L2"
+    """The kernel's route for a (b, b) block, as its C entry
+    ``faer_llt_block_route`` decides it: ``"shared"`` (b ≤ 337) or ``"L2"``
+    (338 ≤ b ≤ 1024), fixed by b. Loads the kernel library, which is built
+    with ``nvcc`` at first use."""
+    code = _build.library().faer_llt_block_route(b)
+    if code < 0:
+        raise ShapeError(f"llt_block: b must be in 1..{MAX_B}, got {b}")
+    return "shared" if code else "L2"
 
 
 def _pivot(pj, cnt, ok, eps: float, delta: float):

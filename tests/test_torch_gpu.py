@@ -708,24 +708,43 @@ def _llt_block_kernel(name):
     return getattr(owner, name), getattr(owner, f"{name}_plain")
 
 
-# the shared-memory route ends at b = 337 (staged_in_shared_memory); 338
-# takes the L2 route
+def test_llt_block_routes_follow_the_shared_memory_edge(cuda):
+    """The kernel's C entry keeps the aligned packed lower triangle and its
+    static arrays in a CTA's 227 KiB up to b = 337 and takes L2 from 338
+    to 1024; ``route`` asks it."""
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.llt_block import route
+
+    assert [route(b) for b in (1, 128, 256, 337)] == ["shared"] * 4
+    assert [route(b) for b in (338, 512, 1024)] == ["L2"] * 3
+    with pytest.raises(ShapeError):
+        route(1025)
+
+
+# the shared-memory route ends at b = 337; 338 takes the L2 route. pad > 0:
+# a (b, b) view of a (b + pad, b + pad) block, row stride b + pad, as the
+# recursive driver hands its leaves over
 @pytest.mark.parametrize("name", LLT_BLOCK_KERNELS)
-@pytest.mark.parametrize("b", [1, 7, 31, 33, 128, 200, 256, 337, 338, 512, 1024])
-def test_llt_block_kernels(cuda, name, b):
+@pytest.mark.parametrize("b,pad", [(1, 0), (7, 0), (31, 0), (33, 0), (128, 0),
+                                   (200, 0), (256, 0), (337, 0), (338, 0),
+                                   (512, 0), (1024, 0), (125, 3), (338, 3)])
+def test_llt_block_kernels(cuda, name, b, pad):
     """One CTA per block, in shared memory up to b = 337 and in L2 above:
     L within 8·b·eps of the wrapper's plain version and of an f64 factor,
     and within b·eps of the kernel's own order
     (``llt_block_blocked_plain``: the same operations, FMAs rounded once);
-    (count, ok) = (0, True), zeros above the diagonal, one launch."""
+    the bits of a launch on a contiguous copy; (count, ok) = (0, True),
+    zeros above the diagonal, one launch."""
     from faer_tpu_torch.ops.kernels.llt_block import llt_block_blocked_plain
 
     kern, plain = _llt_block_kernel(name)
-    a = _mirrored_spd(b, torch.Generator(device=cuda).manual_seed(b), cuda)
+    big = _mirrored_spd(b + pad, torch.Generator(device=cuda).manual_seed(b), cuda)
+    a = big[:b, :b]
     reset_launch_counts()
     l1, c1, o1 = kern(a)
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1 and sum(launch_counts().values()) == 1
+    assert torch.equal(l1, kern(a.contiguous())[0])
     l2, c2, o2 = plain(a)
     assert (int(c1), bool(o1)) == (int(c2), bool(o2)) == (0, True)
     assert bool((torch.triu(l1, 1) == 0).all())

@@ -28,8 +28,7 @@ import torch
 from faer_tpu_torch.core.config import KERNELS, launch_counts, reset_launch_counts
 from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels.llt_block import (
-    llt_block, llt_block_plain, llt_block_v3, llt_block_v3_plain,
-    staged_in_shared_memory)
+    llt_block, llt_block_plain, llt_block_v3, llt_block_v3_plain)
 from faer_tpu_torch.utils.approx import assert_approx_eq, size_scale
 
 torch.set_num_threads(1)
@@ -155,13 +154,6 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 def test_wrappers_reject_bad_inputs(wrapper, x, err):
     with pytest.raises(err):
         wrapper(x)
-
-
-def test_shared_memory_edge():
-    """The kernel's aligned packed lower triangle and its static arrays fit
-    a CTA's 227 KiB up to b = 337."""
-    assert staged_in_shared_memory(1) and staged_in_shared_memory(337)
-    assert not staged_in_shared_memory(338) and not staged_in_shared_memory(1024)
 
 
 def _reference_variant():

@@ -21,8 +21,9 @@ import torch
 
 import jax.numpy as jnp
 
+from faer_tpu_torch.ops.kernels.leaf import llt_leaf
 from faer_tpu_torch.ops.kernels.llt_block import (
-    PANEL, llt_block_blocked_plain, route)
+    PANEL, llt_block, llt_block_blocked_plain, llt_block_v3)
 
 torch.set_num_threads(1)
 
@@ -153,10 +154,17 @@ def test_blocked_order_reads_only_the_lower_triangle():
         assert np.array_equal(got, want)
 
 
-def test_routes_follow_the_shared_memory_edge():
-    """Shared memory up to b = 337, L2 from 338 to 1024: fixed by b."""
-    assert [route(b) for b in (1, 128, 256, 337)] == ["shared"] * 4
-    assert [route(b) for b in (338, 512, 1024)] == ["L2"] * 3
+@pytest.mark.parametrize("fn", [llt_leaf, llt_block, llt_block_v3,
+                                llt_block_blocked_plain])
+def test_row_strided_views_factor_like_contiguous_blocks(fn):
+    """The recursive driver hands its leaves over as (b, b) views of a
+    larger matrix; on the CPU every wrapper and the blocked order give the
+    bits of a contiguous copy."""
+    big = torch.from_numpy(_spd(40, 9))
+    view = big[:37, :37]
+    assert view.stride(0) == 40
+    for got, want in zip(fn(view), fn(view.contiguous())):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("tool", ["torch_llt_split.py", "torch_llt_profile.py"])

@@ -1,31 +1,29 @@
 """Where the time of the blocked LLT diagonal-block kernel goes, on one CUDA card.
 
-    python tools/torch_llt_profile.py [--reps N]
+    python tools/torch_llt_profile.py
 
-Builds a copy of ``faer_tpu_torch/csrc/llt_block.cu`` with ``clock64``
-marks added by text substitution (the library itself is not touched) into
-``build/llt_profile/``, runs it ``--reps`` times on A = g gᵀ/b + 2I (seed
-1) at b in {128, 256, 512, 1024}, and prints the SM cycles per call of each
-phase, as thread 0 sees them between block barriers:
+Builds ``faer_tpu_torch/csrc/llt_block.cu`` with ``-DFAER_LLT_PROFILE``
+(its ``clock64`` marks) into a library of its own under
+``build/llt_profile/``, runs it 10 times on A = g gᵀ/b + 2I (seed 1) at b
+in {128, 256, 512, 1024}, and prints the SM cycles per call of each phase,
+as thread 0 sees them between block barriers:
 
 * ``stage``: the block into shared memory (or L2) and the first barrier;
 * ``first tile``: warp 0 factors the first diagonal tile;
 * ``solve``: the substitution solve of every panel (summed over panels);
-* ``tile+update``: the next tile's update, its factor by warp 0 and the
-  trailing update by warps 1..15 (summed);
+* ``tile update``: all threads update the next diagonal tile (summed);
+* ``factor+trailing``: warp 0 factors it while warps 1..15 update the rest
+  of the trailing triangle (summed);
 * ``out``: L back to the row-major output.
 
-Beside them, summed over panels: ``tile update`` (all threads, the next
-tile, with its barrier), ``w0 factor`` (warp 0 factoring the next tile)
-and ``w15 trailing`` (warp 15's share of the trailing update). Each line
+Beside them, summed over panels, ``w0 factor`` (warp 0's factors alone)
+and ``w15 trailing`` (warp 15's share of the trailing updates). Each line
 also gives ‖LLᵀ − A‖/‖A‖. The marks cost a few cycles each; the phase
 shares, not the totals, are what this reads. Prints the card's name and
-power limit first. Exits non-zero without a card or ``nvcc``, or if a
-mark no longer finds its place in the source.
+power limit first. Exits non-zero without a card or ``nvcc``.
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
 import subprocess
 import sys
@@ -34,59 +32,14 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "faer_tpu_torch" / "csrc" / "llt_block.cu"
 OUT_DIR = ROOT / "build" / "llt_profile"
 SEED = 1
+REPS = 10
 BLOCKS = (128, 256, 512, 1024)
-# (anchor in the kernel, text that follows it); counters g_prof[0..7]
-MARKS = (
-    ("namespace {", "__device__ long long g_prof[8];\nnamespace {"),
-    ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
-     "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
-     "  long long t_ = clock64(), u_;\n"
-     "#define MARK(k) if (tid == 0) { u_ = clock64(); g_prof[k] += u_ - t_; t_ = u_; }\n"),
-    ("  __syncthreads();\n\n  int cnt = 0, ok = 1;",
-     "  __syncthreads();\n  MARK(0)\n  int cnt = 0, ok = 1;"),
-    ("                         cnt, ok);\n  __syncthreads();",
-     "                         cnt, ok);\n  __syncthreads();\n  MARK(1)"),
-    ("    else solve_rows<1, kStaged>(L, sd, rs, sp, k0, tid);\n    __syncthreads();",
-     "    else solve_rows<1, kStaged>(L, sd, rs, sp, k0, tid);\n    __syncthreads();\n"
-     "    MARK(2)"),
-    ("    update_tile<kStaged>(L, sp, k0, tid);  // the next tile first, by all\n"
-     "    __syncthreads();",
-     "    update_tile<kStaged>(L, sp, k0, tid);  // the next tile first, by all\n"
-     "    __syncthreads();\n    if (tid == 0) g_prof[5] += clock64() - t_;\n"
-     "    long long t7_ = clock64();"),
-    ("                           use_eps, cnt, ok);\n    else",
-     "                           use_eps, cnt, ok);\n"
-     "    if (tid == 0) g_prof[6] += clock64() - t7_;\n    if (warp != 0)"),
-    ("      update_trailing<kStaged>(L, sp, k0, warp, lane);\n    __syncthreads();",
-     "      update_trailing<kStaged>(L, sp, k0, warp, lane);\n"
-     "    if (tid == 480) g_prof[7] += clock64() - t7_;\n    __syncthreads();\n"
-     "    MARK(3)"),
-    ("  if (tid == 0) {\n    *reinterpret_cast<int*>(cnt_ok) = cnt;",
-     "  __syncthreads();\n  MARK(4)\n  if (tid == 0) {\n"
-     "    *reinterpret_cast<int*>(cnt_ok) = cnt;"),
-)
-READER = '''
-extern "C" int profile_read(long long* host) {  // and reset
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_prof, sizeof(long long) * 8);
-  long long zero[8] = {0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
-  return (int)e;
-}
-'''
-LABELS = ("stage", "first tile", "solve", "tile+update", "out", "tile update",
-          "w0 factor", "w15 trailing")
-
-
-def instrumented_source() -> str:
-    src = SOURCE.read_text()
-    for anchor, text in MARKS:
-        if src.count(anchor) != 1:
-            sys.exit(f"a mark no longer finds its place in {SOURCE.name}: {anchor!r}")
-        src = src.replace(anchor, text)
-    return src + READER
+# the kernel's g_prof counters, in order
+LABELS = ("stage", "first tile", "solve", "tile update", "factor+trailing",
+          "w0 factor", "w15 trailing", "out")
+PHASES = ("stage", "first tile", "solve", "tile update", "factor+trailing", "out")
 
 
 def build() -> ctypes.CDLL:
@@ -94,18 +47,17 @@ def build() -> ctypes.CDLL:
     from faer_tpu_torch.ops.kernels import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    cu, so = OUT_DIR / "llt_block_profile.cu", OUT_DIR / "llt_block_profile.so"
-    cu.write_text(instrumented_source())
-    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, "-shared", "-o", str(so),
-                    str(cu)], check=True)
+    so = OUT_DIR / "llt_block_profile.so"
+    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, "-DFAER_LLT_PROFILE",
+                    "-shared", "-o", str(so), str(_build.CSRC / "llt_block.cu")],
+                   check=True)
     lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.faer_llt_block.argtypes = [p, i, p, p, i, f, f, i, p]
-    lib.profile_read.argtypes = [p]
+    lib.faer_llt_block.argtypes = _build._SIGNATURES["faer_llt_block"]
+    lib.faer_llt_block_profile_read.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def profile(lib, b: int, reps: int, gen) -> dict:
+def profile(lib, b: int, gen) -> dict:
     g = torch.randn(b, b, generator=gen, device="cuda")
     a = g @ g.T / b + 2 * torch.eye(b, device="cuda")
     out = torch.empty(b, b, device="cuda")
@@ -120,20 +72,17 @@ def profile(lib, b: int, reps: int, gen) -> dict:
             if code:
                 sys.exit(f"launch failed with CUDA error {code}")
         torch.cuda.synchronize()
-        if lib.profile_read(counts):
+        if lib.faer_llt_block_profile_read(counts):
             sys.exit("reading the counters failed")
 
     run(1)  # warm-up, counters reset
-    run(reps)
+    run(REPS)
     l64, a64 = out.double(), a.double()
     resid = (torch.linalg.matrix_norm(l64 @ l64.T - a64) / torch.linalg.matrix_norm(a64)).item()
-    return dict(b=b, resid=resid, **{k: counts[n] / reps for n, k in enumerate(LABELS)})
+    return dict(b=b, resid=resid, **{k: counts[n] / REPS for n, k in enumerate(LABELS)})
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false: this script needs a CUDA card")
     smi = subprocess.run(
@@ -143,11 +92,11 @@ def main() -> None:
     lib = build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for b in BLOCKS:
-        row = profile(lib, b, args.reps, gen)
-        total = sum(row[k] for k in LABELS[:5])
+        row = profile(lib, b, gen)
+        total = sum(row[k] for k in PHASES)
         print(f"b={b}: cycles per call " + ", ".join(
-            f"{k} {row[k]:.0f}" for k in LABELS[:5]) + f", total {total:.0f}; "
-            + ", ".join(f"{k} {row[k]:.0f}" for k in LABELS[5:])
+            f"{k} {row[k]:.0f}" for k in PHASES) + f", total {total:.0f}; "
+            + ", ".join(f"{k} {row[k]:.0f}" for k in ("w0 factor", "w15 trailing"))
             + f"; |LL^T-A|/|A| {row['resid']:.3e}")
 
 

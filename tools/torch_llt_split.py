@@ -1,162 +1,69 @@
-"""Per-call and device time of the LLT diagonal-block kernels on one CUDA card.
+"""Per-call and device time of a checkout's LLT diagonal-block wrappers, on one CUDA card.
 
-    python tools/torch_llt_split.py [--reps N] [--graph-reps N] [--out PATH]
+    python tools/torch_llt_split.py [ROOT]
 
-For b in {128, 256, 512}, on A = g gᵀ/b + 2I (mirrored from its lower
-triangle, seed 1), times ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
-``torch.linalg.cholesky_ex`` two ways:
-
-* **per call** (``cuda_ms``): a CUDA event before and after one call of the
-  Python function, the median of ``--reps`` after a warm-up. For a kernel of
-  one CTA the card idles while the host runs the wrapper, so this is what a
-  caller pays, host time included;
-* **on the device** (``graph_ms``): ``--graph-reps`` calls captured in one
-  CUDA graph, replayed and timed by CUDA events, divided by the count. The
-  host's share drops out.
-
-Each row also carries the host share, 1 − device / per call. If
-``cholesky_ex`` cannot be captured, its device time comes from
-``torch.profiler`` kernel spans instead, and the row says so. Prints the
-card's name and power limit as nvidia-smi reports them, one line a row,
-and as the last line one JSON object with every row (also written to
-``--out`` when given). Exits non-zero without a card.
+Times ``llt_leaf``, ``llt_block`` and ``llt_block_v3`` of the
+``faer_tpu_torch`` under ROOT (by default this checkout), and
+``torch.linalg.cholesky_ex`` beside them, exactly as phase 3 of
+``chip_smoke.py`` times this checkout's: its inputs (``_spd``, mirrored
+from the lower triangle, seed 1), its sizes ``LLT_TIMED`` and its two
+timers, ``cuda_ms`` per call (what a caller pays, the host's wrapper
+included) and ``graph_ms`` on the device (a CUDA graph of
+``LLT_GRAPH_REPS`` calls). Only this checkout's ``chip_smoke.py`` is used,
+so one chip call can time another checkout (a parent commit unpacked beside
+this one) in turns with this one by the same code. Prints the card's name
+and power limit, one line a row, and as the last line one JSON object with
+every row. Exits non-zero without a card.
 """
 from __future__ import annotations
 
-import argparse
+import importlib.util
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+HERE = Path(__file__).resolve().parents[1]
 SEED = 1
-BLOCKS = (128, 256, 512)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median time of one call of ``fn``, in ms, by CUDA events around it."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device time of ``fn`` per call, in ms: ``reps`` calls captured in one
-    CUDA graph, replayed once to warm up and once under CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def profiler_ms(fn, reps: int) -> float:
-    """Device time of ``fn`` per call, in ms: the sum of the CUDA kernel
-    spans ``torch.profiler`` records over ``reps`` calls, over the count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / reps
-
-
-def spd(b: int, gen):
-    g = torch.randn(b, b, generator=gen, device="cuda")
-    a = torch.tril(g @ g.T / b + 2 * torch.eye(b, device="cuda"))
-    return a + torch.tril(a, -1).mT
-
-
-def _calls() -> dict:
-    from faer_tpu_torch.ops.kernels.leaf import llt_leaf
-    from faer_tpu_torch.ops.kernels.llt_block import llt_block, llt_block_v3
-
-    return {"llt_leaf": llt_leaf, "llt_block": llt_block, "llt_block_v3": llt_block_v3,
-            "cholesky_ex": torch.linalg.cholesky_ex}
-
-
-def route_of(b: int) -> str:
-    """Where ``llt_block``'s kernel keeps a (b, b) block: shared memory, or
-    an L2-resident global scratch (read through ``staged_in_shared_memory``,
-    which the kernels before the blocked one have too, so that the tool
-    also times them)."""
-    from faer_tpu_torch.ops.kernels.llt_block import staged_in_shared_memory
-
-    return "shared" if staged_in_shared_memory(b) else "L2"
-
-
-def split(reps: int = 50, graph_reps: int = 30, log=print) -> list[dict]:
-    """One row per (call, b): per-call and device ms, the host share, and
-    how the device time was taken."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
-    for b in BLOCKS:
-        a = spd(b, gen)
-        for name, fn in _calls().items():
-            call = (lambda f=fn: f(a))
-            per_call = cuda_ms(call, reps)
-            how = "graph"
-            try:
-                device = graph_ms(call, graph_reps)
-            except RuntimeError:  # a library call that refuses capture
-                torch.cuda.synchronize()
-                device, how = profiler_ms(call, graph_reps), "profiler"
-            row = dict(call=name, b=b, per_call_ms=per_call, device_ms=device,
-                       host_share=1.0 - device / per_call, device_by=how,
-                       route=None if name == "cholesky_ex" else route_of(b))
-            rows.append(row)
-            log(f"{name} b={b}: per call {per_call:.4f} ms, device {device:.4f} ms "
-                f"({how}), host share {row['host_share']:.3f}"
-                + ("" if row["route"] is None else f", route {row['route']}"))
-    return rows
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--graph-reps", type=int, default=30)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
+    root = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false: this script needs a CUDA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    sys.path.insert(0, str(root))
+    from faer_tpu_torch.ops.kernels.leaf import llt_leaf
+    from faer_tpu_torch.ops.kernels.llt_block import llt_block, llt_block_v3
+
+    cs = _chip_smoke()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
-    rows = split(args.reps, args.graph_reps)
-    line = json.dumps({"device": smi, "reps": args.reps,
-                       "graph_reps": args.graph_reps, "rows": rows})
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
-    print(line)
+    calls = {"llt_leaf": llt_leaf, "llt_block": llt_block, "llt_block_v3": llt_block_v3,
+             "cholesky_ex": torch.linalg.cholesky_ex}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for b in cs.LLT_TIMED:
+        a = cs._mirrored(cs._spd(b, gen))
+        for name, fn in calls.items():
+            call = (lambda f=fn: f(a))
+            row = dict(call=name, b=b, per_call_ms=cs.cuda_ms(call, cs.LLT_CALL_REPS),
+                       device_ms=cs.graph_ms(call, cs.LLT_GRAPH_REPS))
+            rows.append(row)
+            print(f"{name} b={b}: per call {row['per_call_ms']:.4f} ms, "
+                  f"device {row['device_ms']:.4f} ms")
+    print(json.dumps({"root": str(root), "device": smi, "rows": rows}))
 
 
 if __name__ == "__main__":
