@@ -9,7 +9,13 @@ Phases, each printing lines; any failure exits non-zero:
 2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, with the tolerance stated, and its
-   time beside its plain version's, its bound and a library yardstick; the
+   time beside its plain version's, its bound and a library yardstick;
+   ``trtri`` at n ∈ {1, 16, 17, 32, 100, 128}, unit and not, against its
+   plain version, the kernel's own order and an f64 inverse, and batched
+   over the diagonal blocks of a 4096 and a 4000 triangle read through
+   contiguous, row-strided and transposed views (bit for bit single
+   launches), timed per call and on the device beside
+   ``solve_triangular(L, I)``; the
    QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
    ``qr_leaf``) at (4096, 128) and (4096, 256); every panel wrapper on
    wide panels (m < b) at (64, 200) and (1000, 1024); the three wrappers of
@@ -23,11 +29,12 @@ Phases, each printing lines; any failure exits non-zero:
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
    against an f64 oracle, and CUDA-event timings of each factorization and
-   solve;
+   solve, and per call the triangular solves of 4096 × 8 and the whole
+   step beside ``torch.linalg.solve_triangular``;
 5. QR: ``qr_in_place`` then ``qr_solve_lstsq`` at n = 4096 (as ``bench.py``
    drives it), launch counts, ‖QR − A‖, QᵀQ − I, the solve residual, tall
    8192 × 2048 and 65536 × 512 least-squares solves, an f64 check at
-   2048 × 512, and timings;
+   2048 × 512, and timings (the R solve beside ``solve_triangular``);
 6. off-route: ``llt_factor`` and ``lu_in_place`` on shapes the fused route
    does not take (the recursive drivers and their leaf kernels), launch
    counts, reconstruction errors and timings;
@@ -101,11 +108,29 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# launches the code predicts (PERF.md, PR 2): recursive-driver leaves per
-# off-route factor, and trtri in one qr_in_place + qr_solve_lstsq at N
-LLT_LEAVES = {4000: 32, 1000: 16}
-LU_LEAVES = {(4000, 4000): 16, (4096, 1024): 4, (1024, 4096): 4}
-QR_TRTRI = 96
+# launches the code predicts (PERF.md §6), trtri one batched launch per
+# triangular solve and per inverse: per off-route factor, its leaves and
+# trtri (LLT 4000: 16 panels of 256 (the last 160) with one inverse inside
+# each halving and 15 couplings; 1000: 16 leaf panels of 64, 15 couplings;
+# LU 4000²: 8 panels of 512 (the last 416) with one unit-lower solve inside
+# each halving and 7 U12 inverses; 4096 × 1024: 4 leaf panels, 3 U12
+# inverses; 1024 × 4096: 4, and 4 U12 inverses); in one qr_in_place +
+# qr_solve_lstsq at N, 4 T factors of each of the 8 panels and 1 for the R
+# solve; and in one flagship_step at N, 1 + 1 in llt_solve, 12 panel and 3
+# strip inverses in lu_in_place, 1 + 1 in lu_solve
+LLT_OFF_ROUTE = {4000: dict(llt_leaf=32, trtri=16 + 15),
+                 1000: dict(llt_leaf=16, trtri=15)}
+LU_OFF_ROUTE = {(4000, 4000): dict(lu_leaf=16, trtri=8 + 7),
+                (4096, 1024): dict(lu_leaf=4, trtri=3),
+                (1024, 4096): dict(lu_leaf=4, trtri=4)}
+QR_TRTRI = 8 * 4 + 1
+FLAGSHIP_TRTRI = 2 + 12 + 3 + 2
+# phase 3's trtri: the checked sides; the timed (n, unit) blocks; the
+# triangles whose 128-row diagonal blocks one batched launch inverts
+TRTRI_SIZES = (1, 16, 17, 32, 100, 128)
+TRTRI_TIMED = ((128, False), (128, True), (100, False), (100, True))
+TRTRI_BATCHES = (4096, 4000)
+TRTRI_REPS = 50
 # operations per step of the sweep kernels' chains, counted from their source
 SWEEP_STEP_FLOPS = 28
 SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
@@ -126,8 +151,11 @@ CALU_GROUP = 4096  # _CALU_GROUP for phase 9's tall factor: 16 groups a leaf
 CALU_SOLVE = (4000, 1024)  # (n, gate) of phase 9's square factor and solve
 # launches per lu_in_place in phase 9 (PERF.md §6), counted from the
 # drivers' control flow, which does not depend on the data
-CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=14),
-                 (4000, 4000): dict(lu_panel_v2=24, lu_leaf=4, trtri=68)}
+# (trtri: one launch per inverse and per solve: the tall factor's 4 leaves'
+# U11 inverses and 3 L11 inverses; the square one's 12 CALU leaves, 8
+# panel couplings and 7 L11 inverses)
+CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=4 + 3),
+                 (4000, 4000): dict(lu_panel_v2=24, lu_leaf=4, trtri=12 + 8 + 7)}
 # phase 10's timing: each panel wrapper is called 1 + warmup + reps times a
 # shape (tools/torch_qr_panels.py)
 LAB_REPS, LAB_WARMUP = 10, 2
@@ -224,6 +252,12 @@ def bound_of(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def lower_floats(n: int, unit: bool = False) -> int:
+    """The entries of an (n, n) lower triangle that a kernel must read: the
+    diagonal too unless it is taken as 1 (``unit``)."""
+    return n * (n - 1) // 2 if unit else n * (n + 1) // 2
+
+
 def rel_norm(x, y) -> float:
     return (torch.linalg.matrix_norm(x - y) / torch.linalg.matrix_norm(y)).item()
 
@@ -299,6 +333,125 @@ def _trtri_block(n: int, unit: bool, gen) -> torch.Tensor:
             ).contiguous()
 
 
+def _structured64(t, unit: bool) -> torch.Tensor:
+    """The f64 lower-triangular matrix that ``trtri`` inverts for ``t``."""
+    n = t.shape[0]
+    return torch.tril(t.double(), -1) + (
+        torch.eye(n, dtype=torch.float64, device=t.device) if unit
+        else torch.diag(torch.diagonal(t).double()))
+
+
+def _trtri_views(lo, gen) -> dict:
+    """The same lower triangle contiguous, as an (n, n) view with row stride
+    n + 3 (as a factorization's sub-block lies), and as the ``.mT`` view of its
+    contiguous transpose (as an upper solve reads its operand)."""
+    n = lo.shape[0]
+    buf = torch.randn(n + 3, n + 3, generator=gen, device=DEV)
+    buf[:n, :n] = lo
+    return {"contiguous": lo.contiguous(), "row stride n+3": buf[:n, :n],
+            "transposed": lo.mT.contiguous().mT}
+
+
+def _trtri_kernel(gen) -> dict:
+    """``trtri`` (row 1, ``csrc/trtri.cu``): one block at ``TRTRI_SIZES``,
+    unit and not, within 8·n·eps·κ₂(L) (a forward error, relative to
+    max|L⁻¹|) of its plain version, of the kernel's own order
+    (``trtri_blocked_plain``) and of an f64 inverse, zero above the
+    diagonal; then one batched launch over the 128-row diagonal blocks of a
+    ``TRTRI_BATCHES`` triangle (32 blocks; 31 and a ragged 32) read through
+    three views, each slot within the same bound of ``trtri_batched_plain``,
+    every view's bits the same and each slot's the bits of a single launch.
+    Timed per call (``cuda_ms``) and on the device (``graph_ms``) at
+    ``TRTRI_TIMED`` and batched, beside ``solve_triangular(L, I)`` on one
+    block and on the (32, 128, 128) batch."""
+    from faer_tpu_torch.ops.kernels.trtri import (
+        trtri, trtri_batched, trtri_batched_plain, trtri_blocked_plain, trtri_plain)
+
+    errs = []
+    for n in TRTRI_SIZES:
+        for unit in (False, True):
+            t = _trtri_block(n, unit, gen)
+            got, want = trtri(t, unit=unit), trtri_plain(t, unit=unit)
+            torch.cuda.synchronize()
+            lo64 = _structured64(t, unit)
+            tol = 8 * n * EPS32 * torch.linalg.cond(lo64).item()
+            err, rel = _max_rel(got, want)
+            _, relb = _max_rel(got, trtri_blocked_plain(t, unit=unit))
+            _, rel64 = _max_rel(got.double(), torch.linalg.inv(lo64))
+            errs.append(err)
+            check(rel <= tol and relb <= tol and rel64 <= tol
+                  and bool((torch.triu(got, 1) == 0).all()),
+                  f"trtri n={n} unit={unit}: max abs err {err:.3e}, rel {rel:.3e} "
+                  f"vs plain, {relb:.3e} vs the blocked order, {rel64:.3e} vs f64 "
+                  f"<= tol {tol:.3e}")
+    batches = {}
+    for n in TRTRI_BATCHES:
+        blocks = [(o, min(128, n - o)) for o in range(0, n, 128)]
+        lo = torch.linalg.cholesky(_spd(n, gen)) + torch.triu(
+            torch.randn(n, n, generator=gen, device=DEV), 1)
+        views = _trtri_views(lo, gen)
+        first = None
+        for name, t in views.items():
+            got = trtri_batched(t, blocks)
+            torch.cuda.synchronize()
+            if first is None:
+                first, want = got, trtri_batched_plain(t, blocks)
+                worst = 0.0
+                for i, (o, sz) in enumerate(blocks):
+                    lo64 = _structured64(t[o:o + sz, o:o + sz], False)
+                    tol = 8 * sz * EPS32 * torch.linalg.cond(lo64).item()
+                    err, rel = _max_rel(got[i, :sz, :sz], want[i, :sz, :sz])
+                    errs.append(err)
+                    worst = max(worst, rel / tol)
+                check(worst <= 1.0 and not got[-1, blocks[-1][1]:].any(),
+                      f"trtri_batched n={n}, {len(blocks)} blocks (last {blocks[-1][1]}): "
+                      f"every slot within 8 s eps cond of the plain version (largest "
+                      f"{worst:.3e} of its bound), zero past its size")
+            singles = all(torch.equal(got[i, :sz, :sz], trtri(t[o:o + sz, o:o + sz]))
+                          for i, (o, sz) in enumerate(blocks))
+            check(torch.equal(got, first) and singles,
+                  f"trtri_batched n={n} [{name}]: the bits of the contiguous view "
+                  f"and of {len(blocks)} single launches")
+        batches[n] = (views["contiguous"], blocks)
+
+    row = dict(max_abs_err=max(errs))
+    eye = torch.eye(128, device=DEV)
+    for n, unit in TRTRI_TIMED:
+        t = _trtri_block(n, unit, gen)
+        call = lambda: trtri(t, unit=unit)
+        ms, dev = cuda_ms(call, TRTRI_REPS), graph_ms(call, TRTRI_REPS)
+        print(f"time trtri n={n} unit={unit}: per call {ms:.4f} ms, device {dev:.4f} ms")
+        if (n, unit) == TRTRI_TIMED[0]:
+            lib = lambda: torch.linalg.solve_triangular(torch.tril(t), eye, upper=False)
+            row.update(ms=ms, device_ms=dev, plain_ms=cuda_ms(lambda: trtri_plain(t), 3),
+                       library_ms=cuda_ms(lib, TRTRI_REPS),
+                       library_device_ms=graph_ms(lib, TRTRI_REPS),
+                       # the lower triangle read once, the (n, n) inverse written
+                       **bound_of(128 ** 3 / 3, 4 * (lower_floats(128) + 128 * 128)))
+    for n, (t, blocks) in batches.items():
+        call = lambda: trtri_batched(t, blocks)
+        ms, dev = cuda_ms(call, TRTRI_REPS), graph_ms(call, TRTRI_REPS)
+        k = len(blocks)
+        # each block's lower triangle read once, each 128 × 128 slot written once
+        b = bound_of(sum(sz ** 3 / 3 for _, sz in blocks),
+                     4 * sum(lower_floats(sz) + 128 * 128 for _, sz in blocks))
+        print(f"time trtri_batched n={n} ({k} blocks): per call {ms:.4f} ms, device "
+              f"{dev:.4f} ms; bound {b['bound_ms']:.6g} ms ({b['bound_by']})")
+        if n == TRTRI_BATCHES[0]:
+            stack = torch.stack([torch.tril(t[o:o + sz, o:o + sz]) for o, sz in blocks
+                                 if sz == 128])
+            lib = lambda: torch.linalg.solve_triangular(stack, eye, upper=False)
+            row.update(batched_ms=ms, batched_device_ms=dev, batched_bound_ms=b["bound_ms"],
+                       batched_library_ms=cuda_ms(lib, TRTRI_REPS),
+                       batched_library_device_ms=graph_ms(lib, TRTRI_REPS))
+    print(f"time solve_triangular(L, I) n=128: per call {row['library_ms']:.4f} ms, "
+          f"device {row['library_device_ms']:.4f} ms; on the (32, 128, 128) batch "
+          f"{row['batched_library_ms']:.4f} / {row['batched_library_device_ms']:.4f} ms; "
+          f"trtri_plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.6g} ms "
+          f"({row['bound_by']}), batched {row['batched_bound_ms']:.6g} ms")
+    return row
+
+
 def _regularized_spd(b: int, bad, gen) -> torch.Tensor:
     """A = L Lᵀ − 1e-3·Σ e_k e_kᵀ over the ``bad`` columns k, where L has
     diagonal 0 there and in [1.5, 2.5] elsewhere: the bad pivots are
@@ -321,35 +474,9 @@ def phase_kernels(gen) -> dict:
     from faer_tpu_torch.ops.kernels import _build
     from faer_tpu_torch.ops.kernels.qr_panel import MIN_ROWS_PER_CTA as qr_min_rows
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
-    from faer_tpu_torch.ops.kernels.trtri import trtri, trtri_plain
     from faer_tpu_torch.utils import flops
 
-    res = {}
-    # trtri: against the plain version and an f64 inverse of the structured
-    # block; forward-error tolerance 8·n·eps·κ₂(L), relative to max|L⁻¹|
-    errs = []
-    for n, unit in ((128, False), (128, True), (100, False), (100, True)):
-        t = _trtri_block(n, unit, gen)
-        got, want = trtri(t, unit=unit), trtri_plain(t, unit=unit)
-        torch.cuda.synchronize()
-        lo64 = torch.tril(t.double(), -1) + (
-            torch.eye(n, dtype=torch.float64, device=DEV) if unit
-            else torch.diag(torch.diagonal(t).double()))
-        tol = 8 * n * EPS32 * torch.linalg.cond(lo64).item()
-        err, rel = _max_rel(got, want)
-        _, rel64 = _max_rel(got.double(), torch.linalg.inv(lo64))
-        errs.append(err)
-        check(rel <= tol and rel64 <= tol,
-              f"trtri n={n} unit={unit}: max abs err {err:.3e}, rel {rel:.3e} "
-              f"vs plain, {rel64:.3e} vs f64 <= tol {tol:.3e}")
-    t = _trtri_block(128, False, gen)
-    eye128 = torch.eye(128, device=DEV)
-    res["trtri"] = dict(
-        max_abs_err=max(errs), ms=cuda_ms(lambda: trtri(t), 50),
-        plain_ms=cuda_ms(lambda: trtri_plain(t), 3),
-        library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
-            torch.tril(t), eye128, upper=False), 50),
-        **bound_of(128 ** 3 / 3, 2 * 128 * 128 * 4))
+    res = {"trtri": _trtri_kernel(gen)}
 
     # llt_panel: SPD slabs with cond ≤ 5; tolerance 8·b·eps relative to max|strip|
     errs = []
@@ -965,7 +1092,8 @@ def _llt_block_kernels(gen) -> dict:
                      device_ms=graph_ms(lambda: kern(a), LLT_GRAPH_REPS),
                      plain_ms=cuda_ms(lambda: plain(a), 3) if b == LLT_TIMED[0] else None,
                      library_ms=lib_ms, library_device_ms=lib_dev,
-                     **bound_of(b ** 3 / 3, 2 * b * b * 4))
+                     # the lower triangle read once, the (b, b) factor written
+                     **bound_of(b ** 3 / 3, 4 * (lower_floats(b) + b * b)))
             print(f"time {name} b={b} [{route(b)}]: per call {r['ms']:.4f} ms, "
                   f"device {r['device_ms']:.4f} ms; cholesky_ex {lib_ms:.4f} / "
                   f"{lib_dev:.4f} ms; bound {r['bound_ms']:.6g} ms ({r['bound_by']})"
@@ -1032,6 +1160,23 @@ def _chase_kernel(gen) -> dict:
     return {"chase_probe": r}
 
 
+def _time_solves(lo, b, label: str) -> None:
+    """Per-call times of ``solve_lower_triangular`` with ``lo`` and
+    ``solve_upper_triangular`` with ``lo``ᵀ (contiguous), each beside
+    ``torch.linalg.solve_triangular`` on the same inputs."""
+    from faer_tpu_torch.ops.triangular_solve import (
+        solve_lower_triangular, solve_upper_triangular)
+
+    n, k = b.shape
+    up = lo.mT.contiguous()
+    for name, fn, tri, upper in (("solve_lower_triangular", solve_lower_triangular, lo, False),
+                                 ("solve_upper_triangular", solve_upper_triangular, up, True)):
+        ms = cuda_ms(lambda: fn(tri, b), 5)
+        lib = cuda_ms(lambda: torch.linalg.solve_triangular(tri, b, upper=upper), 5)
+        print(f"time {name} {n}x{k} ({label}): {ms:.4f} ms; library "
+              f"solve_triangular {lib:.4f} ms")
+
+
 def _inputs(n: int, gen):
     a_spd = _spd(n, gen)
     g = torch.randn(n, n, generator=gen, device=DEV)
@@ -1056,8 +1201,9 @@ def phase_flagship(gen) -> dict:
     counts = launch_counts()
     print(f"launches in flagship_step: {counts}")
     check(counts["llt_panel"] == n // 256 and counts["lu_panel"] == n // 256
-          and counts["trtri"] > 0,
-          f"llt_panel and lu_panel ran {n // 256} times each, trtri ran")
+          and counts["trtri"] == FLAGSHIP_TRTRI,
+          f"llt_panel and lu_panel ran {n // 256} times each, trtri "
+          f"{FLAGSHIP_TRTRI} times (one launch per solve and per inverse)")
     check(tuple(x.shape) == (n, 8) and bool(torch.isfinite(x).all())
           and bool(success), "flagship output finite, shape (n, 8), success")
 
@@ -1102,6 +1248,9 @@ def phase_flagship(gen) -> dict:
           "lu_solve": 2 * flops.trsm_flops(n, 8)}
     for k, ms in t.items():
         print(f"time {k} n={n}: {ms:.4f} ms, {fl[k] / ms / 1e6:.1f} GFLOP/s")
+    _time_solves(l, b, "L from llt_factor")
+    print(f"time flagship_step n={n}: "
+          f"{cuda_ms(lambda: flagship_step(a_spd, g, b), 5):.4f} ms")
     print(f"library cholesky_ex n={n}: "
           f"{cuda_ms(lambda: torch.linalg.cholesky_ex(a_spd), 5):.4f} ms, "
           f"lu_factor_ex: {cuda_ms(lambda: torch.linalg.lu_factor_ex(g), 5):.4f} ms")
@@ -1114,6 +1263,7 @@ def phase_qr(gen) -> dict:
     from faer_tpu_torch import (
         qr_compute_q, qr_in_place, qr_reconstruct, qr_solve_lstsq)
     from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
+    from faer_tpu_torch.ops.triangular_solve import solve_upper_triangular
     from faer_tpu_torch.utils import flops
 
     n = N
@@ -1129,7 +1279,7 @@ def phase_qr(gen) -> dict:
     check(counts["qr_panel"] == n // 128 and counts["trtri"] == QR_TRTRI
           and counts["llt_panel"] == counts["lu_panel"] == 0,
           f"qr_panel ran {n // 128} times (one per 128-wide leaf), trtri "
-          f"{QR_TRTRI} times (64 in the T factors, 32 in the R solve)")
+          f"{QR_TRTRI} times (32 in the T factors, 1 in the R solve)")
     tol = 8 * n * EPS32
     rec = rel_norm(qr_reconstruct(packed, ts, block), a)
     q = qr_compute_q(packed, ts, block)
@@ -1196,6 +1346,12 @@ def phase_qr(gen) -> dict:
     }
     for k, (ms, fl) in t.items():
         print(f"time {k}: {ms:.4f} ms, {fl / ms / 1e6:.1f} GFLOP/s")
+    # the R solve of qr_solve_lstsq (its right-hand side does not change the time)
+    r, r_up = packed[:n, :n], torch.triu(packed[:n, :n])
+    print(f"time the R solve n={n} (8 rhs): "
+          f"{cuda_ms(lambda: solve_upper_triangular(r, b), 5):.4f} ms; library "
+          f"solve_triangular "
+          f"{cuda_ms(lambda: torch.linalg.solve_triangular(r_up, b, upper=True), 5):.4f} ms")
     print(f"library geqrf n={n}: {cuda_ms(lambda: torch.geqrf(a), 3):.4f} ms, "
           f"{mt}x{nt_}: {cuda_ms(lambda: torch.geqrf(at), 3):.4f} ms, "
           f"{ms2}x{ns2}: {cuda_ms(lambda: torch.geqrf(a2), 3):.4f} ms")
@@ -1205,13 +1361,14 @@ def phase_qr(gen) -> dict:
 def phase_off_route(gen) -> dict:
     """``llt_factor`` and ``lu_in_place`` on shapes off the fused route:
     the recursive drivers and their ``llt_leaf`` / ``lu_leaf`` kernels.
-    Each factorization is counted on its own; the counts are summed."""
+    Each factorization's leaves and ``trtri`` launches are checked against
+    the code's counts; the counts are summed."""
     from faer_tpu_torch import llt_factor, llt_reconstruct, lu_in_place, lu_reconstruct
     from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
     from faer_tpu_torch.utils import flops
 
     total = {}
-    for n, leaves in LLT_LEAVES.items():
+    for n, want in LLT_OFF_ROUTE.items():
         a = _spd(n, gen)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1221,15 +1378,15 @@ def phase_off_route(gen) -> dict:
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         rec = rel_norm(llt_reconstruct(l), a)
         tol = 8 * n * EPS32
-        check(counts["llt_leaf"] == leaves and counts["llt_panel"] == 0
+        check(all(counts[k] == v for k, v in want.items()) and counts["llt_panel"] == 0
               and bool(info.success) and rec <= tol,
-              f"llt_factor n={n}: launches {counts}, |LLᵀ-A|/|A| = {rec:.3e} "
+              f"llt_factor n={n}: launches {counts} (want {want}), |LLᵀ-A|/|A| = {rec:.3e} "
               f"<= {tol:.3e}")
         ms = cuda_ms(lambda: llt_factor(a), 3)
         print(f"time llt_factor n={n}: {ms:.4f} ms, "
               f"{flops.llt_flops(n) / ms / 1e6:.1f} GFLOP/s; library cholesky_ex "
               f"{cuda_ms(lambda: torch.linalg.cholesky_ex(a), 3):.4f} ms")
-    for (m, n), leaves in LU_LEAVES.items():
+    for (m, n), want in LU_OFF_ROUTE.items():
         g = torch.randn(m, n, generator=gen, device=DEV)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1239,9 +1396,9 @@ def phase_off_route(gen) -> dict:
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         rec = rel_norm(lu_reconstruct(lu, perm), g)
         tol = 8 * max(m, n) * EPS32
-        check(counts["lu_leaf"] == leaves and counts["lu_panel"] == 0
+        check(all(counts[k] == v for k, v in want.items()) and counts["lu_panel"] == 0
               and tuple(lu.shape) == (m, n) and bool(info.success) and rec <= tol,
-              f"lu_in_place {m}x{n}: launches {counts}, |A[perm]-LU|/|A| = "
+              f"lu_in_place {m}x{n}: launches {counts} (want {want}), |A[perm]-LU|/|A| = "
               f"{rec:.3e} <= {tol:.3e}")
         ms = cuda_ms(lambda: lu_in_place(g), 3)
         print(f"time lu_in_place {m}x{n}: {ms:.4f} ms, "

@@ -78,7 +78,7 @@
 // order of rounding only; this kernel has one order, so the entry point no
 // longer takes it. FP32 only, no TF32.
 //
-// Built with -DFAER_LLT_PROFILE (tools/torch_llt_profile.py does, into a
+// Built with -DFAER_LLT_PROFILE (`tools/torch_profile.py llt` does, into a
 // library of its own), the kernel also sums the SM cycles of each phase as
 // thread 0 sees them into g_prof, read by faer_llt_block_profile_read.
 #include <cuda_runtime.h>

@@ -33,7 +33,7 @@ _SIGNATURES = {
     # for faer_llt_block_route)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
-    "faer_trtri": [_P, _P, _I, _I, _P],
+    "faer_trtri_batched": [_P, _L, _L, _IP, _I, _P, _I, _I, _P],
     "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
     "faer_lu_panel_batched_grid": [_I, _I, _I, _I, _IP, _IP],
     "faer_lu_panel_batched": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -2,8 +2,10 @@
 ``faer_tpu/ops/triangular_solve.py``).
 
 faer ``solve_*_triangular_in_place_with_conj`` (``triangular_solve.rs:220-402``).
-Blocked substitution over 128-row blocks: each diagonal block is inverted by
-the ``trtri`` kernel and applied as a product, and the blocks below (or
+Blocked substitution over 128-row blocks: every diagonal block is inverted
+before the loop, by one batched ``trtri`` launch (the inverses do not depend
+on the right-hand side; in the JAX package they are independent ops of one
+traced graph), each is applied as a product, and the blocks below (or
 above) get one product each. The diagonal-block applications pin full
 FP32 (``_mm_hi``, as at ``faer_tpu/ops/triangular_solve.py:25-27``); the
 updates of the blocks below or above go through the front door's dispatch.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from faer_tpu_torch.ops.kernels.trtri import MAX_N, trtri_batched
 from faer_tpu_torch.ops.matmul import matmul
 from faer_tpu_torch.ops.triangular import (
     _mm_hi,
@@ -21,7 +24,12 @@ from faer_tpu_torch.ops.triangular import (
     invert_upper_triangular,
 )
 
-_BLOCK = 128
+_BLOCK = MAX_N  # a diagonal block is one slot of the batched inverse
+
+
+def _diagonal_blocks(n: int) -> list[tuple[int, int]]:
+    """(offset, size) of the 128-row diagonal blocks, the last one ragged."""
+    return [(i0, min(_BLOCK, n - i0)) for i0 in range(0, n, _BLOCK)]
 
 
 def solve_lower_triangular(l, b, *, unit: bool = False):
@@ -31,10 +39,11 @@ def solve_lower_triangular(l, b, *, unit: bool = False):
         return _mm_hi(invert_lower_triangular(l, unit=unit), b)
     # a fresh copy of the right-hand side, updated in place block by block
     x = b.clone(memory_format=torch.contiguous_format)
-    for i0 in range(0, n, _BLOCK):
-        i1 = min(i0 + _BLOCK, n)
-        linv = invert_lower_triangular(l[i0:i1, i0:i1], unit=unit)
-        x[i0:i1] = _mm_hi(linv, x[i0:i1])
+    blocks = _diagonal_blocks(n)
+    inv = trtri_batched(l, blocks, unit=unit)
+    for k, (i0, size) in enumerate(blocks):
+        i1 = i0 + size
+        x[i0:i1] = _mm_hi(inv[k, :size, :size], x[i0:i1])
         if i1 < n:
             x[i1:] -= matmul(None, l[i1:, i0:i1], x[i0:i1])
     return x
@@ -46,10 +55,11 @@ def solve_upper_triangular(u, b, *, unit: bool = False):
     if n <= _BLOCK:
         return _mm_hi(invert_upper_triangular(u, unit=unit), b)
     x = b.clone(memory_format=torch.contiguous_format)  # updated in place
-    for i0 in reversed(range(0, n, _BLOCK)):
-        i1 = min(i0 + _BLOCK, n)
-        uinv = invert_upper_triangular(u[i0:i1, i0:i1], unit=unit)
-        x[i0:i1] = _mm_hi(uinv, x[i0:i1])
+    blocks = _diagonal_blocks(n)
+    inv = trtri_batched(u.mT, blocks, unit=unit)  # the lower triangle of Uᵀ
+    for k, (i0, size) in reversed(list(enumerate(blocks))):
+        i1 = i0 + size
+        x[i0:i1] = _mm_hi(inv[k, :size, :size].mT, x[i0:i1])
         if i0 > 0:
             x[:i0] -= matmul(None, u[:i0, i0:i1], x[i0:i1])
     return x

@@ -41,34 +41,114 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("n,unit", [(32, False), (100, False), (128, True),
-                                    (100, True)])
-def test_trtri_kernel(cuda, n, unit):
-    from faer_tpu_torch.ops.kernels.trtri import trtri, trtri_plain
-
-    gen = torch.Generator(device=cuda).manual_seed(n)
+def _lower_with_junk(n, unit, gen, cuda):
+    """A lower triangle with garbage above the diagonal, which is never read.
+    Unit: strict entries N(0, 1/n) keep κ O(1), and the stored diagonal in
+    [2, 3] must be ignored; else the Cholesky factor of g gᵀ/n + I."""
     g = torch.randn(n, n, generator=gen, device=cuda)
     if unit:
-        # strict entries N(0, 1/n) keep κ O(1); the stored diagonal in [2, 3]
-        # must be ignored
         lo = torch.tril(g / n ** 0.5, -1) + torch.diag(
             2 + torch.rand(n, generator=gen, device=cuda))
     else:
         lo = torch.linalg.cholesky(g @ g.T / n + torch.eye(n, device=cuda))
-    # garbage above the diagonal: never read
-    t = (lo + torch.triu(torch.randn(n, n, generator=gen, device=cuda), 1)).contiguous()
+    return lo + torch.triu(torch.randn(n, n, generator=gen, device=cuda), 1)
+
+
+def _structured64(t, unit):
+    """The f64 lower-triangular matrix that ``trtri`` inverts for ``t``."""
+    return torch.tril(t.double(), -1) + (
+        torch.eye(t.shape[0], dtype=torch.float64, device=t.device) if unit
+        else torch.diag(torch.diagonal(t).double()))
+
+
+@pytest.mark.parametrize("n,unit", [(32, False), (100, False), (128, True),
+                                    (100, True), (1, False), (16, True), (17, False),
+                                    (128, False)])
+def test_trtri_kernel(cuda, n, unit):
+    from faer_tpu_torch.ops.kernels.trtri import trtri, trtri_plain
+
+    t = _lower_with_junk(n, unit, torch.Generator(device=cuda).manual_seed(n), cuda)
     reset_launch_counts()
     got = trtri(t, unit=unit)
     torch.cuda.synchronize()
     assert launch_counts()["trtri"] == 1
     assert bool((torch.triu(got, 1) == 0).all())
     want = trtri_plain(t, unit=unit)
-    lo64 = torch.tril(t.double(), -1) + (
-        torch.eye(n, dtype=torch.float64, device=cuda) if unit
-        else torch.diag(torch.diagonal(t).double()))
+    lo64 = _structured64(t, unit)
     tol = 8 * n * EPS32 * torch.linalg.cond(lo64).item()
     assert _rel(got, want) <= tol
     assert _rel(got.double(), torch.linalg.inv(lo64)) <= tol
+
+
+def _trtri_views(lo, gen):
+    """The same lower triangle contiguous, as an (n, n) view with row stride
+    n + 3, and as the ``.mT`` view of its contiguous transpose."""
+    n = lo.shape[0]
+    buf = torch.randn(n + 3, n + 3, generator=gen, device=lo.device)
+    buf[:n, :n] = lo
+    return {"contiguous": lo.contiguous(), "row stride n+3": buf[:n, :n],
+            "transposed": lo.mT.contiguous().mT}
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("n,plan", [(300, "leaves"), (1000, "diagonal blocks"),
+                                    (4000, "diagonal blocks"), (8300, "leaves")])
+def test_trtri_batched_kernel(cuda, n, plan, unit):
+    """One CTA a block over views of one matrix: each slot within
+    8·s·eps·κ₂ of ``trtri_batched_plain`` and of the kernel's own order
+    (``trtri_blocked_plain``), zero past its size, the same whatever the
+    view, and bit for bit a single launch on that block. 8300's 128 leaves
+    take two launches."""
+    from faer_tpu_torch.ops.kernels.trtri import (
+        MAX_BATCH, trtri, trtri_batched, trtri_batched_plain, trtri_blocked_plain)
+    from faer_tpu_torch.ops.triangular import leaf_plan
+
+    gen = torch.Generator(device=cuda).manual_seed(n + unit)
+    lo = _lower_with_junk(n, unit, gen, cuda)
+    blocks = (leaf_plan(n) if plan == "leaves" else
+              [(o, min(128, n - o)) for o in range(0, n, 128)])
+    views = _trtri_views(lo, gen)
+    ref = None
+    for name, t in views.items():
+        reset_launch_counts()
+        got = trtri_batched(t, blocks, unit=unit)
+        torch.cuda.synchronize()
+        assert launch_counts()["trtri"] == -(-len(blocks) // MAX_BATCH)
+        if ref is None:
+            ref = got
+            want = trtri_batched_plain(t, blocks, unit=unit)
+            for i, (o, s) in enumerate(blocks):
+                blk = t[o:o + s, o:o + s]
+                tol = 8 * s * EPS32 * torch.linalg.cond(_structured64(blk, unit)).item()
+                assert _rel(got[i, :s, :s], want[i, :s, :s]) <= tol
+                assert _rel(got[i, :s, :s], trtri_blocked_plain(blk, unit=unit)) <= tol
+                assert not got[i, s:].any() and not got[i, :, s:].any()
+                if i in (0, len(blocks) - 1):  # the first and the (ragged) last
+                    assert torch.equal(got[i, :s, :s], trtri(blk, unit=unit))
+        assert torch.equal(got, ref), name
+
+
+@pytest.mark.parametrize("name", ["solve_lower_triangular", "solve_upper_triangular",
+                                  "solve_lower_triangular_transpose"])
+def test_triangular_solve_launches_trtri_once(cuda, name):
+    """A 1000-row solve (8 blocks, the last of 104 rows), 8 rhs: exactly one
+    ``trtri`` launch, residual within 8·n·eps."""
+    from faer_tpu_torch.ops import triangular_solve as tts
+
+    n = 1000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lo = _lower_with_junk(n, False, gen, cuda)
+    t = lo if "lower" in name else lo.mT.contiguous()
+    b = torch.randn(n, 8, generator=gen, device=cuda)
+    reset_launch_counts()
+    x = getattr(tts, name)(t, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["trtri"] == 1
+    tri = torch.tril(lo) if "lower" in name else torch.triu(t)
+    if "transpose" in name:
+        tri = tri.mT
+    res = ((tri @ x - b).norm() / (tri.norm() * x.norm())).item()
+    assert res <= 8 * n * EPS32
 
 
 @pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (640, 128)])

@@ -186,12 +186,33 @@ def test_lab_factor_matches_the_reference_lab(block, leaf, interp):
                      scale=size_scale(n), tol_dtype=np.float32)
 
 
+def _count_trtri_launches(monkeypatch, ttri, calls):
+    """Wrap ``ops.triangular``'s two kernel wrappers so that ``calls["trtri"]``
+    counts the launches they would make on a card: one for ``trtri``, one
+    per ``MAX_BATCH`` blocks for ``trtri_batched``."""
+    from faer_tpu_torch.ops.kernels.trtri import MAX_BATCH
+
+    orig, orig_batched = ttri.trtri, ttri.trtri_batched
+
+    def counted_trtri(*args, **kwargs):
+        calls["trtri"] += 1
+        return orig(*args, **kwargs)
+
+    def counted_batched(t, blocks, **kwargs):
+        calls["trtri"] += -(-len(blocks) // MAX_BATCH)
+        return orig_batched(t, blocks, **kwargs)
+
+    monkeypatch.setattr(ttri, "trtri", counted_trtri)
+    monkeypatch.setattr(ttri, "trtri_batched", counted_batched)
+
+
 @pytest.mark.parametrize("n,block,leaf", [(4096, 256, 128), (4096, 512, 256),
                                           (640, 256, 128), (384, 256, 128)])
 def test_lab_launch_predictions_follow_the_code(n, block, leaf, monkeypatch):
     """The lab's leaf and trtri counts against a CPU run of the same calls,
-    counted by wrapping the leaf and ``trtri`` (the CPU wrappers count
-    nothing); n = 4096 only by the arithmetic of the docstring."""
+    counted by wrapping the leaf, ``trtri`` and ``trtri_batched`` (the CPU
+    wrappers count nothing); n = 4096 only by the arithmetic of the
+    docstring."""
     lab = runpy.run_path(LAB)
     leaves, trtri = lab["variant_calls"](n, block, leaf)
     if n == 4096:
@@ -200,17 +221,12 @@ def test_lab_launch_predictions_follow_the_code(n, block, leaf, monkeypatch):
     import faer_tpu_torch.ops.triangular as ttri
 
     calls = {"leaf": 0, "trtri": 0}
-    orig = ttri.trtri
-
-    def counted_trtri(*args, **kwargs):
-        calls["trtri"] += 1
-        return orig(*args, **kwargs)
 
     def leaf_fn(blk):
         calls["leaf"] += 1
         return llt_block_plain(blk)[0]
 
-    monkeypatch.setattr(ttri, "trtri", counted_trtri)
+    _count_trtri_launches(monkeypatch, ttri, calls)
     a = torch.from_numpy(_spd(n, 9))
     lab["llt_factor_variant"](a, block=block, leaf=leaf, leaf_fn=leaf_fn)
     assert calls == {"leaf": leaves, "trtri": trtri}
@@ -225,17 +241,13 @@ def test_lab_recursive_predictions_follow_the_code(monkeypatch):
 
     lab = runpy.run_path(LAB)
     calls = {"leaf": 0, "trtri": 0}
-    orig_trtri, orig_leaf = ttri.trtri, tchol.llt_leaf
-
-    def counted_trtri(*args, **kwargs):
-        calls["trtri"] += 1
-        return orig_trtri(*args, **kwargs)
+    orig_leaf = tchol.llt_leaf
 
     def counted_leaf(*args, **kwargs):
         calls["leaf"] += 1
         return orig_leaf(*args, **kwargs)
 
-    monkeypatch.setattr(ttri, "trtri", counted_trtri)
+    _count_trtri_launches(monkeypatch, ttri, calls)
     monkeypatch.setattr(tchol, "llt_leaf", counted_leaf)
     for b in lab["BLOCKS"]:
         calls.update(leaf=0, trtri=0)
@@ -257,7 +269,8 @@ def test_lab_predicted_launches():
     # llt_leaf also runs inside _llt_panel_recursive: 1, 1 and 2 leaves
     assert want["llt_leaf"] == calls * (3 + 4 + per_kernel) + 1
     assert want["llt_panel"] == calls * 16
-    assert lab["v5_panels"](4096) == 16 and lab["recursive_calls"](512) == (2, 2)
+    # one batched trtri launch inverts the two 128-leaves of a 256 block
+    assert lab["v5_panels"](4096) == 16 and lab["recursive_calls"](512) == (2, 1)
 
 
 def test_lab_exits_without_a_card_and_imports_no_jax():

@@ -167,16 +167,17 @@ def test_row_strided_views_factor_like_contiguous_blocks(fn):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("tool", ["torch_llt_split.py", "torch_llt_profile.py"])
+@pytest.mark.parametrize("tool", ["torch_split.py", "torch_profile.py"])
 def test_timing_tools_exit_without_a_card_and_import_no_jax(tool):
-    """The per-call/device split and the phase profile refuse to run
-    without a card, printing no result, and load neither JAX nor the JAX
-    package."""
+    """The per-call/device split and the phase profile of the LLT block
+    refuse to run without a card, printing no result, and load neither JAX
+    nor the JAX package."""
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     path = os.path.join(REPO, "tools", tool)
-    proc = subprocess.run([sys.executable, path], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, path, "llt"], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "{" not in proc.stdout and "b=" not in proc.stdout
+    assert "CUDA card" in proc.stderr
     code = (f"import sys, runpy; runpy.run_path({path!r}); "
             "bad = sorted(m for m in sys.modules if m in ('jax', 'faer_tpu') "
             "or m.startswith(('jax.', 'faer_tpu.'))); assert not bad, bad")

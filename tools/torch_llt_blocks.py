@@ -53,7 +53,6 @@ N = 4096
 LEAF_KERNELS = ("llt_block", "llt_block_v3", "llt_leaf")
 LEAF_WIDTHS = (128, 256)
 FACTOR_BLOCKS = (256, 512)
-TRTRI_MAX = 128  # invert_lower_triangular sends blocks of this side to trtri
 # the regularized block: b, the clearly negative pivots, (eps, delta)
 REG_B, REG_BAD, REG = 128, (3, 20, 77), (1.0, 1.0)
 EPS32 = float(torch.finfo(torch.float32).eps)
@@ -71,11 +70,13 @@ def _kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def trtri_calls(n: int) -> int:
-    """``trtri`` launches of ``invert_lower_triangular`` on an (n, n) block."""
-    if n <= TRTRI_MAX:
-        return 1
-    h = (n + 1) // 2
-    return trtri_calls(h) + trtri_calls(n - h)
+    """``trtri`` launches of ``invert_lower_triangular`` on an (n, n) block:
+    every leaf of its halving (``leaf_plan``) in one batched launch per
+    ``MAX_BATCH`` leaves."""
+    from faer_tpu_torch.ops.kernels.trtri import MAX_BATCH
+    from faer_tpu_torch.ops.triangular import leaf_plan
+
+    return -(-len(leaf_plan(n)) // MAX_BATCH)
 
 
 def recursive_calls(b: int, base: int = RECURSIVE_BASE) -> tuple[int, int]:

@@ -1,0 +1,138 @@
+"""Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
+
+    python tools/torch_split.py {llt,trtri} [ROOT]
+
+Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
+timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
+call (what a caller pays, the host's wrapper included) and ``graph_ms`` on
+the device (a CUDA graph of the calls). Only this checkout's
+``chip_smoke.py`` is used, so one chip call can time another checkout (a
+parent commit unpacked beside this one) in turns with this one by the same
+code. The rows, per kernel:
+
+* ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
+  ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
+  ``_spd`` inputs mirrored from the lower triangle (seed 1);
+* ``trtri`` (seed 9): ``trtri`` on one 128 block (``_trtri_block``); the
+  inverses of the 32 diagonal blocks of a 4096 triangle as a triangular
+  solve makes them (one ``trtri_batched`` launch, or 32 ``trtri`` calls on
+  contiguous copies in a checkout without it, as its solve loop made
+  them); ``solve_lower_triangular`` and ``solve_upper_triangular`` at
+  4096 × 8; ``flagship_step`` and ``lu_in_place`` at 4096 (per call only);
+  ``torch.linalg.solve_triangular`` beside them on the same inputs.
+
+Prints the card's name and power limit, one line a row, and as the last
+line one JSON object with every row. Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+N = 4096  # the trtri rows' triangle and flagship size
+NRHS = 8
+STEP_REPS = 5  # per-call repetitions of the solves, the step and the factor
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def llt_rows(cs):
+    """(name, call, per-call reps, graph reps) of the LLT diagonal block."""
+    from faer_tpu_torch.ops.kernels.leaf import llt_leaf
+    from faer_tpu_torch.ops.kernels.llt_block import llt_block, llt_block_v3
+
+    calls = {"llt_leaf": llt_leaf, "llt_block": llt_block, "llt_block_v3": llt_block_v3,
+             "cholesky_ex": torch.linalg.cholesky_ex}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b in cs.LLT_TIMED:
+        a = cs._mirrored(cs._spd(b, gen))
+        for name, fn in calls.items():
+            yield f"{name} b={b}", (lambda f=fn: f(a)), cs.LLT_CALL_REPS, cs.LLT_GRAPH_REPS
+
+
+def trtri_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of ``trtri`` and the
+    calls that reach it."""
+    from faer_tpu_torch.entry import flagship_step
+    from faer_tpu_torch.linalg.lu import lu_in_place
+    from faer_tpu_torch.ops.kernels import trtri as ktrtri
+    from faer_tpu_torch.ops.triangular_solve import (
+        solve_lower_triangular, solve_upper_triangular)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    blk = cs._trtri_block(128, False, gen)
+    a_spd, g, b = cs._inputs(N, gen)
+    lo = torch.linalg.cholesky(a_spd)
+    up = lo.mT.contiguous()
+    blocks = [(o, 128) for o in range(0, N, 128)]
+    if hasattr(ktrtri, "trtri_batched"):
+        inverses = lambda: ktrtri.trtri_batched(lo, blocks)
+    else:
+        inverses = lambda: [ktrtri.trtri(lo[o:o + s, o:o + s].contiguous())
+                            for o, s in blocks]
+    stack = torch.stack([torch.tril(lo[o:o + s, o:o + s]) for o, s in blocks])
+    eye = torch.eye(128, device="cuda")
+    reps = cs.TRTRI_REPS
+    solve = torch.linalg.solve_triangular
+    yield "trtri n=128", lambda: ktrtri.trtri(blk), reps, reps
+    yield ("solve_triangular(L, I) n=128",
+           lambda: solve(torch.tril(blk), eye, upper=False), reps, reps)
+    yield f"diagonal inverses of a {N} triangle ({len(blocks)} blocks)", inverses, reps, reps
+    yield ("solve_triangular(L, I) on the (32, 128, 128) batch",
+           lambda: solve(stack, eye, upper=False), reps, reps)
+    yield (f"solve_lower_triangular {N}x{NRHS}", lambda: solve_lower_triangular(lo, b),
+           STEP_REPS, STEP_REPS)
+    yield (f"solve_triangular lower {N}x{NRHS}", lambda: solve(lo, b, upper=False),
+           STEP_REPS, STEP_REPS)
+    yield (f"solve_upper_triangular {N}x{NRHS}", lambda: solve_upper_triangular(up, b),
+           STEP_REPS, STEP_REPS)
+    yield (f"solve_triangular upper {N}x{NRHS}", lambda: solve(up, b, upper=True),
+           STEP_REPS, STEP_REPS)
+    yield f"flagship_step n={N}", lambda: flagship_step(a_spd, g, b), STEP_REPS, None
+    yield f"lu_in_place n={N}", lambda: lu_in_place(g), STEP_REPS, None
+
+
+ROWS = {"llt": llt_rows, "trtri": trtri_rows}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("kernel", choices=sorted(ROWS))
+    parser.add_argument("root", nargs="?", type=Path, default=HERE,
+                        help="the checkout to time (default: this one)")
+    args = parser.parse_args()
+    root = args.root.resolve()
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(root))
+    cs = _chip_smoke()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}")
+    rows = []
+    for name, fn, reps, graph_reps in ROWS[args.kernel](cs):
+        r = dict(call=name, per_call_ms=cs.cuda_ms(fn, reps),
+                 device_ms=cs.graph_ms(fn, graph_reps) if graph_reps else None)
+        rows.append(r)
+        print(f"{name}: per call {r['per_call_ms']:.4f} ms"
+              + ("" if r["device_ms"] is None else f", device {r['device_ms']:.4f} ms"))
+    print(json.dumps({"kernel": args.kernel, "root": str(root), "device": smi,
+                      "rows": rows}))
+
+
+if __name__ == "__main__":
+    main()
