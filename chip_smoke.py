@@ -15,7 +15,10 @@ Phases, each printing lines; any failure exits non-zero:
    over the diagonal blocks of a 4096 and a 4000 triangle read through
    contiguous, row-strided and transposed views (bit for bit single
    launches), timed per call and on the device beside
-   ``solve_triangular(L, I)``; the
+   ``solve_triangular(L, I)``; ``tile_matmul`` in its three modes at
+   4096³, ragged, strided, on offset views, at long k and at the facade's
+   thin products (split k), each case's plan printed, timed per call and
+   on the device beside ``torch.matmul``; the
    QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
    ``qr_leaf``) at (4096, 128) and (4096, 256); every panel wrapper on
    wide panels (m < b) at (64, 200) and (1000, 1024); the three wrappers of
@@ -137,7 +140,8 @@ SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
 ORACLE_N = 1024  # spectral check against f64 eigvalsh / svdvals
 DIRECT_N = 384  # below 512: the QR iteration without D&C
 TALL = (8192, 2048)  # m/n > 11/6: the SVD's QR preprocessing
-TILE = 128  # output tile side of tile_matmul and syrk_lower_sub
+TILE = 128  # the Householder block, and the output tile side of syrk_lower_sub
+TILE_REPS = 10  # phase 3's tile_matmul timings: per call and in a CUDA graph
 # limits of the tile kernels' errors, relative to max‖a_i‖·max‖b_j‖ (PERF.md
 # §6). An FP32 result (FP32 FFMA, or bf16 operands' exact products summed
 # in f32) differs from the plain one only in the order of its sums: ≤ 16·eps,
@@ -897,17 +901,74 @@ def _row_col_scale(a, b) -> float:
     return (a.float().norm(dim=1).max() * b.float().norm(dim=0).max()).item()
 
 
+def _plan_of(x, y):
+    """The plan ``tile_matmul`` takes for ``x``·``y`` under the current
+    ``config.f32_precision``, as one line."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels import matmul as kmm
+
+    p = kmm.plan_tile_matmul(x.shape[0], y.shape[1], x.shape[1], x.dtype,
+                             config.tile_precision(), x.stride(), y.stride(),
+                             x.data_ptr(), y.data_ptr(), kmm._sms(x.device))
+    return (f"{p.route} {p.tile[0]}x{p.tile[1]}x{p.bk} split {p.split}, "
+            f"A {p.a}, B {p.b}")
+
+
+def _offset_view(x):
+    """The values of ``x`` in a view that starts one element past an aligned
+    base, in x's own layout (a transposed view stays one): neither TMA nor a
+    16-byte copy can take it."""
+    t = x.mT if x.stride(0) == 1 and x.stride(1) != 1 else x
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    return v.mT if t is not x else v
+
+
+def tile_matmul_rows(gen):
+    """(mode, label, x, y, call, library call) of the timed ``tile_matmul``
+    cases: each mode at 4096³ and at the facade's two thin products, the
+    Householder Vᵀ·B (128, 4096)·(4096, 3968) and an 8-column Vᵀ·b, both
+    with a ``.mT`` lhs, beside ``torch.matmul`` on the same operands
+    (``tools/torch_split.py matmul`` times the same rows)."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.matmul import tile_matmul
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+
+    v = randn(N, TILE)
+    ops = {f"{N}^3": (randn(N, N), randn(N, N)),
+           f"Vᵀ·B ({TILE}, {N})·({N}, {N - TILE}), .mT lhs": (v.mT, randn(N, N - TILE)),
+           f"Vᵀ·b ({TILE}, {N})·({N}, 8), .mT lhs": (v.mT, randn(N, 8))}
+    for mode in ("highest", "high", "bf16"):
+        prec = "highest" if mode == "bf16" else mode
+        for label, (x, y) in ops.items():
+            if mode == "bf16":  # the layout kept: a .mT view stays one
+                x, y = x.bfloat16(), y.bfloat16()
+
+            def call(x=x, y=y, prec=prec):
+                config.f32_precision = prec
+                return tile_matmul(x, y)
+
+            yield mode, label, x, y, call, (lambda x=x, y=y: torch.matmul(x, y))
+
+
 def _tile_kernels(gen) -> dict:
     """``tile_matmul`` in its three modes (f32 "highest" and "high", bf16)
     and ``syrk_lower_sub`` in its two, against their plain versions: the
     GEMM at 4096³ (the facade's product), a ragged (3000, 1000)·(1000, 2050),
-    both with transposed (strided) operands, and the main path's thin
-    products (a QR block apply Vᵀ·B, an 8-column TRSM update, an LLT
-    trailing update); the SYRK at (3840, 256), the trailing update of a 4096
-    LLT at block 256, and a ragged (300, 200). Limits ``F32_TOL`` and
+    both with transposed (strided) operands, views one element past an
+    aligned base (no TMA, no 16-byte copy), long k ((256, 16384)·(16384,
+    256), split; (2048, 16384)·(16384, 2048), one CTA a tile over all of k)
+    and the main path's thin products (a QR block apply Vᵀ·B and an 8-column
+    Vᵀ·b, split; an 8-column TRSM update, an LLT trailing update); each
+    case's plan printed. The SYRK at (3840, 256), the trailing update of a
+    4096 LLT at block 256, and a ragged (300, 200). Limits ``F32_TOL`` and
     ``BF16X3_TOL``; bf16x3 is also held against f64, and a bf16 result
-    against the plain f32 one, past one bf16 rounding of each entry. Timed
-    at 4096³ and (3840, 256)."""
+    against the plain f32 one, past one bf16 rounding of each entry. Timed,
+    per call and on the device beside ``torch.matmul``, at 4096³ and the
+    two Vᵀ products in each mode (``tile_matmul_rows``), and at (3840, 256)."""
     from faer_tpu_torch.core.config import config
     from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
     from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain
@@ -918,20 +979,27 @@ def _tile_kernels(gen) -> dict:
     n = N
     a, b = randn(n, n), randn(n, n)
     ar, br = randn(3000, 1000), randn(1000, 2050)
+    ao, bo = randn(1000, 1000), randn(1000, 1000)
     v, w = randn(n, TILE), randn(n - 256, 256)
     cases = {f"{n}^3": (a, b), "(3000, 1000)·(1000, 2050)": (ar, br),
              f"{n}^3 .mT operands": (b.mT, a.mT),
              "(2050, 1000)·(1000, 3000) .mT operands": (br.mT, ar.mT),
+             "(1000, 1000)² offset views": (_offset_view(ao), _offset_view(bo)),
+             "(1000, 1000)² offset .mT views": (_offset_view(bo.mT), _offset_view(ao.mT)),
+             "long k (256, 16384)·(16384, 256)": (randn(256, 16384), randn(16384, 256)),
+             "long k (2048, 16384)·(16384, 2048)": (randn(2048, 16384), randn(16384, 2048)),
              f"QR apply (128, {n})·({n}, {n - TILE}), .mT lhs": (v.mT, randn(n, n - TILE)),
+             f"Vᵀ·b (128, {n})·({n}, 8), .mT lhs": (v.mT, randn(n, 8)),
              f"TRSM update ({n - TILE}, 128)·(128, 8)": (randn(n - TILE, TILE), randn(TILE, 8)),
              f"LLT update ({n - 256}, 256)·(256, {n - 256}), .mT rhs": (w, w.mT)}
-    errs, timed = [], {}
+    errs = []
     for mode in ("highest", "high", "bf16"):
         config.f32_precision = "highest" if mode == "bf16" else mode
         lim = BF16X3_TOL if mode == "high" else F32_TOL
         for label, (x, y) in cases.items():
-            if mode == "bf16":
-                x, y = x.bfloat16(), y.bfloat16()
+            if mode == "bf16":  # the layout kept, an offset view's offset too
+                x, y = ((_offset_view(t.bfloat16()) if "offset" in label else t.bfloat16())
+                        for t in (x, y))
             outs = (torch.float32, torch.bfloat16) if mode == "bf16" else (torch.float32,)
             want = tile_matmul_plain(x, y, out_dtype=torch.float32)
             scale = _row_col_scale(x, y)
@@ -952,25 +1020,30 @@ def _tile_kernels(gen) -> dict:
                     ok = ok and err64 <= lim
                 if out == torch.bfloat16:
                     msg += " beyond one bf16 rounding"
-                check(ok, f"tile_matmul {mode} {label} -> {str(out)[6:]}: max abs err "
-                          f"{msg} <= {lim:.3e}")
-        x, y = cases[f"{n}^3"]
-        if mode == "bf16":
-            x, y = x.bfloat16(), y.bfloat16()
-        flops = 2 * n ** 3
-        nbytes = (2 * n * n) * x.element_size() + n * n * 4
+                check(ok, f"tile_matmul {mode} {label} -> {str(out)[6:]} [{_plan_of(x, y)}]: "
+                          f"max abs err {msg} <= {lim:.3e}")
+    timed = {}
+    for mode, label, x, y, call, lib in tile_matmul_rows(gen):
+        m, k = x.shape
+        nn = y.shape[1]
+        flops = 2 * m * k * nn
+        nbytes = (m * k + k * nn) * x.element_size() + m * nn * x.element_size()
         peak = PEAK_F32_FLOPS if mode == "highest" else PEAK_BF16_FLOPS
         passes = 3 if mode == "high" else 1
-        timed[mode] = dict(
-            ms=cuda_ms(lambda: tile_matmul(x, y), 10),
-            plain_ms=cuda_ms(lambda: tile_matmul_plain(x, y), 3),
-            library_ms=cuda_ms(lambda: torch.matmul(x, y), 10),
-            **bound_of(passes * flops, nbytes, peak))
-        r = timed[mode]
-        print(f"time tile_matmul {mode} {n}^3: kernel {r['ms']:.4f} ms "
-              f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
-              f"torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6g} ms "
-              f"({r['bound_by']}, {passes} pass{'es' if passes > 1 else ''})")
+        r = dict(ms=cuda_ms(call, TILE_REPS), graph_ms=graph_ms(call, TILE_REPS),
+                 library_ms=cuda_ms(lib, TILE_REPS), library_graph_ms=graph_ms(lib, TILE_REPS),
+                 **bound_of(passes * flops, nbytes, peak))
+        plan = _plan_of(x, y)
+        if label == f"{n}^3":
+            r["plain_ms"] = cuda_ms(lambda: tile_matmul_plain(x, y), 3)
+            timed[mode] = r
+        print(f"time tile_matmul {mode} {label} [{plan}]: per call {r['ms']:.4f} ms, "
+              f"device {r['graph_ms']:.4f} ms ({flops / r['graph_ms'] / 1e9:.2f} TFLOP/s); "
+              f"torch.matmul {r['library_ms']:.4f} / {r['library_graph_ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.6g} ms ({r['bound_by']}, {passes} "
+              f"pass{'es' if passes > 1 else ''})"
+              + (f"; plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""))
+    config.f32_precision = "highest"
     res = {"matmul": dict(max_abs_err=max(errs), **timed["highest"])}
 
     errs, timed = [], {}
@@ -2031,9 +2104,15 @@ def main() -> None:
     for label, (counts, ks) in lab_kernels.items():
         check(all(counts[k] > 0 for k in ks),
               f"the {label} launched {', '.join(ks)}: {[counts[k] for k in ks]}")
+    # the shared headers each kernel's source compiles with
+    headers = {"matmul": ["faer_tpu_torch/csrc/hopper.cuh"],
+               "syrk": ["faer_tpu_torch/csrc/tile_mma.cuh"],
+               **{k: ["faer_tpu_torch/csrc/pivot_argmax.cuh"]
+                  for k, (src, _) in sources.items()
+                  if src.endswith(("lu_panel_batched.cu", "lu_panel_swap.cu"))}}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep,
+        dict(name=k, route="cuda", source=src, headers=headers.get(k, []), replaces=rep,
              launches=launches[k], off_path=k in off_path, **kern[k])
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-// tile_mma.cuh: the 128 x 128 output-tile product that matmul.cu and syrk.cu
-// share.
+// tile_mma.cuh: the 128 x 128 output-tile product of syrk.cu, which serves
+// `syrk_lower_sub` alone (matmul.cu has kernels of its own).
 //
 // One CTA of 256 threads owns one 128 x 128 tile of C = A * B and walks the
 // whole k range in a loop, in slabs of 32: the loop takes the place of the
@@ -11,13 +11,13 @@
 // the next slab's loads are issued into registers before the current slab is
 // multiplied, so they overlap the arithmetic.
 //
-// Three modes, as the Pallas body `_mm_kernel` has them:
+// The two modes of `syrk_lower_sub`, as the Pallas body `_syrk_kernel` has
+// them (the numerics of `_mm_kernel`):
 //   kFp32   FP32 FFMA, an 8 x 8 micro-tile a thread ("highest");
 //   kBf16x3 every staged f32 element split into bf16 hi and lo, and three
 //           mma.sync.m16n8k16 bf16 products, ah*bl + al*bh + ah*bh, summed in
-//           f32 ("high"; each product of two bf16 values is exact in f32);
-//   kBf16   bf16 operands (staged as exact f32), one mma pass.
-// In the mma modes the 8 warps form a 2 x 4 grid of 64 x 32 warp tiles, each
+//           f32 ("high"; each product of two bf16 values is exact in f32).
+// In the mma mode the 8 warps form a 2 x 4 grid of 64 x 32 warp tiles, each
 // 4 x 4 m16n8 fragments.
 #pragma once
 
@@ -34,16 +34,9 @@ constexpr int kLd = kTile + 4;  // padded shared row: conflict-free fragment rea
 constexpr int kAcc = kTile * kTile / kThreads;  // 64 accumulators a thread
 constexpr int kPer = kTile * kSlab / kThreads;  // 16 slab elements a thread
 
-enum Mode { kFp32 = 0, kBf16x3 = 1, kBf16 = 2 };
+enum Mode { kFp32 = 0, kBf16x3 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // (row, col) of element `idx` of a rows x cols slab, walked along the
 // operand's unit-stride direction so that a warp reads consecutive addresses.
@@ -146,7 +139,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// mma modes: warp w owns rows 64 (w / 4).. and columns 32 (w % 4)..; its
+// mma mode: warp w owns rows 64 (w / 4).. and columns 32 (w % 4)..; its
 // fragment (mi, ni) holds accumulators acc[4 (4 mi + ni) .. + 3] in the
 // m16n8 C layout. A fragment register q holds (row g + 8 (q & 1), columns
 // 2t + 8 (q >> 1) + {0, 1}); B register q holds (rows 2t + 8 q + {0, 1},

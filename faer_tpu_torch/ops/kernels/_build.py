@@ -31,7 +31,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
     # for faer_llt_block_route)
-    "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
     "faer_trtri_batched": [_P, _L, _L, _IP, _I, _P, _I, _I, _P],
     "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
@@ -180,7 +181,10 @@ def grid(m: int, device, min_rows: int) -> tuple[int, int]:
 
 
 def stream_of(x) -> int:
-    """The handle of the current CUDA stream on ``x``'s device."""
+    """The handle of the current CUDA stream on ``x``'s device, by
+    PyTorch's raw-handle query: a fraction of a microsecond, where building
+    a ``torch.cuda.Stream`` object takes several."""
     import torch
 
-    return torch.cuda.current_stream(x.device).cuda_stream
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -646,25 +646,45 @@ def _row_col_scale(a, b):
     return (a.float().norm(dim=1).max() * b.float().norm(dim=0).max()).item()
 
 
+def _tile_operand(rows, cols, transposed, offset, gen, cuda, dtype=torch.float32):
+    """A (rows, cols) operand: row-major, or the ``.mT`` view of a row-major
+    (cols, rows) array (``transposed``); ``offset`` 1 starts the view one
+    element past an aligned base, so neither TMA nor a 16-byte copy takes it."""
+    shape = (cols, rows) if transposed else (rows, cols)
+    flat = torch.randn(rows * cols + offset, generator=gen, device=cuda).to(dtype)
+    x = flat[offset:].view(shape)
+    return x.mT if transposed else x
+
+
+# (m, k, n): small and ragged; k = 1; long k over one CTA a tile (enough
+# tiles that no plan splits k) and split; the split-k shapes of a QR block
+# apply's Vᵀ·B (narrowed) and of an 8-column right-hand side
+TILE_SHAPES = [(256, 128, 256), (300, 200, 260), (1, 33, 7), (129, 1, 130),
+               (2048, 16384, 2048), (256, 16384, 256), (128, 4096, 520), (128, 4096, 8)]
+
+
 @pytest.mark.parametrize("precision", ["highest", "high"])
 @pytest.mark.parametrize("layout", ["nn", "tn", "nt", "tt"])
-@pytest.mark.parametrize("m,k,n", [(256, 128, 256), (300, 200, 260), (1, 33, 7),
-                                   (129, 1, 130)])
-def test_tile_matmul_kernel(cuda, monkeypatch, precision, layout, m, k, n):
-    """f32 in both modes, with transposed (strided) operands and ragged
-    edges: against the plain version and f64 within 16·eps of
-    max‖a_i‖·max‖b_j‖ ("highest") or within 2e-5 ("high", bf16x3)."""
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,k,n", TILE_SHAPES)
+def test_tile_matmul_kernel(cuda, monkeypatch, precision, layout, offset, m, k, n):
+    """f32 in both modes, every layout, aligned and offset views, ragged
+    edges, long k and split k: against the plain version and f64 within
+    16·eps of max‖a_i‖·max‖b_j‖ ("highest") or within 2e-5 ("high",
+    bf16x3). One launch count a call; the plan splits k where the output
+    tiles leave the card idle."""
     from faer_tpu_torch.core.config import config
-    from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
+    from faer_tpu_torch.ops.kernels.matmul import (plan_tile_matmul, tile_matmul,
+                                                    tile_matmul_plain)
 
     monkeypatch.setattr(config, "f32_precision", precision)
     gen = torch.Generator(device=cuda).manual_seed(m * 7 + k * 3 + n)
-    a = torch.randn(m, k, generator=gen, device=cuda)
-    b = torch.randn(k, n, generator=gen, device=cuda)
-    if layout[0] == "t":
-        a = a.T.contiguous().mT
-    if layout[1] == "t":
-        b = b.T.contiguous().mT
+    a = _tile_operand(m, k, layout[0] == "t", offset, gen, cuda)
+    b = _tile_operand(k, n, layout[1] == "t", offset, gen, cuda)
+    plan = plan_tile_matmul(m, n, k, a.dtype, precision, a.stride(), b.stride(),
+                            a.data_ptr(), b.data_ptr(),
+                            torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (plan.split > 1) == (k >= 4096 and m * n < 2048 * 2048)
     reset_launch_counts()
     got = tile_matmul(a, b)
     torch.cuda.synchronize()
@@ -678,16 +698,25 @@ def test_tile_matmul_kernel(cuda, monkeypatch, precision, layout, m, k, n):
 
 
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(256, 128, 256), (300, 200, 260)])
-def test_tile_matmul_kernel_bf16(cuda, out, m, k, n):
-    """bf16 operands, one pass, f32 sums: against the plain version within
-    16·eps of max‖a_i‖·max‖b_j‖, past one bf16 rounding of each entry for
-    a bf16 result."""
-    from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
+@pytest.mark.parametrize("layout", ["nn", "tn", "nt", "tt"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 256), (300, 200, 260), (2048, 16384, 2048),
+                                   (256, 16384, 256), (128, 4096, 520), (128, 4096, 8)])
+def test_tile_matmul_kernel_bf16(cuda, out, layout, offset, m, k, n):
+    """bf16 operands, one pass, f32 sums, every layout, aligned (TMA) and
+    offset (packed) views, long k and split k: against the plain version
+    within 16·eps of max‖a_i‖·max‖b_j‖, past one bf16 rounding of each
+    entry for a bf16 result."""
+    from faer_tpu_torch.ops.kernels.matmul import (plan_tile_matmul, tile_matmul,
+                                                    tile_matmul_plain)
 
     gen = torch.Generator(device=cuda).manual_seed(m + n)
-    a = torch.randn(m, k, generator=gen, device=cuda).bfloat16()
-    b = torch.randn(k, n, generator=gen, device=cuda).bfloat16().T.contiguous().mT
+    a = _tile_operand(m, k, layout[0] == "t", offset, gen, cuda, torch.bfloat16)
+    b = _tile_operand(k, n, layout[1] == "t", offset, gen, cuda, torch.bfloat16)
+    plan = plan_tile_matmul(m, n, k, a.dtype, "highest", a.stride(), b.stride(),
+                            a.data_ptr(), b.data_ptr())
+    if offset:  # a base 2 bytes off 16: TMA cannot take it
+        assert plan.a == plan.b == "pack"
     got = tile_matmul(a, b, out_dtype=out)
     want = tile_matmul_plain(a, b, out_dtype=torch.float32)
     torch.cuda.synchronize()

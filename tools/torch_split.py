@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {llt,trtri} [ROOT]
+    python tools/torch_split.py {llt,matmul,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -13,6 +13,14 @@ code. The rows, per kernel:
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
+* ``matmul`` (seed 10): ``tile_matmul`` in each mode ("highest" FP32,
+  "high" bf16x3, bf16) at 4096³ and at the facade's thin products
+  (``chip_smoke.tile_matmul_rows``: Vᵀ·B (128, 4096)·(4096, 3968) and
+  Vᵀ·b (128, 4096)·(4096, 8), ``.mT`` lhs), ``torch.matmul`` beside each
+  on the same operands, ``Mat(g) @ Mat(h)`` at 4096 with the tile switch
+  on beside ``g @ h``, and phase 8's facade solves at 4096 (8 right-hand
+  sides, ``chip_smoke._inputs``) with the switch off and on (per call
+  only);
 * ``trtri`` (seed 9): ``trtri`` on one 128 block (``_trtri_block``); the
   inverses of the 32 diagonal blocks of a 4096 triangle as a triangular
   solve makes them (one ``trtri_batched`` launch, or 32 ``trtri`` calls on
@@ -105,7 +113,42 @@ def trtri_rows(cs):
     yield f"lu_in_place n={N}", lambda: lu_in_place(g), STEP_REPS, None
 
 
-ROWS = {"llt": llt_rows, "trtri": trtri_rows}
+def matmul_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of ``tile_matmul``,
+    the facade's product and the facade's solves."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import config
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    reps = cs.TILE_REPS
+    for mode, label, x, y, call, lib in cs.tile_matmul_rows(gen):
+        yield f"tile_matmul {mode} {label}", call, reps, reps
+        yield f"torch.matmul {str(x.dtype)[6:]} {label}", lib, reps, reps
+    g = torch.randn(N, N, generator=gen, device="cuda")
+    h = torch.randn(N, N, generator=gen, device="cuda")
+
+    def facade():
+        config.use_tile_matmul, config.f32_precision = True, "highest"
+        return Mat(g) @ Mat(h)
+
+    yield f"Mat(g) @ Mat(h) n={N}, tile switch on", facade, reps, reps
+    yield f"g @ h n={N}", lambda: g @ h, reps, reps
+    spd, gl, rhs = cs._inputs(N, gen)
+    solves = {"Mat(spd).llt().solve(b)": lambda: Mat(spd).llt().solve(rhs),
+              "Mat(g).partial_piv_lu().solve(b)": lambda: Mat(gl).partial_piv_lu().solve(rhs),
+              "Mat(g).qr().solve_lstsq(b)": lambda: Mat(gl).qr().solve_lstsq(rhs)}
+    for label, fn in solves.items():
+        for on in (False, True):
+            def call(fn=fn, on=on):
+                config.use_tile_matmul, config.f32_precision = on, "highest"
+                return fn()
+
+            yield (f"{label} n={N}, tile switch {'on' if on else 'off'}", call,
+                   STEP_REPS, None)
+    config.use_tile_matmul = False
+
+
+ROWS = {"llt": llt_rows, "matmul": matmul_rows, "trtri": trtri_rows}
 
 
 def main() -> None:
