@@ -6,7 +6,9 @@ Phases, each printing lines; any failure exits non-zero:
 
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``;
+2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``,
+   and prints how many 16- and 8-CTA clusters of the QR panel kernel the
+   card places at once (``cudaOccupancyMaxActiveClusters``);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, with the tolerance stated, and its
    time beside its plain version's, its bound and a library yardstick;
@@ -18,10 +20,14 @@ Phases, each printing lines; any failure exits non-zero:
    ``solve_triangular(L, I)``; ``tile_matmul`` in its three modes at
    4096³, ragged, strided, on offset views, at long k and at the facade's
    thin products (split k), each case's plan printed, timed per call and
-   on the device beside ``torch.matmul``; the
-   QR panel family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``,
-   ``qr_leaf``) at (4096, 128) and (4096, 256); every panel wrapper on
-   wide panels (m < b) at (64, 200) and (1000, 1024); the three wrappers of
+   on the device beside ``torch.matmul``; ``qr_panel`` and the QR panel
+   family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``, ``qr_leaf``)
+   on both sides of every route edge of ``csrc/qr_panel.cu`` (``qr_cases``:
+   (128, 128) to (16384, 512), the cluster route's largest m at b = 128 and
+   one past it), each case's route printed, against the plain version, the
+   kernel's one-pass order and ``torch.geqrf``, the family equal to
+   ``qr_panel`` to the bit; every panel wrapper on wide panels (m < b) at
+   (64, 200) and (1000, 1024); the three wrappers of
    the blocked LLT diagonal-block kernel, ``llt_leaf``, ``llt_block`` and
    ``llt_block_v3``, at b ∈ {44, 80, 128, 200, 256, 337, 338, 512, 1024}
    on regularized blocks and on row-strided views at b ∈ {125, 338}, timed
@@ -54,8 +60,9 @@ Phases, each printing lines; any failure exits non-zero:
    "highest"``): ``Mat @ Mat``, ``llt()`` with ``solve``, ``inverse``,
    ``determinant``/``logdet``, ``partial_piv_lu()`` with ``solve``,
    ``solve_transpose``, ``inverse``, ``determinant``, ``qr().solve_lstsq``
-   at 4096 and 8192 × 2048, ``self_adjoint_eigen()`` and ``svd()`` at
-   1024; ``tile_matmul`` launches per call, residuals, the same calls with
+   at 4096 and 8192 × 2048, ``self_adjoint_eigen()`` (and its ``solve``
+   of a 1-D right-hand side) and ``svd()`` at 1024; ``tile_matmul``
+   launches per call, residuals, the same calls with
    the switch off (no launch), times with the switch off and on in turns,
    and the GEMM and ``llt().solve`` errors with ``f32_precision = "high"``;
 9. calu: the tournament (CALU) leaf, ``lu_in_place`` on a Gaussian
@@ -293,6 +300,18 @@ def phase_build() -> None:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
+    # how many 16- and 8-CTA clusters of the QR kernel (one CTA of 512
+    # threads at the most shared memory on each SM) the card places at once
+    import ctypes
+
+    most, active = ctypes.c_int(), ctypes.c_int()
+    for size in (16, 8):
+        code = _build.library().faer_qr_panel_clusters(size, ctypes.byref(most),
+                                                       ctypes.byref(active))
+        check(code == 0 and most.value >= 1,
+              f"qr_panel clusters: {active.value} of {size} CTAs at once "
+              f"(cudaOccupancyMaxActiveClusters); the cluster route takes up to "
+              f"{most.value} CTAs")
 
 
 def _max_rel(got, want) -> tuple[float, float]:
@@ -475,8 +494,6 @@ def phase_kernels(gen) -> dict:
     from faer_tpu_torch.ops.kernels.leaf import lu_leaf, lu_leaf_plain
     from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
-    from faer_tpu_torch.ops.kernels import _build
-    from faer_tpu_torch.ops.kernels.qr_panel import MIN_ROWS_PER_CTA as qr_min_rows
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
     from faer_tpu_torch.utils import flops
 
@@ -529,46 +546,19 @@ def phase_kernels(gen) -> dict:
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4096, 256), 2 * 4096 * 256 * 4 + 4096 * 8))
 
-    # qr_panel: Gaussian panels (m ≥ 4b, so κ ≤ 3) and one with an all-zero
-    # column (τ = 0 there). At (57000, 128) a CTA's rows (rows per CTA ×
-    # (b + 1) × 4 B, printed) just fit its 227 KiB of shared memory; at
-    # (60000, 128) and (16384, 512) they do not, and the kernel keeps them in
-    # global memory. Against the plain version and torch.geqrf (the same
-    # larfg signs): R and the reflector tails V each within 8·m·eps relative
-    # to their own largest entry, τ within 8·m·eps; Q = I − V T Vᵀ orthogonal,
-    # and ‖Q·R − A‖/‖A‖, to 8·m·eps
+    # qr_panel on both sides of every route edge (qr_cases), against the plain
+    # version, the kernel's one-pass order and torch.geqrf (the same larfg
+    # signs): R and the reflector tails V each within 8·m·eps relative to
+    # their own largest entry, τ within 8·m·eps; Q = I − V T Vᵀ orthogonal,
+    # and ‖Q·R − A‖/‖A‖, to 8·m·eps. Gaussian panels (m ≥ 4b, so κ ≤ 3) and
+    # one with an all-zero column (τ = 0 there)
     errs = []
-    for m, b, zero in ((4096, 128, None), (3968, 128, None), (1000, 128, None),
-                       (200, 44, None), (1000, 128, 5), (57000, 128, None),
-                       (60000, 128, None), (16384, 512, None)):
-        a = torch.randn(m, b, generator=gen, device=DEV)
-        if zero is not None:
-            a[:, zero] = 0.0
-        (k1, t1), (k2, t2) = qr_panel(a), qr_panel_plain(a)
-        k3, t3 = torch.geqrf(a)
+    for m, b, zero in qr_cases():
+        a = _qr_case_panel(m, b, zero, gen)
+        k1, t1 = qr_panel(a)
         torch.cuda.synchronize()
-        tol = 8 * m * EPS32
-        r1, v1 = torch.triu(k1[:b]), torch.tril(k1, -1)
-        err_r = max(_max_rel(r1, torch.triu(k[:b]))[1] for k in (k2, k3))
-        err_v = max(_max_rel(v1, torch.tril(k, -1))[1] for k in (k2, k3))
-        terr = max((t1 - t).abs().max().item() for t in (t2, t3))
-        v = v1 + torch.eye(m, b, device=DEV)
-        q = apply_block_on_left(v, form_block_t(v, t1),
-                                torch.eye(m, b, device=DEV), adjoint=False)
-        orth = (q.T @ q - torch.eye(b, device=DEV)).abs().max().item()
-        rec = rel_norm(q @ r1, a)
-        zero_ok = zero is None or (t1[zero].item() == 0.0
-                                   and bool((k1[zero:, zero] == 0).all()))
-        err = (k1 - k2).abs().max().item()
-        errs.append(err)
-        rpc = _build.grid(m, a.device, qr_min_rows)[1]
-        check(max(err_r, err_v, terr, orth, rec) <= tol and zero_ok,
-              f"qr_panel ({m}, {b}){' zero column' if zero else ''} "
-              f"[{rpc} rows per CTA, {rpc * (b + 1) * 4 / 1024:.0f} KiB]: max "
-              f"abs err {err:.3e} vs plain; rel R {err_r:.3e}, rel V "
-              f"{err_v:.3e}, taus {terr:.3e} vs plain and geqrf; |QᵀQ-I| "
-              f"{orth:.3e}, |QR-A|/|A| {rec:.3e}; all <= {tol:.3e}")
-        if m > 10000:  # the tall shapes, near and past the shared-memory edge
+        errs.append(_qr_against_references(a, k1, t1, zero, f"qr_panel ({m}, {b})"))
+        if m > 5000:  # the tall shapes, near and past the shared-memory edges
             print(f"time qr_panel ({m}, {b}): kernel "
                   f"{cuda_ms(lambda: qr_panel(a), 3):.4f} ms, geqrf "
                   f"{cuda_ms(lambda: torch.geqrf(a), 3):.4f} ms")
@@ -705,6 +695,68 @@ def _lu_panel_family(gen) -> dict:
 
 
 QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")
+# phase 3's QR panels (m, b, all-zero column): small, the leaves of a 4096²
+# QR, both sides of the cluster route's largest m at b = 128 (found from
+# the kernel's own route, qr_panel.cluster_edge), the grid route with its
+# rows in shared memory and past it, b = 256 and 512; a zero column on each
+# route (the grid's in shared memory and in global memory too)
+QR_SHAPES = ((128, 128, None), (200, 44, 5), (1000, 128, None), (3968, 128, None),
+             (4096, 128, None), (4096, 256, None), (8192, 128, None), (8192, 128, 5),
+             (57000, 128, None), (60000, 128, None), (60000, 128, 100), (16384, 512, None))
+
+
+def qr_cases():
+    """QR_SHAPES with the cluster route's edge at b = 128 and one past it."""
+    from faer_tpu_torch.ops.kernels.qr_panel import cluster_edge
+
+    edge = cluster_edge(128)
+    return QR_SHAPES[:5] + ((edge, 128, None), (edge + 1, 128, None)) + QR_SHAPES[5:]
+
+
+def _qr_case_panel(m: int, b: int, zero, gen) -> torch.Tensor:
+    a = torch.randn(m, b, generator=gen, device=DEV)
+    if zero is not None:
+        a[:, zero] = 0.0
+    return a
+
+
+def _qr_against_references(a, k1, t1, zero, label: str) -> float:
+    """Hold a packed panel factor (k1, t1) of a tall Gaussian panel against
+    ``qr_panel_plain``, the kernel's one-pass order and ``torch.geqrf``, and
+    check Q orthogonal and Q·R = A; print the route. A panel with an
+    all-zero column is held against the host's LAPACK geqrf: the card's
+    returns τ ≈ 2 there for tall panels (another valid reflector, not
+    larfg's τ = 0). Returns the largest absolute difference from
+    ``qr_panel_plain``'s packed panel."""
+    from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
+    from faer_tpu_torch.ops.kernels.qr_panel import (
+        qr_panel_onepass_plain, qr_panel_plain, route)
+
+    m, b = a.shape
+    name, ctas, _ = route(m, b)
+    tol = 8 * m * EPS32
+    refs = {"plain": qr_panel_plain(a), "one-pass": qr_panel_onepass_plain(a)}
+    if zero is None:
+        refs["geqrf"] = torch.geqrf(a)
+    else:
+        refs["host geqrf"] = tuple(x.to(DEV) for x in torch.geqrf(a.cpu()))
+    r1, v1 = torch.triu(k1[:b]), torch.tril(k1, -1)
+    errs = {}
+    for ref, (k, t) in refs.items():
+        errs[ref] = max(_max_rel(r1, torch.triu(k[:b]))[1],
+                        _max_rel(v1, torch.tril(k, -1))[1], (t1 - t).abs().max().item())
+    v = v1 + torch.eye(m, b, device=DEV)
+    q = apply_block_on_left(v, form_block_t(v, t1), torch.eye(m, b, device=DEV),
+                            adjoint=False)
+    orth = (q.T @ q - torch.eye(b, device=DEV)).abs().max().item()
+    rec = rel_norm(q @ r1, a)
+    zero_ok = zero is None or (t1[zero].item() == 0.0
+                               and bool((k1[zero:, zero] == 0).all()))
+    check(max(*errs.values(), orth, rec) <= tol and zero_ok,
+          f"{label}{' zero column' if zero is not None else ''} [{name} route, {ctas} "
+          f"CTAs]: rel err (R, V, τ) vs " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| {rec:.3e}; all <= {tol:.3e}")
+    return (k1 - refs["plain"][0]).abs().max().item()
 
 
 def _qr_wrapper(name: str):
@@ -733,41 +785,35 @@ def _qr_checks(a, packed, taus) -> tuple[float, float]:
 def _qr_panel_family(gen) -> dict:
     """``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3`` and ``qr_leaf``
     (rows 18, 14, 15, 7), which launch ``csrc/qr_panel.cu`` behind their own
-    counters, against their plain versions on Gaussian panels at (4096, 128)
-    (the QR driver's leaf), (4096, 256) and (200, 44) with a zero column: R
-    and V each within 8·m·eps of their own largest entry, τ within 8·m·eps,
-    QᵀQ = I and Q·R = A to 8·m·eps in f64, and the result equal to
-    ``qr_panel``'s to the bit (one kernel). Timed at (4096, 128) and
-    (4096, 256) beside ``torch.geqrf`` and the bound (2mb² − 2b³/3 FP32
-    operations, the panel read and written once)."""
+    counters, at every phase-3 QR case (``qr_cases``: both sides of every
+    route edge): equal to ``qr_panel``'s result to the bit (one kernel), and
+    held like it against their own plain version, the kernel's one-pass
+    order and ``torch.geqrf`` (R and V each within 8·m·eps of their own
+    largest entry, τ within 8·m·eps, QᵀQ = I and Q·R = A to 8·m·eps). Timed
+    at (4096, 128) and (4096, 256) beside ``torch.geqrf`` and the bound
+    (2mb² − 2b³/3 FP32 operations, the panel read and written once)."""
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel
     from faer_tpu_torch.utils import flops
 
     res = {}
+    cases = qr_cases()
     for name in QR_FAMILY:
         kern, plain = _qr_wrapper(name)
         errs = []
-        for m, b, zero in ((4096, 128, None), (4096, 256, None), (200, 44, 5)):
-            a = torch.randn(m, b, generator=gen, device=DEV)
-            if zero is not None:
-                a[:, zero] = 0.0
+        for m, b, zero in cases:
+            a = _qr_case_panel(m, b, zero, gen)
             (k1, t1), (k2, t2), (k0, t0) = kern(a), plain(a), qr_panel(a)
             torch.cuda.synchronize()
-            tol = 8 * m * EPS32
-            err_r = _max_rel(torch.triu(k1[:b]), torch.triu(k2[:b]))[1]
-            err_v = _max_rel(torch.tril(k1, -1), torch.tril(k2, -1))[1]
-            terr = (t1 - t2).abs().max().item()
-            orth, rec = _qr_checks(a, k1, t1)
             same = torch.equal(k1, k0) and torch.equal(t1, t0)
-            zero_ok = zero is None or (t1[zero].item() == 0.0
-                                       and bool((k1[zero:, zero] == 0).all()))
-            err = (k1 - k2).abs().max().item()
-            errs.append(err)
-            check(max(err_r, err_v, terr, orth, rec) <= tol and same and zero_ok,
-                  f"{name} ({m}, {b}){' zero column' if zero else ''}: max abs err "
-                  f"{err:.3e} vs plain; rel R {err_r:.3e}, rel V {err_v:.3e}, taus "
-                  f"{terr:.3e}; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| {rec:.3e}; all <= "
-                  f"{tol:.3e}; equal to qr_panel to the bit {same}")
+            tol = 8 * m * EPS32
+            err_own = max(_max_rel(torch.triu(k1[:b]), torch.triu(k2[:b]))[1],
+                          _max_rel(torch.tril(k1, -1), torch.tril(k2, -1))[1],
+                          (t1 - t2).abs().max().item())
+            _qr_against_references(a, k1, t1, zero, f"{name} ({m}, {b})")
+            check(same and err_own <= tol,
+                  f"{name} ({m}, {b}): equal to qr_panel to the bit {same}; rel err vs "
+                  f"its own plain version {err_own:.3e} <= {tol:.3e}")
+            errs.append((k1 - k2).abs().max().item())
         for m, b in ((4096, 128), (4096, 256)):
             pan = torch.randn(m, b, generator=gen, device=DEV)
             r = dict(max_abs_err=max(errs), ms=cuda_ms(lambda: kern(pan), 10),
@@ -788,9 +834,12 @@ def _wide_panels(gen) -> None:
     ``lu_panel_v3``, ``lu_panel_swap``): separated pivots, so perm, nt and
     ok exactly, packed within 8·b·eps of its largest entry, A[perm] = L·U
     to 8·b·eps. QR (``qr_panel`` and the family): I + G/(4√m), κ ≤ 3, R and
-    V within 8·b·eps of the plain version's, τ (length m) within 8·b·eps,
-    QᵀQ = I and Q·R = A to 8·b·eps in f64."""
+    V within 8·b·eps of the plain version's and of the kernel's one-pass
+    order, τ (length m) within 8·b·eps, QᵀQ = I and Q·R = A to 8·b·eps in
+    f64, every wrapper equal to ``qr_panel`` to the bit."""
     import importlib
+
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel_onepass_plain, route
 
     lu = {"lu_panel": "lu_panel", "lu_leaf": "leaf", "lu_panel_v2": "lu_panel_v2",
           "lu_panel_v3": "lu_panel_v3", "lu_panel_swap": "lu_panel_swap",
@@ -818,21 +867,25 @@ def _wide_panels(gen) -> None:
                       f"equal {same}, nt {int(n1)} vs {int(n2)}, ok {bool(o1)}, max abs "
                       f"err {err:.3e}, rel {rel:.3e}; |A[perm]-LU|/|A| {rec:.3e}; "
                       f"<= {tol:.3e}")
+        a = torch.randn(m, b, generator=gen, device=DEV) / (4 * m ** 0.5)
+        a += torch.eye(m, b, device=DEV)
+        k0, t0 = _qr_wrapper("qr_panel")[0](a)
+        refs = {"one-pass": qr_panel_onepass_plain(a)}
         for name in ("qr_panel",) + QR_FAMILY:
             kern, plain = _qr_wrapper(name)
-            a = torch.randn(m, b, generator=gen, device=DEV) / (4 * m ** 0.5)
-            a += torch.eye(m, b, device=DEV)
-            (k1, t1), (k2, t2) = kern(a), plain(a)
+            (k1, t1), refs["plain"] = kern(a), plain(a)
             torch.cuda.synchronize()
-            err_r = _max_rel(torch.triu(k1), torch.triu(k2))[1]
-            err_v = _max_rel(torch.tril(k1, -1), torch.tril(k2, -1))[1]
-            terr = (t1 - t2).abs().max().item()
+            errs = {ref: max(_max_rel(torch.triu(k1), torch.triu(k))[1],
+                             _max_rel(torch.tril(k1, -1), torch.tril(k, -1))[1],
+                             (t1 - t).abs().max().item()) for ref, (k, t) in refs.items()}
             orth, rec = _qr_checks(a, k1, t1)
-            check(tuple(k1.shape) == (m, b) and tuple(t1.shape) == (m,)
-                  and max(err_r, err_v, terr, orth, rec) <= tol,
-                  f"wide {name} ({m}, {b}): rel R {err_r:.3e}, rel V {err_v:.3e}, "
-                  f"taus {terr:.3e} vs plain; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| "
-                  f"{rec:.3e}; all <= {tol:.3e}")
+            same = torch.equal(k1, k0) and torch.equal(t1, t0)
+            check(tuple(k1.shape) == (m, b) and tuple(t1.shape) == (m,) and same
+                  and max(*errs.values(), orth, rec) <= tol,
+                  f"wide {name} ({m}, {b}) [{route(m, b)[0]} route]: rel err (R, V, τ) vs "
+                  + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                  + f"; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| {rec:.3e}; all <= {tol:.3e}; "
+                  f"equal to qr_panel to the bit {same}")
 
 
 def _sweep_case(n: int, l: int, m: int, bidiag: bool, gen):
@@ -1828,6 +1881,15 @@ def phase_facade() -> dict:
     sym = (gs + gs.T) / 2
     eig, mm = counted(f"self_adjoint_eigen() {ns}", lambda: Mat(sym).self_adjoint_eigen())
     _evd_checks(sym, eig.eigenvalues, eig.eigenvectors, f"self_adjoint_eigen() n={ns}")
+    # a 1-D right-hand side gives a 1-D solution, the 2-D solve's column
+    b1 = torch.randn(ns, generator=gen, device=DEV)
+    x1, x2 = eig.solve(b1), eig.solve(b1[:, None])
+    r = _res(sym, x1[:, None], b1[:, None])
+    gap = ((x1 - x2[:, 0]).abs().max() / x2.abs().max()).item()
+    check(tuple(x1.shape) == (ns,) and r <= 8 * ns * EPS32 and gap <= 8 * ns * EPS32,
+          f"self_adjoint_eigen().solve(b), b of shape ({ns},): x of shape "
+          f"{tuple(x1.shape)}, |Ax-b|/(|A||x|) {r:.3e}, against the (n, 1) solve "
+          f"{gap:.3e}; <= {8 * ns * EPS32:.3e}")
     sv, mm = counted(f"svd() {ns}", lambda: Mat(gs).svd())
     _svd_checks(gs, sv.U, sv.S, sv.V, f"svd() n={ns}")
 

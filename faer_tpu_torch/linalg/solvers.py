@@ -264,8 +264,11 @@ class SelfAdjointEigen:
         return matmul(None, self.v * self.w[None, :], self.v.mT)
 
     def solve(self, rhs):
+        """x = V diag(w)⁻¹ Vᵀ b for an (n,) or (n, k) right-hand side (or a
+        ``Col``/``Mat``); x has b's shape."""
         y = matmul(None, self.v.mT, _operand(rhs, self.v))
-        return matmul(None, self.v, y / self.w[:, None])
+        w = self.w if y.dim() == 1 else self.w[:, None]  # y's first dimension
+        return matmul(None, self.v, y / w)
 
 
 SOLVERS: dict[str, Any] = {cls.__name__: cls for cls in

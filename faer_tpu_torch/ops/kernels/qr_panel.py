@@ -10,17 +10,26 @@ with ``v[j] = 1`` and the LAPACK ``larfg`` signs: β = −sign(α)·‖x‖ with
 sign(α) = +1 for α ≥ 0 (−0.0 included), τ = (β − α)/β, v = x/(α − β), and a
 zero tail gives τ = 0, β = α, v = e_j.
 
-The CUDA kernel (``csrc/qr_panel.cu``) is one cooperative grid with two
-grid barriers per column that applies each reflector to all later columns
-at once. :func:`qr_panel_plain` follows the Pallas body: transposed panel,
-``sb``-column sub-blocks of rank-1 reflector steps, then the sub-block's
-compact-WY T (Neumann inverse) and a deferred block update of the later
-columns. The two orders of rounding differ; the function is the same.
-:func:`launch` is the CUDA route that every QR panel wrapper of the port
-takes (``qr_panel`` here, ``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``
-and ``qr_leaf``), each behind its own launch counter.
+The CUDA kernel (``csrc/qr_panel.cu``) applies each reflector to all
+later columns at once and exchanges one set of shares a column between its
+CTAs: ‖tail‖² and tailᵀ·A_tail together, with w = A[j, j+1:] +
+s·(tailᵀ·A_tail), s = 1/(α − β). It takes one of two routes, which its C
+entry alone decides from (m, b) and the card (:func:`route` asks it): a
+thread-block cluster whose CTAs hold the rows in shared memory (one cluster
+barrier a column), or a cooperative grid (one grid barrier a column).
+:func:`qr_panel_onepass_plain` follows that order of operations, for the
+tests and ``chip_smoke.py``; no wrapper runs it. :func:`qr_panel_plain`
+follows the Pallas body: transposed panel, ``sb``-column sub-blocks of
+rank-1 reflector steps, then the sub-block's compact-WY T (Neumann
+inverse) and a deferred block update of the later columns. The orders of
+rounding differ; the function is the same. :func:`launch` is the CUDA route
+that every QR panel wrapper of the port takes (``qr_panel`` here,
+``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3`` and ``qr_leaf``), each
+behind its own launch counter.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,8 +38,8 @@ from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.llt_panel import _neumann_unit_inv
 
-MIN_ROWS_PER_CTA = 64
-MAX_B = 4096  # the kernel's fixed shared memory, 9·b floats, must fit a CTA
+MAX_B = 4096  # the grid route's fixed shared memory, 4·b + 2048 floats, must fit a CTA
+ROUTES = {1: "cluster", 0: "grid"}  # faer_qr_panel_route's codes
 
 
 def qr_panel_plain(panel, *, sb: int = 16):
@@ -87,6 +96,67 @@ def qr_panel_plain(panel, *, sb: int = 16):
     return pt.mT.contiguous(), taus
 
 
+def qr_panel_onepass_plain(panel):
+    """Plain PyTorch version of the CUDA kernel's order (same contract): a
+    column loop that forms ‖tail‖² and tailᵀ·A_tail together, then the
+    fused w = A[j, j+1:] + s·(tailᵀ·A_tail) with s = 1/(α − β), and applies
+    A[j:, j+1:] −= τ v wᵀ with v = [1; s·tail]. For the tests; no wrapper
+    runs it."""
+    m, b = panel.shape
+    kmax = min(m, b)
+    a = panel.clone(memory_format=torch.contiguous_format)
+    taus = panel.new_zeros(kmax)
+    one = panel.new_ones(())
+    for j in range(kmax):
+        alpha = a[j, j].clone()
+        tail = a[j + 1:, j].clone()
+        tail_sq = (tail * tail).sum()
+        shares = tail @ a[j + 1:, j + 1:]  # tailᵀ·A_tail, with ‖tail‖² one pass
+        norm = torch.sqrt(alpha * alpha + tail_sq)
+        beta = torch.where(alpha >= 0, -norm, norm)
+        is_id = tail_sq == 0
+        tau = torch.where(is_id, 0.0, (beta - alpha) / torch.where(is_id, one, beta))
+        s = torch.where(is_id, one, 1.0 / torch.where(is_id, one, alpha - beta))
+        w = a[j, j + 1:] + s * shares
+        v = torch.where(is_id, 0.0, tail * s)
+        a[j, j + 1:] -= tau * w
+        a[j + 1:, j + 1:] -= (tau * v)[:, None] * w[None, :]
+        a[j, j] = torch.where(is_id, alpha, beta)
+        a[j + 1:, j] = v
+        taus[j] = tau
+    return a, taus
+
+
+def route(m: int, b: int, device=None) -> tuple[str, int, int]:
+    """``(route, CTAs, scratch floats)`` of an (m, b) panel on a CUDA card,
+    as the kernel's C entry ``faer_qr_panel_route`` decides them from (m, b)
+    and the card: ``"cluster"`` (the rows in the shared memory of one
+    thread-block cluster) or ``"grid"`` (a cooperative grid). Loads the
+    kernel library, which is built with ``nvcc`` at first use."""
+    ctas, scratch = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device):  # the C entry reads the current device
+        code = _build.library().faer_qr_panel_route(
+            m, b, ctypes.byref(ctas), ctypes.byref(scratch))
+    if code == -1:
+        raise ShapeError(f"qr_panel: needs m ≥ 1 and 1 ≤ b ≤ {MAX_B}, got {(m, b)}")
+    if code not in ROUTES:
+        raise RuntimeError(f"qr_panel: the device query failed with CUDA error {-code - 2}")
+    return ROUTES[code], ctas.value, scratch.value
+
+
+def cluster_edge(b: int, device=None) -> int:
+    """The largest m whose (m, b) panel :func:`route` sends to the cluster
+    route on a CUDA card (bisection; 0 if none), for the card checks of
+    both sides of the edge."""
+    lo, hi = 1, 1 << 20  # cluster at lo, grid at hi
+    if route(lo, b, device)[0] != "cluster":
+        return 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if route(mid, b, device)[0] == "cluster" else (lo, mid)
+    return lo
+
+
 def launch(panel):
     """``(packed, taus)`` of one CUDA (m, b) panel, in one launch of
     ``csrc/qr_panel.cu``. Counts nothing: each wrapper counts its own."""
@@ -96,17 +166,14 @@ def launch(panel):
     if panel.stride(1) != 1:
         raise ValueError("qr_panel: rows of the panel must be contiguous")
     dev = panel.device
-    g, rpc = _build.grid(m, dev, MIN_ROWS_PER_CTA)
+    _, _, nscratch = route(m, b, dev)
     packed = torch.empty((m, b), dtype=panel.dtype, device=dev)
     taus = torch.empty(min(m, b), dtype=panel.dtype, device=dev)
-    part_sq = torch.empty(g, dtype=torch.float32, device=dev)
-    part_w = torch.empty((g, b), dtype=torch.float32, device=dev)
-    alpha = torch.empty(1, dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(nscratch, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):  # the C entry uses the current device
         code = _build.library().faer_qr_panel(
-            panel.data_ptr(), panel.stride(0), packed.data_ptr(),
-            taus.data_ptr(), part_sq.data_ptr(), part_w.data_ptr(),
-            alpha.data_ptr(), m, b, g, rpc, _build.stream_of(panel))
+            panel.data_ptr(), panel.stride(0), packed.data_ptr(), taus.data_ptr(),
+            scratch.data_ptr(), nscratch, m, b, _build.stream_of(panel))
     _build.check("qr_panel", code)
     return packed, taus
 

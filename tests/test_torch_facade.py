@@ -352,6 +352,32 @@ def test_self_adjoint_eigen_solver_matches_jax():
     _close(_tm(np.tril(a)).self_adjoint_eigenvalues(), t.eigenvalues, n)
 
 
+@pytest.mark.parametrize("rank", [1, 2, "Col"])
+def test_self_adjoint_eigen_solve_keeps_the_rhs_shape(rank):
+    """``SelfAdjointEigen.solve`` scales Vᵀb by w along its first dimension:
+    an (n,) or ``Col`` right-hand side gives (n,), an (n, k) one (n, k), each
+    within 8·n·eps·κ of f64 ``np.linalg.solve``, and a 1-D solve agrees
+    with the 2-D solve's column to 8·n·eps (a matrix-vector product rounds
+    in another order than a matrix product)."""
+    n = 24
+    rng = np.random.default_rng(17)
+    a = _spd(n, rng)
+    b2 = _gauss((n, 3), rng)
+    rhs = {1: torch.from_numpy(b2[:, 0]), 2: torch.from_numpy(b2),
+           "Col": tft.Col(torch.from_numpy(b2[:, 0]))}[rank]
+    eig = _tm(a).self_adjoint_eigen()
+    x = eig.solve(rhs)
+    want_shape = (n, 3) if rank == 2 else (n,)
+    assert tuple(x.shape) == want_shape
+    a64 = a.astype(np.float64)
+    want = np.linalg.solve(a64, b2 if rank == 2 else b2[:, 0].astype(np.float64))
+    kappa = np.linalg.cond(a64)
+    err = np.linalg.norm(x.numpy() - want) / np.linalg.norm(want)
+    assert err <= 8 * n * EPS32 * kappa
+    if rank != 2:
+        _close(x, eig.solve(torch.from_numpy(b2))[:, 0].numpy(), n)
+
+
 # -- errors -----------------------------------------------------------------------
 
 def test_error_cases_match_jax():

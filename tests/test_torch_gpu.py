@@ -217,15 +217,52 @@ def test_lu_panel_kernel(cuda, m, b):
     assert _rel(k1, k2) <= 8 * m * EPS32
 
 
-@pytest.mark.parametrize("m,b,zero_col", [(160, 32, None), (1000, 128, None),
-                                           (200, 44, 5), (60000, 128, None),
-                                           (16384, 512, None)])
-def test_qr_panel_kernel(cuda, m, b, zero_col):
-    """(60000, 128) and (16384, 512): a CTA's rows (455 × 129 × 4 B and
-    125 × 513 × 4 B) exceed its 227 KiB of shared memory, so the kernel keeps
-    them in global memory."""
+def _check_qr_panel(a, k1, t1, zero_col=None):
+    """A packed panel factor of a Gaussian panel (m ≥ 4b, κ ≤ 3) against
+    ``qr_panel_plain``, the kernel's one-pass order and ``torch.geqrf`` (the
+    same larfg signs): R and the reflector tails V each within 8·m·eps
+    relative to their own largest entry, τ within 8·m·eps; Q = I − V T Vᵀ
+    orthogonal and Q·R = A to 8·m·eps. A panel with an all-zero column is
+    held against the host's LAPACK geqrf: the card's returns τ ≈ 2 there
+    for tall panels (another valid reflector, not larfg's τ = 0)."""
     from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
-    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel_onepass_plain, qr_panel_plain
+
+    m, b = a.shape
+    tol = 8 * m * EPS32
+    r1, v1 = torch.triu(k1[:b]), torch.tril(k1, -1)
+    geqrf = torch.geqrf(a) if zero_col is None else tuple(
+        x.to(a.device) for x in torch.geqrf(a.cpu()))
+    for k, t in (qr_panel_plain(a), qr_panel_onepass_plain(a), geqrf):
+        assert _rel(r1, torch.triu(k[:b])) <= tol
+        assert _rel(v1, torch.tril(k, -1)) <= tol
+        assert (t1 - t).abs().max().item() <= tol
+    v = v1 + torch.eye(m, b, device=a.device)
+    q = apply_block_on_left(v, form_block_t(v, t1), torch.eye(m, b, device=a.device),
+                            adjoint=False)
+    assert (q.T @ q - torch.eye(b, device=a.device)).abs().max().item() <= tol
+    assert ((q @ r1 - a).norm() / a.norm()).item() <= tol
+    if zero_col is not None:
+        assert t1[zero_col].item() == 0.0
+        assert bool((k1[zero_col:, zero_col] == 0).all())
+
+
+# both sides of every route edge of csrc/qr_panel.cu: one CTA, a small
+# cluster, the leaves of a 4096² QR (16 CTAs), the grid route with its rows
+# in shared memory, and past it ((57000, 128), (60000, 128), (16384, 512));
+# a zero column on each route, the grid's with its rows in shared memory
+# (8192, 128) and in global memory (60000, 128)
+QR_KERNEL_CASES = [(160, 32, None), (1000, 128, None), (200, 44, 5), (60000, 128, None),
+                   (16384, 512, None), (128, 128, None), (3968, 128, None),
+                   (4096, 128, None), (4096, 256, None), (8192, 128, None),
+                   (57000, 128, None), (8192, 128, 5), (60000, 128, 100)]
+
+
+@pytest.mark.parametrize("m,b,zero_col", QR_KERNEL_CASES)
+def test_qr_panel_kernel(cuda, m, b, zero_col):
+    """One launch of ``csrc/qr_panel.cu`` on its route (printed), held
+    against the plain version, the kernel's one-pass order and geqrf."""
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, route
 
     gen = torch.Generator(device=cuda).manual_seed(m + b)
     a = torch.randn(m, b, generator=gen, device=cuda)
@@ -235,25 +272,43 @@ def test_qr_panel_kernel(cuda, m, b, zero_col):
     k1, t1 = qr_panel(a)
     torch.cuda.synchronize()
     assert launch_counts()["qr_panel"] == 1
-    k2, t2 = qr_panel_plain(a)
-    k3, t3 = torch.geqrf(a)
-    # Gaussian panels with m ≥ 4b have κ ≤ 3: R and the reflector tails V
-    # each within 8·m·eps relative to their own largest entry
-    tol = 8 * m * EPS32
-    r1, v1 = torch.triu(k1[:b]), torch.tril(k1, -1)
-    for k, t in ((k2, t2), (k3, t3)):
-        assert _rel(r1, torch.triu(k[:b])) <= tol
-        assert _rel(v1, torch.tril(k, -1)) <= tol
-        assert (t1 - t).abs().max().item() <= tol
-    # Q = I − V T Vᵀ orthogonal and Q·R = A, to 8·m·eps
-    v = v1 + torch.eye(m, b, device=cuda)
-    q = apply_block_on_left(v, form_block_t(v, t1), torch.eye(m, b, device=cuda),
-                            adjoint=False)
-    assert (q.T @ q - torch.eye(b, device=cuda)).abs().max().item() <= tol
-    assert ((q @ r1 - a).norm() / a.norm()).item() <= tol
-    if zero_col is not None:
-        assert t1[zero_col].item() == 0.0
-        assert bool((k1[zero_col:, zero_col] == 0).all())
+    print(f"qr_panel ({m}, {b}): {route(m, b)}")
+    _check_qr_panel(a, k1, t1, zero_col)
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_qr_panel_kernel_at_the_cluster_edge(cuda, past):
+    """The largest m of the cluster route at b = 128, and one past it (the
+    grid route), each held like ``test_qr_panel_kernel``."""
+    from faer_tpu_torch.ops.kernels.qr_panel import cluster_edge, qr_panel, route
+
+    m = cluster_edge(128) + past
+    assert route(m, 128)[0] == ("grid" if past else "cluster")
+    a = torch.randn(m, 128, generator=torch.Generator(device=cuda).manual_seed(m),
+                    device=cuda)
+    k1, t1 = qr_panel(a)
+    print(f"qr_panel ({m}, 128): {route(m, 128)}")
+    _check_qr_panel(a, k1, t1)
+
+
+def test_qr_panel_routes(cuda):
+    """The route is the C entry's alone: a 4096² QR's leaves (m ≤ 4096,
+    b = 128) take the cluster route with no global scratch, (4096, 256)
+    and past the cluster edge the grid route, and b past 4096 is refused."""
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.qr_panel import cluster_edge, qr_panel, route
+
+    for m in (128, 1000, 4096):
+        name, ctas, scratch = route(m, 128)
+        assert name == "cluster" and 1 <= ctas <= 16 and scratch == 0
+    for m, b in ((4096, 256), (cluster_edge(128) + 1, 128), (65536, 128)):
+        name, ctas, scratch = route(m, b)
+        assert name == "grid" and 1 <= ctas <= torch.cuda.get_device_properties(
+            cuda).multi_processor_count and scratch >= 2 * (ctas + 1) * b
+    with pytest.raises(ShapeError):
+        route(64, 4097)
+    with pytest.raises(ShapeError):
+        qr_panel(torch.zeros(64, 4097, device=cuda))
 
 
 @pytest.mark.parametrize("b,reg", [(128, None), (80, None), (44, (1.0, 2.0))])
@@ -423,12 +478,16 @@ def _qr_checks(a, packed, taus):
 
 @pytest.mark.parametrize("name", QR_FAMILY)
 @pytest.mark.parametrize("m,b,zero_col", [(4096, 128, None), (1000, 100, None),
-                                           (200, 44, 5)])
+                                           (200, 44, 5), (128, 128, None),
+                                           (4096, 256, None), (8192, 128, None),
+                                           (60000, 128, None), (8192, 128, 5),
+                                           (60000, 128, 100)])
 def test_qr_panel_family_kernels(cuda, name, m, b, zero_col):
     """v1, v2, v3 and the v4 leaf launch ``csrc/qr_panel.cu``, each behind
-    its own counter: equal to ``qr_panel`` to the bit, and within 8·m·eps of
-    their plain versions (R and V each relative to their own largest entry;
-    Gaussian panels with m ≥ 4b have κ ≤ 3)."""
+    its own counter, on both routes: equal to ``qr_panel`` to the bit, and
+    within 8·m·eps of their plain versions, the kernel's one-pass order and
+    geqrf (R and V each relative to their own largest entry; Gaussian panels
+    with m ≥ 4b have κ ≤ 3)."""
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel
 
     kern, plain = _qr_wrapper(name)
@@ -447,11 +506,7 @@ def test_qr_panel_family_kernels(cuda, name, m, b, zero_col):
     assert _rel(torch.triu(k1[:b]), torch.triu(k2[:b])) <= tol
     assert _rel(torch.tril(k1, -1), torch.tril(k2, -1)) <= tol
     assert (t1 - t2).abs().max().item() <= tol
-    orth, rec = _qr_checks(a, k1, t1)
-    assert orth <= tol and rec <= tol
-    if zero_col is not None:
-        assert t1[zero_col].item() == 0.0
-        assert bool((k1[zero_col:, zero_col] == 0).all())
+    _check_qr_panel(a, k1, t1, zero_col)
 
 
 LU_WRAPPERS = ("lu_panel", "lu_leaf", "lu_panel_v2", "lu_panel_v3", "lu_panel_swap",
@@ -465,9 +520,10 @@ def test_wide_panels_on_card(cuda, name, m, b):
     the kernel, the whole (m, b) panel back, against the plain version. LU:
     separated pivots, so perm, nt and ok exactly, packed within 8·b·eps of
     its largest entry, A[perm] = L·U to 8·b·eps. QR: I + G/(4√m) (κ ≤ 3),
-    R and V within 8·b·eps, taus (length m), QᵀQ = I and Q·R = A to 8·b·eps.
-    (1000, 1024): the LU rows fit shared memory at 8 a CTA, the QR rows
-    (63 a CTA × 1025 × 4 B) do not."""
+    R and V within 8·b·eps of the plain version and of the QR kernel's
+    one-pass order, taus (length m), QᵀQ = I and Q·R = A to 8·b·eps.
+    (1000, 1024): the LU rows fit shared memory at 8 a CTA; the QR rows take
+    the grid route, (16, 40) and (64, 200) the cluster route."""
     import importlib
 
     gen = torch.Generator(device=cuda).manual_seed(m + b)
@@ -492,6 +548,8 @@ def test_wide_panels_on_card(cuda, name, m, b):
             assert torch.equal(p1, p2) and int(n1) == int(n2) and bool(o1) and bool(o2)
             assert _rel(k1, k2) <= tol and _lu_rec(a, k1, p1) <= tol
         return
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel_onepass_plain, route
+
     kern, plain = _qr_wrapper(name)
     a = torch.randn(m, b, generator=gen, device=cuda) / (4 * m ** 0.5)
     a += torch.eye(m, b, device=cuda)
@@ -499,11 +557,12 @@ def test_wide_panels_on_card(cuda, name, m, b):
     k1, t1 = kern(a)
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1 and sum(launch_counts().values()) == 1
-    k2, t2 = plain(a)
+    print(f"{name} ({m}, {b}): {route(m, b)}")
     assert k1.shape == (m, b) and t1.shape == (m,)
-    assert _rel(torch.triu(k1), torch.triu(k2)) <= tol
-    assert _rel(torch.tril(k1, -1), torch.tril(k2, -1)) <= tol
-    assert (t1 - t2).abs().max().item() <= tol
+    for k2, t2 in (plain(a), qr_panel_onepass_plain(a)):
+        assert _rel(torch.triu(k1), torch.triu(k2)) <= tol
+        assert _rel(torch.tril(k1, -1), torch.tril(k2, -1)) <= tol
+        assert (t1 - t2).abs().max().item() <= tol
     orth, rec = _qr_checks(a, k1, t1)
     assert orth <= tol and rec <= tol
 
@@ -795,6 +854,27 @@ def test_facade_on_card_with_tile_switch(cuda, monkeypatch):
         assert (launches > 0) if on else (launches == 0)
         assert ((prod - g @ b).abs().max() / (g.abs().max() * b.abs().max())).item() <= tol
         assert max(rel_res(spd, x1), rel_res(g, x2), rel_res(g, x3)) <= tol
+
+
+def test_self_adjoint_eigen_solve_of_a_vector_on_card(cuda):
+    """``Mat(a).self_adjoint_eigen().solve(b)`` with an (n,) or ``Col``
+    right-hand side returns (n,), within 8·n·eps of the (n, 1) solve's
+    column and with a residual within 8·n·eps."""
+    from faer_tpu_torch import Col, Mat
+
+    n = 256
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    g = torch.randn(n, n, generator=gen, device=cuda)
+    a = (g + g.T) / 2
+    b = torch.randn(n, generator=gen, device=cuda)
+    eig = Mat(a).self_adjoint_eigen()
+    x2 = eig.solve(b[:, None])
+    tol = 8 * n * EPS32
+    for rhs in (b, Col(b)):
+        x = eig.solve(rhs)
+        assert x.shape == (n,)
+        assert ((x - x2[:, 0]).abs().max() / x2.abs().max()).item() <= tol
+        assert ((a @ x - b).norm() / (a.norm() * x.norm())).item() <= tol
 
 
 def _mirrored_spd(b, gen, device):

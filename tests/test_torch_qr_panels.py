@@ -1,4 +1,5 @@
-"""The port's QR panel family (v1, v2, v3 and the v4 leaf) against the JAX
+"""The port's QR panel family (v1, v2, v3 and the v4 leaf), and the one-pass
+order of the CUDA kernel (``qr_panel_onepass_plain``), against the JAX
 package's Pallas kernels.
 
 Each plain PyTorch version (what the wrapper runs for a CPU tensor) is
@@ -20,6 +21,7 @@ import torch
 from faer_tpu_torch.core.config import KERNELS, launch_counts, reset_launch_counts
 from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels.leaf import qr_leaf, qr_leaf_plain
+from faer_tpu_torch.ops.kernels.qr_panel import qr_panel_onepass_plain
 from faer_tpu_torch.ops.kernels.qr_panel_v1 import qr_panel_v1, qr_panel_v1_plain
 from faer_tpu_torch.ops.kernels.qr_panel_v2 import qr_panel_v2, qr_panel_v2_plain
 from faer_tpu_torch.ops.kernels.qr_panel_v3 import qr_panel_v3, qr_panel_v3_plain
@@ -64,11 +66,25 @@ PLAIN = {"v1": qr_panel_v1_plain, "v2": qr_panel_v2_plain, "v3": qr_panel_v3_pla
 WRAPPER = {"v1": qr_panel_v1, "v2": qr_panel_v2, "v3": qr_panel_v3, "v4": qr_leaf}
 
 
-def _panel(m, b, zero_col, seed):
+def _panel(m, b, zero_col, seed, neg_zero=False):
     panel = np.random.default_rng(seed).standard_normal((m, b)).astype(np.float32)
     if zero_col is not None:
         panel[:, zero_col] = 0.0
+    if neg_zero:  # α = −0.0 at step 0, with a nonzero tail
+        panel[0, 0] = -0.0
     return panel
+
+
+_PALLAS = {}
+
+
+def _pallas(interp, kernel, panel, key):
+    """The Pallas kernel's ``(packed, taus)`` on a case's panel, computed
+    once per process: the one-pass test reads what the plain test made."""
+    if (kernel, key) not in _PALLAS:
+        _PALLAS[kernel, key] = tuple(
+            np.asarray(x) for x in getattr(interp, kernel)(jnp.asarray(panel)))
+    return _PALLAS[kernel, key]
 
 
 def _q_of(packed, taus):
@@ -100,7 +116,7 @@ CASES = [(96, 40, None), (50, 13, None), (16, 40, None), (40, 16, 5)]
 @pytest.mark.parametrize("m,b,zero_col", CASES)
 def test_plain_matches_pallas(kernel, m, b, zero_col, interp):
     panel = _panel(m, b, zero_col, m * b)
-    k_j, t_j = (np.asarray(x) for x in getattr(interp, kernel)(jnp.asarray(panel)))
+    k_j, t_j = _pallas(interp, kernel, panel, (m, b, zero_col, False))
     k_t, t_t = (x.numpy() for x in PLAIN[kernel](torch.from_numpy(panel)))
     kmax = min(m, b)
     assert k_t.shape == (m, b) and t_t.shape == t_j.shape == (kmax,)
@@ -114,6 +130,56 @@ def test_plain_matches_pallas(kernel, m, b, zero_col, interp):
     if zero_col is not None:
         assert float(t_t[zero_col]) == float(t_j[zero_col]) == 0.0
         assert np.all(k_t[zero_col:, zero_col] == 0.0)
+
+
+# the one-pass twin's cases: CASES, and α = −0.0 at step 0 (β = −‖x‖, τ = 1)
+ONEPASS_CASES = [(*case, False) for case in CASES] + [(40, 24, None, True)]
+
+
+@pytest.mark.parametrize("kernel", ["v1", "v2", "v3", "v4"])
+@pytest.mark.parametrize("m,b,zero_col,neg_zero", ONEPASS_CASES)
+def test_onepass_plain_matches_pallas(kernel, m, b, zero_col, neg_zero, interp):
+    """The CUDA kernel's order (‖tail‖² and tailᵀ·A_tail in one pass, the
+    fused w = A[j, j+1:] + s·(tailᵀ·A_tail)) computes the Pallas kernels'
+    function: R, V and τ within 8·m·eps, Q orthogonal and Q·R = A in f64."""
+    panel = _panel(m, b, zero_col, m * b, neg_zero)
+    k_j, t_j = _pallas(interp, kernel, panel, (m, b, zero_col, neg_zero))
+    k_t, t_t = (x.numpy() for x in qr_panel_onepass_plain(torch.from_numpy(panel)))
+    assert k_t.shape == (m, b) and t_t.shape == t_j.shape == (min(m, b),)
+    _assert_factor_close(k_t, t_t, k_j, t_j, 8 * m * EPS32)
+    tol = 8 * max(m, b) * EPS32
+    q = _q_of(k_t, t_t)
+    assert np.abs(q.T @ q - np.eye(m)).max() <= tol
+    assert np.linalg.norm(q @ np.triu(k_t) - panel) / np.linalg.norm(panel) <= tol
+    if zero_col is not None:
+        assert float(t_t[zero_col]) == float(t_j[zero_col]) == 0.0
+        assert np.all(k_t[zero_col:, zero_col] == 0.0)
+    if neg_zero:  # −0.0 counts as ≥ 0: β = −‖x‖ and τ = (β − α)/β = 1
+        assert k_t[0, 0] < 0 and k_j[0, 0] < 0 and float(t_t[0]) == 1.0
+
+
+@pytest.mark.parametrize("m,b,zero_col,neg_zero", [(200, 44, None, False), (200, 44, 7, False),
+                                                   (200, 44, None, True), (30, 50, None, False)])
+def test_onepass_plain_matches_the_f64_householder_qr(m, b, zero_col, neg_zero):
+    """Against LAPACK's f64 ``geqrf`` through scipy (the same ``larfg``
+    signs): R, V and τ within 8·m·eps (8·b·eps for the wide panel, whose
+    columns right of m are Qᵀ·A), and equal to ``qr_panel_v1_plain`` (the
+    two-pass column loop) within the same limit. LAPACK's ``dlarfg`` takes
+    the sign of −0.0 as negative, the contract as ≥ 0, so the f64 oracle
+    gets +0.0 there: the same value, the contract's signs."""
+    import scipy.linalg
+
+    panel = _panel(m, b, zero_col, 5 * m + b, neg_zero)
+    if m < b:  # κ ≤ 3, as the wide card cases make them
+        panel = (panel / (4 * np.sqrt(m)) + np.eye(m, b)).astype(np.float32)
+    k64, t64 = scipy.linalg.qr(panel.astype(np.float64) + 0.0, mode="raw")[0]
+    k_t, t_t = (x.numpy() for x in qr_panel_onepass_plain(torch.from_numpy(panel)))
+    k_1, t_1 = (x.numpy() for x in qr_panel_v1_plain(torch.from_numpy(panel)))
+    tol = 8 * max(m, b) * EPS32
+    _assert_factor_close(k_t, t_t, k64, t64[:min(m, b)], tol)
+    _assert_factor_close(k_t, t_t, k_1, t_1, tol)
+    if zero_col is not None:
+        assert float(t_t[zero_col]) == 0.0 and np.all(k_t[zero_col + 1:, zero_col] == 0.0)
 
 
 @pytest.mark.parametrize("m,b", [(30, 20), (16, 40)])

@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {llt,trtri}
+    python tools/torch_profile.py {llt,qr,trtri}
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -25,6 +25,18 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   ``w=64`` (the combine levels, two products each), ``out`` (the inverse to
   its slot, thread 0's own stores); and the largest difference from
   ``trtri_plain`` relative to max|L⁻¹|.
+* ``qr`` (``csrc/qr_panel.cu``, ``-DFAER_QR_PROFILE``), per CTA, on
+  Gaussian panels (seed 1) at (128, 128), (1000, 128), (4096, 128) (the
+  cluster route), the same three on the grid route (forced by the profile
+  build's ``faer_qr_panel_profile_force_grid``, to time what the cluster
+  saves) and (4096, 256), (8192, 128), (65536, 128) (the grid route), each
+  with its route and CTAs: ``stage`` (the rows in, and the
+  first barrier), ``exchange wait`` (the cluster or grid barrier, summed
+  over columns), ``reflector`` (the shares summed over the CTAs, β, τ, τw,
+  column j made v), ``update`` (the pass that applies the reflector and
+  forms the next shares), ``partials`` (the warps' shares added and
+  published), ``out`` (the last barrier, the rows out); and the largest
+  difference from ``qr_panel_onepass_plain`` relative to max|packed|.
 
 The marks cost a few cycles each; the phase shares, not the totals, are
 what this reads. Prints the card's name and power limit first. Exits
@@ -95,6 +107,48 @@ def _trtri_cases(lib, gen):
                len(blocks), check)
 
 
+# (m, b, grid route forced)
+QR_CASES = ((128, 128, False), (1000, 128, False), (4096, 128, False), (128, 128, True),
+            (1000, 128, True), (4096, 128, True), (4096, 256, False), (8192, 128, False),
+            (65536, 128, False))
+
+
+def _qr_cases(lib, gen):
+    """(label, launch, CTAs a launch, check) at each shape."""
+    from faer_tpu_torch.ops.kernels.qr_panel import ROUTES, qr_panel_onepass_plain
+
+    stream = torch.cuda.current_stream().cuda_stream
+    route = lib.faer_qr_panel_route
+    route.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    force_grid = lib.faer_qr_panel_profile_force_grid
+    force_grid.argtypes = [ctypes.c_int]
+    for m, b, forced in QR_CASES:
+        # the profile library's own plan, which the forced grid changes
+        force_grid(forced)
+        c_ctas, c_scratch = ctypes.c_int(), ctypes.c_longlong()
+        name = ROUTES[route(m, b, ctypes.byref(c_ctas), ctypes.byref(c_scratch))]
+        name += " (forced)" if forced else ""
+        ctas, nscratch = c_ctas.value, c_scratch.value
+        a = torch.randn(m, b, generator=gen, device="cuda")
+        out = torch.empty(m, b, device="cuda")
+        taus = torch.empty(min(m, b), device="cuda")
+        scratch = torch.empty(max(nscratch, 1), device="cuda")
+
+        def check(a=a, out=out):
+            want = qr_panel_onepass_plain(a)[0]
+            rel = (out - want).abs().max() / want.abs().max()
+            return f"max|packed - one-pass plain|/max|plain| {rel.item():.3e}"
+
+        def launch(a=a, out=out, taus=taus, scratch=scratch, n=nscratch, m=m, b=b,
+                   forced=forced):
+            force_grid(forced)
+            return lib.faer_qr_panel(a.data_ptr(), b, out.data_ptr(), taus.data_ptr(),
+                                     scratch.data_ptr(), n, m, b, stream)
+
+        yield f"({m}, {b}) {name}, {ctas} CTAs", launch, ctas, check
+    force_grid(False)
+
+
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
@@ -105,6 +159,11 @@ KERNELS = {
                 phases=("stage", "first tile", "solve", "tile update", "factor+trailing",
                         "out"),
                 cases=_llt_cases, unit="call"),
+    "qr": dict(source="qr_panel.cu", macro="FAER_QR_PROFILE", entry="faer_qr_panel",
+               read="faer_qr_panel_profile_read",
+               labels=("stage", "exchange wait", "reflector", "update", "partials", "out"),
+               phases=("stage", "exchange wait", "reflector", "update", "partials", "out"),
+               cases=_qr_cases, unit="CTA"),
     "trtri": dict(source="trtri.cu", macro="FAER_TRTRI_PROFILE", entry="faer_trtri_batched",
                   read="faer_trtri_profile_read",
                   labels=("stage", "diagonal", "w=16", "w=32", "w=64", "out"),
@@ -131,23 +190,27 @@ def build(kernel: str) -> ctypes.CDLL:
     return lib
 
 
-def cycles(read, launch, ctas: int, n: int) -> list[float]:
+def cycles(read, launch, ctas: int, n: int) -> tuple[list[float], float]:
     """Each counter's SM cycles per CTA over ``REPS`` launches, after one
-    launch that warms up and resets them."""
+    launch that warms up and resets them, and the ms a launch of the
+    profile build takes (CUDA events around the ``REPS`` launches)."""
     counts = (ctypes.c_longlong * n)()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def run(reps):
+        start.record()
         for _ in range(reps):
             code = launch()
             if code:
                 sys.exit(f"launch failed with CUDA error {code}")
+        stop.record()
         torch.cuda.synchronize()
         if read(counts):
             sys.exit("reading the counters failed")
 
     run(1)
     run(REPS)
-    return [c / (REPS * ctas) for c in counts]
+    return [c / (REPS * ctas) for c in counts], start.elapsed_time(stop) / REPS
 
 
 def main() -> None:
@@ -165,13 +228,15 @@ def main() -> None:
     read = getattr(lib, spec["read"])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, launch, ctas, check in spec["cases"](lib, gen):
-        row = dict(zip(spec["labels"], cycles(read, launch, ctas, len(spec["labels"]))))
+        counts, ms = cycles(read, launch, ctas, len(spec["labels"]))
+        row = dict(zip(spec["labels"], counts))
         total = sum(row[k] for k in spec["phases"])
         rest = [k for k in spec["labels"] if k not in spec["phases"]]
         print(f"{label}: cycles per {spec['unit']} "
               + ", ".join(f"{k} {row[k]:.0f}" for k in spec["phases"])
               + f", total {total:.0f}; "
-              + "".join(f"{k} {row[k]:.0f}; " for k in rest) + check())
+              + "".join(f"{k} {row[k]:.0f}; " for k in rest)
+              + f"{ms:.4f} ms a launch; " + check())
 
 
 if __name__ == "__main__":

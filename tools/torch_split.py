@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {llt,matmul,trtri} [ROOT]
+    python tools/torch_split.py {llt,matmul,qr,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -21,6 +21,13 @@ code. The rows, per kernel:
   on beside ``g @ h``, and phase 8's facade solves at 4096 (8 right-hand
   sides, ``chip_smoke._inputs``) with the switch off and on (per call
   only);
+* ``qr`` (seed 12): ``qr_panel`` at (4096, 128) and (4096, 256) with
+  ``torch.geqrf`` on the same inputs; ``qr_panel_v1``, ``qr_panel_v2``,
+  ``qr_panel_v3`` and ``qr_leaf`` at (4096, 256); ``qr_panel`` at
+  (8192, 128) and (65536, 128); per call only, ``qr_in_place`` at 4096,
+  ``qr_solve_lstsq`` of 4096 × 8 after it, the 8192 × 2048 factor and
+  lstsq, and ``Mat(a).qr().solve_lstsq(b)`` at 4096 with the tile switch
+  off;
 * ``trtri`` (seed 9): ``trtri`` on one 128 block (``_trtri_block``); the
   inverses of the 32 diagonal blocks of a 4096 triangle as a triangular
   solve makes them (one ``trtri_batched`` launch, or 32 ``trtri`` calls on
@@ -47,6 +54,7 @@ HERE = Path(__file__).resolve().parents[1]
 N = 4096  # the trtri rows' triangle and flagship size
 NRHS = 8
 STEP_REPS = 5  # per-call repetitions of the solves, the step and the factor
+QR_REPS = 10  # per-call repetitions, and calls in a graph, of the QR panels
 
 
 def _chip_smoke():
@@ -148,7 +156,55 @@ def matmul_rows(cs):
     config.use_tile_matmul = False
 
 
-ROWS = {"llt": llt_rows, "matmul": matmul_rows, "trtri": trtri_rows}
+def qr_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of the QR panel
+    kernel and the QR paths that reach it."""
+    from faer_tpu_torch import Mat, qr_in_place, qr_solve_lstsq
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.leaf import qr_leaf
+    from faer_tpu_torch.ops.kernels.qr_panel import qr_panel
+    from faer_tpu_torch.ops.kernels.qr_panel_v1 import qr_panel_v1
+    from faer_tpu_torch.ops.kernels.qr_panel_v2 import qr_panel_v2
+    from faer_tpu_torch.ops.kernels.qr_panel_v3 import qr_panel_v3
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    reps = QR_REPS
+    for m, b in ((4096, 128), (4096, 256)):
+        a = torch.randn(m, b, generator=gen, device="cuda")
+        yield f"qr_panel ({m}, {b})", lambda a=a: qr_panel(a), reps, reps
+        yield f"geqrf ({m}, {b})", lambda a=a: torch.geqrf(a), reps, reps
+    a = torch.randn(4096, 256, generator=gen, device="cuda")
+    for name, fn in (("qr_panel_v1", qr_panel_v1), ("qr_panel_v2", qr_panel_v2),
+                     ("qr_panel_v3", qr_panel_v3), ("qr_leaf", qr_leaf)):
+        yield f"{name} (4096, 256)", lambda fn=fn: fn(a), reps, reps
+    for m in (8192, 65536):
+        t = torch.randn(m, 128, generator=gen, device="cuda")
+        yield f"qr_panel ({m}, 128)", lambda t=t: qr_panel(t), reps, reps
+    g = torch.randn(N, N, generator=gen, device="cuda")
+    rhs = torch.randn(N, NRHS, generator=gen, device="cuda")
+    packed, ts, block = qr_in_place(g)
+    yield f"qr_in_place n={N}", lambda: qr_in_place(g), STEP_REPS, None
+    yield (f"qr_solve_lstsq {N}x{NRHS}", lambda: qr_solve_lstsq(packed, ts, block, rhs),
+           STEP_REPS, None)
+    yield f"geqrf n={N}", lambda: torch.geqrf(g), STEP_REPS, None
+    mt, nt = cs.TALL
+    at = torch.randn(mt, nt, generator=gen, device="cuda")
+    bt = torch.randn(mt, NRHS, generator=gen, device="cuda")
+
+    def tall():
+        p, t, blk = qr_in_place(at)
+        return qr_solve_lstsq(p, t, blk, bt)
+
+    yield f"qr_in_place + qr_solve_lstsq {mt}x{nt}", tall, STEP_REPS, None
+
+    def facade():
+        config.use_tile_matmul = False
+        return Mat(g).qr().solve_lstsq(rhs)
+
+    yield f"Mat(a).qr().solve_lstsq(b) n={N}, tile switch off", facade, STEP_REPS, None
+
+
+ROWS = {"llt": llt_rows, "matmul": matmul_rows, "qr": qr_rows, "trtri": trtri_rows}
 
 
 def main() -> None:
