@@ -62,6 +62,22 @@
 
 namespace cg = cooperative_groups;
 
+#ifdef FAER_LU_PROFILE
+// 0 stage, 1 local search, 2 exchange wait, 3 candidate reduction and pivot
+// row, 4 column scale and rank-1 update, 5 deferred trailing update, 6 final
+// write: thread 0's cycles, summed over CTAs and launches
+__device__ long long g_prof[7];
+#define PROF_START long long t_prof = clock64();
+#define PROF_MARK(k) \
+  if (threadIdx.x == 0) { const long long u = clock64(); prof[k] += u - t_prof; t_prof = u; }
+#define PROF_END \
+  if (threadIdx.x == 0) for (int k = 0; k < 7; ++k) atomicAdd((unsigned long long*)&g_prof[k], (unsigned long long)prof[k]);
+#else
+#define PROF_START
+#define PROF_MARK(k)
+#define PROF_END
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -82,6 +98,10 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
   __shared__ int s_p;
 
   const int G = gridDim.x, cta = blockIdx.x, q = blockIdx.y, tid = threadIdx.x;
+#ifdef FAER_LU_PROFILE
+  long long prof[7] = {0};
+#endif
+  PROF_START
   const int slots = G * gridDim.y;  // candidate slots per column parity
   const int mine = q * G;           // this panel's first slot
   const float* panel = panels + (size_t)q * batch_stride;
@@ -99,6 +119,7 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
   }
   for (int i = tid; i < rpc; i += kThreads) sUsed[i] = (i < nrows) ? 0 : 1;
   __syncthreads();
+  PROF_MARK(0)
 
   int ok = 1;
   const int kmax = min(m, b);
@@ -128,7 +149,9 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
       const float* src = sV + (s_p - r_begin) * b;
       for (int j = tid; j < b; j += kThreads) cand_row[(size_t)slot * b + j] = src[j];
     }
+    PROF_MARK(1)
     grid.sync();
+    PROF_MARK(2)
 
     // 2. the panel's pivot: every CTA of the panel reduces its G candidates
     // in one order
@@ -157,6 +180,7 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
     const float pv = sPiv[r];
     ok &= (pv != 0.0f);
     const float inv = 1.0f / (pv == 0.0f ? 1.0f : pv);
+    PROF_MARK(3)
 
     // 3. multipliers of column r (kept in column r), then the rank-1 update
     // of columns > r
@@ -172,6 +196,7 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
       }
     }
     __syncthreads();
+    PROF_MARK(4)
   }
 
   if (rows_in_smem) {
@@ -181,6 +206,8 @@ lu_panel_batched_kernel(const float* __restrict__ panels, long long batch_stride
     }
   }
   if (cta == 0 && tid == 0) ok_all[q] = ok;
+  PROF_MARK(6)
+  PROF_END
 }
 
 // Dynamic shared memory of a CTA of rpc rows: the rows when they are kept
@@ -281,3 +308,14 @@ extern "C" int faer_lu_panel_batched(const float* panels, long long batch_stride
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+#ifdef FAER_LU_PROFILE
+// Copies the 7 phase counters to the host and zeroes them. Returns the CUDA
+// error (0 on success).
+extern "C" int faer_lu_panel_profile_read(long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+  const long long zero[7] = {0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

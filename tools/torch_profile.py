@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {llt,qr,trtri}
+    python tools/torch_profile.py {llt,lu,qr,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -37,6 +37,22 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   forms the next shares), ``partials`` (the warps' shares added and
   published), ``out`` (the last barrier, the rows out); and the largest
   difference from ``qr_panel_onepass_plain`` relative to max|packed|.
+* ``lu`` (``csrc/lu_panel_batched.cu``, ``-DFAER_LU_PROFILE``), per CTA, on
+  Gaussian panels (seed 1) at ``LU_CASES``: (4096, 256) and (2048, 256) on
+  the route the kernel picks, the same two with the grid route forced
+  (``faer_lu_panel_profile_set``), and (65536, 256), each with its route
+  and CTAs: ``stage`` (the rows in), ``local search`` (each CTA's argmax
+  and its publication), ``exchange wait`` (the cluster or grid barrier),
+  ``reduction+pivot row`` (the CTAs' candidates reduced, the pivot row
+  read), ``scale+rank-1`` (the multipliers and the update of the working
+  columns), ``deferred update`` (the sub-block's U₁₂ and its rank-``sb``
+  update of the later columns), ``final write`` (the rows out in packed
+  order); and ‖A[perm] − LU‖/‖A‖. A checkout whose kernel has no
+  ``faer_lu_panel_route`` (the one-grid kernel before the cluster route)
+  is driven through its own entry points, on the route it picks only.
+
+ROOT (default: this checkout) names the checkout whose kernel source is
+built, so that one chip call profiles a parent unpacked beside this one.
 
 The marks cost a few cycles each; the phase shares, not the totals, are
 what this reads. Prints the card's name and power limit first. Exits
@@ -149,6 +165,86 @@ def _qr_cases(lib, gen):
     force_grid(False)
 
 
+# (m, b, grid route forced)
+LU_CASES = ((4096, 256, False), (2048, 256, False), (4096, 256, True), (2048, 256, True),
+            (65536, 256, False))
+
+
+def _lu_cases(lib, gen):
+    """(label, launch, CTAs a launch, check) at each shape, through the
+    kernel's route entry, or through the one-grid kernel's entry points
+    when the library has no ``faer_lu_panel_route``."""
+    from faer_tpu_torch.ops.kernels.lu_panel import _assemble
+
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    routed = hasattr(lib, "faer_lu_panel_route")
+    if routed:
+        lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
+        lib.faer_lu_panel_profile_set.argtypes = [I, I, I]
+    else:  # the one-grid kernel's own argument lists
+        lib.faer_lu_panel_batched_grid.argtypes = [I, I, I, I, P, P]
+        lib.faer_lu_panel_batched.argtypes = [P, L, I, P, P, P, P, P, P, I, I, I, I, I, P]
+
+    def rec(a, packed, perm):
+        m, b = a.shape
+        lo = torch.tril(packed, -1) + torch.eye(m, b, device="cuda")
+        r = (torch.linalg.matrix_norm(lo @ torch.triu(packed[:b]) - a[perm])
+             / torch.linalg.matrix_norm(a))
+        return f"|A[perm]-LU|/|A| {r.item():.3e}"
+
+    for m, b, forced in LU_CASES:
+        a = torch.randn(m, b, generator=gen, device="cuda")
+        ok = torch.empty(1, dtype=torch.int32, device="cuda")
+        if routed:
+            lib.faer_lu_panel_profile_set(int(forced), 0, 0)
+            c_ctas, c_scratch = ctypes.c_int(), ctypes.c_longlong()
+            code = lib.faer_lu_panel_route(1, m, b, ctypes.byref(c_ctas),
+                                           ctypes.byref(c_scratch))
+            name = {1: "cluster", 0: "grid"}[code] + (" (forced)" if forced else "")
+            ctas, nscratch = c_ctas.value, c_scratch.value
+            packed = torch.empty(m, b, device="cuda")
+            perm = torch.empty(m, dtype=torch.long, device="cuda")
+            scratch = torch.empty(max(nscratch, 1), device="cuda")
+
+            def launch(a=a, packed=packed, perm=perm, scratch=scratch, n=nscratch, m=m,
+                       b=b, forced=forced):
+                lib.faer_lu_panel_profile_set(int(forced), 0, 0)
+                return lib.faer_lu_panel_batched(
+                    a.data_ptr(), m * b, b, packed.data_ptr(), perm.data_ptr(),
+                    ok.data_ptr(), scratch.data_ptr(), n, 1, m, b, stream)
+
+            def check(a=a, packed=packed, perm=perm):
+                return rec(a, packed, perm)
+        else:
+            if forced:
+                continue
+            name = "grid"
+            c_ctas, c_rpc = ctypes.c_int(), ctypes.c_int()
+            lib.faer_lu_panel_batched_grid(1, m, b, 8, ctypes.byref(c_ctas),
+                                           ctypes.byref(c_rpc))
+            ctas, rpc = c_ctas.value, c_rpc.value
+            virt = torch.empty(m, b, device="cuda")
+            pidx = torch.empty(b, dtype=torch.int32, device="cuda")
+            cand_val = torch.empty(2 * ctas, device="cuda")
+            cand_idx = torch.empty(2 * ctas, dtype=torch.int32, device="cuda")
+            cand_row = torch.empty(2 * ctas, b, device="cuda")
+
+            def launch(a=a, virt=virt, pidx=pidx, cv=cand_val, ci=cand_idx, cr=cand_row,
+                       m=m, b=b, ctas=ctas, rpc=rpc):
+                return lib.faer_lu_panel_batched(
+                    a.data_ptr(), m * b, b, virt.data_ptr(), pidx.data_ptr(), ok.data_ptr(),
+                    cv.data_ptr(), ci.data_ptr(), cr.data_ptr(), 1, m, b, ctas, rpc, stream)
+
+            def check(a=a, virt=virt, pidx=pidx, b=b):
+                packed, perm, _, _ = _assemble(virt, pidx[:b].long(), ok[0] != 0)
+                return rec(a, packed, perm)
+
+        yield f"({m}, {b}) {name}, {ctas} CTAs", launch, ctas, check
+    if routed:
+        lib.faer_lu_panel_profile_set(0, 0, 0)
+
+
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
@@ -159,6 +255,13 @@ KERNELS = {
                 phases=("stage", "first tile", "solve", "tile update", "factor+trailing",
                         "out"),
                 cases=_llt_cases, unit="call"),
+    "lu": dict(source="lu_panel_batched.cu", macro="FAER_LU_PROFILE",
+               entry="faer_lu_panel_batched", read="faer_lu_panel_profile_read",
+               labels=("stage", "local search", "exchange wait", "reduction+pivot row",
+                       "scale+rank-1", "deferred update", "final write"),
+               phases=("stage", "local search", "exchange wait", "reduction+pivot row",
+                       "scale+rank-1", "deferred update", "final write"),
+               cases=_lu_cases, unit="CTA"),
     "qr": dict(source="qr_panel.cu", macro="FAER_QR_PROFILE", entry="faer_qr_panel",
                read="faer_qr_panel_profile_read",
                labels=("stage", "exchange wait", "reflector", "update", "partials", "out"),
@@ -172,17 +275,20 @@ KERNELS = {
 }
 
 
-def build(kernel: str) -> ctypes.CDLL:
-    """The kernel's source built with its profile macro, ``_build``'s flags."""
+def build(kernel: str, root: Path = ROOT) -> ctypes.CDLL:
+    """The kernel's source under ``root`` built with its profile macro and
+    ``_build``'s flags, into this checkout's ``build/``."""
     sys.path.insert(0, str(ROOT))
     from faer_tpu_torch.ops.kernels import _build
 
     spec = KERNELS[kernel]
-    out_dir = ROOT / "build" / f"{kernel}_profile"
+    tag = "" if root == ROOT else f"_{root.name}"
+    out_dir = ROOT / "build" / f"{kernel}_profile{tag}"
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"{kernel}_profile.so"
     subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, f"-D{spec['macro']}",
-                    "-shared", "-o", str(so), str(_build.CSRC / spec["source"])],
+                    "-shared", "-o", str(so),
+                    str(root / "faer_tpu_torch" / "csrc" / spec["source"])],
                    check=True)
     lib = ctypes.CDLL(str(so))
     getattr(lib, spec["entry"]).argtypes = _build._SIGNATURES[spec["entry"]]
@@ -216,7 +322,10 @@ def cycles(read, launch, ctas: int, n: int) -> tuple[list[float], float]:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("kernel", choices=sorted(KERNELS))
-    kernel = parser.parse_args().kernel
+    parser.add_argument("root", nargs="?", type=Path, default=ROOT,
+                        help="the checkout whose kernel source is built (default: this one)")
+    args = parser.parse_args()
+    kernel, root = args.kernel, args.root.resolve()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false: this script needs a CUDA card")
     smi = subprocess.run(
@@ -224,7 +333,7 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
     spec = KERNELS[kernel]
-    lib = build(kernel)
+    lib = build(kernel, root)
     read = getattr(lib, spec["read"])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, launch, ctas, check in spec["cases"](lib, gen):
