@@ -6,9 +6,11 @@ Phases, each printing lines; any failure exits non-zero:
 
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``,
-   and prints how many 16- and 8-CTA clusters of the QR panel kernel the
-   card places at once (``cudaOccupancyMaxActiveClusters``);
+2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``
+   and, beside it, the LU panel kernel's profile build
+   (``tools/torch_profile.py``'s, which can force the grid route), and
+   prints how many 16- and 8-CTA clusters of the QR and LU panel kernels
+   the card places at once (``cudaOccupancyMaxActiveClusters``);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, with the tolerance stated, and its
    time beside its plain version's, its bound and a library yardstick;
@@ -20,7 +22,14 @@ Phases, each printing lines; any failure exits non-zero:
    ``solve_triangular(L, I)``; ``tile_matmul`` in its three modes at
    4096³, ragged, strided, on offset views, at long k and at the facade's
    thin products (split k), each case's plan printed, timed per call and
-   on the device beside ``torch.matmul``; ``qr_panel`` and the QR panel
+   on the device beside ``torch.matmul``; the LU panel kernel
+   (``lu_panel``, ``lu_leaf``, ``lu_panel_v2`` and its batch,
+   ``lu_panel_v3``) on both sides of every route edge of
+   ``csrc/lu_panel_batched.cu`` (``lu_cases``), each case's route
+   printed, against ``lu_panel_plain`` (perm equal, 8·m·eps) and its own
+   order ``lu_panel_blocked_plain`` (16·eps), the cluster route equal to
+   the grid route forced onto the same shapes to the bit, the batch to
+   single launches to the bit; ``qr_panel`` and the QR panel
    family (``qr_panel_v1``, ``qr_panel_v2``, ``qr_panel_v3``, ``qr_leaf``)
    on both sides of every route edge of ``csrc/qr_panel.cu`` (``qr_cases``:
    (128, 128) to (16384, 512), the cluster route's largest m at b = 128 and
@@ -286,11 +295,22 @@ def phase_device() -> str:
     return name
 
 
-def phase_build() -> None:
+def phase_build():
+    """Build the kernels, and beside them the LU panel kernel's profile
+    build (``tools/torch_profile.py``'s, which can force the grid route)
+    for phase 3's check of the two routes against each other. Returns that
+    build's library."""
     from faer_tpu_torch.ops.kernels import _build
 
+    prof = _tool("torch_profile")
+    cmd, so = prof.profile_build("lu")
+    lu_prof = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True)
     _build.build(extra_flags=("-Xptxas", "-v"))
     _build.library()
+    out, _ = lu_prof.communicate()
+    check(lu_prof.returncode == 0, f"the LU panel kernel's profile build: nvcc returned "
+                                   f"{lu_prof.returncode} {out[-2000:]}")
     secs = _build.build_seconds
     print(f"build: {'reused' if secs is None else f'{secs:.1f} s'} -> "
           f"{_build._library_path().name}")
@@ -312,6 +332,16 @@ def phase_build() -> None:
               f"qr_panel clusters: {active.value} of {size} CTAs at once "
               f"(cudaOccupancyMaxActiveClusters); the cluster route takes up to "
               f"{most.value} CTAs")
+    # the same for the LU panel kernel (one CTA of 256 threads at the most
+    # shared memory on each SM): how many panels of a batch run at once
+    for size in (16, 8):
+        code = _build.library().faer_lu_panel_clusters(size, ctypes.byref(most),
+                                                       ctypes.byref(active))
+        check(code == 0 and most.value >= 1,
+              f"lu_panel clusters: {active.value} of {size} CTAs at once "
+              f"(cudaOccupancyMaxActiveClusters); the cluster route takes up to "
+              f"{most.value} CTAs")
+    return prof.load("lu", so)
 
 
 def _max_rel(got, want) -> tuple[float, float]:
@@ -489,7 +519,7 @@ def _regularized_spd(b: int, bad, gen) -> torch.Tensor:
     return a
 
 
-def phase_kernels(gen) -> dict:
+def phase_kernels(gen, lu_prof) -> dict:
     from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
     from faer_tpu_torch.ops.kernels.leaf import lu_leaf, lu_leaf_plain
     from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
@@ -519,26 +549,18 @@ def phase_kernels(gen) -> dict:
         library_ms=None,  # no single library call computes the fused panel
         **bound_of(256 ** 3 / 3 + (4096 - 256) * 256 ** 2, 2 * 4096 * 256 * 4))
 
-    # lu_panel: separated pivots, so perm must match exactly; packed within
-    # 8·m·eps relative to max|packed|. At m = 40000 the rows (40 MiB) exceed
-    # the card's shared memory, so the kernel keeps them in global memory
+    # lu_panel on both sides of every route edge of csrc/lu_panel_batched.cu
+    # (lu_cases), held against its two plain versions; then the cluster
+    # route against the grid route forced onto the same shapes
     errs = []
-    for m in (4096, 1024, 256, 40000):
-        pan = _separated_panel(m, 256, gen)
-        (k1, p1, n1, o1), (k2, p2, n2, o2) = lu_panel(pan), lu_panel_plain(pan)
-        torch.cuda.synchronize()
-        tol = 8 * m * EPS32
-        err, rel = _max_rel(k1, k2)
-        errs.append(err)
-        check(bool((p1 == p2).all()) and int(n1) % 2 == int(n2) % 2
-              and bool(o1) and bool(o2) and rel <= tol,
-              f"lu_panel ({m}, 256): perm equal {bool((p1 == p2).all())}, nt "
-              f"{int(n1)} vs {int(n2)}, ok {bool(o1)}, max abs err {err:.3e}, "
-              f"rel {rel:.3e} <= tol {tol:.3e}")
+    for m, b in lu_cases():
+        pan = _separated_panel(m, b, gen)
+        errs.append(_lu_against_references(pan, lu_panel, lu_panel_plain, "lu_panel"))
         if m > 10000:
-            print(f"time lu_panel ({m}, 256): kernel "
+            print(f"time lu_panel ({m}, {b}): kernel "
                   f"{cuda_ms(lambda: lu_panel(pan), 3):.4f} ms, lu_factor_ex "
                   f"{cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 3):.4f} ms")
+    _lu_routes_bitwise(lu_prof, gen)
     pan = torch.randn(4096, 256, generator=gen, device=DEV)
     res["lu_panel"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: lu_panel(pan), 10),
@@ -569,21 +591,11 @@ def phase_kernels(gen) -> dict:
         library_ms=cuda_ms(lambda: torch.geqrf(pq), 10),
         **bound_of(flops.qr_flops(4096, 128), 2 * 4096 * 128 * 4 + 128 * 4))
 
-    # lu_leaf: separated pivots, so perm must match exactly; packed within
-    # 8·m·eps relative to max|packed|
+    # lu_leaf: separated pivots, held like lu_panel
     errs = []
     for m, b in ((4000, 256), (1000, 64), (44, 44)):
         pan = _separated_panel(m, b, gen)
-        (k1, p1, n1, o1), (k2, p2, n2, o2) = lu_leaf(pan), lu_leaf_plain(pan)
-        torch.cuda.synchronize()
-        tol = 8 * m * EPS32
-        err, rel = _max_rel(k1, k2)
-        errs.append(err)
-        check(bool((p1 == p2).all()) and int(n1) == int(n2) and bool(o1)
-              and bool(o2) and rel <= tol,
-              f"lu_leaf ({m}, {b}): perm equal {bool((p1 == p2).all())}, nt "
-              f"{int(n1)} vs {int(n2)}, ok {bool(o1)}, max abs err {err:.3e}, "
-              f"rel {rel:.3e} <= tol {tol:.3e}")
+        errs.append(_lu_against_references(pan, lu_leaf, lu_leaf_plain, "lu_leaf"))
     pan = torch.randn(4000, 256, generator=gen, device=DEV)
     res["lu_leaf"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: lu_leaf(pan), 10),
@@ -612,6 +624,96 @@ def _lu_rec(a, packed, perm) -> float:
     return rel_norm(lo @ torch.triu(packed[:k]), a[perm])
 
 
+# phase 3's LU panels (m, b), with lu_cases' route edges: the main path's
+# (4096, 256) leaves and smaller, the off-route leaf (4000, 256), a narrow
+# (1000, 64), and the grid route at 40000 and 65536 rows (the default
+# gate's tall leaves)
+LU_SHAPES = ((256, 256), (1024, 256), (4096, 256), (4000, 256), (1000, 64), (40000, 256),
+             (65536, 256))
+
+
+def lu_cases():
+    """LU_SHAPES with both sides of each route edge of the LU panel kernel,
+    found from its own route (bisection): the largest m whose rows the
+    cluster route holds in shared memory at b = 256, and the largest m of
+    the cluster route at b = 256 and 64, each and one past it."""
+    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge, smem_rows_edge
+
+    smem, e256, e64 = smem_rows_edge(256), cluster_edge(256), cluster_edge(64)
+    return LU_SHAPES + ((smem, 256), (smem + 1, 256), (e256, 256), (e256 + 1, 256),
+                        (e64, 64), (e64 + 1, 64))
+
+
+def _lu_against_references(a, kern, plain, name: str) -> float:
+    """Hold one LU wrapper's factor of a panel with separated pivots against
+    its plain version (the Pallas body's order: perm, nt and ok equal,
+    packed within 8·m·eps of max|packed|) and against the kernel's own order
+    ``lu_panel_blocked_plain`` (perm, nt and ok equal, packed within 16·eps:
+    the same operations in the same order, its fma emulated in f64); print
+    the route. Returns the largest absolute difference from the plain
+    version."""
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel_blocked_plain, route_label
+
+    m, b = a.shape
+    (k1, p1, n1, o1), (k2, p2, n2, o2) = kern(a), plain(a)
+    k3, p3, n3, o3 = lu_panel_blocked_plain(a)
+    torch.cuda.synchronize()
+    tol, tight = 8 * m * EPS32, 16 * EPS32
+    err, rel = _max_rel(k1, k2)
+    rel3 = _max_rel(k1, k3)[1]
+    same = bool((p1 == p2).all()) and bool((p1 == p3).all())
+    check(same and int(n1) == int(n2) == int(n3) and bool(o1) and bool(o2) and bool(o3)
+          and rel <= tol and rel3 <= tight,
+          f"{name} ({m}, {b}) [{route_label(m, b)}]: perm equal {same}, nt {int(n1)} vs "
+          f"{int(n2)}, {int(n3)}, ok {bool(o1)}, max abs err {err:.3e}, rel {rel:.3e} <= "
+          f"{tol:.3e}; vs the kernel's order rel {rel3:.3e} <= {tight:.3e}, bitwise equal "
+          f"{torch.equal(k1, k3)}")
+    return err
+
+
+# the shapes at which the cluster route's result is held against the grid
+# route's, forced by the profile build: the main path's leaf, rows in L2;
+# rows in shared memory; ragged
+LU_ROUTE_SHAPES = ((4096, 256), (2048, 256), (1000, 100))
+
+
+def _lu_routes_bitwise(lib, gen) -> None:
+    """The cluster route against the grid route on the same shapes, to the
+    bit: ``lu_panel`` (cluster) against the profile build of the same
+    source with ``faer_lu_panel_profile_set(1, 0, 0)`` (every shape on the
+    grid route), each row's arithmetic the same on both. packed, perm, nt
+    and ok equal."""
+    import ctypes
+
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, route
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
+    lib.faer_lu_panel_profile_set.argtypes = [I, I, I]
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, b in LU_ROUTE_SHAPES:
+        a = torch.randn(m, b, generator=gen, device=DEV)
+        k1, p1, n1, o1 = lu_panel(a)
+        lib.faer_lu_panel_profile_set(1, 0, 0)
+        ctas, nscratch = ctypes.c_int(), ctypes.c_longlong()
+        code = lib.faer_lu_panel_route(1, m, b, ctypes.byref(ctas), ctypes.byref(nscratch))
+        k2 = torch.empty(m, b, device=DEV)
+        p2 = torch.empty(m, dtype=torch.long, device=DEV)
+        n2 = torch.empty(1, dtype=torch.int32, device=DEV)
+        o2 = torch.empty(1, dtype=torch.bool, device=DEV)
+        scratch = torch.empty(nscratch.value, device=DEV)
+        launch = lib.faer_lu_panel_batched(a.data_ptr(), m * b, b, k2.data_ptr(),
+                                           p2.data_ptr(), n2.data_ptr(), o2.data_ptr(),
+                                           scratch.data_ptr(), nscratch.value, 1, m, b, stream)
+        lib.faer_lu_panel_profile_set(0, 0, 0)
+        torch.cuda.synchronize()
+        same = (torch.equal(k1, k2) and torch.equal(p1, p2) and int(n1) == int(n2[0])
+                and bool(o1) == bool(o2[0]))
+        check(route(m, b)[0] == "cluster" and code == 0 and launch == 0 and same,
+              f"lu_panel ({m}, {b}): the cluster route ({route(m, b)[1]} CTAs) equals the "
+              f"grid route forced onto it ({ctas.value} CTAs) to the bit: {same}")
+
+
 def _lu_panel_family(gen) -> dict:
     """``lu_panel_v2`` (one panel, and a batch in one launch), ``lu_panel_v3``
     and ``lu_panel_swap`` against their plain versions on separated pivots:
@@ -620,6 +722,7 @@ def _lu_panel_family(gen) -> dict:
     them in one batched launch, the v1 kernel's measured shape (4096, 128),
     and ragged (1000, 100) panels. Timed on Gaussian panels beside
     ``torch.linalg.lu_factor_ex`` on the same panel (or the same batch)."""
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel_blocked_plain, route_label
     from faer_tpu_torch.ops.kernels.lu_panel_swap import lu_panel_swap, lu_panel_swap_plain
     from faer_tpu_torch.ops.kernels.lu_panel_v2 import (
         lu_panel_v2, lu_panel_v2_batched, lu_panel_v2_batched_plain, lu_panel_v2_plain)
@@ -627,16 +730,25 @@ def _lu_panel_family(gen) -> dict:
     from faer_tpu_torch.utils import flops
 
     def held(name, k1, p1, n1, o1, k2, p2, n2, o2, a) -> float:
+        """Against the plain version; the kernels of csrc/lu_panel_batched.cu
+        also against their own order, ``lu_panel_blocked_plain`` (16·eps)."""
         m, b = a.shape
-        tol = 8 * m * EPS32
+        tol, tight = 8 * m * EPS32, 16 * EPS32
         err, rel = _max_rel(k1, k2)
         rec = _lu_rec(a, k1, p1)
         same = bool((p1 == p2).all())
-        check(same and int(n1) == int(n2) and bool(o1) and bool(o2) and rel <= tol
+        ours, rel3, bitwise = True, 0.0, None
+        if name != "lu_panel_swap":
+            k3, p3, n3, _ = lu_panel_blocked_plain(a)
+            rel3, bitwise = _max_rel(k1, k3)[1], torch.equal(k1, k3)
+            ours = bool((p1 == p3).all()) and int(n1) == int(n3) and rel3 <= tight
+        check(same and ours and int(n1) == int(n2) and bool(o1) and bool(o2) and rel <= tol
               and rec <= tol,
               f"{name} ({m}, {b}): perm equal {same}, nt {int(n1)} vs {int(n2)}, ok "
-              f"{bool(o1)}, max abs err {err:.3e}, rel {rel:.3e}, bitwise equal "
-              f"{torch.equal(k1, k2)}; |A[perm]-LU|/|A| {rec:.3e}; <= tol {tol:.3e}")
+              f"{bool(o1)}, max abs err {err:.3e}, rel {rel:.3e}; |A[perm]-LU|/|A| "
+              f"{rec:.3e}; <= tol {tol:.3e}"
+              + ("" if bitwise is None else f"; vs the kernel's order rel {rel3:.3e} <= "
+                 f"{tight:.3e}, bitwise equal {bitwise}"))
         return err
 
     def bound(g, m, b):
@@ -676,12 +788,8 @@ def _lu_panel_family(gen) -> dict:
                        f"lu_panel_v2 on each panel to the bit; max abs err vs plain "
                        f"{max(errs):.3e}")
         res["lu_panel_v2"]["max_abs_err"] = max(res["lu_panel_v2"]["max_abs_err"], *errs)
-    from faer_tpu_torch.ops.kernels.lu_panel import batched_grid
-
     for g, m in ((1, 4096), (16, 4096), (1, 40000), (1, 65536), (16, 1000)):
-        ctas, rpc = batched_grid(g, m, 256, DEV)
-        print(f"lu_panel_batched grid for {g} x ({m}, 256): {ctas} CTAs a panel, "
-              f"{rpc} rows ({rpc} KiB) each")
+        print(f"lu_panel_batched for {g} x ({m}, 256): {route_label(m, 256, None, g)} a panel")
     stack = torch.randn(16, 4096, 256, generator=gen, device=DEV)
     ms = cuda_ms(lambda: lu_panel_v2_batched(stack), 10)
     plain_ms = cuda_ms(lambda: lu_panel_v2_batched_plain(stack), 1, warmup=0)
@@ -2096,9 +2204,9 @@ def main() -> None:
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
         return out
 
-    timed("2 build", phase_build)
+    lu_prof = timed("2 build", phase_build)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    kern = timed("3 kernels", phase_kernels, gen)
+    kern = timed("3 kernels", phase_kernels, gen, lu_prof)
     paths = [timed("4 flagship", phase_flagship, gen), timed("5 qr", phase_qr, gen),
              timed("6 off-route", phase_off_route, gen)]
     spectral, spectral_ms = timed("7 spectral", phase_spectral, gen)
@@ -2169,9 +2277,7 @@ def main() -> None:
     # the shared headers each kernel's source compiles with
     headers = {"matmul": ["faer_tpu_torch/csrc/hopper.cuh"],
                "syrk": ["faer_tpu_torch/csrc/tile_mma.cuh"],
-               **{k: ["faer_tpu_torch/csrc/pivot_argmax.cuh"]
-                  for k, (src, _) in sources.items()
-                  if src.endswith(("lu_panel_batched.cu", "lu_panel_swap.cu"))}}
+               "lu_panel_swap": ["faer_tpu_torch/csrc/pivot_argmax.cuh"]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, headers=headers.get(k, []), replaces=rep,

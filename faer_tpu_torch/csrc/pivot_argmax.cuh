@@ -1,8 +1,7 @@
-// Pivot search shared by the LU panel kernels (lu_panel_batched.cu,
-// lu_panel_swap.cu): an argmax of (value, index) pairs
-// in which a tie goes to the lowest index, as jax.lax.argmax and
-// torch.argmax break it. Every CTA that reduces the same candidates in the
-// same order gets the same winner.
+// Pivot search of the LU panel kernel lu_panel_swap.cu: an argmax of
+// (value, index) pairs in which a tie goes to the lowest index, as
+// jax.lax.argmax and torch.argmax break it. Every CTA that reduces the
+// same candidates in the same order gets the same winner.
 #pragma once
 
 #include <climits>

@@ -9,7 +9,8 @@ of ``perm`` (``perm_transposition_count``), pivot ties to the lowest row.
 The CALU leaf (``linalg/lu.py:_lu_leaf_calu``) factors ``ng`` independent
 row groups, then their stacked pivot candidates. :func:`lu_panel_v2_batched`
 factors a (g, m, b) stack of panels in one launch of ``csrc/lu_panel_batched.cu``
-(one slice of CTAs for each panel), where the JAX package loops over the
+(one thread-block cluster for each panel, or one cooperative grid for all
+of them past the cluster's reach), where the JAX package loops over the
 groups; :func:`lu_panel_v2` is the same kernel on one panel, as
 ``lu_panel`` and ``lu_leaf`` are. Each counts one ``lu_panel_v2`` launch.
 The plain version is ``lu_panel_plain`` at the Pallas body's sub-block
@@ -69,8 +70,9 @@ def lu_panel_v2_batched(panels):
     """``lu_panel_v2`` of each (m, b) panel of a (g, m, b) float32 stack, in
     one launch: ``(packed, perm, nt, ok)`` with shapes (g, m, b), (g, m),
     (g,) and (g,). On a CUDA tensor the rows must be contiguous (any row and
-    panel strides), and the call raises if the g panels cannot be
-    co-resident even at one CTA each."""
+    panel strides), and the call raises ``ShapeError`` for a stack that
+    neither route takes (past the cluster's reach, more panels than the
+    card has SMs)."""
     _check_stack(panels, "lu_panel_v2_batched")
     if panels.device.type == "cpu":
         return lu_panel_v2_batched_plain(panels)

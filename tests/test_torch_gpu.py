@@ -215,6 +215,110 @@ def test_lu_panel_kernel(cuda, m, b):
     assert torch.equal(p1, p2) and torch.equal(p1[:b], p[:b])
     assert int(n1) == int(n2) and bool(o1) and bool(o2)
     assert _rel(k1, k2) <= 8 * m * EPS32
+    _check_lu_order(a, k1, p1, n1)
+
+
+def _check_lu_order(a, k1, p1, n1):
+    """The kernel's factor against its own order, ``lu_panel_blocked_plain``
+    on the card: perm and nt equal, packed within 16·eps of max|packed|
+    (the same operations in the same order, its fma emulated in f64)."""
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel_blocked_plain
+
+    k3, p3, n3, _ = lu_panel_blocked_plain(a)
+    assert torch.equal(p1, p3) and int(n1) == int(n3)
+    assert _rel(k1, k3) <= 16 * EPS32
+
+
+@pytest.mark.parametrize("edge", ["smem rows", "cluster 256", "cluster 64"])
+@pytest.mark.parametrize("past", [0, 1])
+def test_lu_panel_kernel_at_the_route_edges(cuda, edge, past):
+    """Both sides of each route edge of the LU panel kernel, found from its
+    own route: the largest m whose rows the cluster route holds in shared
+    memory (b = 256), the largest m of the cluster route (b = 256 and 64),
+    each and one past it; held like ``test_lu_panel_kernel``."""
+    from faer_tpu_torch.ops.kernels.lu_panel import (
+        cluster_edge, lu_panel, lu_panel_plain, route_label, smem_rows_edge)
+
+    b = 64 if edge.endswith("64") else 256
+    m = (smem_rows_edge(b) if edge == "smem rows" else cluster_edge(b)) + past
+    label = route_label(m, b)
+    if edge == "smem rows":
+        assert label.endswith("L2" if past else "shared memory")
+    else:
+        assert label.startswith("grid" if past else "cluster")
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    a, p = _separated_panel(m, b, gen, cuda)
+    k1, p1, n1, o1 = lu_panel(a)
+    k2, p2, n2, o2 = lu_panel_plain(a)
+    print(f"lu_panel ({m}, {b}): {label}")
+    assert torch.equal(p1, p2) and torch.equal(p1[:b], p[:b])
+    assert int(n1) == int(n2) and bool(o1) and bool(o2)
+    assert _rel(k1, k2) <= 8 * m * EPS32
+    _check_lu_order(a, k1, p1, n1)
+
+
+def test_lu_panel_routes(cuda):
+    """The route is the C entry's alone: the main path's (4096, 256) leaves
+    and the 16-panel CALU batch take the cluster route, the 40000- and
+    65536-row panels the grid route; a batch the grid route cannot hold
+    one CTA an SM is refused, and so is its launch."""
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge, route
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2_batched
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for g, m in ((1, 4096), (16, 4096), (1, 4000), (1, 256)):
+        name, ctas, _ = route(m, 256, cuda, g)
+        assert name == "cluster" and 1 <= ctas <= 16
+    for m in (40000, 65536):
+        name, ctas, _ = route(m, 256, cuda)
+        assert name == "grid" and 1 <= ctas <= sms
+    m = cluster_edge(64) + 1
+    with pytest.raises(ShapeError):
+        route(m, 64, cuda, sms + 1)
+    with pytest.raises(ShapeError):
+        lu_panel_v2_batched(torch.ones(sms + 1, m, 64, device=cuda))
+
+
+def test_lu_panel_cluster_route_equals_the_grid_route(cuda):
+    """The cluster route against the grid route forced onto the same shapes
+    (the profile build of ``tools/torch_profile.py``), to the bit: every
+    row's arithmetic is done in one order whichever route holds it."""
+    import ctypes
+    import sys
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_profile
+
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, route
+
+    lib = torch_profile.build("lu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
+    lib.faer_lu_panel_profile_set.argtypes = [I, I, I]
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, b in ((4096, 256), (2048, 256), (1000, 100), (300, 44)):
+        gen = torch.Generator(device=cuda).manual_seed(m)
+        a = torch.randn(m, b, generator=gen, device=cuda)
+        assert route(m, b, cuda)[0] == "cluster"
+        want = lu_panel(a)
+        lib.faer_lu_panel_profile_set(1, 0, 0)
+        ctas, nscratch = ctypes.c_int(), ctypes.c_longlong()
+        try:
+            assert lib.faer_lu_panel_route(1, m, b, ctypes.byref(ctas),
+                                           ctypes.byref(nscratch)) == 0
+            got = (torch.empty(m, b, device=cuda), torch.empty(m, dtype=torch.long, device=cuda),
+                   torch.empty(1, dtype=torch.int32, device=cuda),
+                   torch.empty(1, dtype=torch.bool, device=cuda))
+            scratch = torch.empty(nscratch.value, device=cuda)
+            assert lib.faer_lu_panel_batched(
+                a.data_ptr(), m * b, b, *(x.data_ptr() for x in got), scratch.data_ptr(),
+                nscratch.value, 1, m, b, stream) == 0
+        finally:
+            lib.faer_lu_panel_profile_set(0, 0, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[2][0]) == int(want[2]) and bool(got[3][0]) == bool(want[3])
 
 
 def _check_qr_panel(a, k1, t1, zero_col=None):
@@ -400,6 +504,8 @@ def test_lu_panel_v2_v3_swap_kernels(cuda, name, m, b):
     assert int(n1) == int(n2) and bool(o1) and bool(o2)
     assert _rel(k1, k2) <= 8 * m * EPS32
     assert _lu_rec(a, k1, p1) <= 8 * m * EPS32
+    if name != "lu_panel_swap":
+        _check_lu_order(a, k1, p1, n1)
 
 
 @pytest.mark.parametrize("g,m,b", [(16, 4096, 256), (5, 1000, 100), (3, 256, 256)])
@@ -446,10 +552,23 @@ def test_lu_in_place_through_calu_on_card(cuda, monkeypatch):
 
 
 def test_lu_panel_v2_batched_raises_past_co_residency(cuda):
-    from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2_batched
+    """Clusters need no co-residency: 4000 panels of (64, 64) are one
+    launch, each equal to ``lu_panel_v2`` on it. A batch of panels past the
+    cluster route's reach needs every CTA of one cooperative grid
+    co-resident, one an SM at least; past that it is refused (ShapeError)."""
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2, lu_panel_v2_batched
 
-    with pytest.raises(RuntimeError, match="co-resident"):
-        lu_panel_v2_batched(torch.ones(4000, 64, 64, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(4000)
+    stack = torch.randn(4000, 64, 64, generator=gen, device=cuda)
+    got = lu_panel_v2_batched(stack)
+    for q in (0, 1999, 3999):
+        for x, y in zip(got, lu_panel_v2(stack[q])):
+            assert torch.equal(x[q], y)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with pytest.raises(ShapeError):
+        lu_panel_v2_batched(torch.ones(sms + 1, cluster_edge(64) + 1, 64, device=cuda))
 
 
 QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")

@@ -38,10 +38,12 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   published), ``out`` (the last barrier, the rows out); and the largest
   difference from ``qr_panel_onepass_plain`` relative to max|packed|.
 * ``lu`` (``csrc/lu_panel_batched.cu``, ``-DFAER_LU_PROFILE``), per CTA, on
-  Gaussian panels (seed 1) at ``LU_CASES``: (4096, 256) and (2048, 256) on
-  the route the kernel picks, the same two with the grid route forced
-  (``faer_lu_panel_profile_set``), and (65536, 256), each with its route
-  and CTAs: ``stage`` (the rows in), ``local search`` (each CTA's argmax
+  Gaussian panels (seed 1) at ``LU_CASES``: (4096, 256), (2048, 256) and
+  (1024, 256) on the route the kernel picks, and with the grid route
+  forced, another fewest rows a CTA or SB = 16
+  (``faer_lu_panel_profile_set``), both routes on both sides of the
+  cluster route's edge ((6144, 256), (8192, 256), (8192, 64)), and
+  (65536, 256), each with its route and CTAs: ``stage`` (the rows in), ``local search`` (each CTA's argmax
   and its publication), ``exchange wait`` (the cluster or grid barrier),
   ``reduction+pivot row`` (the CTAs' candidates reduced, the pivot row
   read), ``scale+rank-1`` (the multipliers and the update of the working
@@ -165,9 +167,13 @@ def _qr_cases(lib, gen):
     force_grid(False)
 
 
-# (m, b, grid route forced)
-LU_CASES = ((4096, 256, False), (2048, 256, False), (4096, 256, True), (2048, 256, True),
-            (65536, 256, False))
+# (m, b, route forced (1 grid, 2 cluster), the cluster route's fewest rows a
+# CTA, SB; 0 = the kernel's own)
+LU_CASES = ((4096, 256, 0, 0, 0), (4096, 256, 0, 0, 16), (4096, 256, 1, 0, 0),
+            (2048, 256, 0, 0, 0), (2048, 256, 0, 256, 0), (2048, 256, 1, 0, 0),
+            (1024, 256, 0, 0, 0), (1024, 256, 0, 128, 0), (6144, 256, 0, 0, 0),
+            (6144, 256, 1, 0, 0), (8192, 256, 0, 0, 0), (8192, 256, 2, 0, 0),
+            (8192, 64, 0, 0, 0), (8192, 64, 2, 0, 0), (65536, 256, 0, 0, 0))
 
 
 def _lu_cases(lib, gen):
@@ -193,31 +199,35 @@ def _lu_cases(lib, gen):
              / torch.linalg.matrix_norm(a))
         return f"|A[perm]-LU|/|A| {r.item():.3e}"
 
-    for m, b, forced in LU_CASES:
+    for m, b, forced, min_rows, sb in LU_CASES:
         a = torch.randn(m, b, generator=gen, device="cuda")
         ok = torch.empty(1, dtype=torch.int32, device="cuda")
         if routed:
-            lib.faer_lu_panel_profile_set(int(forced), 0, 0)
+            lib.faer_lu_panel_profile_set(forced, min_rows, sb)
             c_ctas, c_scratch = ctypes.c_int(), ctypes.c_longlong()
             code = lib.faer_lu_panel_route(1, m, b, ctypes.byref(c_ctas),
                                            ctypes.byref(c_scratch))
-            name = {1: "cluster", 0: "grid"}[code] + (" (forced)" if forced else "")
+            name = ({1: "cluster", 0: "grid"}[code] + (" (forced)" if forced else "")
+                    + (f", min rows {min_rows}" if min_rows else "")
+                    + (f", SB {sb}" if sb else ""))
             ctas, nscratch = c_ctas.value, c_scratch.value
             packed = torch.empty(m, b, device="cuda")
             perm = torch.empty(m, dtype=torch.long, device="cuda")
-            scratch = torch.empty(max(nscratch, 1), device="cuda")
+            nt = torch.empty(1, dtype=torch.int32, device="cuda")
+            okb = torch.empty(1, dtype=torch.bool, device="cuda")
+            scratch = torch.empty(nscratch, device="cuda")
 
-            def launch(a=a, packed=packed, perm=perm, scratch=scratch, n=nscratch, m=m,
-                       b=b, forced=forced):
-                lib.faer_lu_panel_profile_set(int(forced), 0, 0)
+            def launch(a=a, packed=packed, perm=perm, nt=nt, okb=okb, scratch=scratch,
+                       n=nscratch, m=m, b=b, setting=(forced, min_rows, sb)):
+                lib.faer_lu_panel_profile_set(*setting)
                 return lib.faer_lu_panel_batched(
                     a.data_ptr(), m * b, b, packed.data_ptr(), perm.data_ptr(),
-                    ok.data_ptr(), scratch.data_ptr(), n, 1, m, b, stream)
+                    nt.data_ptr(), okb.data_ptr(), scratch.data_ptr(), n, 1, m, b, stream)
 
             def check(a=a, packed=packed, perm=perm):
                 return rec(a, packed, perm)
         else:
-            if forced:
+            if forced or min_rows or sb:
                 continue
             name = "grid"
             c_ctas, c_rpc = ctypes.c_int(), ctypes.c_int()
@@ -275,9 +285,10 @@ KERNELS = {
 }
 
 
-def build(kernel: str, root: Path = ROOT) -> ctypes.CDLL:
-    """The kernel's source under ``root`` built with its profile macro and
-    ``_build``'s flags, into this checkout's ``build/``."""
+def profile_build(kernel: str, root: Path = ROOT) -> tuple[list[str], Path]:
+    """The nvcc command that builds the kernel's source under ``root`` with
+    its profile macro and ``_build``'s flags, and the library it writes
+    under this checkout's ``build/``."""
     sys.path.insert(0, str(ROOT))
     from faer_tpu_torch.ops.kernels import _build
 
@@ -286,14 +297,29 @@ def build(kernel: str, root: Path = ROOT) -> ctypes.CDLL:
     out_dir = ROOT / "build" / f"{kernel}_profile{tag}"
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"{kernel}_profile.so"
-    subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, f"-D{spec['macro']}",
-                    "-shared", "-o", str(so),
-                    str(root / "faer_tpu_torch" / "csrc" / spec["source"])],
-                   check=True)
+    cmd = [_build._nvcc(), *_build.COMPILE_FLAGS, f"-D{spec['macro']}", "-shared", "-o",
+           str(so), str(root / "faer_tpu_torch" / "csrc" / spec["source"])]
+    return cmd, so
+
+
+def load(kernel: str, so: Path) -> ctypes.CDLL:
+    """A profile build of the kernel, its entry's and counter reader's
+    argument types set."""
+    from faer_tpu_torch.ops.kernels import _build
+
+    spec = KERNELS[kernel]
     lib = ctypes.CDLL(str(so))
     getattr(lib, spec["entry"]).argtypes = _build._SIGNATURES[spec["entry"]]
     getattr(lib, spec["read"]).argtypes = [ctypes.c_void_p]
     return lib
+
+
+def build(kernel: str, root: Path = ROOT) -> ctypes.CDLL:
+    """The kernel's source under ``root`` built with its profile macro and
+    ``_build``'s flags, into this checkout's ``build/``, and loaded."""
+    cmd, so = profile_build(kernel, root)
+    subprocess.run(cmd, check=True)
+    return load(kernel, so)
 
 
 def cycles(read, launch, ctas: int, n: int) -> tuple[list[float], float]:

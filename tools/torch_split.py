@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {llt,matmul,qr,trtri} [ROOT]
+    python tools/torch_split.py {llt,lu,matmul,qr,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -13,6 +13,16 @@ code. The rows, per kernel:
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
+* ``lu`` (seed 13): ``lu_panel`` at (4096, 256), (2048, 256) and
+  (65536, 256), ``lu_leaf`` at (4000, 256) and ``lu_panel_v2_batched`` on
+  16 × (4096, 256), each beside ``torch.linalg.lu_factor_ex`` on the same
+  inputs, per call and on the device; then per call and on the device
+  where the path can be captured in a CUDA graph (``None`` where it
+  cannot), ``lu_in_place`` at 4096, ``flagship_step`` at 4096 (8
+  right-hand sides, ``chip_smoke._inputs``),
+  ``Mat(g).partial_piv_lu().solve(b)`` at 4096 with the tile switch off,
+  the off-route ``lu_in_place`` of a 4000², and the CALU factor of a
+  65536 × 1024 at ``_CALU_GROUP`` = 4096 (the gate restored after);
 * ``matmul`` (seed 10): ``tile_matmul`` in each mode ("highest" FP32,
   "high" bf16x3, bf16) at 4096³ and at the facade's thin products
   (``chip_smoke.tile_matmul_rows``: Vᵀ·B (128, 4096)·(4096, 3968) and
@@ -55,6 +65,7 @@ N = 4096  # the trtri rows' triangle and flagship size
 NRHS = 8
 STEP_REPS = 5  # per-call repetitions of the solves, the step and the factor
 QR_REPS = 10  # per-call repetitions, and calls in a graph, of the QR panels
+LU_REPS = 10  # the same for the LU panels
 
 
 def _chip_smoke():
@@ -204,7 +215,69 @@ def qr_rows(cs):
     yield f"Mat(a).qr().solve_lstsq(b) n={N}, tile switch off", facade, STEP_REPS, None
 
 
-ROWS = {"llt": llt_rows, "matmul": matmul_rows, "qr": qr_rows, "trtri": trtri_rows}
+def lu_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of the LU panel
+    kernel and the LU paths that reach it."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.entry import flagship_step
+    from faer_tpu_torch.linalg import lu as tlu
+    from faer_tpu_torch.ops.kernels.leaf import lu_leaf
+    from faer_tpu_torch.ops.kernels.lu_panel import lu_panel
+    from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2_batched
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    reps = LU_REPS
+    lib = torch.linalg.lu_factor_ex
+    for m in (4096, 2048, 65536):
+        a = torch.randn(m, 256, generator=gen, device="cuda")
+        yield f"lu_panel ({m}, 256)", lambda a=a: lu_panel(a), reps, reps
+        yield f"lu_factor_ex ({m}, 256)", lambda a=a: lib(a), reps, reps
+    a = torch.randn(4000, 256, generator=gen, device="cuda")
+    yield "lu_leaf (4000, 256)", lambda: lu_leaf(a), reps, reps
+    yield "lu_factor_ex (4000, 256)", lambda: lib(a), reps, reps
+    stack = torch.randn(16, 4096, 256, generator=gen, device="cuda")
+    yield "lu_panel_v2_batched 16 x (4096, 256)", lambda: lu_panel_v2_batched(stack), reps, reps
+    yield "lu_factor_ex 16 x (4096, 256)", lambda: lib(stack), reps, reps
+    spd, g, rhs = cs._inputs(N, gen)
+    yield f"lu_in_place n={N}", lambda: tlu.lu_in_place(g), STEP_REPS, STEP_REPS
+    yield f"lu_factor_ex n={N}", lambda: lib(g), STEP_REPS, STEP_REPS
+    yield f"flagship_step n={N}", lambda: flagship_step(spd, g, rhs), STEP_REPS, STEP_REPS
+
+    def solve():
+        config.use_tile_matmul = False
+        return Mat(g).partial_piv_lu().solve(rhs)
+
+    yield f"Mat(g).partial_piv_lu().solve(b) n={N}, tile switch off", solve, STEP_REPS, STEP_REPS
+    g2 = torch.randn(4000, 4000, generator=gen, device="cuda")
+    yield "lu_in_place 4000x4000 (off-route)", lambda: tlu.lu_in_place(g2), STEP_REPS, STEP_REPS
+    tall = torch.randn(*cs.CALU, generator=gen, device="cuda")
+
+    def calu():
+        gate = tlu._CALU_GROUP
+        tlu._CALU_GROUP = cs.CALU_GROUP
+        try:
+            return tlu.lu_in_place(tall)
+        finally:
+            tlu._CALU_GROUP = gate
+
+    yield (f"lu_in_place {cs.CALU[0]}x{cs.CALU[1]}, CALU group {cs.CALU_GROUP}", calu,
+           STEP_REPS, STEP_REPS)
+
+
+ROWS = {"llt": llt_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
+        "trtri": trtri_rows}
+
+
+def _graph_ms(cs, fn, reps):
+    """``chip_smoke.graph_ms``, or None where the call cannot be captured
+    in a CUDA graph (a host read inside it): the capture's error printed."""
+    try:
+        return cs.graph_ms(fn, reps)
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        print(f"  (not captured: {str(err).splitlines()[0][:120]})")
+        return None
 
 
 def main() -> None:
@@ -225,7 +298,7 @@ def main() -> None:
     rows = []
     for name, fn, reps, graph_reps in ROWS[args.kernel](cs):
         r = dict(call=name, per_call_ms=cs.cuda_ms(fn, reps),
-                 device_ms=cs.graph_ms(fn, graph_reps) if graph_reps else None)
+                 device_ms=_graph_ms(cs, fn, graph_reps) if graph_reps else None)
         rows.append(r)
         print(f"{name}: per call {r['per_call_ms']:.4f} ms"
               + ("" if r["device_ms"] is None else f", device {r['device_ms']:.4f} ms"))
