@@ -626,10 +626,11 @@ def _lu_rec(a, packed, perm) -> float:
 
 # phase 3's LU panels (m, b), with lu_cases' route edges: the main path's
 # (4096, 256) leaves and smaller, the off-route leaf (4000, 256), a narrow
-# (1000, 64), and the grid route at 40000 and 65536 rows (the default
-# gate's tall leaves)
+# (1000, 64), the grid route at 40000 and 65536 rows (the default gate's
+# tall leaves), and at 200000 rows, past the working blocks' room in
+# shared memory one CTA an SM (the grid route with W in global memory)
 LU_SHAPES = ((256, 256), (1024, 256), (4096, 256), (4000, 256), (1000, 64), (40000, 256),
-             (65536, 256))
+             (65536, 256), (200000, 256))
 
 
 def lu_cases():
@@ -680,7 +681,7 @@ LU_ROUTE_SHAPES = ((4096, 256), (2048, 256), (1000, 100))
 def _lu_routes_bitwise(lib, gen) -> None:
     """The cluster route against the grid route on the same shapes, to the
     bit: ``lu_panel`` (cluster) against the profile build of the same
-    source with ``faer_lu_panel_profile_set(1, 0, 0)`` (every shape on the
+    source with ``faer_lu_panel_profile_force_grid(1)`` (every shape on the
     grid route), each row's arithmetic the same on both. packed, perm, nt
     and ok equal."""
     import ctypes
@@ -689,12 +690,12 @@ def _lu_routes_bitwise(lib, gen) -> None:
 
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
-    lib.faer_lu_panel_profile_set.argtypes = [I, I, I]
+    lib.faer_lu_panel_profile_force_grid.argtypes = [I]
     stream = torch.cuda.current_stream().cuda_stream
     for m, b in LU_ROUTE_SHAPES:
         a = torch.randn(m, b, generator=gen, device=DEV)
         k1, p1, n1, o1 = lu_panel(a)
-        lib.faer_lu_panel_profile_set(1, 0, 0)
+        lib.faer_lu_panel_profile_force_grid(1)
         ctas, nscratch = ctypes.c_int(), ctypes.c_longlong()
         code = lib.faer_lu_panel_route(1, m, b, ctypes.byref(ctas), ctypes.byref(nscratch))
         k2 = torch.empty(m, b, device=DEV)
@@ -705,7 +706,7 @@ def _lu_routes_bitwise(lib, gen) -> None:
         launch = lib.faer_lu_panel_batched(a.data_ptr(), m * b, b, k2.data_ptr(),
                                            p2.data_ptr(), n2.data_ptr(), o2.data_ptr(),
                                            scratch.data_ptr(), nscratch.value, 1, m, b, stream)
-        lib.faer_lu_panel_profile_set(0, 0, 0)
+        lib.faer_lu_panel_profile_force_grid(0)
         torch.cuda.synchronize()
         same = (torch.equal(k1, k2) and torch.equal(p1, p2) and int(n1) == int(n2[0])
                 and bool(o1) == bool(o2[0]))
@@ -775,8 +776,11 @@ def _lu_panel_family(gen) -> dict:
             **bound(1, m, b))
 
     # the batch: each panel held against its plain version, and equal to the
-    # one-panel launch to the bit (the same arithmetic on every row)
-    for g, m, b in ((16, 4096, 256), (5, 1000, 100)):
+    # one-panel launch to the bit (the same arithmetic on every row); 16 x
+    # (12288, 256) is a batch the grid route cannot hold one CTA an SM, so
+    # it takes the cluster route past its edge where each panel alone takes
+    # the grid route
+    for g, m, b in ((16, 4096, 256), (5, 1000, 100), (16, 12288, 256)):
         stack = torch.stack([_separated_panel(m, b, gen) for _ in range(g)])
         got, want = lu_panel_v2_batched(stack), lu_panel_v2_batched_plain(stack)
         torch.cuda.synchronize()
@@ -788,7 +792,8 @@ def _lu_panel_family(gen) -> dict:
                        f"lu_panel_v2 on each panel to the bit; max abs err vs plain "
                        f"{max(errs):.3e}")
         res["lu_panel_v2"]["max_abs_err"] = max(res["lu_panel_v2"]["max_abs_err"], *errs)
-    for g, m in ((1, 4096), (16, 4096), (1, 40000), (1, 65536), (16, 1000)):
+    for g, m in ((1, 4096), (16, 4096), (1, 40000), (1, 65536), (1, 200000), (16, 1000),
+                 (16, 12288)):
         print(f"lu_panel_batched for {g} x ({m}, 256): {route_label(m, 256, None, g)} a panel")
     stack = torch.randn(16, 4096, 256, generator=gen, device=DEV)
     ms = cuda_ms(lambda: lu_panel_v2_batched(stack), 10)

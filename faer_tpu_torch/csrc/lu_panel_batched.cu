@@ -80,12 +80,19 @@
 //    22 752 at b = 256), the whole rows in shared memory too up to 2 656
 //    at b = 256 (lu_panel.smem_rows_edge);
 //  - grid: one cooperative grid of g x G CTAs, one an SM, at least
-//    kGridMinRows rows a CTA, the rows in global scratch; refused past 132
-//    panels or past the rows whose W fits a CTA.
+//    kGridMinRows rows a CTA, the rows in global scratch; where a CTA's W
+//    does not fit its shared memory (m past 132 x 1 422 at b = 256 for one
+//    panel), W goes to global scratch too, with as many CTAs an SM as are
+//    co-resident.
+// A batch the grid route cannot hold one CTA an SM takes the cluster route
+// past kClusterMaxRows where its shared memory holds the rows' W. Refused:
+// m past kMaxRowsPerCta (8192) rows a CTA over all the CTAs the card holds
+// co-resident, shared among the g panels (plan_of).
 // Built with -DFAER_LU_PROFILE (`tools/torch_profile.py lu` does, into a
 // library of its own), thread 0 of each CTA adds its cycles by phase into
-// g_prof, read by faer_lu_panel_profile_read, and faer_lu_panel_profile_set
-// forces the grid route, the fewest rows a CTA or the sub-block width.
+// g_prof, read by faer_lu_panel_profile_read; faer_lu_panel_profile_force_grid
+// forces the grid route and faer_lu_panel_profile_rows_in_l2 the cluster
+// route's rows into L2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -99,9 +106,9 @@ namespace cg = cooperative_groups;
 // row, 4 column scale and rank-1 update, 5 deferred trailing update, 6 final
 // write: thread 0's cycles, summed over CTAs and launches
 __device__ long long g_prof[7];
-// host: 1 every shape on the grid route, 2 on the cluster route where its
-// shared memory takes it; 0 the plan's own (and the defaults below)
-static int g_force = 0, g_min_rows = 0, g_sub_block = 0;
+// host: every shape on the grid route; the cluster route's rows in L2 even
+// where they fit its shared memory
+static int g_force_grid = 0, g_rows_in_l2 = 0;
 #define PROF_START long long t_prof = clock64();
 #define PROF_MARK(k) \
   if (threadIdx.x == 0) { const long long u = clock64(); prof[k] += u - t_prof; t_prof = u; }
@@ -120,7 +127,7 @@ constexpr int kWarps = kThreads / 32;
 // SB, the working block's columns: on an H100 (profile build) (4096, 256)
 // 0.7449 ms at 32 against 0.8599 at 16, whose more sub-blocks cost more in
 // the deferred update than the narrower rank-1 steps save
-constexpr int kSubBlock = 32;
+constexpr int SB = 32;
 constexpr int kChunk = 512;      // later columns a deferred update takes at once
 constexpr int kTileRows = 8;     // rows of a warp's tile in the deferred update
 constexpr int kTileCols = 4;     // a lane's columns of it, 32 apart
@@ -136,12 +143,15 @@ constexpr int kClusterMinRows = 64;
 constexpr int kClusterMaxRows = 384;
 constexpr int kGridMinRows = 128;
 constexpr int kMaxRowsPerThread = 32;  // a thread's unused rows are one 32-bit mask
+constexpr int kMaxRowsPerCta = kThreads * kMaxRowsPerThread;
 constexpr int kMaxDevices = 64;
 constexpr int kNotCoResident = 100000;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCopyBatch = 16;  // 32-column row segments a warp loads before it stores
 
-enum Route { kRefused = -1, kGrid = 0, kCluster = 1 };
+// faer_lu_panel_route's codes; kGridGlobalW is the grid route with W in
+// global scratch
+enum Route { kRefused = -1, kGrid = 0, kCluster = 1, kGridGlobalW = 2 };
 
 // A row's state at the end of a sub-block: pivoted before it, pivoted in
 // it, or still unused
@@ -156,6 +166,7 @@ struct Args {
   unsigned char* ok;  // (g,), bool
   float* work;        // the rows in global memory, (g, m, b), when not in shared memory
   float* slots;       // grid route: candidates, candidate rows, counts
+  float* wglob;       // grid route, W in global memory: (g, G, w_floats)
   int* cyc;           // (g, 4, m): the cycle count's pointer doubling
   int m, b, rpc;
 };
@@ -166,18 +177,19 @@ __host__ __device__ constexpr int chunk_of(int sb, int b) {
 }
 
 // W, rpc x (SB + 1), padded to 16 bytes.
-__host__ __device__ constexpr long long w_floats(int sb, long long rpc) {
-  return (rpc * (sb + 1) + 3) & ~3LL;
+__host__ __device__ constexpr long long w_floats(long long rpc) {
+  return (rpc * (SB + 1) + 3) & ~3LL;
 }
 
-// Shared-memory floats of a CTA of rpc rows: W, the pivot
-// rows' working entries (SB x (SB + 4)), a chunk of U12 (SB x chunk_of),
-// the rows' states (rpc), the pivot row of each step (b ints), and the
-// rows themselves (rpc x (b | 1)) when they are in shared memory.
-__host__ __device__ constexpr long long smem_floats(int sb, int b, long long rpc,
+// Shared-memory floats of a CTA of rpc rows: W when it is in shared
+// memory, the pivot rows' working entries (SB x (SB + 4)), a chunk of U12
+// (SB x chunk_of), the rows' states (rpc), the pivot row of each step (b
+// ints), and the rows themselves (rpc x (b | 1)) when they are in shared
+// memory.
+__host__ __device__ constexpr long long smem_floats(int b, long long rpc, bool smem_w,
                                                     bool smem_rows) {
-  return w_floats(sb, rpc) + (long long)sb * (sb + 4) + (long long)sb * chunk_of(sb, b) +
-         rpc + b + (smem_rows ? rpc * row_stride(b) : 0);
+  return (smem_w ? w_floats(rpc) : 0) + (long long)SB * (SB + 4) +
+         (long long)SB * chunk_of(SB, b) + rpc + b + (smem_rows ? rpc * row_stride(b) : 0);
 }
 
 // A candidate is (bits of |v|, row): a NaN counts as +inf, and the bits of
@@ -229,8 +241,11 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <int SB, bool kCl, bool kSmem>
-__global__ void __launch_bounds__(kThreads, 1) lu_panel_kernel(Args a) {
+// kCl: the cluster route, else the grid route; kSmem: the whole rows in
+// shared memory (cluster route only); kGW: W in global scratch (grid route
+// only), and then two CTAs an SM where their registers allow
+template <bool kCl, bool kSmem, bool kGW>
+__global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned sRedB[kWarps];
   __shared__ int sRedR[kWarps];
@@ -255,8 +270,8 @@ __global__ void __launch_bounds__(kThreads, 1) lu_panel_kernel(Args a) {
 #endif
   PROF_START
 
-  float* W = smem;
-  float* sWpiv = W + w_floats(SB, rpc);                              // SB x ldp
+  float* W = kGW ? a.wglob + ((size_t)q * G + cta) * w_floats(rpc) : smem;
+  float* sWpiv = kGW ? smem : W + w_floats(rpc);                     // SB x ldp
   float* sU = sWpiv + SB * ldp;                                      // SB x chunk
   int* sState = reinterpret_cast<int*>(sU + (size_t)SB * chunk);    // rpc
   int* sPivIdx = sState + rpc;                                       // b
@@ -663,18 +678,11 @@ __global__ void __launch_bounds__(kThreads, 1) lu_panel_kernel(Args a) {
 
 using Kernel = void (*)(Args);
 
-template <int SB>
-Kernel kernel_of(bool cluster, bool smem_rows) {
-  if (cluster) return smem_rows ? lu_panel_kernel<SB, true, true> : lu_panel_kernel<SB, true, false>;
-  return lu_panel_kernel<SB, false, false>;
-}
-
-// SB = 16 is built only into the profile build, for its comparison
-Kernel kernel_for(int sb, bool cluster, bool smem_rows) {
-#ifdef FAER_LU_PROFILE
-  if (sb == 16) return kernel_of<16>(cluster, smem_rows);
-#endif
-  return kernel_of<kSubBlock>(cluster, smem_rows);
+Kernel kernel_for(int route, bool smem_rows) {
+  if (route == kCluster)
+    return smem_rows ? lu_panel_kernel<true, true, false> : lu_panel_kernel<true, false, false>;
+  return route == kGridGlobalW ? lu_panel_kernel<false, false, true>
+                               : lu_panel_kernel<false, false, false>;
 }
 
 // How many clusters of g CTAs, each of kThreads threads and smem bytes of
@@ -692,7 +700,7 @@ cudaError_t active_clusters(int g, int smem, int* n) {
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(n, kernel_for(kSubBlock, true, false), &cfg);
+  return cudaOccupancyMaxActiveClusters(n, kernel_for(kCluster, false), &cfg);
 }
 
 struct DeviceInfo {
@@ -718,21 +726,18 @@ cudaError_t device_info(DeviceInfo* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&d.smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel_for(kSubBlock, true, false));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel_for(kCluster, false));
   if (err != cudaSuccess) return err;
   d.smem_max -= (int)fa.sharedSizeBytes;
-#ifdef FAER_LU_PROFILE
-  for (int sb : {16, kSubBlock})
-#else
-  for (int sb : {kSubBlock})
-#endif
-    for (int route = 0; route < 3; ++route) {  // cluster in smem, cluster, grid
-      const Kernel k = kernel_for(sb, route < 2, route == 0);
-      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem_max);
-      if (err == cudaSuccess && route < 2)
-        err = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return err;
-    }
+  const Kernel kernels[4] = {kernel_for(kCluster, true), kernel_for(kCluster, false),
+                             kernel_for(kGrid, false), kernel_for(kGridGlobalW, false)};
+  for (int k = 0; k < 4; ++k) {
+    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d.smem_max);
+    if (err == cudaSuccess && k < 2)
+      err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   for (int g = kMaxCluster; g >= 1 && !d.max_cluster; g /= 2) {
     int n = 0;
     err = active_clusters(g, d.smem_max, &n);
@@ -746,74 +751,98 @@ cudaError_t device_info(DeviceInfo* out) {
 }
 
 struct Plan {
-  int route, ctas, rpc, sb, rows_in_smem;
-  long long smem_bytes, scratch_floats, work_floats, slot_floats;
+  int route, ctas, rpc, rows_in_smem;
+  long long smem_bytes, scratch_floats, work_floats, slot_floats, wglob_floats;
 };
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-// The route of g (m, b) panels on the current device: the cluster route
-// when the largest cluster the card places takes the rows at most
-// kClusterMaxRows a CTA and a CTA's W fits its shared memory (the whole
-// rows too when they fit); else the grid route, one CTA an SM, when the
-// g x G CTAs' W fit theirs; else refused.
+// The route of g (m, b) panels on the current device, the first that holds
+// them of:
+//  1. the cluster route, when the largest cluster the card places takes the
+//     rows with a CTA's W in its shared memory (the whole rows too when they
+//     fit) and at most kClusterMaxRows rows a CTA;
+//  2. the grid route, one CTA an SM, when the g x G CTAs' W fit theirs;
+//  3. the cluster route past kClusterMaxRows rows a CTA (a batch of more
+//     panels than the grid route holds one CTA an SM);
+//  4. the grid route with W in global scratch, as many CTAs an SM as are
+//     co-resident, at most kMaxRowsPerCta rows a CTA;
+// else refused: m > kMaxRowsPerCta x (CTAs co-resident) / g, or b so wide
+// that a CTA's U12 chunk and step indices alone exceed its shared memory.
 cudaError_t plan_of(int g, int m, int b, Plan* pl) {
-  *pl = Plan{kRefused, 0, 0, kSubBlock, 0, 0, 0, 0, 0};
+  *pl = Plan{kRefused, 0, 0, 0, 0, 0, 0, 0, 0};
   if (g < 1 || m < 1 || b < 1 || g > 65535) return cudaSuccess;
   DeviceInfo d;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return err;
-  int sb = kSubBlock, cl_min = kClusterMinRows;
-  bool cluster_ok = true, reach = cdiv(m, d.max_cluster) <= kClusterMaxRows;
+  bool force_grid = false, rows_in_l2 = false;
 #ifdef FAER_LU_PROFILE
-  if (g_sub_block) sb = g_sub_block;
-  if (g_min_rows) cl_min = g_min_rows;
-  cluster_ok = g_force != 1;
-  reach = reach || g_force == 2;
+  force_grid = g_force_grid;
+  rows_in_l2 = g_rows_in_l2;
 #endif
   const long long cap = d.smem_max / 4;
-  // the most rows a CTA holds: its W alone, or its whole rows too
+  // the most rows a CTA holds with W in shared memory: W alone, or the
+  // whole rows too
   auto most_rows = [&](bool smem_rows) {
-    long long lo = 0, hi = (long long)kThreads * kMaxRowsPerThread;
+    long long lo = 0, hi = kMaxRowsPerCta;
     while (lo < hi) {
       const long long mid = (lo + hi + 1) / 2;
-      if (smem_floats(sb, b, mid, smem_rows) <= cap) lo = mid; else hi = mid - 1;
+      if (smem_floats(b, mid, true, smem_rows) <= cap) lo = mid; else hi = mid - 1;
     }
     return lo;
   };
-  const long long fit = most_rows(false), fit_all = most_rows(true);
+  const long long fit = most_rows(false), fit_all = rows_in_l2 ? 0 : most_rows(true);
   const long long work = ((long long)g * m * b + 3) & ~3LL;  // keeps the slots 16-byte aligned
   const long long cyc = 4LL * g * m;  // the cycle count's ints
-  if (cluster_ok && reach && fit >= 1 && cdiv(m, fit) <= d.max_cluster) {
-    long long n = cdiv(m, cl_min);
-    n = n < d.max_cluster ? n : d.max_cluster;
-    n = n > cdiv(m, fit) ? n : cdiv(m, fit);
-    const long long rpc = cdiv(m, n);
+  const bool cluster_holds = !force_grid && fit >= 1 && cdiv(m, fit) <= d.max_cluster;
+  long long n = cdiv(m, kGridMinRows);
+  n = n < d.sms / g ? n : d.sms / g;
+  const bool grid_holds = n >= 1 && cdiv(m, n) <= fit;
+  if (cluster_holds && (cdiv(m, d.max_cluster) <= kClusterMaxRows || !grid_holds)) {
+    long long nc = cdiv(m, kClusterMinRows);
+    nc = nc < d.max_cluster ? nc : d.max_cluster;
+    nc = nc > cdiv(m, fit) ? nc : cdiv(m, fit);
+    const long long rpc = cdiv(m, nc);
     const bool in_smem = rpc <= fit_all;
-    *pl = Plan{kCluster, (int)cdiv(m, rpc), (int)rpc, sb, in_smem,
-               smem_floats(sb, b, rpc, in_smem) * 4,
-               (in_smem ? 0 : work) + cyc, in_smem ? 0 : work, 0};
+    *pl = Plan{kCluster, (int)cdiv(m, rpc), (int)rpc, in_smem,
+               smem_floats(b, rpc, true, in_smem) * 4,
+               (in_smem ? 0 : work) + cyc, in_smem ? 0 : work, 0, 0};
     return cudaSuccess;
   }
-  long long n = cdiv(m, kGridMinRows);
-  const long long per_panel = d.sms / g;
-  n = n < per_panel ? n : per_panel;
-  if (n < 1) return cudaSuccess;
+  int route = kGrid;
+  if (!grid_holds) {
+    // W in global scratch: the CTAs an SM the device holds at the most
+    // rows a CTA
+    const long long smem = smem_floats(b, kMaxRowsPerCta, false, false);
+    int per_sm = 0;
+    if (smem <= cap) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel_for(kGridGlobalW, false), kThreads, (size_t)smem * 4);
+      if (err != cudaSuccess) return err;
+    }
+    n = cdiv(m, kGridMinRows);
+    const long long held = (long long)d.sms * per_sm / g;
+    n = n < held ? n : held;
+    if (n < 1 || cdiv(m, n) > kMaxRowsPerCta) return cudaSuccess;
+    route = kGridGlobalW;
+  }
   const long long rpc = cdiv(m, n);
-  if (rpc > fit) return cudaSuccess;
   n = cdiv(m, rpc);
+  const bool smem_w = route == kGrid;
   // candidates (2 floats) and their rows (SB) by parity, the counts
-  const long long slots = ((long long)g * n * (2 * 2 + 2 * sb + 1) + 3) & ~3LL;
-  *pl = Plan{kGrid, (int)n, (int)rpc, sb, 0, smem_floats(sb, b, rpc, false) * 4,
-             work + slots + cyc, work, slots};
+  const long long slots = ((long long)g * n * (2 * 2 + 2 * SB + 1) + 3) & ~3LL;
+  const long long wglob = smem_w ? 0 : g * n * w_floats(rpc);
+  *pl = Plan{route, (int)n, (int)rpc, 0, smem_floats(b, rpc, smem_w, false) * 4,
+             work + slots + wglob + cyc, work, slots, wglob};
   return cudaSuccess;
 }
 
 }  // namespace
 
-// The route of g (m, b) panels on the current device: 1 cluster, 0 grid,
-// -1 refused (g, m or b < 1, g > 65535, or the grid route's rows a CTA
-// past its shared memory), or -(CUDA error) - 2 if the device query failed.
+// The route of g (m, b) panels on the current device (plan_of): 1 cluster,
+// 0 grid, 2 grid with W in global scratch, -1 refused (g, m or b < 1,
+// g > 65535, or a shape past plan_of's last route), or -(CUDA error) - 2
+// if the device query failed.
 // ctas and scratch_floats (either may be null) get the CTAs a panel and the
 // floats of global scratch faer_lu_panel_batched needs.
 extern "C" int faer_lu_panel_route(int g, int m, int b, int* ctas, long long* scratch_floats) {
@@ -857,9 +886,11 @@ extern "C" int faer_lu_panel_batched(const float* panels, long long batch_stride
       (pl.scratch_floats > 0 && scratch == nullptr))
     return cudaErrorInvalidValue;
   Args args{panels, batch_stride, lda, packed, perm, nt, ok, scratch,
-            scratch + pl.work_floats,
-            reinterpret_cast<int*>(scratch + pl.work_floats + pl.slot_floats), m, b, pl.rpc};
-  const Kernel kern = kernel_for(pl.sb, pl.route == kCluster, pl.rows_in_smem);
+            scratch + pl.work_floats, scratch + pl.work_floats + pl.slot_floats,
+            reinterpret_cast<int*>(scratch + pl.work_floats + pl.slot_floats +
+                                   pl.wglob_floats),
+            m, b, pl.rpc};
+  const Kernel kern = kernel_for(pl.route, pl.rows_in_smem);
   if (pl.route == kCluster) {
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr[1];
@@ -902,13 +933,11 @@ extern "C" int faer_lu_panel_profile_read(long long* host) {
   return (int)err;
 }
 
-// For every later plan: force 1 sends every shape to the grid route, 2 to
-// the cluster route where its shared memory takes it (past
-// kClusterMaxRows too); min_rows > 0 replaces the cluster route's fewest
-// rows a CTA; sub_block 16 or 32 replaces SB. 0 restores each default.
-extern "C" void faer_lu_panel_profile_set(int force, int min_rows, int sub_block) {
-  g_force = force;
-  g_min_rows = min_rows;
-  g_sub_block = sub_block == 16 || sub_block == 32 ? sub_block : 0;
-}
+// For every later plan: a non-zero `on` sends every shape to the grid
+// route (W in shared memory where it fits), 0 restores the plan's own.
+extern "C" void faer_lu_panel_profile_force_grid(int on) { g_force_grid = on; }
+
+// For every later plan: a non-zero `on` keeps the cluster route's rows in
+// L2 even where they fit its shared memory, 0 restores the plan's own.
+extern "C" void faer_lu_panel_profile_rows_in_l2(int on) { g_rows_in_l2 = on; }
 #endif

@@ -36,8 +36,11 @@ from faer_tpu_torch.core.perm import perm_transposition_count
 from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.llt_panel import _neumann_unit_inv
 
-SUB_BLOCK = 32  # the kernel's working-block width, ``kSubBlock``
-ROUTES = {1: "cluster", 0: "grid"}  # faer_lu_panel_route's codes
+SUB_BLOCK = 32  # the kernel's working-block width, ``SB``
+# faer_lu_panel_route's codes; 2 is the grid route with each CTA's working
+# block in global memory, for panels whose working blocks do not fit the
+# card's shared memory one CTA an SM
+ROUTES = {1: "cluster", 0: "grid", 2: "grid"}
 
 
 def _assemble(virt, pidx, ok):
@@ -208,13 +211,9 @@ def lu_panel_plain(panel, *, sb: int = 16):
     return _assemble(pt.mT, pidx, ok)
 
 
-def route(m: int, b: int, device=None, g: int = 1) -> tuple[str, int, int]:
-    """``(route, CTAs a panel, scratch floats)`` of g (m, b) panels on a
-    CUDA card, as the kernel's C entry ``faer_lu_panel_route`` decides them
-    from (g, m, b) and the card: ``"cluster"`` (one thread-block cluster a
-    panel) or ``"grid"`` (one cooperative grid). Loads the kernel library,
-    which is built with ``nvcc`` at first use. Raises ``ShapeError`` for a
-    shape neither route takes."""
+def _route_code(m: int, b: int, device, g: int) -> tuple[int, int, int]:
+    """``faer_lu_panel_route``'s (code, CTAs a panel, scratch floats).
+    Raises ``ShapeError`` for a shape no route takes."""
     ctas, scratch = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(device):  # the C entry reads the current device
         code = _build.library().faer_lu_panel_route(
@@ -223,18 +222,32 @@ def route(m: int, b: int, device=None, g: int = 1) -> tuple[str, int, int]:
         raise ShapeError(f"lu_panel: no route takes {g} panel(s) of {(m, b)} on this card")
     if code not in ROUTES:
         raise RuntimeError(f"lu_panel: the device query failed with CUDA error {-code - 2}")
-    return ROUTES[code], ctas.value, scratch.value
+    return code, ctas.value, scratch.value
+
+
+def route(m: int, b: int, device=None, g: int = 1) -> tuple[str, int, int]:
+    """``(route, CTAs a panel, scratch floats)`` of g (m, b) panels on a
+    CUDA card, as the kernel's C entry ``faer_lu_panel_route`` decides them
+    from (g, m, b) and the card: ``"cluster"`` (one thread-block cluster a
+    panel) or ``"grid"`` (one cooperative grid). Loads the kernel library,
+    which is built with ``nvcc`` at first use. Raises ``ShapeError`` for a
+    shape no route takes."""
+    code, ctas, scratch = _route_code(m, b, device, g)
+    return ROUTES[code], ctas, scratch
 
 
 def route_label(m: int, b: int, device=None, g: int = 1) -> str:
     """:func:`route` as a phrase for the card checks' lines: the route, its
     CTAs a panel, and where the cluster route keeps the rows (its only
-    global scratch is then the cycle count's 4·g·m ints)."""
-    name, ctas, scratch = route(m, b, device, g)
+    global scratch is then the cycle count's 4·g·m ints) or the grid route
+    the working blocks."""
+    code, ctas, scratch = _route_code(m, b, device, g)
     where = ""
-    if name == "cluster":
+    if code == 1:
         where = ", rows in shared memory" if scratch == 4 * g * m else ", rows in L2"
-    return f"{name} route, {ctas} CTAs{where}"
+    elif code == 2:
+        where = ", working blocks in global memory"
+    return f"{ROUTES[code]} route, {ctas} CTAs{where}"
 
 
 def _last(b: int, device, pred) -> int:

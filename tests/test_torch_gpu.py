@@ -193,10 +193,13 @@ def test_llt_panel_kernel_regularized(cuda, m, b):
     assert _rel(s1, s2) <= 8 * b * EPS32
 
 
-@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128), (40000, 256)])
+@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128), (40000, 256),
+                                 (200000, 256)])
 def test_lu_panel_kernel(cuda, m, b):
     """(40000, 256): the rows (40 MiB) exceed the card's shared memory, so
-    the kernel keeps them in global memory."""
+    the kernel keeps them in global memory. (200000, 256): the CTAs'
+    working blocks exceed it too, so the grid route keeps those in global
+    memory as well."""
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
 
     gen = torch.Generator(device=cuda).manual_seed(m)
@@ -260,24 +263,33 @@ def test_lu_panel_kernel_at_the_route_edges(cuda, edge, past):
 def test_lu_panel_routes(cuda):
     """The route is the C entry's alone: the main path's (4096, 256) leaves
     and the 16-panel CALU batch take the cluster route, the 40000- and
-    65536-row panels the grid route; a batch the grid route cannot hold
-    one CTA an SM is refused, and so is its launch."""
+    65536-row panels the grid route, the 200000-row panel the grid route
+    with its working blocks in global memory; a batch the grid route cannot
+    hold one CTA an SM takes the cluster route past its edge where its
+    shared memory holds it (16 × (12288, 256), sms + 1 panels past the
+    cluster edge at b = 64). Past every route (more rows than 8192 a CTA
+    over every CTA the card holds at once, 8 an SM at the most) the shape
+    is refused, and so is its launch."""
     from faer_tpu_torch.core.errors import ShapeError
-    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge, route
+    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge, route, route_label
     from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2_batched
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for g, m in ((1, 4096), (16, 4096), (1, 4000), (1, 256)):
+    for g, m in ((1, 4096), (16, 4096), (1, 4000), (1, 256), (16, 12288)):
         name, ctas, _ = route(m, 256, cuda, g)
         assert name == "cluster" and 1 <= ctas <= 16
-    for m in (40000, 65536):
+    name, ctas, _ = route(cluster_edge(64) + 1, 64, cuda, sms + 1)
+    assert name == "cluster" and 1 <= ctas <= 16
+    for m in (40000, 65536, 200000):
         name, ctas, _ = route(m, 256, cuda)
-        assert name == "grid" and 1 <= ctas <= sms
-    m = cluster_edge(64) + 1
-    with pytest.raises(ShapeError):
-        route(m, 64, cuda, sms + 1)
-    with pytest.raises(ShapeError):
-        lu_panel_v2_batched(torch.ones(sms + 1, m, 64, device=cuda))
+        assert name == "grid" and 1 <= ctas <= 8 * sms
+    assert route_label(200000, 256, cuda).endswith("working blocks in global memory")
+    assert not route_label(65536, 256, cuda).endswith("working blocks in global memory")
+    for g, m in ((1, 8192 * 8 * sms + 1), (8 * sms + 1, 30000)):
+        with pytest.raises(ShapeError):
+            route(m, 64, cuda, g)
+        with pytest.raises(ShapeError):  # refused before any memory is touched
+            lu_panel_v2_batched(torch.ones(1, m, 64, device=cuda).expand(g, m, 64))
 
 
 def test_lu_panel_cluster_route_equals_the_grid_route(cuda):
@@ -295,14 +307,14 @@ def test_lu_panel_cluster_route_equals_the_grid_route(cuda):
     lib = torch_profile.build("lu")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
-    lib.faer_lu_panel_profile_set.argtypes = [I, I, I]
+    lib.faer_lu_panel_profile_force_grid.argtypes = [I]
     stream = torch.cuda.current_stream().cuda_stream
     for m, b in ((4096, 256), (2048, 256), (1000, 100), (300, 44)):
         gen = torch.Generator(device=cuda).manual_seed(m)
         a = torch.randn(m, b, generator=gen, device=cuda)
         assert route(m, b, cuda)[0] == "cluster"
         want = lu_panel(a)
-        lib.faer_lu_panel_profile_set(1, 0, 0)
+        lib.faer_lu_panel_profile_force_grid(1)
         ctas, nscratch = ctypes.c_int(), ctypes.c_longlong()
         try:
             assert lib.faer_lu_panel_route(1, m, b, ctypes.byref(ctas),
@@ -315,7 +327,7 @@ def test_lu_panel_cluster_route_equals_the_grid_route(cuda):
                 a.data_ptr(), m * b, b, *(x.data_ptr() for x in got), scratch.data_ptr(),
                 nscratch.value, 1, m, b, stream) == 0
         finally:
-            lib.faer_lu_panel_profile_set(0, 0, 0)
+            lib.faer_lu_panel_profile_force_grid(0)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert int(got[2][0]) == int(want[2]) and bool(got[3][0]) == bool(want[3])
@@ -508,12 +520,15 @@ def test_lu_panel_v2_v3_swap_kernels(cuda, name, m, b):
         _check_lu_order(a, k1, p1, n1)
 
 
-@pytest.mark.parametrize("g,m,b", [(16, 4096, 256), (5, 1000, 100), (3, 256, 256)])
+@pytest.mark.parametrize("g,m,b", [(16, 4096, 256), (5, 1000, 100), (3, 256, 256),
+                                   (16, 12288, 256)])
 def test_lu_panel_v2_batched_kernel(cuda, g, m, b):
     """One launch for the stack; each panel equals ``lu_panel_v2`` on it to
-    the bit (the same kernel, whatever the CTAs per panel: every row is
-    updated by the same operations, and the pivot search is exact) and its
-    plain version within 8·m·eps."""
+    the bit (the same kernel, whatever the CTAs per panel and the route:
+    every row is updated by the same operations, and the pivot search is
+    exact) and its plain version within 8·m·eps. 16 × (12288, 256) takes
+    the cluster route past its edge (the grid route cannot hold the batch
+    one CTA an SM), each panel alone the grid route."""
     from faer_tpu_torch.ops.kernels.lu_panel_v2 import (
         lu_panel_v2, lu_panel_v2_batched, lu_panel_v2_plain)
 
@@ -554,10 +569,9 @@ def test_lu_in_place_through_calu_on_card(cuda, monkeypatch):
 def test_lu_panel_v2_batched_raises_past_co_residency(cuda):
     """Clusters need no co-residency: 4000 panels of (64, 64) are one
     launch, each equal to ``lu_panel_v2`` on it. A batch of panels past the
-    cluster route's reach needs every CTA of one cooperative grid
-    co-resident, one an SM at least; past that it is refused (ShapeError)."""
+    cluster route's shared memory needs every CTA of one cooperative grid
+    co-resident; past that it is refused (ShapeError)."""
     from faer_tpu_torch.core.errors import ShapeError
-    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge
     from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2, lu_panel_v2_batched
 
     gen = torch.Generator(device=cuda).manual_seed(4000)
@@ -567,8 +581,9 @@ def test_lu_panel_v2_batched_raises_past_co_residency(cuda):
         for x, y in zip(got, lu_panel_v2(stack[q])):
             assert torch.equal(x[q], y)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = 8 * sms + 1  # more panels than the card holds CTAs at once
     with pytest.raises(ShapeError):
-        lu_panel_v2_batched(torch.ones(sms + 1, cluster_edge(64) + 1, 64, device=cuda))
+        lu_panel_v2_batched(torch.ones(1, 30000, 64, device=cuda).expand(g, 30000, 64))
 
 
 QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")

@@ -15,10 +15,10 @@ code. The rows, per kernel:
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
 * ``lu`` (seed 13): ``lu_panel`` at (4096, 256), (2048, 256) and
   (65536, 256), ``lu_leaf`` at (4000, 256) and ``lu_panel_v2_batched`` on
-  16 × (4096, 256), each beside ``torch.linalg.lu_factor_ex`` on the same
-  inputs, per call and on the device; then per call and on the device
-  where the path can be captured in a CUDA graph (``None`` where it
-  cannot), ``lu_in_place`` at 4096, ``flagship_step`` at 4096 (8
+  16 × (4096, 256), per call and on the device, each beside
+  ``torch.linalg.lu_factor_ex`` on the same inputs per call (it cannot be
+  captured in a CUDA graph on panels); then per call and on the device
+  ``lu_in_place`` at 4096 beside ``lu_factor_ex``, ``flagship_step`` at 4096 (8
   right-hand sides, ``chip_smoke._inputs``),
   ``Mat(g).partial_piv_lu().solve(b)`` at 4096 with the tile switch off,
   the off-route ``lu_in_place`` of a 4000², and the CALU factor of a
@@ -232,13 +232,13 @@ def lu_rows(cs):
     for m in (4096, 2048, 65536):
         a = torch.randn(m, 256, generator=gen, device="cuda")
         yield f"lu_panel ({m}, 256)", lambda a=a: lu_panel(a), reps, reps
-        yield f"lu_factor_ex ({m}, 256)", lambda a=a: lib(a), reps, reps
+        yield f"lu_factor_ex ({m}, 256)", lambda a=a: lib(a), reps, None
     a = torch.randn(4000, 256, generator=gen, device="cuda")
     yield "lu_leaf (4000, 256)", lambda: lu_leaf(a), reps, reps
-    yield "lu_factor_ex (4000, 256)", lambda: lib(a), reps, reps
+    yield "lu_factor_ex (4000, 256)", lambda: lib(a), reps, None
     stack = torch.randn(16, 4096, 256, generator=gen, device="cuda")
     yield "lu_panel_v2_batched 16 x (4096, 256)", lambda: lu_panel_v2_batched(stack), reps, reps
-    yield "lu_factor_ex 16 x (4096, 256)", lambda: lib(stack), reps, reps
+    yield "lu_factor_ex 16 x (4096, 256)", lambda: lib(stack), reps, None
     spd, g, rhs = cs._inputs(N, gen)
     yield f"lu_in_place n={N}", lambda: tlu.lu_in_place(g), STEP_REPS, STEP_REPS
     yield f"lu_factor_ex n={N}", lambda: lib(g), STEP_REPS, STEP_REPS
@@ -269,17 +269,6 @@ ROWS = {"llt": llt_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
         "trtri": trtri_rows}
 
 
-def _graph_ms(cs, fn, reps):
-    """``chip_smoke.graph_ms``, or None where the call cannot be captured
-    in a CUDA graph (a host read inside it): the capture's error printed."""
-    try:
-        return cs.graph_ms(fn, reps)
-    except RuntimeError as err:
-        torch.cuda.synchronize()
-        print(f"  (not captured: {str(err).splitlines()[0][:120]})")
-        return None
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("kernel", choices=sorted(ROWS))
@@ -298,7 +287,7 @@ def main() -> None:
     rows = []
     for name, fn, reps, graph_reps in ROWS[args.kernel](cs):
         r = dict(call=name, per_call_ms=cs.cuda_ms(fn, reps),
-                 device_ms=_graph_ms(cs, fn, graph_reps) if graph_reps else None)
+                 device_ms=cs.graph_ms(fn, graph_reps) if graph_reps else None)
         rows.append(r)
         print(f"{name}: per call {r['per_call_ms']:.4f} ms"
               + ("" if r["device_ms"] is None else f", device {r['device_ms']:.4f} ms"))
