@@ -634,15 +634,13 @@ LU_SHAPES = ((256, 256), (1024, 256), (4096, 256), (4000, 256), (1000, 64), (400
 
 
 def lu_cases():
-    """LU_SHAPES with both sides of each route edge of the LU panel kernel,
-    found from its own route (bisection): the largest m whose rows the
-    cluster route holds in shared memory at b = 256, and the largest m of
-    the cluster route at b = 256 and 64, each and one past it."""
-    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge, smem_rows_edge
+    """LU_SHAPES with both sides of the LU panel kernel's cluster route edge,
+    found from its own route (bisection): the largest m of the cluster route
+    at b = 256 and 64, each and one past it."""
+    from faer_tpu_torch.ops.kernels.lu_panel import cluster_edge
 
-    smem, e256, e64 = smem_rows_edge(256), cluster_edge(256), cluster_edge(64)
-    return LU_SHAPES + ((smem, 256), (smem + 1, 256), (e256, 256), (e256 + 1, 256),
-                        (e64, 64), (e64 + 1, 64))
+    e256, e64 = cluster_edge(256), cluster_edge(64)
+    return LU_SHAPES + ((e256, 256), (e256 + 1, 256), (e64, 64), (e64 + 1, 64))
 
 
 def _lu_against_references(a, kern, plain, name: str) -> float:
@@ -673,8 +671,8 @@ def _lu_against_references(a, kern, plain, name: str) -> float:
 
 
 # the shapes at which the cluster route's result is held against the grid
-# route's, forced by the profile build: the main path's leaf, rows in L2;
-# rows in shared memory; ragged
+# route's, forced by the profile build: the main path's leaf, 128 rows a
+# CTA, ragged
 LU_ROUTE_SHAPES = ((4096, 256), (2048, 256), (1000, 100))
 
 

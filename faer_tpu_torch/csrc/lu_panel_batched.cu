@@ -29,9 +29,13 @@
 // panel owns rows [x rpc, (x + 1) rpc) for the whole factorization. Its
 // working block W (rpc x SB at a row stride of SB + 1, so that a column
 // read one thread a row hits 32 banks) is in shared memory; thread t holds
-// rows t, t + 256, ... of it. Its whole rows are in shared memory too when
-// they fit, else in place in a global scratch (L2-resident: 4 MiB for one
-// panel). Per column, one exchange:
+// rows t, t + 256, ... of it. Its whole rows are in place in a global
+// scratch (L2-resident: 4 MiB for one panel). Keeping them in shared memory
+// where they fit bought nothing measurable (profile build on an H100,
+// 700 W, ms a launch, rows in shared memory / in L2: (2048, 256) 0.5944 /
+// 0.6229, (1024, 256) 0.5989 / 0.5852; the deferred update 285 305 /
+// 289 178 and 213 389 / 204 298 cycles a CTA), so they are always in L2.
+// Per column, one exchange:
 //  1. each thread's candidate (the largest |v| of its unused rows, a NaN
 //     as +inf, ties to the lowest row) was found by the update of the last
 //     column; a warp reduction (redux.sync on the bits of |v|, then on the
@@ -57,8 +61,8 @@
 // unit-lower substitution in one fixed order, one thread a column, and
 // updates its unused rows by -L21 U12 in 8-row by 4-column register tiles,
 // the next tile's loads in flight. In the first sub-block the later columns
-// are read from the panel itself, so only the working block is staged when
-// the rows are in global scratch. Then it writes its pivot rows of the
+// are read from the panel itself, so only the working block is staged.
+// Then it writes its pivot rows of the
 // sub-block to packed rows sb0 + k (U12's rows right of the sub-block) and
 // loads the next working columns of its unused rows. After the last column
 // the CTAs count their unused rows, one more exchange gives each its
@@ -77,22 +81,19 @@
 //    in one launch, with no co-residency condition across them), from
 //    kClusterMinRows to kClusterMaxRows rows a CTA: m up to 6 144 on an
 //    H100 (lu_panel.cluster_edge; its shared memory alone would take
-//    22 752 at b = 256), the whole rows in shared memory too up to 2 656
-//    at b = 256 (lu_panel.smem_rows_edge);
+//    22 752 at b = 256);
 //  - grid: one cooperative grid of g x G CTAs, one an SM, at least
-//    kGridMinRows rows a CTA, the rows in global scratch; where a CTA's W
-//    does not fit its shared memory (m past 132 x 1 422 at b = 256 for one
-//    panel), W goes to global scratch too, with as many CTAs an SM as are
-//    co-resident.
+//    kGridMinRows rows a CTA; where a CTA's W does not fit its shared
+//    memory (m past 132 x 1 422 at b = 256 for one panel), W goes to global
+//    scratch too, column-major, with as many CTAs an SM as are co-resident.
 // A batch the grid route cannot hold one CTA an SM takes the cluster route
 // past kClusterMaxRows where its shared memory holds the rows' W. Refused:
 // m past kMaxRowsPerCta (8192) rows a CTA over all the CTAs the card holds
 // co-resident, shared among the g panels (plan_of).
 // Built with -DFAER_LU_PROFILE (`tools/torch_profile.py lu` does, into a
 // library of its own), thread 0 of each CTA adds its cycles by phase into
-// g_prof, read by faer_lu_panel_profile_read; faer_lu_panel_profile_force_grid
-// forces the grid route and faer_lu_panel_profile_rows_in_l2 the cluster
-// route's rows into L2.
+// g_prof, read by faer_lu_panel_profile_read, and
+// faer_lu_panel_profile_force_grid forces the grid route.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -106,9 +107,8 @@ namespace cg = cooperative_groups;
 // row, 4 column scale and rank-1 update, 5 deferred trailing update, 6 final
 // write: thread 0's cycles, summed over CTAs and launches
 __device__ long long g_prof[7];
-// host: every shape on the grid route; the cluster route's rows in L2 even
-// where they fit its shared memory
-static int g_force_grid = 0, g_rows_in_l2 = 0;
+// host: every shape on the grid route
+static int g_force_grid = 0;
 #define PROF_START long long t_prof = clock64();
 #define PROF_MARK(k) \
   if (threadIdx.x == 0) { const long long u = clock64(); prof[k] += u - t_prof; t_prof = u; }
@@ -171,7 +171,6 @@ struct Args {
   int m, b, rpc;
 };
 
-__host__ __device__ constexpr int row_stride(int b) { return b | 1; }
 __host__ __device__ constexpr int chunk_of(int sb, int b) {
   return b - sb < 1 ? 1 : (b - sb < kChunk ? b - sb : kChunk);
 }
@@ -183,13 +182,11 @@ __host__ __device__ constexpr long long w_floats(long long rpc) {
 
 // Shared-memory floats of a CTA of rpc rows: W when it is in shared
 // memory, the pivot rows' working entries (SB x (SB + 4)), a chunk of U12
-// (SB x chunk_of), the rows' states (rpc), the pivot row of each step (b
-// ints), and the rows themselves (rpc x (b | 1)) when they are in shared
-// memory.
-__host__ __device__ constexpr long long smem_floats(int b, long long rpc, bool smem_w,
-                                                    bool smem_rows) {
+// (SB x chunk_of), the rows' states (rpc) and the pivot row of each step
+// (b ints).
+__host__ __device__ constexpr long long smem_floats(int b, long long rpc, bool smem_w) {
   return (smem_w ? w_floats(rpc) : 0) + (long long)SB * (SB + 4) +
-         (long long)SB * chunk_of(SB, b) + rpc + b + (smem_rows ? rpc * row_stride(b) : 0);
+         (long long)SB * chunk_of(SB, b) + rpc + b;
 }
 
 // A candidate is (bits of |v|, row): a NaN counts as +inf, and the bits of
@@ -241,10 +238,9 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// kCl: the cluster route, else the grid route; kSmem: the whole rows in
-// shared memory (cluster route only); kGW: W in global scratch (grid route
-// only), and then two CTAs an SM where their registers allow
-template <bool kCl, bool kSmem, bool kGW>
+// kCl: the cluster route, else the grid route; kGW: W in global scratch
+// (grid route only), and then two CTAs an SM where their registers allow
+template <bool kCl, bool kGW>
 __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned sRedB[kWarps];
@@ -257,13 +253,15 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
   __shared__ int sCount;      // cluster: this CTA's unused rows at the end
   constexpr int ldp = SB + 4;  // sWpiv's row stride: 16-byte rows
   const int m = a.m, b = a.b, rpc = a.rpc, kmax = min(m, b);
-  constexpr int ldw = SB + 1;  // W's row stride: a column read one thread a row hits 32 banks
+  // W's strides, of a row and of a column: in shared memory rows SB + 1
+  // floats apart, so that a column read one thread a row hits 32 banks; in
+  // global scratch column-major, so that it is one coalesced access
+  const int wr = kGW ? 1 : SB + 1, wc = kGW ? rpc : 1;
   const int G = gridDim.x, cta = blockIdx.x, q = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r_begin = cta * rpc;
   const int nrows = max(0, min(rpc, m - r_begin));
   const int R = (nrows + kThreads - 1) / kThreads;  // rows a thread holds
-  const int ldr = kSmem ? row_stride(b) : b;
   const int chunk = chunk_of(SB, b);
 #ifdef FAER_LU_PROFILE
   long long prof[7] = {0};
@@ -275,8 +273,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
   float* sU = sWpiv + SB * ldp;                                      // SB x chunk
   int* sState = reinterpret_cast<int*>(sU + (size_t)SB * chunk);    // rpc
   int* sPivIdx = sState + rpc;                                       // b
-  float* rows = kSmem ? reinterpret_cast<float*>(sPivIdx + b)
-                      : a.work + ((size_t)q * m + r_begin) * b;
+  float* rows = a.work + ((size_t)q * m + r_begin) * b;
   const float* panel = a.panels + (size_t)q * a.batch_stride + (size_t)r_begin * a.lda;
   float* packed = a.packed + (size_t)q * m * b;
   // grid route: candidates [2][gridDim.y * G] as (|v| bits, row), their
@@ -287,15 +284,11 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
   float* gRow = a.slots + 4 * nslot;
   int* gCount = reinterpret_cast<int*>(gRow + 2 * nslot * SB);
 
-  // stage: the first working block, and the rows when they are in shared
-  // memory (rows in global scratch are first written by the first
-  // sub-block's update, which reads the panel itself)
-  copy_rows<kCopyBatch>(nrows, kSmem ? b : min(b, SB),
+  // stage: the first working block (the rows in global scratch are first
+  // written by the first sub-block's update, which reads the panel itself)
+  copy_rows<kCopyBatch>(nrows, min(b, SB),
                         [&](int i, int c) { return panel[(size_t)i * a.lda + c]; },
-                        [&](int i, int c, float v) {
-                          if constexpr (kSmem) rows[(size_t)i * ldr + c] = v;
-                          if (c < SB) W[i * ldw + c] = v;
-                        });
+                        [&](int i, int c, float v) { W[i * wr + c * wc] = v; });
   uint32_t live = 0;  // bit k: row tid + k kThreads is unused
   for (int k = 0; k < R; ++k)
     if (tid + k * kThreads < nrows) live |= 1u << k;
@@ -312,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
     unsigned cb = 0;
     int cr = INT_MAX;
     for (int k = 0; k < R; ++k)
-      if (live >> k & 1) offer(cb, cr, W[(tid + k * kThreads) * ldw], r_begin + tid + k * kThreads);
+      if (live >> k & 1) offer(cb, cr, W[(tid + k * kThreads) * wr], r_begin + tid + k * kThreads);
     for (int jl = 0; jl < nj; ++jl) {
       const int r = sb0 + jl, h = r & 1;
       // 1. this CTA's candidate, published with its working entries
@@ -326,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
         unsigned bb = lane < kWarps ? sRedB[lane] : 0u;
         int br = lane < kWarps ? sRedR[lane] : INT_MAX;
         warp_argmax(bb, br);
-        const float own = br != INT_MAX && lane < sbw ? W[(br - r_begin) * ldw + lane] : 0.0f;
+        const float own = br != INT_MAX && lane < sbw ? W[(br - r_begin) * wr + lane * wc] : 0.0f;
         if constexpr (kCl) {
           // pushed into every CTA's slot for this CTA, warp w to CTAs w,
           // w + 8: the SB entries, then (bits, row), so that each CTA
@@ -409,13 +402,13 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
       cr = INT_MAX;
       for (int k = 0; k < R; ++k) {
         if (!(live >> k & 1)) continue;
-        float* wi = W + (tid + k * kThreads) * ldw;
-        const float mk = __fmul_rn(wi[jl], inv);
-        wi[jl] = mk;
+        float* wi = W + (tid + k * kThreads) * wr;
+        const float mk = __fmul_rn(wi[jl * wc], inv);
+        wi[jl * wc] = mk;
 #pragma unroll
         for (int c = 1; c < SB; ++c)
-          if (c > jl && c < sbw) wi[c] = __fmaf_rn(-mk, pr[c], wi[c]);
-        if (more) offer(cb, cr, wi[jl + 1], r_begin + tid + k * kThreads);
+          if (c > jl && c < sbw) wi[c * wc] = __fmaf_rn(-mk, pr[c], wi[c * wc]);
+        if (more) offer(cb, cr, wi[(jl + 1) * wc], r_begin + tid + k * kThreads);
       }
       PROF_MARK(4)
     }
@@ -426,9 +419,9 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
       if (i < nrows) sState[i] = (live >> k & 1) ? kLive : ((live0 >> k & 1) ? kPivot : kDead);
     }
     __syncthreads();
-    copy_rows<kCopyBatch>(nrows, sbw, [&](int i, int c) { return W[i * ldw + c]; },
+    copy_rows<kCopyBatch>(nrows, sbw, [&](int i, int c) { return W[i * wr + c * wc]; },
                           [&](int i, int c, float v) {
-                            if (sState[i] != kDead) rows[(size_t)i * ldr + sb0 + c] = v;
+                            if (sState[i] != kDead) rows[(size_t)i * b + sb0 + c] = v;
                           });
     __syncthreads();
     const int tr0 = sb0 + SB;  // the later columns: [tr0, b)
@@ -438,13 +431,13 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
       const int p = sPivIdx[sb0 + k], owner = p / rpc, lr = p - owner * rpc;
       if (owner != cta) continue;
       for (int c = lane; c < min(tr0, b); c += 32)
-        packed[(size_t)(sb0 + k) * b + c] = rows[(size_t)lr * ldr + c];
+        packed[(size_t)(sb0 + k) * b + c] = rows[(size_t)lr * b + c];
     }
-    // the later columns' source: the panel itself in the first sub-block
-    // when the rows are in global scratch, else the rows
-    const bool first = !kSmem && sb0 == 0;
+    // the later columns' source: the panel itself in the first sub-block,
+    // else the rows
+    const bool first = sb0 == 0;
     const float* src = first ? panel : rows;
-    const long long lds = first ? a.lda : ldr;
+    const long long lds = first ? a.lda : b;
     for (int cc = tr0; cc < b; cc += chunk) {
       const int cw = min(chunk, b - cc);
       // U12 = L11^-1 T, T the pivot rows' entries of the chunk: a thread a
@@ -455,11 +448,8 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
         for (int k = 0; k < SB; ++k) {
           if (k < nj) {
             const int p = sPivIdx[sb0 + k], owner = p / rpc, lr = p - owner * rpc;
-            if constexpr (kCl && kSmem)
-              u[k] = cg::this_cluster().map_shared_rank(rows, owner)[(size_t)lr * ldr + cc + c];
-            else
-              u[k] = first ? a.panels[(size_t)q * a.batch_stride + (size_t)p * a.lda + cc + c]
-                           : __ldcg(a.work + ((size_t)q * m + p) * b + cc + c);
+            u[k] = first ? a.panels[(size_t)q * a.batch_stride + (size_t)p * a.lda + cc + c]
+                         : __ldcg(a.work + ((size_t)q * m + p) * b + cc + c);
           }
         }
 #pragma unroll
@@ -509,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
         for (int j = 0; j < nj; ++j) {
           float mu[kTileRows], uv[kTileCols];
 #pragma unroll
-          for (int u = 0; u < kTileRows; ++u) mu[u] = rl[u] ? W[(i0 + u) * ldw + j] : 0.0f;
+          for (int u = 0; u < kTileRows; ++u) mu[u] = rl[u] ? W[(i0 + u) * wr + j * wc] : 0.0f;
 #pragma unroll
           for (int v = 0; v < kTileCols; ++v) {
             const int c = c0 + 32 * v;
@@ -525,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
 #pragma unroll
           for (int v = 0; v < kTileCols; ++v) {
             const int c = c0 + 32 * v;
-            if (rl[u] && c < cw) rows[(size_t)(i0 + u) * ldr + cc + c] = acc[u][v];
+            if (rl[u] && c < cw) rows[(size_t)(i0 + u) * b + cc + c] = acc[u][v];
           }
 #pragma unroll
         for (int u = 0; u < kTileRows; ++u)
@@ -545,9 +535,9 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
     if (sb0 + SB < kmax) {
       copy_rows<kCopyBatch>(
           nrows, min(SB, b - tr0),
-          [&](int i, int c) { return sState[i] == kLive ? rows[(size_t)i * ldr + tr0 + c] : 0.0f; },
+          [&](int i, int c) { return sState[i] == kLive ? rows[(size_t)i * b + tr0 + c] : 0.0f; },
           [&](int i, int c, float v) {
-            if (sState[i] == kLive) W[i * ldw + c] = v;
+            if (sState[i] == kLive) W[i * wr + c * wc] = v;
           });
       __syncthreads();
     }
@@ -589,7 +579,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
     sState[i] = sState[i] == kLive ? d++ : -1;
   __syncthreads();
   copy_rows<kCopyBatch>(
-      nrows, b, [&](int i, int c) { return sState[i] >= 0 ? rows[(size_t)i * ldr + c] : 0.0f; },
+      nrows, b, [&](int i, int c) { return sState[i] >= 0 ? rows[(size_t)i * b + c] : 0.0f; },
       [&](int i, int c, float v) {
         const int d = sState[i];
         if (d < 0) return;
@@ -678,11 +668,9 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
 
 using Kernel = void (*)(Args);
 
-Kernel kernel_for(int route, bool smem_rows) {
-  if (route == kCluster)
-    return smem_rows ? lu_panel_kernel<true, true, false> : lu_panel_kernel<true, false, false>;
-  return route == kGridGlobalW ? lu_panel_kernel<false, false, true>
-                               : lu_panel_kernel<false, false, false>;
+Kernel kernel_for(int route) {
+  if (route == kCluster) return lu_panel_kernel<true, false>;
+  return route == kGridGlobalW ? lu_panel_kernel<false, true> : lu_panel_kernel<false, false>;
 }
 
 // How many clusters of g CTAs, each of kThreads threads and smem bytes of
@@ -700,7 +688,7 @@ cudaError_t active_clusters(int g, int smem, int* n) {
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(n, kernel_for(kCluster, false), &cfg);
+  return cudaOccupancyMaxActiveClusters(n, kernel_for(kCluster), &cfg);
 }
 
 struct DeviceInfo {
@@ -726,16 +714,14 @@ cudaError_t device_info(DeviceInfo* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&d.smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel_for(kCluster, false));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel_for(kCluster));
   if (err != cudaSuccess) return err;
   d.smem_max -= (int)fa.sharedSizeBytes;
-  const Kernel kernels[4] = {kernel_for(kCluster, true), kernel_for(kCluster, false),
-                             kernel_for(kGrid, false), kernel_for(kGridGlobalW, false)};
-  for (int k = 0; k < 4; ++k) {
-    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
+  for (int k : {kCluster, kGrid, kGridGlobalW}) {
+    err = cudaFuncSetAttribute(kernel_for(k), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                d.smem_max);
-    if (err == cudaSuccess && k < 2)
-      err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && k == kCluster)
+      err = cudaFuncSetAttribute(kernel_for(k), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   for (int g = kMaxCluster; g >= 1 && !d.max_cluster; g /= 2) {
@@ -751,7 +737,7 @@ cudaError_t device_info(DeviceInfo* out) {
 }
 
 struct Plan {
-  int route, ctas, rpc, rows_in_smem;
+  int route, ctas, rpc;
   long long smem_bytes, scratch_floats, work_floats, slot_floats, wglob_floats;
 };
 
@@ -760,8 +746,8 @@ long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 // The route of g (m, b) panels on the current device, the first that holds
 // them of:
 //  1. the cluster route, when the largest cluster the card places takes the
-//     rows with a CTA's W in its shared memory (the whole rows too when they
-//     fit) and at most kClusterMaxRows rows a CTA;
+//     rows with a CTA's W in its shared memory and at most kClusterMaxRows
+//     rows a CTA;
 //  2. the grid route, one CTA an SM, when the g x G CTAs' W fit theirs;
 //  3. the cluster route past kClusterMaxRows rows a CTA (a batch of more
 //     panels than the grid route holds one CTA an SM);
@@ -770,28 +756,22 @@ long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 // else refused: m > kMaxRowsPerCta x (CTAs co-resident) / g, or b so wide
 // that a CTA's U12 chunk and step indices alone exceed its shared memory.
 cudaError_t plan_of(int g, int m, int b, Plan* pl) {
-  *pl = Plan{kRefused, 0, 0, 0, 0, 0, 0, 0, 0};
+  *pl = Plan{kRefused, 0, 0, 0, 0, 0, 0, 0};
   if (g < 1 || m < 1 || b < 1 || g > 65535) return cudaSuccess;
   DeviceInfo d;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return err;
-  bool force_grid = false, rows_in_l2 = false;
+  bool force_grid = false;
 #ifdef FAER_LU_PROFILE
   force_grid = g_force_grid;
-  rows_in_l2 = g_rows_in_l2;
 #endif
   const long long cap = d.smem_max / 4;
-  // the most rows a CTA holds with W in shared memory: W alone, or the
-  // whole rows too
-  auto most_rows = [&](bool smem_rows) {
-    long long lo = 0, hi = kMaxRowsPerCta;
-    while (lo < hi) {
-      const long long mid = (lo + hi + 1) / 2;
-      if (smem_floats(b, mid, true, smem_rows) <= cap) lo = mid; else hi = mid - 1;
-    }
-    return lo;
-  };
-  const long long fit = most_rows(false), fit_all = rows_in_l2 ? 0 : most_rows(true);
+  // the most rows a CTA holds with W in shared memory
+  long long fit = 0, hi = kMaxRowsPerCta;
+  while (fit < hi) {
+    const long long mid = (fit + hi + 1) / 2;
+    if (smem_floats(b, mid, true) <= cap) fit = mid; else hi = mid - 1;
+  }
   const long long work = ((long long)g * m * b + 3) & ~3LL;  // keeps the slots 16-byte aligned
   const long long cyc = 4LL * g * m;  // the cycle count's ints
   const bool cluster_holds = !force_grid && fit >= 1 && cdiv(m, fit) <= d.max_cluster;
@@ -803,21 +783,19 @@ cudaError_t plan_of(int g, int m, int b, Plan* pl) {
     nc = nc < d.max_cluster ? nc : d.max_cluster;
     nc = nc > cdiv(m, fit) ? nc : cdiv(m, fit);
     const long long rpc = cdiv(m, nc);
-    const bool in_smem = rpc <= fit_all;
-    *pl = Plan{kCluster, (int)cdiv(m, rpc), (int)rpc, in_smem,
-               smem_floats(b, rpc, true, in_smem) * 4,
-               (in_smem ? 0 : work) + cyc, in_smem ? 0 : work, 0, 0};
+    *pl = Plan{kCluster, (int)cdiv(m, rpc), (int)rpc, smem_floats(b, rpc, true) * 4,
+               work + cyc, work, 0, 0};
     return cudaSuccess;
   }
   int route = kGrid;
   if (!grid_holds) {
     // W in global scratch: the CTAs an SM the device holds at the most
     // rows a CTA
-    const long long smem = smem_floats(b, kMaxRowsPerCta, false, false);
+    const long long smem = smem_floats(b, kMaxRowsPerCta, false);
     int per_sm = 0;
     if (smem <= cap) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel_for(kGridGlobalW, false), kThreads, (size_t)smem * 4);
+          &per_sm, kernel_for(kGridGlobalW), kThreads, (size_t)smem * 4);
       if (err != cudaSuccess) return err;
     }
     n = cdiv(m, kGridMinRows);
@@ -832,7 +810,7 @@ cudaError_t plan_of(int g, int m, int b, Plan* pl) {
   // candidates (2 floats) and their rows (SB) by parity, the counts
   const long long slots = ((long long)g * n * (2 * 2 + 2 * SB + 1) + 3) & ~3LL;
   const long long wglob = smem_w ? 0 : g * n * w_floats(rpc);
-  *pl = Plan{route, (int)n, (int)rpc, 0, smem_floats(b, rpc, smem_w, false) * 4,
+  *pl = Plan{route, (int)n, (int)rpc, smem_floats(b, rpc, smem_w) * 4,
              work + slots + wglob + cyc, work, slots, wglob};
   return cudaSuccess;
 }
@@ -890,7 +868,7 @@ extern "C" int faer_lu_panel_batched(const float* panels, long long batch_stride
             reinterpret_cast<int*>(scratch + pl.work_floats + pl.slot_floats +
                                    pl.wglob_floats),
             m, b, pl.rpc};
-  const Kernel kern = kernel_for(pl.route, pl.rows_in_smem);
+  const Kernel kern = kernel_for(pl.route);
   if (pl.route == kCluster) {
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr[1];
@@ -937,7 +915,4 @@ extern "C" int faer_lu_panel_profile_read(long long* host) {
 // route (W in shared memory where it fits), 0 restores the plan's own.
 extern "C" void faer_lu_panel_profile_force_grid(int on) { g_force_grid = on; }
 
-// For every later plan: a non-zero `on` keeps the cluster route's rows in
-// L2 even where they fit its shared memory, 0 restores the plan's own.
-extern "C" void faer_lu_panel_profile_rows_in_l2(int on) { g_rows_in_l2 = on; }
 #endif

@@ -238,24 +238,20 @@ def route(m: int, b: int, device=None, g: int = 1) -> tuple[str, int, int]:
 
 def route_label(m: int, b: int, device=None, g: int = 1) -> str:
     """:func:`route` as a phrase for the card checks' lines: the route, its
-    CTAs a panel, and where the cluster route keeps the rows (its only
-    global scratch is then the cycle count's 4·g·m ints) or the grid route
-    the working blocks."""
-    code, ctas, scratch = _route_code(m, b, device, g)
-    where = ""
-    if code == 1:
-        where = ", rows in shared memory" if scratch == 4 * g * m else ", rows in L2"
-    elif code == 2:
-        where = ", working blocks in global memory"
+    CTAs a panel, and where the grid route keeps the working blocks when
+    they are not in shared memory."""
+    code, ctas, _ = _route_code(m, b, device, g)
+    where = ", working blocks in global memory" if code == 2 else ""
     return f"{ROUTES[code]} route, {ctas} CTAs{where}"
 
 
-def _last(b: int, device, pred) -> int:
-    """The largest m ≥ 1 with pred(route_label(m, b)) (bisection; 0 if none;
-    a shape no route takes counts as false)."""
+def cluster_edge(b: int, device=None) -> int:
+    """The largest m whose (m, b) panel :func:`route` sends to the cluster
+    route on a CUDA card (bisection; 0 if none), for the card checks of
+    both sides of the edge."""
     def holds(m):
         try:
-            return pred(route_label(m, b, device))
+            return route(m, b, device)[0] == "cluster"
         except ShapeError:
             return False
 
@@ -266,18 +262,6 @@ def _last(b: int, device, pred) -> int:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if holds(mid) else (lo, mid)
     return lo
-
-
-def cluster_edge(b: int, device=None) -> int:
-    """The largest m whose (m, b) panel :func:`route` sends to the cluster
-    route on a CUDA card, for the card checks of both sides of the edge."""
-    return _last(b, device, lambda label: label.startswith("cluster"))
-
-
-def smem_rows_edge(b: int, device=None) -> int:
-    """The largest m whose (m, b) panel the cluster route holds whole in
-    shared memory on a CUDA card."""
-    return _last(b, device, lambda label: label.endswith("shared memory"))
 
 
 def launch_batched(panels):

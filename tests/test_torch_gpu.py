@@ -232,23 +232,19 @@ def _check_lu_order(a, k1, p1, n1):
     assert _rel(k1, k3) <= 16 * EPS32
 
 
-@pytest.mark.parametrize("edge", ["smem rows", "cluster 256", "cluster 64"])
+@pytest.mark.parametrize("edge", ["cluster 256", "cluster 64"])
 @pytest.mark.parametrize("past", [0, 1])
 def test_lu_panel_kernel_at_the_route_edges(cuda, edge, past):
-    """Both sides of each route edge of the LU panel kernel, found from its
-    own route: the largest m whose rows the cluster route holds in shared
-    memory (b = 256), the largest m of the cluster route (b = 256 and 64),
-    each and one past it; held like ``test_lu_panel_kernel``."""
+    """Both sides of the LU panel kernel's cluster route edge, found from
+    its own route: the largest m of the cluster route (b = 256 and 64) and
+    one past it; held like ``test_lu_panel_kernel``."""
     from faer_tpu_torch.ops.kernels.lu_panel import (
-        cluster_edge, lu_panel, lu_panel_plain, route_label, smem_rows_edge)
+        cluster_edge, lu_panel, lu_panel_plain, route_label)
 
     b = 64 if edge.endswith("64") else 256
-    m = (smem_rows_edge(b) if edge == "smem rows" else cluster_edge(b)) + past
+    m = cluster_edge(b) + past
     label = route_label(m, b)
-    if edge == "smem rows":
-        assert label.endswith("L2" if past else "shared memory")
-    else:
-        assert label.startswith("grid" if past else "cluster")
+    assert label.startswith("grid" if past else "cluster")
     gen = torch.Generator(device=cuda).manual_seed(m + b)
     a, p = _separated_panel(m, b, gen, cuda)
     k1, p1, n1, o1 = lu_panel(a)

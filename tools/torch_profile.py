@@ -40,9 +40,7 @@ each phase, as thread 0 of a CTA sees them between block barriers:
 * ``lu`` (``csrc/lu_panel_batched.cu``, ``-DFAER_LU_PROFILE``), per CTA, on
   Gaussian panels (seed 1) at ``LU_CASES``: (4096, 256), (2048, 256) and
   (1024, 256) on the route the kernel picks and with the grid route forced
-  (``faer_lu_panel_profile_force_grid``), (2048, 256) and (1024, 256) also
-  with the cluster route's rows kept in L2
-  (``faer_lu_panel_profile_rows_in_l2``), both routes at the cluster
+  (``faer_lu_panel_profile_force_grid``), both routes at the cluster
   route's edge (6144, 256), then (8192, 256), (8192, 64), (65536, 256) and
   (200000, 256) (W in global memory) on the grid route, each with its route
   and CTAs: ``stage`` (the rows in), ``local search`` (each CTA's argmax
@@ -169,11 +167,10 @@ def _qr_cases(lib, gen):
     force_grid(False)
 
 
-# (m, b, grid route forced, the cluster route's rows kept in L2)
-LU_CASES = ((4096, 256, 0, 0), (4096, 256, 1, 0), (2048, 256, 0, 0), (2048, 256, 0, 1),
-            (2048, 256, 1, 0), (1024, 256, 0, 0), (1024, 256, 0, 1), (1024, 256, 1, 0),
-            (6144, 256, 0, 0), (6144, 256, 1, 0), (8192, 256, 0, 0), (8192, 64, 0, 0),
-            (65536, 256, 0, 0), (200000, 256, 0, 0))
+# (m, b, grid route forced)
+LU_CASES = ((4096, 256, 0), (4096, 256, 1), (2048, 256, 0), (2048, 256, 1), (1024, 256, 0),
+            (1024, 256, 1), (6144, 256, 0), (6144, 256, 1), (8192, 256, 0), (8192, 64, 0),
+            (65536, 256, 0), (200000, 256, 0))
 
 
 def _lu_cases(lib, gen):
@@ -188,14 +185,9 @@ def _lu_cases(lib, gen):
     if routed:
         lib.faer_lu_panel_route.argtypes = [I, I, I, P, P]
         lib.faer_lu_panel_profile_force_grid.argtypes = [I]
-        lib.faer_lu_panel_profile_rows_in_l2.argtypes = [I]
     else:  # the one-grid kernel's own argument lists
         lib.faer_lu_panel_batched_grid.argtypes = [I, I, I, I, P, P]
         lib.faer_lu_panel_batched.argtypes = [P, L, I, P, P, P, P, P, P, I, I, I, I, I, P]
-
-    def setting(forced, in_l2):
-        lib.faer_lu_panel_profile_force_grid(forced)
-        lib.faer_lu_panel_profile_rows_in_l2(in_l2)
 
     def rec(a, packed, perm):
         m, b = a.shape
@@ -204,17 +196,16 @@ def _lu_cases(lib, gen):
              / torch.linalg.matrix_norm(a))
         return f"|A[perm]-LU|/|A| {r.item():.3e}"
 
-    for m, b, forced, in_l2 in LU_CASES:
+    for m, b, forced in LU_CASES:
         a = torch.randn(m, b, generator=gen, device="cuda")
         ok = torch.empty(1, dtype=torch.int32, device="cuda")
         if routed:
-            setting(forced, in_l2)
+            lib.faer_lu_panel_profile_force_grid(forced)
             c_ctas, c_scratch = ctypes.c_int(), ctypes.c_longlong()
             code = lib.faer_lu_panel_route(1, m, b, ctypes.byref(c_ctas),
                                            ctypes.byref(c_scratch))
             name = ({1: "cluster", 0: "grid", 2: "grid, W in global memory"}[code]
-                    + (" (forced)" if forced else "")
-                    + (", rows in L2 (forced)" if in_l2 else ""))
+                    + (" (forced)" if forced else ""))
             ctas, nscratch = c_ctas.value, c_scratch.value
             packed = torch.empty(m, b, device="cuda")
             perm = torch.empty(m, dtype=torch.long, device="cuda")
@@ -223,8 +214,8 @@ def _lu_cases(lib, gen):
             scratch = torch.empty(nscratch, device="cuda")
 
             def launch(a=a, packed=packed, perm=perm, nt=nt, okb=okb, scratch=scratch,
-                       n=nscratch, m=m, b=b, forced=forced, in_l2=in_l2):
-                setting(forced, in_l2)
+                       n=nscratch, m=m, b=b, forced=forced):
+                lib.faer_lu_panel_profile_force_grid(forced)
                 return lib.faer_lu_panel_batched(
                     a.data_ptr(), m * b, b, packed.data_ptr(), perm.data_ptr(),
                     nt.data_ptr(), okb.data_ptr(), scratch.data_ptr(), n, 1, m, b, stream)
@@ -232,7 +223,7 @@ def _lu_cases(lib, gen):
             def check(a=a, packed=packed, perm=perm):
                 return rec(a, packed, perm)
         else:
-            if forced or in_l2:
+            if forced:
                 continue
             name = "grid"
             c_ctas, c_rpc = ctypes.c_int(), ctypes.c_int()
@@ -257,7 +248,7 @@ def _lu_cases(lib, gen):
 
         yield f"({m}, {b}) {name}, {ctas} CTAs", launch, ctas, check
     if routed:
-        setting(0, 0)
+        lib.faer_lu_panel_profile_force_grid(0)
 
 
 # per kernel: source, macro, C entry, counter reader, the counters in order,
