@@ -506,14 +506,17 @@ def _trtri_kernel(gen) -> dict:
 
 
 def _regularized_spd(b: int, bad, gen) -> torch.Tensor:
-    """A = L Lᵀ − 1e-3·Σ e_k e_kᵀ over the ``bad`` columns k, where L has
-    diagonal 0 there and in [1.5, 2.5] elsewhere: the bad pivots are
-    clearly negative and every other pivot is at least 2.25 under any
-    rounding."""
+    """A = L Lᵀ − 1e-3·Σ e_k e_kᵀ over the ``bad`` columns k, where L's
+    column k is 0 and its diagonal elsewhere in [1.5, 2.5]: the bad pivots
+    are clearly negative and every other pivot is at least 2.25 under any
+    rounding, whatever replaces a bad pivot. (With only L's diagonal 0 at
+    k, a bad pivot replaced by 1 leaves L[:, k]'s products in the later
+    pivots, and one of them can cancel to a tiny positive pivot whose
+    rounding the factor amplifies.)"""
     lo = torch.tril(torch.randn(b, b, generator=gen, device=DEV) / b ** 0.5, -1)
     diag = 1.5 + torch.rand(b, generator=gen, device=DEV)
-    diag[bad] = 0.0
     lo = lo + torch.diag(diag)
+    lo[:, bad] = 0.0
     a = lo @ lo.T
     a[bad, bad] -= 1e-3
     return a
@@ -1265,7 +1268,7 @@ def _llt_block_kernels(gen) -> dict:
     mirrored SPD blocks (cond ≤ 5) at ``LLT_BLOCKS`` (shared memory up to
     b = 337, L2 above) and on the regularized blocks ``LLT_REGULARIZED``
     (``_regularized_spd``: with eps = delta = 1 three pivots replaced and
-    counted; with eps = 0 the first negative pivot becomes 1), and on
+    counted; with eps = 0 each negative pivot becomes 1, uncounted), and on
     (b, b) views of (b + 3, b + 3) blocks at ``LLT_STRIDED`` (the recursive
     driver's leaves are such views), which must also give the bits of a
     contiguous copy: L within
