@@ -447,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, kGW ? 2 : 1) lu_panel_kernel(Args a)
 #pragma unroll
         for (int k = 0; k < SB; ++k) {
           if (k < nj) {
-            const int p = sPivIdx[sb0 + k], owner = p / rpc, lr = p - owner * rpc;
+            const int p = sPivIdx[sb0 + k];
             u[k] = first ? a.panels[(size_t)q * a.batch_stride + (size_t)p * a.lda + cc + c]
                          : __ldcg(a.work + ((size_t)q * m + p) * b + cc + c);
           }
