@@ -25,7 +25,37 @@
 //      shared-memory tiled FP32 FMA loop (4 x 4 outputs per thread). Since X
 //      is lower triangular, tile column c0 stops its k loop at c0 + 64.
 // All arithmetic is FP32 FMA; no TF32.
+//
+// Built with -DFAER_LLT_PANEL_PROFILE (`tools/torch_profile.py llt_panel`
+// does, into a library of its own), thread 0 of each CTA adds its SM cycles
+// by phase into g_prof, read by faer_llt_panel_profile_read.
 #include <cuda_runtime.h>
+
+#ifdef FAER_LLT_PANEL_PROFILE
+// (a): 0 stage, 1 tile factors, 2 row solves, 3 trailing updates, 4 the
+// inverse; (b): 5 cycles of the L21 launch summed over its CTAs, 6 its CTAs;
+// 7 the nanoseconds of (a) by the global timer
+__device__ long long g_prof[8];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PROF_START long long t_prof = clock64(), ns_prof = global_ns();
+#define PROF_MARK(k) \
+  if (threadIdx.x == 0) { const long long u = clock64(); g_prof[k] += u - t_prof; t_prof = u; }
+#define PROF_DIAG_END \
+  if (threadIdx.x == 0) g_prof[7] += global_ns() - ns_prof;
+#define PROF_L21_START const long long t_l21 = clock64();
+#define PROF_L21_END \
+  if (threadIdx.x == 0) { atomicAdd((unsigned long long*)&g_prof[5], (unsigned long long)(clock64() - t_l21)); atomicAdd((unsigned long long*)&g_prof[6], 1ULL); }
+#else
+#define PROF_START
+#define PROF_MARK(k)
+#define PROF_DIAG_END
+#define PROF_L21_START
+#define PROF_L21_END
+#endif
 
 namespace {
 
@@ -40,6 +70,7 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
   __shared__ float sD[SB][SB + 1];
   __shared__ int s_cnt, s_ok;
   const int tid = threadIdx.x, nth = blockDim.x;
+  PROF_START
   if (tid == 0) {
     s_cnt = 0;
     s_ok = 1;
@@ -51,6 +82,7 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
     out[idx] = (j <= i) ? slab[(size_t)i * lda + j] : 0.0f;
   }
   __syncthreads();
+  PROF_MARK(0)
 
   for (int k0 = 0; k0 < b; k0 += SB) {
     // 2. stage the diagonal block
@@ -100,6 +132,7 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
       const int i = idx / SB, j = idx % SB;
       out[(size_t)(k0 + i) * b + k0 + j] = (j <= i) ? sD[i][j] : 0.0f;
     }
+    PROF_MARK(1)
     // 4. rows below the diagonal block: x * D^T = a, one row per thread
     for (int r = k0 + SB + tid; r < b; r += nth) {
       float x[SB];
@@ -117,6 +150,7 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
       for (int j = 0; j < SB; ++j) row[j] = x[j];
     }
     __syncthreads();
+    PROF_MARK(2)
     // 5. trailing lower triangle -= P * P^T, P staged in shared memory
     const int nt = b - k0 - SB;
     if (nt > 0) {
@@ -138,6 +172,7 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
       }
       __syncthreads();
     }
+    PROF_MARK(3)
   }
 
   // 6. X = inv(L11) by block rows of 32:
@@ -180,10 +215,12 @@ llt_diag_kernel(const float* __restrict__ slab, int lda, float* out,
     }
     __syncthreads();
   }
+  PROF_MARK(4)
   if (tid == 0) {
     cnt_ok[0] = s_cnt;
     cnt_ok[1] = s_ok;
   }
+  PROF_DIAG_END
 }
 
 constexpr int BM = 64, BN = 64, BK = 16, kGemmThreads = 256;
@@ -195,6 +232,7 @@ llt_l21_kernel(const float* __restrict__ slab, int lda,
                int b) {
   __shared__ float sA[BK][BM + 4];
   __shared__ float sB[BK][BN + 4];
+  PROF_L21_START
   const int row0 = b + blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4] = {};
@@ -231,6 +269,7 @@ llt_l21_kernel(const float* __restrict__ slab, int lda,
       if (c < b) out[(size_t)r * b + c] = acc[i][j];
     }
   }
+  PROF_L21_END
 }
 
 }  // namespace
@@ -259,3 +298,14 @@ extern "C" int faer_llt_panel(const float* slab, int lda, float* out,
   llt_l21_kernel<<<grid, kGemmThreads, 0, s>>>(slab, lda, xinv, out, m, b);
   return cudaGetLastError();
 }
+
+#ifdef FAER_LLT_PANEL_PROFILE
+// Copies the 8 counters (see g_prof) to the host and zeroes them. Returns
+// the CUDA error (0 on success).
+extern "C" int faer_llt_panel_profile_read(long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+  const long long zero[8] = {0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {llt,lu,qr,trtri} [ROOT]
+    python tools/torch_profile.py {llt,llt_panel,lu,qr,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -17,6 +17,23 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   (L back to the row-major output); beside them, summed over panels,
   ``w0 factor`` (warp 0's factors alone) and ``w15 trailing`` (warp 15's
   share of the trailing updates); and ‖LLᵀ − A‖/‖A‖.
+* ``llt_panel`` (``csrc/llt_panel.cu``, ``-DFAER_LLT_PANEL_PROFILE``) on
+  slabs [A11; A21] (A11 = g gᵀ/b + I, A21 Gaussian, seed 1) at
+  ``LLT_PANEL_CASES``. The kernel with ``faer_llt_panel_route`` (one launch,
+  the rows over many CTAs) is read per CTA, each case with its route and
+  CTAs, also with its rows forced into global memory
+  (``faer_llt_panel_profile_force_global``) where they fit shared memory:
+  ``init`` (the flags zeroed, the one grid barrier), ``wait`` (the spins on
+  the sub-blocks' flags), ``copy`` (each sub-block's published row block
+  into shared memory), ``lookahead`` (the owner of the next diagonal tile:
+  its rows solved, the tile's products), ``factor`` (warp 0 factors the
+  tile and publishes it), ``rows`` (the other rows' products and solves),
+  ``out`` (the rows to the output). The two-launch kernel before it is read
+  per call: ``stage`` (A11 into the output), ``tile factors``, ``row
+  solves`` and ``trailing updates`` of the one-CTA factor, ``inverse`` (X =
+  inv(L11)), the one-CTA launch's µs by the global timer, and the L21
+  launch's cycles per CTA and CTAs. Both with ‖L11 L11ᵀ − A11‖/‖A11‖ and
+  ‖L21 L11ᵀ − A21‖/‖A21‖.
 * ``trtri`` (``csrc/trtri.cu``, ``-DFAER_TRTRI_PROFILE``), per CTA, on one
   block at n in {32, 100, 128} (the Cholesky factor of g gᵀ/n + I, seed 1)
   and on the 32 diagonal blocks of a 4096 triangle in one launch:
@@ -251,6 +268,79 @@ def _lu_cases(lib, gen):
         lib.faer_lu_panel_profile_force_grid(0)
 
 
+LLT_PANEL_CASES = ((4096, 256), (1024, 256), (256, 256), (4096, 512), (65536, 256))
+# the counters of the one-launch kernel and of the two-launch one before it
+LLT_PANEL_LABELS = ("init", "wait", "copy", "lookahead", "factor", "rows", "out")
+LLT_PANEL_PARENT_LABELS = ("stage", "tile factors", "row solves", "trailing updates",
+                           "inverse", "L21 cycles per CTA", "L21 CTAs", "one-CTA us")
+
+
+def _llt_panel_slab(m, b, gen):
+    g = torch.randn(b, b, generator=gen, device="cuda")
+    a11 = g @ g.T / b + torch.eye(b, device="cuda")
+    return torch.cat([a11, torch.randn(m - b, b, generator=gen, device="cuda")])
+
+
+def _llt_panel_check(a, out):
+    b = a.shape[1]
+    l11 = out[:b].double()
+    r11 = torch.linalg.matrix_norm(l11 @ l11.T - a[:b].double()) / torch.linalg.matrix_norm(
+        a[:b].double())
+    text = f"|L11 L11^T-A11|/|A11| {r11.item():.3e}"
+    if a.shape[0] > b:
+        a21 = a[b:].double()
+        r21 = torch.linalg.matrix_norm(out[b:].double() @ l11.T - a21) / torch.linalg.matrix_norm(a21)
+        text += f", |L21 L11^T-A21|/|A21| {r21.item():.3e}"
+    return text
+
+
+def _llt_panel_cases(lib, gen):
+    """(label, launch, CTAs a launch, check) at each shape: through the
+    kernel's route entry, or through the two-launch kernel's entry when the
+    library has no ``faer_llt_panel_route`` (one CTA, its counters per call)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    routed = hasattr(lib, "faer_llt_panel_route")
+    if routed:
+        lib.faer_llt_panel_route.argtypes = [I, I, P, P, P]
+        lib.faer_llt_panel_profile_force_global.argtypes = [I]
+    else:  # the two-launch kernel's own argument list
+        lib.faer_llt_panel.argtypes = [P, I, P, P, P, I, I, F, F, P]
+    cnt_ok = torch.empty(2, dtype=torch.int32, device="cuda")
+    for m, b in LLT_PANEL_CASES:
+        a = _llt_panel_slab(m, b, gen)
+        out = torch.empty(m, b, device="cuda")
+        if not routed:
+            xinv = torch.empty(b, b, device="cuda")
+            yield (f"({m}, {b}) two launches",
+                   lambda a=a, out=out, xinv=xinv, m=m, b=b: lib.faer_llt_panel(
+                       a.data_ptr(), b, out.data_ptr(), xinv.data_ptr(), cnt_ok.data_ptr(),
+                       m, b, 0.0, 0.0, stream),
+                   1, lambda a=a, out=out: _llt_panel_check(a, out))
+            continue
+        for forced in (0, 1):
+            lib.faer_llt_panel_profile_force_global(forced)
+            c_ctas, c_rpc, c_scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+            code = lib.faer_llt_panel_route(m, b, ctypes.byref(c_ctas), ctypes.byref(c_rpc),
+                                            ctypes.byref(c_scratch))
+            if forced and code != 1:
+                continue  # the rows are in global memory anyway
+            name = {1: "rows in shared memory", 0: "rows in global memory"}[code]
+            name += " (forced)" if forced else ""
+            scratch = torch.empty(c_scratch.value, device="cuda")
+
+            def launch(a=a, out=out, scratch=scratch, n=c_scratch.value, m=m, b=b,
+                       forced=forced):
+                lib.faer_llt_panel_profile_force_global(forced)
+                return lib.faer_llt_panel(a.data_ptr(), b, out.data_ptr(), scratch.data_ptr(),
+                                          n, cnt_ok.data_ptr(), m, b, 0.0, 0.0, stream)
+
+            yield (f"({m}, {b}) {name}, {c_ctas.value} CTAs of {c_rpc.value} rows", launch,
+                   c_ctas.value, lambda a=a, out=out: _llt_panel_check(a, out))
+    if routed:
+        lib.faer_llt_panel_profile_force_global(0)
+
+
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
@@ -261,6 +351,12 @@ KERNELS = {
                 phases=("stage", "first tile", "solve", "tile update", "factor+trailing",
                         "out"),
                 cases=_llt_cases, unit="call"),
+    "llt_panel": dict(source="llt_panel.cu", macro="FAER_LLT_PANEL_PROFILE",
+                      entry="faer_llt_panel", read="faer_llt_panel_profile_read",
+                      labels=LLT_PANEL_LABELS, phases=LLT_PANEL_LABELS,
+                      parent=dict(labels=LLT_PANEL_PARENT_LABELS,
+                                  phases=LLT_PANEL_PARENT_LABELS[:5], unit="call"),
+                      cases=_llt_panel_cases, unit="CTA"),
     "lu": dict(source="lu_panel_batched.cu", macro="FAER_LU_PROFILE",
                entry="faer_lu_panel_batched", read="faer_lu_panel_profile_read",
                labels=("stage", "local search", "exchange wait", "reduction+pivot row",
@@ -356,11 +452,16 @@ def main() -> None:
     print(f"nvidia-smi: {smi}")
     spec = KERNELS[kernel]
     lib = build(kernel, root)
+    if kernel == "llt_panel" and not hasattr(lib, "faer_llt_panel_route"):
+        spec = {**spec, **spec["parent"]}  # the two-launch kernel's counters
     read = getattr(lib, spec["read"])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, launch, ctas, check in spec["cases"](lib, gen):
         counts, ms = cycles(read, launch, ctas, len(spec["labels"]))
         row = dict(zip(spec["labels"], counts))
+        if "L21 CTAs" in row:  # the two-launch LLT panel's sums, made per CTA and in us
+            row["L21 cycles per CTA"] /= max(row["L21 CTAs"], 1.0)
+            row["one-CTA us"] /= 1000.0
         total = sum(row[k] for k in spec["phases"])
         rest = [k for k in spec["labels"] if k not in spec["phases"]]
         print(f"{label}: cycles per {spec['unit']} "
