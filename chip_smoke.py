@@ -7,14 +7,23 @@ Phases, each printing lines; any failure exits non-zero:
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
 2. build: compiles ``faer_tpu_torch/csrc/*.cu`` into ``build/faer_tpu_torch``
-   and, beside it, the LU panel kernel's profile build
-   (``tools/torch_profile.py``'s, which can force the grid route), and
-   prints how many 16- and 8-CTA clusters of the QR and LU panel kernels
-   the card places at once (``cudaOccupancyMaxActiveClusters``);
+   and, beside it, the LU and LLT panel kernels' profile builds
+   (``tools/torch_profile.py``'s, which can force the LU panel's grid route
+   and the LLT panel's rows into global memory), and prints how many 16-
+   and 8-CTA clusters of the QR and LU panel kernels the card places at
+   once (``cudaOccupancyMaxActiveClusters``);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, with the tolerance stated, and its
    time beside its plain version's, its bound and a library yardstick;
-   ``trtri`` at n ∈ {1, 16, 17, 32, 100, 128}, unit and not, against its
+   ``llt_panel`` at b from 32 to 512 and m from b to 200 000, on both
+   sides of its shared-memory edge at b = 256 and 512 (``llt_panel_cases``),
+   regularized at b = 256 and 512, and on the main path's row-stride-1024
+   views, each case's route printed, against ``llt_panel_plain`` (8·b·eps)
+   and its own order ``llt_panel_blocked_plain`` (16·eps), count and ok
+   equal, the rows in shared memory equal to the rows forced into global
+   memory to the bit, and a tall slab's first rows to a short slab's; timed
+   at (4096, 256) per call and on the device beside ``cholesky_ex`` +
+   ``solve_triangular`` (two calls); ``trtri`` at n ∈ {1, 16, 17, 32, 100, 128}, unit and not, against its
    plain version, the kernel's own order and an f64 inverse, and batched
    over the diagonal blocks of a 4096 and a 4000 triangle read through
    contiguous, row-strided and transposed views (bit for bit single
@@ -46,9 +55,10 @@ Phases, each printing lines; any failure exits non-zero:
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
-   against an f64 oracle, and CUDA-event timings of each factorization and
-   solve, and per call the triangular solves of 4096 × 8 and the whole
-   step beside ``torch.linalg.solve_triangular``;
+   against an f64 oracle, and CUDA-event timings of each factorization
+   (``llt_factor`` beside ``cholesky_ex``, ``lu_in_place`` beside
+   ``lu_factor_ex``) and solve, and per call the triangular solves of
+   4096 × 8 and the whole step beside ``torch.linalg.solve_triangular``;
 5. QR: ``qr_in_place`` then ``qr_solve_lstsq`` at n = 4096 (as ``bench.py``
    drives it), launch counts, ‖QR − A‖, QᵀQ − I, the solve residual, tall
    8192 × 2048 and 65536 × 512 least-squares solves, an f64 check at
@@ -295,22 +305,26 @@ def phase_device() -> str:
     return name
 
 
-def phase_build():
-    """Build the kernels, and beside them the LU panel kernel's profile
-    build (``tools/torch_profile.py``'s, which can force the grid route)
-    for phase 3's check of the two routes against each other. Returns that
-    build's library."""
+def phase_build() -> dict:
+    """Build the kernels, and beside them the LU and LLT panel kernels'
+    profile builds (``tools/torch_profile.py``'s, which can force the LU
+    panel's grid route and the LLT panel's rows into global memory) for
+    phase 3's checks of each kernel's routes against each other. Returns
+    those builds' libraries by kernel."""
     from faer_tpu_torch.ops.kernels import _build
 
     prof = _tool("torch_profile")
-    cmd, so = prof.profile_build("lu")
-    lu_prof = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                               text=True)
+    builds = {}
+    for kernel in ("lu", "llt_panel"):
+        cmd, so = prof.profile_build(kernel)
+        builds[kernel] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
     _build.build(extra_flags=("-Xptxas", "-v"))
     _build.library()
-    out, _ = lu_prof.communicate()
-    check(lu_prof.returncode == 0, f"the LU panel kernel's profile build: nvcc returned "
-                                   f"{lu_prof.returncode} {out[-2000:]}")
+    for kernel, (so, proc) in builds.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"the {kernel} kernel's profile build: nvcc returned "
+                                    f"{proc.returncode} {out[-2000:]}")
     secs = _build.build_seconds
     print(f"build: {'reused' if secs is None else f'{secs:.1f} s'} -> "
           f"{_build._library_path().name}")
@@ -341,7 +355,7 @@ def phase_build():
               f"lu_panel clusters: {active.value} of {size} CTAs at once "
               f"(cudaOccupancyMaxActiveClusters); the cluster route takes up to "
               f"{most.value} CTAs")
-    return prof.load("lu", so)
+    return {kernel: prof.load(kernel, so) for kernel, (so, _) in builds.items()}
 
 
 def _max_rel(got, want) -> tuple[float, float]:
@@ -522,35 +536,170 @@ def _regularized_spd(b: int, bad, gen) -> torch.Tensor:
     return a
 
 
-def phase_kernels(gen, lu_prof) -> dict:
+def _llt_slab(m: int, b: int, gen) -> torch.Tensor:
+    """An (m, b) LLT panel slab [A11; A21]: A11 = g gᵀ/b + I (cond ≤ 5 or
+    so), A21 Gaussian."""
+    return torch.cat([_spd(b, gen), torch.randn(m - b, b, generator=gen, device=DEV)])
+
+
+def llt_pair(slab):
+    """The LLT panel's yardstick, two library calls on the same slab:
+    L11 = ``cholesky_ex(A11)``, then L21 = A21·L11⁻ᵀ by
+    ``solve_triangular``."""
+    b = slab.shape[1]
+    l11 = torch.linalg.cholesky_ex(slab[:b])[0]
+    return l11, torch.linalg.solve_triangular(l11.mT, slab[b:], upper=True, left=False)
+
+
+# phase 3's LLT panels (m, b): b from 32 to 512 at 4096 rows, m from b to
+# 200 000 at b = 256 (65536 and 200 000 past shared memory, the rows in
+# global memory), ragged m, and the regularized ones (m, b, bad pivots);
+# llt_panel_cases adds both sides of the shared-memory edge at b = 256 and
+# 512. Each is held against llt_panel_plain and the kernel's own order.
+LLT_PANEL_SHAPES = ((4096, 32), (4096, 128), (4096, 256), (4096, 512), (256, 256),
+                    (1000, 256), (65536, 256), (200000, 256), (1000, 64), (4000, 256))
+LLT_PANEL_REGULARIZED = ((4096, 256, (3, 128, 255)), (4096, 512, (3, 300, 509)))
+# the main path's views, row stride 1024 (pblock[:, :256] of a 1024-wide
+# strip copy, linalg/cholesky.py)
+LLT_PANEL_VIEWS = ((3840, 256), (1024, 256), (4096, 512))
+# where the rows-in-shared-memory route is held against the rows forced
+# into global memory, to the bit
+LLT_PANEL_ROUTE_SHAPES = ((4096, 256), (256, 256), (1000, 64), (4096, 512))
+
+
+def llt_panel_cases():
+    """LLT_PANEL_SHAPES with both sides of the kernel's shared-memory edge,
+    found from its own route (bisection) at b = 256 and 512."""
+    from faer_tpu_torch.ops.kernels.llt_panel import shared_edge
+
+    edges = tuple((shared_edge(b) + d, b) for b in (256, 512) for d in (0, 1))
+    return LLT_PANEL_SHAPES + edges
+
+
+def _llt_against_references(a, label: str, eps: float = 0.0, delta: float = 0.0,
+                            bad: int = 0) -> float:
+    """Hold ``llt_panel`` on one slab against ``llt_panel_plain`` (the Pallas
+    body's math: within 8·b·eps of max|strip|) and the kernel's own order
+    ``llt_panel_blocked_plain`` (within 16·eps: the same operations in the
+    same order, its fma emulated in f64, which can round twice), with count
+    and ok equal (``bad`` counted pivots, ok false when there are any), one
+    launch; print the route. Returns the largest absolute difference from
+    the plain version."""
+    from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
+    from faer_tpu_torch.ops.kernels.llt_panel import (
+        llt_panel, llt_panel_blocked_plain, llt_panel_plain, route_label)
+
+    m, b = a.shape
+    reset_launch_counts()
+    s1, c1, o1 = llt_panel(a, eps=eps, delta=delta)
+    torch.cuda.synchronize()
+    one = launch_counts()["llt_panel"] == 1
+    s2, c2, o2 = llt_panel_plain(a, eps=eps, delta=delta)
+    s3, c3, o3 = llt_panel_blocked_plain(a, eps=eps, delta=delta)
+    tol, tight = 8 * b * EPS32, 16 * EPS32
+    err, rel = _max_rel(s1, s2)
+    rel3 = _max_rel(s1, s3)[1]
+    tally = int(c1) == int(c2) == int(c3) == bad and bool(o1) == bool(o2) == bool(o3) == (bad == 0)
+    check(one and tally and bool(torch.isfinite(s1).all()) and rel <= tol and rel3 <= tight,
+          f"llt_panel {label} [{route_label(m, b)}]: count {int(c1)} ({int(c2)}, {int(c3)}), "
+          f"ok {bool(o1)}, max abs err {err:.3e}, rel {rel:.3e} <= {tol:.3e}; vs the "
+          f"kernel's order rel {rel3:.3e} <= {tight:.3e}, bitwise equal {torch.equal(s1, s3)}")
+    return err
+
+
+def _llt_routes_bitwise(lib, gen) -> None:
+    """The rows-in-shared-memory route against the rows forced into global
+    memory (the profile build of the same source,
+    ``faer_llt_panel_profile_force_global(1)``) on the same slabs, to the
+    bit; and a prefix of a tall slab (rows in global memory) against the
+    whole (rows in shared memory): every row's arithmetic is the same."""
+    import ctypes
+
+    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, route
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_llt_panel_route.argtypes = [I, I, P, P, P]
+    lib.faer_llt_panel_profile_force_global.argtypes = [I]
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, b in LLT_PANEL_ROUTE_SHAPES:
+        a = _llt_slab(m, b, gen)
+        s1, c1, o1 = llt_panel(a)
+        lib.faer_llt_panel_profile_force_global(1)
+        ctas, rpc, nscratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        code = lib.faer_llt_panel_route(m, b, ctypes.byref(ctas), ctypes.byref(rpc),
+                                        ctypes.byref(nscratch))
+        s2 = torch.empty(m, b, device=DEV)
+        cnt_ok = torch.empty(2, dtype=torch.int32, device=DEV)
+        scratch = torch.empty(nscratch.value, device=DEV)
+        launch = lib.faer_llt_panel(a.data_ptr(), b, s2.data_ptr(), scratch.data_ptr(),
+                                    nscratch.value, cnt_ok.data_ptr(), m, b, 0.0, 0.0, stream)
+        lib.faer_llt_panel_profile_force_global(0)
+        torch.cuda.synchronize()
+        same = torch.equal(s1, s2) and int(c1) == int(cnt_ok[0]) and bool(o1) == bool(cnt_ok[1])
+        check(route(m, b)[0] == "rows in shared memory" and code == 0 and launch == 0 and same,
+              f"llt_panel ({m}, {b}): the rows in shared memory ({route(m, b)[1]} CTAs) equal "
+              f"the rows forced into global memory ({ctas.value} CTAs) to the bit: {same}")
+    a = _llt_slab(200000, 256, gen)
+    whole, prefix = llt_panel(a)[0], llt_panel(a[:4096])[0]
+    torch.cuda.synchronize()
+    check(torch.equal(whole[:4096], prefix),
+          f"llt_panel (200000, 256) [{route(200000, 256)[0]}]: its first 4096 rows equal "
+          f"llt_panel (4096, 256) [{route(4096, 256)[0]}] to the bit")
+
+
+def _llt_panel_kernel(gen, lib) -> dict:
+    """``llt_panel`` on both sides of every route edge (``llt_panel_cases``),
+    regularized, on the main path's row-strided views, the routes against
+    each other; then timed at (4096, 256) per call and on the device beside
+    the two-call yardstick ``llt_pair``."""
+    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
+    from faer_tpu_torch.utils import flops
+
+    errs = []
+    for m, b in llt_panel_cases():
+        a = _llt_slab(m, b, gen)
+        errs.append(_llt_against_references(a, f"({m}, {b})"))
+        if m > 10000:
+            print(f"time llt_panel ({m}, {b}): kernel {cuda_ms(lambda: llt_panel(a), 3):.4f} "
+                  f"ms, cholesky_ex + solve_triangular (two calls) "
+                  f"{cuda_ms(lambda: llt_pair(a), 3):.4f} ms")
+    for m, b, bad in LLT_PANEL_REGULARIZED:
+        a = torch.cat([_regularized_spd(b, list(bad), gen),
+                       torch.randn(m - b, b, generator=gen, device=DEV)])
+        errs.append(_llt_against_references(a, f"({m}, {b}) regularized", eps=1.0,
+                                            delta=1e-2, bad=len(bad)))
+    for m, b in LLT_PANEL_VIEWS:
+        strip = torch.full((m, 1024), float("nan"), device=DEV)
+        strip[:, :b] = _llt_slab(m, b, gen)
+        view = strip[:, :b]
+        errs.append(_llt_against_references(view, f"({m}, {b}) row stride 1024"))
+        same = torch.equal(llt_panel(view)[0], llt_panel(view.contiguous())[0])
+        check(same, f"llt_panel ({m}, {b}): the row-stride-1024 view equals its contiguous "
+                    f"copy to the bit")
+    _llt_routes_bitwise(lib, gen)
+    a = _llt_slab(4096, 256, gen)
+    row = dict(max_abs_err=max(errs), ms=cuda_ms(lambda: llt_panel(a), 20),
+               device_ms=graph_ms(lambda: llt_panel(a), 20),
+               plain_ms=cuda_ms(lambda: llt_panel_plain(a), 3),
+               library_ms=cuda_ms(lambda: llt_pair(a), 20),
+               library_device_ms=graph_ms(lambda: llt_pair(a), 20),
+               **bound_of(flops.llt_flops(256) + flops.trsm_flops(256, 4096 - 256),
+                          2 * 4096 * 256 * 4))
+    print(f"time llt_panel (4096, 256): per call {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f} ms; library: cholesky_ex + solve_triangular (two calls) "
+          f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f} ms")
+    return row
+
+
+def phase_kernels(gen, profs) -> dict:
     from faer_tpu_torch.ops.householder import apply_block_on_left, form_block_t
     from faer_tpu_torch.ops.kernels.leaf import lu_leaf, lu_leaf_plain
-    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel, lu_panel_plain
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
     from faer_tpu_torch.utils import flops
 
     res = {"trtri": _trtri_kernel(gen)}
-
-    # llt_panel: SPD slabs with cond ≤ 5; tolerance 8·b·eps relative to max|strip|
-    errs = []
-    spd = _spd(4096, gen)
-    for m in (4096, 1024, 256):
-        slab = spd[:m, :256].contiguous()
-        (s1, c1, o1), (s2, c2, o2) = llt_panel(slab), llt_panel_plain(slab)
-        torch.cuda.synchronize()
-        tol = 8 * 256 * EPS32
-        err, rel = _max_rel(s1, s2)
-        errs.append(err)
-        check(rel <= tol and bool(o1) and bool(o2) and int(c1) == int(c2) == 0,
-              f"llt_panel ({m}, 256): max abs err {err:.3e}, rel {rel:.3e} "
-              f"<= tol {tol:.3e}, ok {bool(o1)}, count {int(c1)}")
-    slab = spd[:, :256].contiguous()
-    res["llt_panel"] = dict(
-        max_abs_err=max(errs), ms=cuda_ms(lambda: llt_panel(slab), 10),
-        plain_ms=cuda_ms(lambda: llt_panel_plain(slab), 3),
-        library_ms=None,  # no single library call computes the fused panel
-        **bound_of(256 ** 3 / 3 + (4096 - 256) * 256 ** 2, 2 * 4096 * 256 * 4))
+    res["llt_panel"] = _llt_panel_kernel(gen, profs["llt_panel"])
 
     # lu_panel on both sides of every route edge of csrc/lu_panel_batched.cu
     # (lu_cases), held against its two plain versions; then the cluster
@@ -563,7 +712,7 @@ def phase_kernels(gen, lu_prof) -> dict:
             print(f"time lu_panel ({m}, {b}): kernel "
                   f"{cuda_ms(lambda: lu_panel(pan), 3):.4f} ms, lu_factor_ex "
                   f"{cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 3):.4f} ms")
-    _lu_routes_bitwise(lu_prof, gen)
+    _lu_routes_bitwise(profs["lu"], gen)
     pan = torch.randn(4096, 256, generator=gen, device=DEV)
     res["lu_panel"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: lu_panel(pan), 10),
@@ -1486,14 +1635,14 @@ def phase_flagship(gen) -> dict:
     fl = {"llt_factor": flops.llt_flops(n), "lu_in_place": flops.lu_flops(n, n),
           "llt_solve": 2 * flops.trsm_flops(n, 8),
           "lu_solve": 2 * flops.trsm_flops(n, 8)}
+    lib = {"llt_factor": ("cholesky_ex", lambda: torch.linalg.cholesky_ex(a_spd)),
+           "lu_in_place": ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(g))}
     for k, ms in t.items():
-        print(f"time {k} n={n}: {ms:.4f} ms, {fl[k] / ms / 1e6:.1f} GFLOP/s")
+        beside = f"; library {lib[k][0]} {cuda_ms(lib[k][1], 5):.4f} ms" if k in lib else ""
+        print(f"time {k} n={n}: {ms:.4f} ms, {fl[k] / ms / 1e6:.1f} GFLOP/s{beside}")
     _time_solves(l, b, "L from llt_factor")
     print(f"time flagship_step n={n}: "
           f"{cuda_ms(lambda: flagship_step(a_spd, g, b), 5):.4f} ms")
-    print(f"library cholesky_ex n={n}: "
-          f"{cuda_ms(lambda: torch.linalg.cholesky_ex(a_spd), 5):.4f} ms, "
-          f"lu_factor_ex: {cuda_ms(lambda: torch.linalg.lu_factor_ex(g), 5):.4f} ms")
     return counts
 
 
@@ -2210,9 +2359,9 @@ def main() -> None:
         print(f"phase {phase}: {time.perf_counter() - t:.1f} s", flush=True)
         return out
 
-    lu_prof = timed("2 build", phase_build)
+    profs = timed("2 build", phase_build)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    kern = timed("3 kernels", phase_kernels, gen, lu_prof)
+    kern = timed("3 kernels", phase_kernels, gen, profs)
     paths = [timed("4 flagship", phase_flagship, gen), timed("5 qr", phase_qr, gen),
              timed("6 off-route", phase_off_route, gen)]
     spectral, spectral_ms = timed("7 spectral", phase_spectral, gen)

@@ -30,12 +30,14 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
-    # for faer_llt_block_route, faer_qr_panel_route and faer_lu_panel_route)
+    # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route and
+    # faer_lu_panel_route)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
     "faer_trtri_batched": [_P, _L, _L, _IP, _I, _P, _I, _I, _P],
-    "faer_llt_panel": [_P, _I, _P, _P, _P, _I, _I, _F, _F, _P],
+    "faer_llt_panel": [_P, _L, _P, _P, _L, _P, _I, _I, _F, _F, _P],
+    "faer_llt_panel_route": [_I, _I, _IP, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_lu_panel_batched": [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "faer_lu_panel_route": [_I, _I, _I, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_lu_panel_clusters": [_I, _IP, _IP],

@@ -151,46 +151,161 @@ def test_triangular_solve_launches_trtri_once(cuda, name):
     assert res <= 8 * n * EPS32
 
 
-@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (640, 128)])
-def test_llt_panel_kernel(cuda, m, b):
-    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
+def _llt_checks(slab, eps=0.0, delta=0.0, bad=0):
+    """One ``llt_panel`` launch on ``slab`` against ``llt_panel_plain`` (the
+    Pallas body's math, within 8·b·eps_f32 of max|strip|) and the kernel's
+    own order ``llt_panel_blocked_plain`` (the same operations in the same
+    order: within 16·eps_f32, as its f64 emulation of fma can round twice),
+    count and ok equal (``bad`` counted pivots, ok false when any)."""
+    from faer_tpu_torch.ops.kernels.llt_panel import (
+        llt_panel, llt_panel_blocked_plain, llt_panel_plain)
 
-    gen = torch.Generator(device=cuda).manual_seed(m)
-    g = torch.randn(m, m, generator=gen, device=cuda)
-    slab = (g @ g.T / m + torch.eye(m, device=cuda))[:, :b].contiguous()
+    b = slab.shape[1]
     reset_launch_counts()
-    s1, c1, o1 = llt_panel(slab)
+    s1, c1, o1 = llt_panel(slab, eps=eps, delta=delta)
     torch.cuda.synchronize()
     assert launch_counts()["llt_panel"] == 1
-    s2, c2, o2 = llt_panel_plain(slab)
-    assert bool(o1) and bool(o2) and int(c1) == int(c2) == 0
+    s2, c2, o2 = llt_panel_plain(slab, eps=eps, delta=delta)
+    s3, c3, o3 = llt_panel_blocked_plain(slab, eps=eps, delta=delta)
+    assert int(c1) == int(c2) == int(c3) == bad
+    assert bool(o1) == bool(o2) == bool(o3) == (bad == 0)
+    assert torch.isfinite(s1).all() and torch.equal(torch.triu(s1[:b], 1), torch.zeros_like(s1[:b]))
     assert _rel(s1, s2) <= 8 * b * EPS32
+    assert _rel(s1, s3) <= 16 * EPS32
+    return s1
 
 
-@pytest.mark.parametrize("m,b", [(160, 32), (256, 64)])
+def _llt_slab(m, b, gen, cuda):
+    """[A11; A21]: A11 = g gᵀ/b + I, A21 Gaussian."""
+    g = torch.randn(b, b, generator=gen, device=cuda)
+    a11 = g @ g.T / b + torch.eye(b, device=cuda)
+    return torch.cat([a11, torch.randn(m - b, b, generator=gen, device=cuda)])
+
+
+@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (640, 128), (4096, 32), (4096, 128),
+                                 (4096, 256), (4096, 512), (256, 256), (1000, 256),
+                                 (65536, 256), (200000, 256)])
+def test_llt_panel_kernel(cuda, m, b):
+    """SPD slabs, b from 32 to 512 and m from b to 200 000 (65536 and past
+    on the route with the rows in global memory)."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    if m <= 640:
+        g = torch.randn(m, m, generator=gen, device=cuda)
+        slab = (g @ g.T / m + torch.eye(m, device=cuda))[:, :b].contiguous()
+    else:
+        slab = _llt_slab(m, b, gen, cuda)
+    _llt_checks(slab)
+
+
+@pytest.mark.parametrize("m,b", [(3840, 256), (1024, 256), (4096, 512)])
+def test_llt_panel_kernel_on_row_strided_views(cuda, m, b):
+    """The main path's views, row stride 1024 (``pblock[:, :bw]`` of a
+    1024-wide strip, ``linalg/cholesky.py``), NaN past the view: held like
+    the others, and equal to a contiguous copy's result to the bit."""
+    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel
+
+    gen = torch.Generator(device=cuda).manual_seed(m + b)
+    strip = torch.full((m, 1024), float("nan"), device=cuda)
+    strip[:, :b] = _llt_slab(m, b, gen, cuda)
+    view = strip[:, :b]
+    s1 = _llt_checks(view)
+    assert torch.equal(s1, llt_panel(view.contiguous())[0])
+
+
+@pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (4096, 256), (4096, 512)])
 def test_llt_panel_kernel_regularized(cuda, m, b):
     """Dynamic regularization (eps > 0): A = L Lᵀ + D where L has zero
     diagonal entries at a few columns and D puts -1e-3 there, so those
     pivots are clearly negative under any rounding. Each is counted, makes
     ok false, and is replaced by eps; every other pivot is ≥ 1."""
-    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, llt_panel_plain
-
     gen = torch.Generator(device=cuda).manual_seed(m + 1)
-    lo = torch.tril(torch.randn(m, m, generator=gen, device=cuda) / m ** 0.5, -1)
-    diag = 1 + torch.rand(m, generator=gen, device=cuda)
+    n = min(m, 640)
+    lo = torch.tril(torch.randn(n, n, generator=gen, device=cuda) / n ** 0.5, -1)
+    diag = 1 + torch.rand(n, generator=gen, device=cuda)
     bad = torch.tensor([3, b // 2, b - 1], device=cuda)
     diag[bad] = 0.0
     lo = lo + torch.diag(diag)
+    lo[:, bad] = 0.0  # so that no later pivot cancels to a tiny positive one
     a = lo @ lo.T
     a[bad, bad] -= 1e-3
     slab = a[:, :b].contiguous()
-    reset_launch_counts()
-    s1, c1, o1 = llt_panel(slab, eps=1.0, delta=1e-2)
-    torch.cuda.synchronize()
-    assert launch_counts()["llt_panel"] == 1
-    s2, c2, o2 = llt_panel_plain(slab, eps=1.0, delta=1e-2)
-    assert int(c1) == int(c2) == 3 and not bool(o1) and not bool(o2)
-    assert _rel(s1, s2) <= 8 * b * EPS32
+    if m > n:
+        slab = torch.cat([slab[:b], torch.randn(m - b, b, generator=gen, device=cuda)])
+    _llt_checks(slab, eps=1.0, delta=1e-2, bad=3)
+
+
+def test_llt_panel_routes(cuda):
+    """The route is the C entry's alone: the main path's slabs (m ≤ 4096)
+    keep their rows in shared memory, the 65536- and 200000-row slabs in
+    global memory, on both sides of the edge found by bisection; every
+    CTA's rows are a multiple of 32, every CTA has rows, the scratch is the
+    wrapper's count, and nothing the parent took is refused. A tall slab's first rows equal the whole
+    result's to the bit across the two routes, and so does a slab on its
+    shared-memory edge against one row more."""
+    from faer_tpu_torch.core.errors import ShapeError
+    from faer_tpu_torch.ops.kernels.llt_panel import _route_code, llt_panel, route, shared_edge
+
+    for m, b in ((4096, 256), (3840, 256), (256, 256), (4096, 512), (160, 32)):
+        name, ctas, rpc = route(m, b, cuda)
+        assert name == "rows in shared memory" and rpc % 32 == 0
+        assert (ctas - 1) * rpc < m <= ctas * rpc
+        # the wrapper sizes the scratch from b alone, as the C entry counts it
+        assert _route_code(m, b, cuda)[3] == b * b + b + 4 * (b // 32)
+    for m in (65536, 200000):
+        name, ctas, rpc = route(m, 256, cuda)
+        assert name == "rows in global memory" and (ctas - 1) * rpc < m <= ctas * rpc
+    for b in (256, 512):
+        e = shared_edge(b, cuda)
+        assert route(e, b, cuda)[0] == "rows in shared memory"
+        assert route(e + 1, b, cuda)[0] == "rows in global memory"
+    for m, b in ((100, 48), (100, 544), (32, 64)):
+        with pytest.raises(ShapeError):
+            route(m, b, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = _llt_slab(200000, 256, gen, cuda)
+    assert torch.equal(llt_panel(a)[0][:4096], llt_panel(a[:4096])[0])
+    e = shared_edge(256, cuda)
+    assert torch.equal(llt_panel(a[:e + 1])[0][:e], llt_panel(a[:e])[0])
+
+
+def test_llt_panel_shared_rows_equal_global_rows(cuda):
+    """The rows in shared memory against the rows forced into global memory
+    on the same slabs (the profile build of ``tools/torch_profile.py``), to
+    the bit: every row's arithmetic is done in one order on both routes."""
+    import ctypes
+    import sys
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_profile
+
+    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel, route
+
+    lib = torch_profile.build("llt_panel")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_llt_panel_route.argtypes = [I, I, P, P, P]
+    lib.faer_llt_panel_profile_force_global.argtypes = [I]
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, b in ((4096, 256), (256, 256), (1000, 64), (4096, 512)):
+        gen = torch.Generator(device=cuda).manual_seed(m + b)
+        a = _llt_slab(m, b, gen, cuda)
+        assert route(m, b, cuda)[0] == "rows in shared memory"
+        want = llt_panel(a)
+        lib.faer_llt_panel_profile_force_global(1)
+        ctas, rpc, nscratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        try:
+            assert lib.faer_llt_panel_route(m, b, ctypes.byref(ctas), ctypes.byref(rpc),
+                                            ctypes.byref(nscratch)) == 0
+            got = torch.empty(m, b, device=cuda)
+            cnt_ok = torch.empty(2, dtype=torch.int32, device=cuda)
+            scratch = torch.empty(nscratch.value, device=cuda)
+            assert lib.faer_llt_panel(a.data_ptr(), b, got.data_ptr(), scratch.data_ptr(),
+                                      nscratch.value, cnt_ok.data_ptr(), m, b, 0.0, 0.0,
+                                      stream) == 0
+        finally:
+            lib.faer_llt_panel_profile_force_global(0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[0])
+        assert int(cnt_ok[0]) == int(want[1]) and bool(cnt_ok[1]) == bool(want[2])
 
 
 @pytest.mark.parametrize("m,b", [(160, 32), (256, 64), (1000, 128), (40000, 256),

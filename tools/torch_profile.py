@@ -23,12 +23,17 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   the rows over many CTAs) is read per CTA, each case with its route and
   CTAs, also with its rows forced into global memory
   (``faer_llt_panel_profile_force_global``) where they fit shared memory:
-  ``init`` (the flags zeroed, the one grid barrier), ``wait`` (the spins on
-  the sub-blocks' flags), ``copy`` (each sub-block's published row block
-  into shared memory), ``lookahead`` (the owner of the next diagonal tile:
-  its rows solved, the tile's products), ``factor`` (warp 0 factors the
-  tile and publishes it), ``rows`` (the other rows' products and solves),
-  ``out`` (the rows to the output). The two-launch kernel before it is read
+  ``init`` (A's rows staged, the flags zeroed, the one grid barrier, tile
+  0), ``wait`` (the spins on the sub-blocks' flags), ``copy`` (each
+  sub-block's published row block into shared memory), the owner of the
+  next diagonal tile's lookahead: ``look solve`` (the tile's rows' column
+  block) and ``look tile`` (that block's products taken from the tile);
+  ``factor`` (warp 0 factors the tile), ``publish`` (its stores and the
+  flag), ``rows`` (the other rows' blocks), ``ahead`` (each later
+  diagonal tile of the CTA takes the step's column block, and the next
+  lookahead's chain is formed up to its last block), ``out`` (the rows to
+  the output); and, beside them, inside every row block ``chains`` (the
+  FMA chains) and ``substitutions``. The two-launch kernel before it is read
   per call: ``stage`` (A11 into the output), ``tile factors``, ``row
   solves`` and ``trailing updates`` of the one-CTA factor, ``inverse`` (X =
   inv(L11)), the one-CTA launch's µs by the global timer, and the L21
@@ -268,9 +273,10 @@ def _lu_cases(lib, gen):
         lib.faer_lu_panel_profile_force_grid(0)
 
 
-LLT_PANEL_CASES = ((4096, 256), (1024, 256), (256, 256), (4096, 512), (65536, 256))
+LLT_PANEL_CASES = ((4096, 256), (1024, 256), (256, 256), (4096, 512), (16896, 256), (65536, 256))
 # the counters of the one-launch kernel and of the two-launch one before it
-LLT_PANEL_LABELS = ("init", "wait", "copy", "lookahead", "factor", "rows", "out")
+LLT_PANEL_LABELS = ("init", "wait", "copy", "look solve", "look tile", "factor", "publish",
+                    "rows", "ahead", "out", "chains", "substitutions")
 LLT_PANEL_PARENT_LABELS = ("stage", "tile factors", "row solves", "trailing updates",
                            "inverse", "L21 cycles per CTA", "L21 CTAs", "one-CTA us")
 
@@ -319,12 +325,13 @@ def _llt_panel_cases(lib, gen):
                    1, lambda a=a, out=out: _llt_panel_check(a, out))
             continue
         for forced in (0, 1):
-            lib.faer_llt_panel_profile_force_global(forced)
             c_ctas, c_rpc, c_scratch = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+            lib.faer_llt_panel_profile_force_global(0)
+            if forced and lib.faer_llt_panel_route(m, b, None, None, None) != 1:
+                continue  # the rows are in global memory anyway
+            lib.faer_llt_panel_profile_force_global(forced)
             code = lib.faer_llt_panel_route(m, b, ctypes.byref(c_ctas), ctypes.byref(c_rpc),
                                             ctypes.byref(c_scratch))
-            if forced and code != 1:
-                continue  # the rows are in global memory anyway
             name = {1: "rows in shared memory", 0: "rows in global memory"}[code]
             name += " (forced)" if forced else ""
             scratch = torch.empty(c_scratch.value, device="cuda")
@@ -353,7 +360,7 @@ KERNELS = {
                 cases=_llt_cases, unit="call"),
     "llt_panel": dict(source="llt_panel.cu", macro="FAER_LLT_PANEL_PROFILE",
                       entry="faer_llt_panel", read="faer_llt_panel_profile_read",
-                      labels=LLT_PANEL_LABELS, phases=LLT_PANEL_LABELS,
+                      labels=LLT_PANEL_LABELS, phases=LLT_PANEL_LABELS[:10],
                       parent=dict(labels=LLT_PANEL_PARENT_LABELS,
                                   phases=LLT_PANEL_PARENT_LABELS[:5], unit="call"),
                       cases=_llt_panel_cases, unit="CTA"),

@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {llt,lu,matmul,qr,trtri} [ROOT]
+    python tools/torch_split.py {llt,llt_panel,lu,matmul,qr,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -13,6 +13,16 @@ code. The rows, per kernel:
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
+* ``llt_panel`` (seed 14): ``llt_panel`` at ``LLT_PANEL_SHAPES`` on
+  ``chip_smoke._llt_slab`` slabs, and on the main path's view (m = 3840,
+  row stride 1024, as ``_llt_factor_v5`` hands a panel over), per call and
+  on the device, each beside the two-call yardstick
+  ``chip_smoke.llt_pair`` (``cholesky_ex(A11)`` then ``solve_triangular``
+  for L21) on the same slab; then per call and on the device
+  ``llt_factor`` at 4096 beside ``cholesky_ex``, ``flagship_step`` at 4096
+  (8 right-hand sides, ``chip_smoke._inputs``), and per call only (they
+  read ``info.success`` on the host) ``Mat(a).llt()`` and
+  ``Mat(a).llt().solve(b)`` at 4096 with the tile switch off;
 * ``lu`` (seed 13): ``lu_panel`` at (4096, 256), (2048, 256) and
   (65536, 256), ``lu_leaf`` at (4000, 256) and ``lu_panel_v2_batched`` on
   16 × (4096, 256), per call and on the device, each beside
@@ -215,6 +225,48 @@ def qr_rows(cs):
     yield f"Mat(a).qr().solve_lstsq(b) n={N}, tile switch off", facade, STEP_REPS, None
 
 
+LLT_PANEL_SHAPES = ((4096, 256), (2048, 256), (256, 256), (4096, 512), (65536, 256))
+
+
+def llt_panel_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of the LLT panel kernel, its
+    two-call yardstick and the LLT paths that reach it."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.entry import flagship_step
+    from faer_tpu_torch.linalg.cholesky import llt_factor
+    from faer_tpu_torch.ops.kernels.llt_panel import llt_panel
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    reps = LU_REPS
+    for m, b in LLT_PANEL_SHAPES:
+        a = cs._llt_slab(m, b, gen)
+        yield f"llt_panel ({m}, {b})", lambda a=a: llt_panel(a), reps, reps
+        yield f"cholesky_ex + solve_triangular ({m}, {b})", lambda a=a: cs.llt_pair(a), reps, reps
+    strip = torch.empty(3840, 1024, device="cuda")
+    strip[:, :256] = cs._llt_slab(3840, 256, gen)
+    view = strip[:, :256]
+    yield "llt_panel (3840, 256), row stride 1024", lambda: llt_panel(view), reps, reps
+    yield ("cholesky_ex + solve_triangular (3840, 256), row stride 1024",
+           lambda: cs.llt_pair(view), reps, reps)
+    spd, g, rhs = cs._inputs(N, gen)
+    yield f"llt_factor n={N}", lambda: llt_factor(spd), STEP_REPS, STEP_REPS
+    yield f"cholesky_ex n={N}", lambda: torch.linalg.cholesky_ex(spd), STEP_REPS, STEP_REPS
+    yield f"flagship_step n={N}", lambda: flagship_step(spd, g, rhs), STEP_REPS, STEP_REPS
+
+    def llt():
+        config.use_tile_matmul = False
+        return Mat(spd).llt()
+
+    def solve():
+        config.use_tile_matmul = False
+        return Mat(spd).llt().solve(rhs)
+
+    # Llt.new reads info.success on the host: per call only
+    yield f"Mat(a).llt() n={N}, tile switch off", llt, STEP_REPS, None
+    yield f"Mat(a).llt().solve(b) n={N}, tile switch off", solve, STEP_REPS, None
+
+
 def lu_rows(cs):
     """(name, call, per-call reps, graph reps or None) of the LU panel
     kernel and the LU paths that reach it."""
@@ -265,7 +317,7 @@ def lu_rows(cs):
            STEP_REPS, STEP_REPS)
 
 
-ROWS = {"llt": llt_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
+ROWS = {"llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
         "trtri": trtri_rows}
 
 
