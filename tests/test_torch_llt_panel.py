@@ -201,7 +201,7 @@ def test_blocked_negative_pivots(eps):
 
 @pytest.mark.parametrize("fn", ["blocked", "wrapper"])
 def test_row_strided_views_equal_contiguous(fn):
-    """A (m, b) view of row stride 1024, as the fused driver hands its
+    """A (m, b) view of row stride 1024, as the fused LLT route hands its
     panels over (``pblock[:, :bw]`` of a 1024-wide strip), gives the same
     bits as a contiguous copy."""
     m, b = 200, 64
