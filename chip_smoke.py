@@ -110,7 +110,25 @@ Phases, each printing lines; any failure exits non-zero:
    ``tools/r5chase.py``): ``chase_probe`` at b ∈ {64, 128}, g ∈ {1, 4, 8},
    steps ∈ {256, 1024}, µs per step and per window, and whether a
    two-stage reduction could pay at 4096 against phase 7's one-stage
-   reduction and ``eigh``; launches against the tool's calls.
+   reduction and ``eigh``; launches against the tool's calls;
+13. dense stack: at n = 4096, seed 0, inputs made on the card in float64
+   and rounded to float32 for the float32 runs, through ``Mat`` and the
+   solver objects: ``ldlt()`` of ``g gᵀ/n + I`` with ``solve`` (8 rhs),
+   ``reconstruct`` and ``determinant``; ``piv_llt()`` of a PSD matrix of
+   rank 3 072 (rank and reconstruction) and of ``g gᵀ/n + I`` (solve);
+   ``lblt()`` of ``(g + gᵀ)/2``; ``full_piv_lu()`` and ``col_piv_qr()`` of
+   a Gaussian ``g``; ``llt().rank_update`` and ``ldlt().rank_update`` with
+   r = 8 columns, α = +1 then the downdate α = −1 back to A; all of them
+   in float32 and float64, and the float64 ``llt()``, ``partial_piv_lu()``
+   and ``qr()`` with their 8-rhs solves. Each reconstruction and residual
+   within 8·n·eps of its dtype, each determinant's sign right, the ranks
+   exact; every float32 call's launches equal to the count predicted from
+   the drivers' control flow (``DENSE_LAUNCHES``), every float64 call's
+   zero. Each call timed once by CUDA events, per call, beside the closest
+   library call (``cholesky_ex``, ``ldl_factor``, ``lu_factor_ex``,
+   ``geqrf``) on the same input in the same dtype. The factors are loops
+   of small launches, set by the host; ``tools/torch_split.py dense`` times
+   them on the device too (CUDA graphs).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase prints its own time. The second-to-last line is
@@ -210,6 +228,24 @@ CHASE_CASES = ((64, 1, 3), (64, 4, 24), (128, 8, 24))
 # phases 11 and 12: each timed call 1 + warmup + reps times
 LLT_LAB_REPS, LLT_LAB_WARMUP = 10, 2
 CHASE_LAB_REPS, CHASE_LAB_WARMUP = 5, 1
+# phase 13: the PSD rank of the pivoted LLT's input, the rank-update width
+DENSE_RANK = 3072
+DENSE_R = 8
+# launches per float32 call of phase 13 at N (PERF.md §6), counted from the
+# drivers' control flow, which does not depend on the data; every counter
+# not named is 0, and every float64 call launches nothing: LDLT's 16 panels
+# of 256 make 15 L21 solves, one batched trtri launch each; a solve of 8
+# rhs, 2 (its two triangular solves); the column-pivoted QR's lstsq and
+# reconstruct form the T factors of 128 panels of 32 (one trtri each) and
+# the lstsq solves R once; llt() is the fused route (16 llt_panel calls)
+DENSE_LAUNCHES = {
+    "ldlt()": dict(trtri=15), "ldlt().solve": dict(trtri=2),
+    "piv_llt().solve": dict(trtri=2), "lblt().solve": dict(trtri=2),
+    "full_piv_lu().solve": dict(trtri=2),
+    "col_piv_qr().solve_lstsq": dict(trtri=128 + 1),
+    "col_piv_qr().reconstruct()": dict(trtri=128), "llt()": dict(llt_panel=16),
+}
+DENSE_WARM_N = 160  # each call once at this size first: loads and first allocations
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -2189,6 +2225,193 @@ def phase_facade() -> dict:
     return total
 
 
+def _dense_inputs(n: int, gen) -> dict:
+    """Phase 13's float64 inputs, made on the card."""
+    g = torch.randn(n, n, generator=gen, device=DEV, dtype=torch.float64)
+    h = torch.randn(n, DENSE_RANK, generator=gen, device=DEV, dtype=torch.float64)
+    eye = torch.eye(n, device=DEV, dtype=torch.float64)
+    return dict(spd=g @ g.T / n + eye, psd=h @ h.T / n,
+                sym=(g + g.T) / 2, g=g,
+                b=torch.randn(n, 8, generator=gen, device=DEV, dtype=torch.float64),
+                w=torch.randn(n, DENSE_R, generator=gen, device=DEV,
+                              dtype=torch.float64))
+
+
+def _full_piv_check(r):
+    """Full pivoting bounds L: every multiplier is at most 1 in size."""
+    f = r["full_piv_lu()"]
+    big = torch.tril(f.lu, -1).abs().max().item()
+    return (bool(torch.isfinite(f.lu).all()) and big <= 1.0,
+            f"finite, max|L| = {big:.6f} <= 1, rank() {int(f.rank().item())}")
+
+
+def _col_piv_check(r):
+    """Each real reflector has τ = 0 (identity) or τ in [1, 2]."""
+    f = r["col_piv_qr()"]
+    t = f.taus
+    ok = bool(((t == 0) | ((t >= 1) & (t <= 2))).all())
+    return (bool(torch.isfinite(f.packed).all()) and ok,
+            f"finite, every tau 0 or in [1, 2], rank() {int(f.rank().item())}")
+
+
+def _dense_calls(x: dict, dt) -> list:
+    """Phase 13's calls in order: (key, call, check, library yardstick).
+    A call takes the results so far (by key) and returns its own; a check
+    takes the results and returns (value, limit, text) or a bool and text."""
+    from faer_tpu_torch import Mat
+
+    n = x["g"].shape[0]
+    tol = 8 * n * float(torch.finfo(dt).eps)
+    a = {k: v.to(dt) for k, v in x.items()}
+    spd, psd, sym, g, b, w = (a[k] for k in ("spd", "psd", "sym", "g", "b", "w"))
+    upd = spd + w @ w.T
+    sign_g = torch.linalg.slogdet(x["g"])[0].item()
+
+    def rec(key, mat):
+        return lambda r: (rel_norm(r[key], mat), tol, "reconstruction |rec - A|/|A|")
+
+    def res(key, mat):
+        return lambda r: (_res(mat, r[key], b), tol, "residual |Ax-b|/(|A||x|)")
+
+    def det_sign(key, want):
+        def chk(r):
+            d = r[key].item()
+            return (d > 0) == (want > 0) and d != 0, f"determinant {d:.4g}, sign of {want:+.0f}"
+        return chk
+
+    lib_chol = ("cholesky_ex", lambda: torch.linalg.cholesky_ex(spd))
+    calls = [
+        ("ldlt()", lambda r: Mat(spd).ldlt(),
+         lambda r: (bool(r["ldlt()"].info.success), "success"),
+         ("ldl_factor", lambda: torch.linalg.ldl_factor(spd))),
+        ("ldlt().reconstruct()", lambda r: r["ldlt()"].reconstruct(),
+         rec("ldlt().reconstruct()", spd), None),
+        ("ldlt().solve", lambda r: r["ldlt()"].solve(b), res("ldlt().solve", spd), None),
+        ("ldlt().determinant()", lambda r: r["ldlt()"].determinant(),
+         det_sign("ldlt().determinant()", 1.0), None),
+        ("ldlt().rank_update(+1)", lambda r: r["ldlt()"].rank_update(w, 1.0),
+         lambda r: (rel_norm(r["ldlt().rank_update(+1)"].reconstruct(), upd), tol,
+                    "|rec - (A + WWᵀ)|/|A + WWᵀ|"),
+         ("ldl_factor of A + WWᵀ", lambda: torch.linalg.ldl_factor(upd))),
+        ("ldlt().rank_update(-1)", lambda r: r["ldlt().rank_update(+1)"].rank_update(w, -1.0),
+         lambda r: (rel_norm(r["ldlt().rank_update(-1)"].reconstruct(), spd), tol,
+                    "downdate back to A: |rec - A|/|A|"), None),
+        ("llt()", lambda r: Mat(spd).llt(),
+         lambda r: (rel_norm(r["llt()"].reconstruct(), spd), tol, "|LLᵀ - A|/|A|"), lib_chol),
+        ("llt().rank_update(+1)", lambda r: r["llt()"].rank_update(w, 1.0),
+         lambda r: (rel_norm(r["llt().rank_update(+1)"].reconstruct(), upd), tol,
+                    "|rec - (A + WWᵀ)|/|A + WWᵀ|"),
+         ("cholesky_ex of A + WWᵀ", lambda: torch.linalg.cholesky_ex(upd))),
+        ("llt().rank_update(-1)", lambda r: r["llt().rank_update(+1)"].rank_update(w, -1.0),
+         lambda r: (rel_norm(r["llt().rank_update(-1)"].reconstruct(), spd), tol,
+                    "downdate back to A: |rec - A|/|A|"), None),
+        ("piv_llt() rank 3072", lambda r: Mat(psd).piv_llt(),
+         lambda r: (int(r["piv_llt() rank 3072"].rank.item()) == DENSE_RANK,
+                    f"rank {int(r['piv_llt() rank 3072'].rank.item())} == {DENSE_RANK}"),
+         ("cholesky_ex (fails: PSD)", lambda: torch.linalg.cholesky_ex(psd))),
+        ("piv_llt() rank 3072 .reconstruct()",
+         lambda r: r["piv_llt() rank 3072"].reconstruct(),
+         rec("piv_llt() rank 3072 .reconstruct()", psd), None),
+        ("piv_llt()", lambda r: Mat(spd).piv_llt(),
+         lambda r: (int(r["piv_llt()"].rank.item()) == n, "full rank"), lib_chol),
+        ("piv_llt().solve", lambda r: r["piv_llt()"].solve(b), res("piv_llt().solve", spd), None),
+        ("lblt()", lambda r: Mat(sym).lblt(),
+         lambda r: (int((r["lblt()"].subdiag != 0).sum().item()) > 0,
+                    f"{int((r['lblt()'].subdiag != 0).sum().item())} 2x2 pivots"),
+         ("ldl_factor", lambda: torch.linalg.ldl_factor(sym))),
+        ("lblt().reconstruct()", lambda r: r["lblt()"].reconstruct(),
+         rec("lblt().reconstruct()", sym), None),
+        ("lblt().solve", lambda r: r["lblt()"].solve(b), res("lblt().solve", sym), None),
+        ("full_piv_lu()", lambda r: Mat(g).full_piv_lu(), _full_piv_check,
+         ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(g))),
+        ("full_piv_lu().reconstruct()", lambda r: r["full_piv_lu()"].reconstruct(),
+         rec("full_piv_lu().reconstruct()", g), None),
+        ("full_piv_lu().solve", lambda r: r["full_piv_lu()"].solve(b),
+         res("full_piv_lu().solve", g), None),
+        ("full_piv_lu().determinant()", lambda r: r["full_piv_lu()"].determinant(),
+         det_sign("full_piv_lu().determinant()", sign_g), None),
+        ("col_piv_qr()", lambda r: Mat(g).col_piv_qr(), _col_piv_check,
+         ("geqrf", lambda: torch.geqrf(g))),
+        ("col_piv_qr().reconstruct()", lambda r: r["col_piv_qr()"].reconstruct(),
+         rec("col_piv_qr().reconstruct()", g), None),
+        ("col_piv_qr().solve_lstsq", lambda r: r["col_piv_qr()"].solve_lstsq(b),
+         res("col_piv_qr().solve_lstsq", g), None),
+    ]
+    if dt == torch.float64:
+        calls += [
+            ("llt().solve", lambda r: r["llt()"].solve(b), res("llt().solve", spd), None),
+            ("partial_piv_lu()", lambda r: Mat(g).partial_piv_lu(),
+             lambda r: (rel_norm(r["partial_piv_lu()"].reconstruct(), g), tol,
+                        "|A[perm] - LU|/|A|"),
+             ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(g))),
+            ("partial_piv_lu().solve", lambda r: r["partial_piv_lu()"].solve(b),
+             res("partial_piv_lu().solve", g), None),
+            ("partial_piv_lu().determinant()",
+             lambda r: r["partial_piv_lu()"].determinant(),
+             det_sign("partial_piv_lu().determinant()", sign_g), None),
+            ("qr()", lambda r: Mat(g).qr(),
+             lambda r: (rel_norm(r["qr()"].reconstruct(), g), tol, "|QR - A|/|A|"),
+             ("geqrf", lambda: torch.geqrf(g))),
+            ("qr().solve_lstsq", lambda r: r["qr()"].solve_lstsq(b),
+             res("qr().solve_lstsq", g), None),
+        ]
+    return calls
+
+
+def phase_dense_stack(gen) -> dict:
+    """The rest of the dense stack and the float64 factorizations through
+    ``Mat`` and the solver objects at n = N: each call counted on its own
+    (every counter set to 0 just before it and read just after), checked,
+    and timed once by CUDA events; the counts summed."""
+    from faer_tpu_torch.core.config import (
+        KERNELS, host_reads, launch_counts, reset_launch_counts)
+
+    total = dict.fromkeys(KERNELS, 0)
+    x = _dense_inputs(N, gen)
+    w_n = DENSE_WARM_N
+    warm = {k: v[:w_n, :w_n] if v.shape[1] == N else v[:w_n] for k, v in x.items()}
+    for dt in (torch.float32, torch.float64):
+        r = {}
+        for key, fn, _, _ in _dense_calls(warm, dt):
+            r[key] = fn(r)
+    torch.cuda.synchronize()
+    for dt in (torch.float32, torch.float64):
+        name = "f32" if dt == torch.float32 else "f64"
+        r = {}
+        for key, fn, chk, lib in _dense_calls(x, dt):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            start.record()
+            r[key] = fn(r)
+            stop.record()
+            torch.cuda.synchronize()
+            counts, reads = launch_counts(), host_reads()
+            ms = start.elapsed_time(stop)
+            for k, v in counts.items():
+                total[k] += v
+            want = dict.fromkeys(KERNELS, 0)
+            if dt == torch.float32:
+                want.update(DENSE_LAUNCHES.get(key, {}))
+            got = {k: v for k, v in counts.items() if v}
+            check(counts == want, f"{key} {name}: launches {got or 'none'}, host reads "
+                                  f"{reads}; predicted "
+                                  f"{ {k: v for k, v in want.items() if v} or 'none'}")
+            out = chk(r)
+            if len(out) == 3:
+                val, lim, text = out
+                check(val <= lim, f"{key} {name} n={N}: {text} {val:.3e} <= {lim:.3e}")
+            else:
+                check(out[0], f"{key} {name} n={N}: {out[1]}")
+            line = f"time {key} {name} n={N}: {ms:.4f} ms per call"
+            if lib is not None:
+                line += f"; library {lib[0]} {cuda_ms(lib[1], 1):.4f} ms"
+            print(line, flush=True)
+        del r
+    return total
+
+
 def phase_calu(gen) -> dict:
     """The tournament (CALU) leaf through ``lu_in_place``, with the module
     gate ``faer_tpu_torch.linalg.lu._CALU_GROUP`` set for the phase and
@@ -2369,7 +2592,8 @@ def main() -> None:
     lab = timed("10 panel lab", phase_panel_lab)
     llt_lab = timed("11 LLT block lab", phase_llt_lab)
     chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
-    paths += [lab, llt_lab, chase_lab]
+    dense = timed("13 dense stack", phase_dense_stack, gen)
+    paths += [lab, llt_lab, chase_lab, dense]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {

@@ -7,33 +7,68 @@ CUDA tensor, so importing it works on a machine without a GPU.
 
 The ported slices: the LLT and partial-pivot LU factor-and-solve path,
 ``linalg.cholesky`` (``llt_factor``, ``llt_solve``) and ``linalg.lu``
-(``lu_in_place``, ``lu_solve``), chained by ``entry.flagship_step``, for
-every float32 shape; the Householder QR path, ``linalg.qr``
-(``qr_in_place``, then ``qr_solve_lstsq`` and its siblings); and the
-self-adjoint EVD and the SVD, ``linalg.evd`` (``self_adjoint_evd`` and its
-siblings) and ``linalg.svd`` (``svd`` and its siblings); and the facade over
-them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale`` and the solver objects
-``Llt``, ``PartialPivLu``, ``Qr``, ``Svd``, ``SelfAdjointEigen``, whose
-products go through the GEMM front door (``ops.matmul``) and, with the
-switch ``core.config.config.use_tile_matmul`` on, its tile kernel.
+(``lu_in_place``, ``lu_solve``), chained by ``entry.flagship_step``; the
+Householder QR path, ``linalg.qr`` (``qr_in_place``, then
+``qr_solve_lstsq`` and its siblings); the rest of the dense stack, LDLT,
+pivoted LLT, Bunch–Kaufman LBLT, the LLT and LDLT rank updates
+(``linalg.cholesky``), full-pivot LU (``linalg.lu``) and column-pivoted QR
+(``linalg.qr``); all of them for every float32 and float64 shape (float32
+through the hand-written kernels, float64 through the JAX package's
+non-kernel bodies); the self-adjoint EVD and the SVD, ``linalg.evd``
+(``self_adjoint_evd`` and its siblings) and ``linalg.svd`` (``svd`` and its
+siblings), in float32; and the facade over them: ``Mat``, ``Col``, ``Row``,
+``Diag``, ``Scale`` and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``,
+``Lblt``, ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
+``SelfAdjointEigen``, whose products go through the GEMM front door
+(``ops.matmul``) and, with the switch ``core.config.config.use_tile_matmul``
+on, its tile kernel.
 """
-from faer_tpu_torch.core.config import config
+from faer_tpu_torch.core import dtypes, params, perm
+from faer_tpu_torch.core.config import (
+    config,
+    get_global_parallelism,
+    set_global_parallelism,
+)
 from faer_tpu_torch.core.errors import (
+    FaerError,
+    LbltInfo,
+    LdltInfo,
     LltInfo,
     LuInfo,
+    NoConvergenceError,
     NonPositivePivotError,
     ShapeError,
+    SingularMatrixError,
     SpectralInfo,
 )
-from faer_tpu_torch.core.flags import Accum, Conj, Norm, Side
+from faer_tpu_torch.core.flags import (
+    Accum,
+    BlockStructure,
+    Conj,
+    NanHandling,
+    Norm,
+    Par,
+    Side,
+)
 from faer_tpu_torch.core.mat import Mat, Scale
 from faer_tpu_torch.core.params import EvdParams, QrParams, SvdParams
 from faer_tpu_torch.core.vec import Col, Diag, Row
 from faer_tpu_torch.linalg.cholesky import (
+    lblt_factor,
+    lblt_reconstruct,
+    lblt_solve,
+    ldlt_factor,
+    ldlt_rank_r_update,
+    ldlt_reconstruct,
+    ldlt_solve,
     llt_factor,
     llt_inverse,
+    llt_rank_r_update,
     llt_reconstruct,
     llt_solve,
+    piv_llt_factor,
+    piv_llt_reconstruct,
+    piv_llt_solve,
 )
 from faer_tpu_torch.linalg.evd import (
     self_adjoint_eigenvalues,
@@ -41,6 +76,9 @@ from faer_tpu_torch.linalg.evd import (
     self_adjoint_pseudoinverse,
 )
 from faer_tpu_torch.linalg.lu import (
+    full_piv_lu_in_place,
+    full_piv_lu_reconstruct,
+    full_piv_lu_solve,
     lu_determinant,
     lu_in_place,
     lu_inverse,
@@ -49,6 +87,9 @@ from faer_tpu_torch.linalg.lu import (
     lu_solve_transpose,
 )
 from faer_tpu_torch.linalg.qr import (
+    col_piv_qr_in_place,
+    col_piv_qr_reconstruct,
+    col_piv_qr_solve_lstsq,
     qr_apply_q,
     qr_compute_q,
     qr_in_place,
@@ -58,8 +99,13 @@ from faer_tpu_torch.linalg.qr import (
     qr_solve_lstsq,
 )
 from faer_tpu_torch.linalg.solvers import (
+    ColPivQr,
+    FullPivLu,
+    Lblt,
+    Ldlt,
     Llt,
     PartialPivLu,
+    PivLlt,
     Qr,
     SelfAdjointEigen,
     Svd,
@@ -83,14 +129,23 @@ from faer_tpu_torch.ops.reductions import (
 )
 
 __all__ = [
-    "LltInfo", "LuInfo", "NonPositivePivotError", "ShapeError",
-    "config", "Accum", "Conj", "Norm", "Side",
+    "LltInfo", "LdltInfo", "LbltInfo", "LuInfo", "FaerError",
+    "NonPositivePivotError", "NoConvergenceError", "SingularMatrixError",
+    "ShapeError", "config", "set_global_parallelism", "get_global_parallelism",
+    "dtypes", "params", "perm",
+    "Accum", "BlockStructure", "Conj", "NanHandling", "Norm", "Par", "Side",
     "Mat", "Scale", "Col", "Row", "Diag",
-    "Llt", "PartialPivLu", "Qr", "Svd", "SelfAdjointEigen",
+    "Llt", "Ldlt", "PivLlt", "Lblt", "PartialPivLu", "FullPivLu", "Qr",
+    "ColPivQr", "Svd", "SelfAdjointEigen",
     "matmul", "matvec", "rank_update",
     "norm", "norm_l1", "norm_l2", "norm_l2_sqr", "norm_max", "sum_all",
     "prod_diag", "log_abs_det_diag",
     "llt_factor", "llt_solve", "llt_reconstruct", "llt_inverse",
+    "llt_rank_r_update", "ldlt_factor", "ldlt_solve", "ldlt_reconstruct",
+    "ldlt_rank_r_update", "piv_llt_factor", "piv_llt_solve",
+    "piv_llt_reconstruct", "lblt_factor", "lblt_solve", "lblt_reconstruct",
+    "full_piv_lu_in_place", "full_piv_lu_solve", "full_piv_lu_reconstruct",
+    "col_piv_qr_in_place", "col_piv_qr_solve_lstsq", "col_piv_qr_reconstruct",
     "lu_in_place", "lu_solve", "lu_solve_transpose", "lu_inverse",
     "lu_reconstruct", "lu_determinant",
     "QrParams", "qr_in_place", "qr_solve_lstsq", "qr_solve", "qr_reconstruct",

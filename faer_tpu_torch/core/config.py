@@ -102,3 +102,19 @@ def host_read(t) -> list | int | float | bool:
 def host_reads() -> int:
     """How many :func:`host_read` calls were made since the last reset."""
     return _host_reads
+
+
+_parallelism = None
+
+
+def set_global_parallelism(par) -> None:
+    """API parity with faer ``set_global_parallelism`` (``lib.rs:1123``)."""
+    global _parallelism
+    _parallelism = par
+
+
+def get_global_parallelism():
+    """The value last set, ``Par.AUTO`` before any."""
+    from faer_tpu_torch.core.flags import Par
+
+    return Par.AUTO if _parallelism is None else _parallelism

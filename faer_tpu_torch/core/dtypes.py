@@ -1,9 +1,13 @@
 """Dtype policy (counterpart of ``faer_tpu/core/dtypes.py``).
 
-The port computes in ``torch.float32``: the hand-written kernels take f32
-only, and :func:`require_f32` turns other dtypes away at the factorizations'
-front doors. The other helpers stay generic over the real and complex torch
-dtypes so the later slices can reuse them.
+The factorizations take ``torch.float32`` and ``torch.float64``
+(:func:`require_real`). The dtype alone picks the route, as the JAX
+package's ``panel_kernels_enabled`` picks it (``faer_tpu/core/config.py:
+99-107``, f32 only): float32 goes to the hand-written kernels
+(:func:`kernel_route`), float64 to the JAX package's non-kernel bodies in
+plain PyTorch. The spectral entry points are still float32 only
+(:func:`require_f32`). The other helpers stay generic over the real and
+complex torch dtypes so the later slices can reuse them.
 """
 from __future__ import annotations
 
@@ -24,10 +28,26 @@ def eps(dtype) -> float:
     return float(torch.finfo(real_dtype_of(dtype)).eps)
 
 
+def kernel_route(dtype) -> bool:
+    """Whether a factorization of this dtype runs the hand-written kernels:
+    float32 only, as on the JAX package's kernel route. A float64 input
+    takes the non-kernel bodies because of its dtype, never as a fallback."""
+    return dtype == torch.float32
+
+
+def require_real(a, name: str) -> None:
+    """Raise ``NotImplementedError`` unless ``a`` is float32 or float64."""
+    if a.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"{name}: float32 and float64 only, got {a.dtype}; complex "
+            "factorizations are ROADMAP §1 item 10")
+
+
 def require_f32(a, name: str) -> None:
-    """Raise ``NotImplementedError`` unless ``a`` is float32."""
+    """Raise ``NotImplementedError`` unless ``a`` is float32 (the spectral
+    entry points)."""
     if a.dtype != torch.float32:
         raise NotImplementedError(
-            f"{name}: float32 only, got {a.dtype}; the f64 and complex "
-            "factorizations take the JAX package's non-kernel panels, "
-            "ROADMAP §1 items 5c (f64) and 10 (complex)")
+            f"{name}: float32 only, got {a.dtype}; the f64 spectral entry "
+            "points and the complex ones are ROADMAP §1 items 5c (what "
+            "remains of it) and 10")

@@ -19,6 +19,14 @@ class NonPositivePivotError(FaerError):
     """LLT hit a non-positive pivot (matrix not positive definite)."""
 
 
+class NoConvergenceError(FaerError):
+    """An iterative spectral algorithm failed to converge within its budget."""
+
+
+class SingularMatrixError(FaerError):
+    """An exactly-singular pivot was encountered where a solve was requested."""
+
+
 class ShapeError(FaerError, ValueError):
     """Operand shapes are incompatible."""
 
@@ -32,12 +40,31 @@ class LltInfo:
 
 
 @dataclasses.dataclass
+class LdltInfo:
+    """LDLT: regularized pivots and whether every pivot was nonzero."""
+
+    dynamic_regularization_count: torch.Tensor  # int32 scalar
+    success: torch.Tensor  # bool scalar
+
+
+@dataclasses.dataclass
+class LbltInfo:
+    """Bunch–Kaufman: zero pivots met and row/column swaps made (faer's
+    ``BunchKaufmanInfo``)."""
+
+    dynamic_regularization_count: torch.Tensor  # int32 scalar
+    transposition_count: torch.Tensor  # int32 scalar
+
+
+@dataclasses.dataclass
 class LuInfo:
-    """Partial-pivot LU bookkeeping.
+    """Partial- and full-pivot LU bookkeeping.
 
     ``transposition_count`` is the minimal transposition count of each
     panel's applied row permutation (``core.perm.perm_transposition_count``),
-    summed over panels; its parity is the sign of the whole permutation.
+    summed over panels, on the kernel route, and the swaps made on the
+    float64 route and by full pivoting; its parity is the sign of the whole
+    permutation (of both, for full pivoting).
     """
 
     transposition_count: torch.Tensor  # int32 scalar

@@ -222,13 +222,19 @@ class Mat:
         return solvers.Llt.new(self.a, side)
 
     def ldlt(self, side: Side = Side.LOWER):
-        _not_ported("Mat.ldlt (LDLT)", "8")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.Ldlt.new(self.a, side)
 
     def piv_llt(self, side: Side = Side.LOWER):
-        _not_ported("Mat.piv_llt (pivoted LLT)", "8")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.PivLlt.new(self.a, side)
 
     def lblt(self, side: Side = Side.LOWER):
-        _not_ported("Mat.lblt (Bunch–Kaufman)", "8")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.Lblt.new(self.a, side)
 
     def partial_piv_lu(self):
         from faer_tpu_torch.linalg import solvers
@@ -236,7 +242,9 @@ class Mat:
         return solvers.PartialPivLu.new(self.a)
 
     def full_piv_lu(self):
-        _not_ported("Mat.full_piv_lu (full-pivot LU)", "8")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.FullPivLu.new(self.a)
 
     def qr(self):
         from faer_tpu_torch.linalg import solvers
@@ -244,7 +252,9 @@ class Mat:
         return solvers.Qr.new(self.a)
 
     def col_piv_qr(self):
-        _not_ported("Mat.col_piv_qr (column-pivoted QR)", "8")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.ColPivQr.new(self.a)
 
     def svd(self):
         from faer_tpu_torch.linalg import solvers

@@ -19,8 +19,8 @@ class LltParams:
     ``block_size``: panel width of the blocked factor (``None``: 256 for
     n ≥ 1024, else 64). ``kernel_leaf``: leaf width of the off-route
     recursive driver (``None``: 128), clamped to [128, 512].
-    ``recursion_threshold`` is the JAX package's non-kernel leaf width,
-    kept for parity; the port always takes the kernel route.
+    ``recursion_threshold``: leaf width of the float64 (non-kernel)
+    route, as on the JAX package's non-kernel route.
     """
 
     block_size: int | None = None
@@ -33,12 +33,38 @@ class LltParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class LdltParams:
+    """LDLT panel width (``None``: 256 for n ≥ 1024, else 64, or n)."""
+
+    block_size: int | None = None
+    recursion_threshold: int = 64
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "LdltParams":
+        return LdltParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class LbltParams:
+    """Bunch–Kaufman params (faer ``bunch_kaufman/factor.rs:8``), kept for
+    parity: the drivers fix their panel width (32) as the JAX ones do."""
+
+    block_size: int | None = None
+    pivoting: str = "partial"
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "LbltParams":
+        return LbltParams()
+
+
+@dataclasses.dataclass(frozen=True)
 class PartialPivLuParams:
     """faer ``PartialPivLuParams`` (``lu/partial_pivoting/factor.rs:190``).
 
     ``block_size``: panel width of the off-route recursive driver (``None``:
-    512, 256, 64 or min(m, n) by size); ``kernel_leaf``: its leaf width
-    (``None``: 256), clamped to [128, 512].
+    512, 256, 64 or min(m, n) by size); ``kernel_leaf``: its float32 leaf
+    width (``None``: 256), clamped to [128, 512]; ``recursion_threshold``:
+    the float64 leaf width.
     """
 
     block_size: int | None = None
@@ -48,6 +74,18 @@ class PartialPivLuParams:
     @staticmethod
     def auto(dtype=torch.float32, shape=None) -> "PartialPivLuParams":
         return PartialPivLuParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class FullPivLuParams:
+    """Kept for parity: the full-pivot LU fixes its blocks (256) as the JAX
+    one does."""
+
+    block_size: int | None = None
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "FullPivLuParams":
+        return FullPivLuParams()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +103,18 @@ class QrParams:
     @staticmethod
     def auto(dtype=torch.float32, shape=None) -> "QrParams":
         return QrParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class ColPivQrParams:
+    """Kept for parity: the column-pivoted QR fixes its panels (64) as the
+    JAX one does."""
+
+    block_size: int | None = None
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "ColPivQrParams":
+        return ColPivQrParams()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +164,23 @@ class LltRegularization:
     def auto(dtype=torch.float32, shape=None) -> "LltRegularization":
         e = dtypes.eps(dtype)
         return LltRegularization(epsilon=e, delta=e)
+
+
+@dataclasses.dataclass(frozen=True)
+class LdltRegularization:
+    """Signed dynamic regularization for indefinite LDLT: with ``epsilon >
+    0`` a pivot with ``|d| ≤ delta`` becomes ``±epsilon`` (its sign kept)
+    and is counted in ``LdltInfo.dynamic_regularization_count``."""
+
+    epsilon: float = 0.0
+    delta: float = 0.0
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "LdltRegularization":
+        e = dtypes.eps(dtype)
+        return LdltRegularization(epsilon=e, delta=e)
+
+
+def auto(cls, dtype=torch.float32, shape=None):
+    """faer's ``auto!`` macro: the class's dtype-aware default params."""
+    return cls.auto(dtype, shape)

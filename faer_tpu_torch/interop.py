@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from faer_tpu_torch.core.errors import LltInfo, LuInfo, SpectralInfo
+from faer_tpu_torch.core.errors import LbltInfo, LdltInfo, LltInfo, LuInfo, SpectralInfo
 
 
 def _scalar(x, dtype, device):
@@ -74,9 +74,11 @@ def tridiag_to_numpy(d, e, hh, taus):
     return tuple(x.detach().cpu().numpy() for x in (d, e, hh, taus))
 
 
-_INFO_TYPES = {"Llt": LltInfo, "PartialPivLu": LuInfo, "Svd": SpectralInfo,
+_INFO_TYPES = {"Llt": LltInfo, "Ldlt": LdltInfo, "PivLlt": LltInfo, "Lblt": LbltInfo,
+               "PartialPivLu": LuInfo, "FullPivLu": LuInfo, "Svd": SpectralInfo,
                "SelfAdjointEigen": SpectralInfo}
-_INDEX_FIELDS = ("row_perm",)  # int32 in the JAX package, int64 in the port
+# int32 in the JAX package, int64 in the port
+_INDEX_FIELDS = ("row_perm", "col_perm", "perm")
 _INFO_DTYPES = {"dynamic_regularization_count": torch.int32,
                 "transposition_count": torch.int32, "iterations": torch.int32,
                 "success": torch.bool, "converged": torch.bool}
@@ -84,11 +86,13 @@ _INFO_DTYPES = {"dynamic_regularization_count": torch.int32,
 
 def solver_from_numpy(kind: str, *, device="cuda", **fields):
     """A port solver object (``linalg/solvers.py``) of class ``kind``
-    (``"Llt"``, ``"PartialPivLu"``, ``"Qr"``, ``"Svd"`` or
+    (``"Llt"``, ``"Ldlt"``, ``"PivLlt"``, ``"Lblt"``, ``"PartialPivLu"``,
+    ``"FullPivLu"``, ``"Qr"``, ``"ColPivQr"``, ``"Svd"`` or
     ``"SelfAdjointEigen"``) from the fields of the JAX package's solver
     dataclass of the same name, as numpy arrays: ``info`` as a mapping of
-    its field names to arrays, ``Qr.block`` as an int. Data goes to
-    ``device``."""
+    its field names to arrays, ``Qr.block`` as an int, permutations as any
+    integer array. Data goes to ``device`` in its own dtype (float64 stays
+    float64)."""
     from faer_tpu_torch.linalg.solvers import SOLVERS
 
     cls = SOLVERS[kind]

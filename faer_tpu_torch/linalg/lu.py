@@ -1,25 +1,33 @@
-"""Partial-pivot LU factor and solve (counterpart of ``faer_tpu/linalg/lu.py``).
+"""LU factorizations (counterpart of ``faer_tpu/linalg/lu.py``): partial
+pivoting, blocked, and full pivoting.
 
-faer ``lu_in_place`` (``lu/partial_pivoting/factor.rs:234``). Two drivers,
-chosen as the JAX package's kernel route chooses them (``lu.py:267-283``):
+faer ``lu_in_place`` (``lu/partial_pivoting/factor.rs:234``). Three
+partial-pivot drivers, chosen as the JAX package chooses them
+(``lu.py:267-283``), the dtype first:
 
-* f32 squares with ``n % 256 == 0`` and ``n ≥ 1024`` take the fused-panel
-  two-level strip driver (``_lu_factor_v5``), one ``lu_panel`` kernel call
-  per panel;
-* every other f32 matrix, square or not, takes the recursive driver
+* float32 squares with ``n % 256 == 0`` and ``n ≥ 1024`` take the
+  fused-panel two-level strip driver (``_lu_factor_v5``), one ``lu_panel``
+  kernel call per panel;
+* every other float32 matrix, square or not, takes the recursive driver
   (``_lu_factor_recursive``, ``lu.py:286-360``): panels of ``block``
   columns, each factored by halving down to ``lu_leaf`` kernel leaves
   (``_panel_lu_blocked``), U12 by one product against the unit-lower panel
-  inverse, and a rank-``block`` trailing update.
+  inverse, and a rank-``block`` trailing update;
+* float64 takes the same recursive driver with the JAX package's
+  non-kernel leaf ``_panel_lu`` (``lu.py:34-76``), a column a step with
+  the pivot found on the card, at ``params.recursion_threshold`` (64).
 
-A leaf taller than ``_CALU_GROUP`` rows takes the tournament (CALU) leaf
-``_lu_leaf_calu`` (``lu.py:79-128``) instead of ``lu_leaf``: its row groups
-of ``_CALU_GROUP`` are factored in one ``lu_panel_v2_batched`` launch, their
-stacked pivot candidates by ``lu_panel_v2``. As in the JAX package the gate
-is a module constant, ``1 << 30`` (off for every shape a card holds); set
-``faer_tpu_torch.linalg.lu._CALU_GROUP`` to route tall leaves through it.
+A float32 leaf taller than ``_CALU_GROUP`` rows takes the tournament (CALU)
+leaf ``_lu_leaf_calu`` (``lu.py:79-128``) instead of ``lu_leaf``: its row
+groups of ``_CALU_GROUP`` are factored in one ``lu_panel_v2_batched``
+launch, their stacked pivot candidates by ``lu_panel_v2``. As in the JAX
+package the gate is a module constant, ``1 << 30`` (off for every shape a
+card holds); set ``faer_tpu_torch.linalg.lu._CALU_GROUP`` to route tall
+leaves through it.
 
-Other dtypes raise ``NotImplementedError`` (ROADMAP §1 item 5c).
+Full pivoting (``full_piv_lu_in_place``, ``lu.py:381-491``) runs blocks of
+256 steps, each a global argmax, a row and a column swap and a rank-1
+update of the live trail, over a trail that shrinks a block at a time.
 Permutations are int64 index tensors: ``A[perm] = L·U``.
 """
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core import perm as permod
 from faer_tpu_torch.core.errors import LuInfo, ShapeError
-from faer_tpu_torch.core.params import PartialPivLuParams
+from faer_tpu_torch.core.params import FullPivLuParams, PartialPivLuParams
 from faer_tpu_torch.ops.kernels.leaf import lu_leaf
 from faer_tpu_torch.ops.kernels.lu_panel import lu_panel
 from faer_tpu_torch.ops.kernels.lu_panel_v2 import lu_panel_v2, lu_panel_v2_batched
@@ -175,14 +183,51 @@ def _lu_leaf_calu(panel, group: int = _CALU_GROUP):
     return packed, perm, permod.perm_transposition_count(perm), ok
 
 
+def _eliminate(a, j: int, ok):
+    """Column j's multipliers below the pivot a[j, j] (a zero pivot divides
+    by 1) and the rank-1 update of the live block, in place; returns ``ok``
+    and the pivot's being nonzero."""
+    pivot = a[j, j]
+    ok = ok & (pivot != 0)
+    mult = a[j + 1:, j] / torch.where(pivot == 0, torch.ones_like(pivot), pivot)
+    a[j + 1:, j] = mult
+    a[j + 1:, j + 1:].sub_(torch.outer(mult, a[j, j + 1:]))
+    return ok
+
+
+def _panel_lu(panel):
+    """Unblocked partial-pivot LU of an (m, b) panel (``lu.py:34-76``):
+    returns ``(packed, perm, nt, ok)``. A column a step: the pivot by
+    ``torch.argmax`` of the column below, a row swap of the panel and the
+    permutation, the multipliers and a rank-1 update of the live slice;
+    ``nt`` counts the swaps made."""
+    m, b = panel.shape
+    a = panel.clone(memory_format=torch.contiguous_format)
+    perm = torch.arange(m, dtype=torch.long, device=a.device)
+    nt = torch.zeros((), dtype=torch.int32, device=a.device)
+    ok = torch.ones((), dtype=torch.bool, device=a.device)
+    for j in range(min(m, b)):
+        p = torch.argmax(a[j:, j].abs()) + j
+        idx = permod.pair_index(a, j, p)
+        rev = idx.flip(0)
+        a[idx] = a[rev]
+        perm[idx] = perm[rev]
+        nt = nt + (p != j).to(torch.int32)
+        ok = _eliminate(a, j, ok)
+    return a, perm, nt, ok
+
+
 def _panel_lu_blocked(panel, base: int):
-    """Panel LU by recursive column halving down to ``lu_leaf`` leaves of at
-    most ``base`` columns, or to ``_lu_leaf_calu`` leaves where they are
-    taller than ``_CALU_GROUP`` (``lu.py:139-147``): returns ``(packed,
-    perm, nt, ok)``. The halves are coupled by a unit-lower solve and one
+    """Panel LU by recursive column halving down to leaves of at most
+    ``base`` columns (``lu.py:131-170``): ``lu_leaf`` kernel leaves in
+    float32, or ``_lu_leaf_calu`` leaves where they are taller than
+    ``_CALU_GROUP``; ``_panel_lu`` in float64. Returns ``(packed, perm,
+    nt, ok)``. The halves are coupled by a unit-lower solve and one
     product."""
     m, b = panel.shape
     if b <= base:
+        if not dtypes.kernel_route(panel.dtype):
+            return _panel_lu(panel)
         if m > _CALU_GROUP:
             # the constant as it is now sizes the groups too (the JAX
             # package's default group is bound when its module loads)
@@ -232,7 +277,7 @@ def _lu_factor_recursive(a, block: int, base: int):
         if k + bw < n:
             right = trail[:, bw:].index_select(0, lperm)
             l11inv = invert_lower_triangular(_unit_lower(panel[:bw, :bw]),
-                                             unit=True)
+                                             unit=True, base=bw)
             u12 = matmul(None, l11inv, right[:bw], precision="highest")
             out[k:k + bw, k + bw:] = u12
             if m - k - bw > 0:
@@ -259,21 +304,121 @@ def lu_in_place(a, params: PartialPivLuParams | None = None):
     """
     if a.dim() != 2:
         raise ShapeError(f"lu_in_place: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_f32(a, "lu_in_place")
+    dtypes.require_real(a, "lu_in_place")
     # the kernels read rows with unit stride: a strided input is copied once
     a = a.contiguous()
     params = params or PartialPivLuParams.auto(a.dtype, a.shape)
     m, n = a.shape
-    if m == n and n % 256 == 0 and n >= 1024:
-        return _lu_factor_v5(a, block=256, ob=1024 if n >= 2048 else 256)
     kmax = min(m, n)
     block = params.block_size or (512 if kmax >= 2048 else
                                   256 if kmax >= 1024 else
                                   64 if kmax >= 128 else kmax)
+    if not dtypes.kernel_route(a.dtype):
+        return _lu_factor_recursive(a, block, min(params.recursion_threshold, block))
+    if m == n and n % 256 == 0 and n >= 1024:
+        return _lu_factor_v5(a, block=256, ob=1024 if n >= 2048 else 256)
     # kernel_leaf: None is unset; clamped to [128, 512], rounded up to 128
     leaf = params.kernel_leaf if params.kernel_leaf is not None else 256
     leaf = min(max(128, -(-leaf // 128) * 128), 512)
     return _lu_factor_recursive(a, block, min(leaf, block))
+
+
+def _full_piv_block(trail, bw: int):
+    """``bw`` steps of full pivoting on the (mk, nk) trail (``lu.py:
+    381-416``): the argmax of |a| over the live block (row-major, the first
+    of equal ones, as the JAX body's masked argmax), a row and a column
+    swap, the multipliers and a rank-1 update of the live block. Returns
+    ``(a, row_perm, col_perm, nt, ok)``; ``nt`` counts row and column
+    swaps."""
+    mk, nk = trail.shape
+    a = trail.clone(memory_format=torch.contiguous_format)
+    dev = a.device
+    rperm = torch.arange(mk, dtype=torch.long, device=dev)
+    cperm = torch.arange(nk, dtype=torch.long, device=dev)
+    nt = torch.zeros((), dtype=torch.int32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for j in range(bw):
+        flat = torch.argmax(a[j:, j:].abs())
+        p = flat // (nk - j) + j
+        q = flat % (nk - j) + j
+        ri = permod.pair_index(a, j, p)
+        rr = ri.flip(0)
+        a[ri] = a[rr]
+        rperm[ri] = rperm[rr]
+        ci = permod.pair_index(a, j, q)
+        cr = ci.flip(0)
+        a[:, ci] = a[:, cr]
+        cperm[ci] = cperm[cr]
+        nt = nt + (p != j).to(torch.int32) + (q != j).to(torch.int32)
+        ok = _eliminate(a, j, ok)
+    return a, rperm, cperm, nt, ok
+
+
+def full_piv_lu_in_place(a, params: FullPivLuParams | None = None):
+    """Full-pivot LU: returns ``(lu, row_perm, col_perm, LuInfo)`` with
+    ``A[row_perm][:, col_perm] = L·U`` (faer ``lu/full_pivoting/
+    factor.rs:466``; ``lu.py:419-491``).
+
+    Blocks of 256 steps over a shrinking trail (full pivoting updates the
+    whole trail before each search, so the update cannot be deferred); the
+    later blocks' row and column permutations are composed backward
+    (``_compose_tails``) so that each finished L strip and U12 block is
+    gathered once, then the packed factor is written once.
+    """
+    del params
+    if a.dim() != 2:
+        raise ShapeError(f"full_piv_lu_in_place: needs a matrix, got {tuple(a.shape)}")
+    dtypes.require_real(a, "full_piv_lu_in_place")
+    m, n = a.shape
+    kmax = min(m, n)
+    block = 256 if kmax > 256 else kmax
+    dev = a.device
+    rperm = torch.arange(m, dtype=torch.long, device=dev)
+    cperm = torch.arange(n, dtype=torch.long, device=dev)
+    nt = torch.zeros((), dtype=torch.int32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    trail = a
+    lrs, lcs, lstrips, u12s = [], [], [], []
+    starts = list(range(0, kmax, block))
+    for k in starts:
+        bw = min(block, kmax - k)
+        tp, lr, lc, bnt, bok = _full_piv_block(trail, bw)
+        rperm = torch.cat([rperm[:k], rperm[k:][lr]])
+        cperm = torch.cat([cperm[:k], cperm[k:][lc]])
+        nt, ok = nt + bnt, ok & bok
+        lrs.append(lr)
+        lcs.append(lc)
+        lstrips.append(tp[:, :bw])
+        u12s.append(tp[:bw, bw:])
+        trail = tp[bw:, bw:]
+    widths = [s.shape[1] for s in lstrips]
+    row_tails = _compose_tails(lrs, widths)
+    col_tails = _compose_tails(lcs, widths)
+    out = a.new_zeros((m, n))
+    for j, k in enumerate(starts):
+        bw = widths[j]
+        strip, u12 = lstrips[j], u12s[j]
+        out[k:k + bw, k:k + bw] = strip[:bw]
+        if m - k > bw:
+            below = strip[bw:]
+            if row_tails[j] is not None:
+                below = below.index_select(0, row_tails[j])
+            out[k + bw:, k:k + bw] = below
+        if u12.shape[1]:
+            if col_tails[j] is not None:
+                u12 = u12.index_select(1, col_tails[j])
+            out[k:k + bw, k + bw:] = u12
+    return out, rperm, cperm, LuInfo(transposition_count=nt, success=ok)
+
+
+def full_piv_lu_solve(lu, row_perm, col_perm, b):
+    """Solve A x = b from ``A[row_perm][:, col_perm] = L·U``."""
+    x = lu_solve(lu, row_perm, b)
+    return permod.permute_rows_inverse(x, col_perm)
+
+
+def full_piv_lu_reconstruct(lu, row_perm, col_perm):
+    return permod.permute_cols_inverse(lu_reconstruct(lu, row_perm), col_perm)
 
 
 def lu_solve(lu, row_perm, b):

@@ -5,11 +5,13 @@ faer ``solvers.rs``: the ``Solve``/``SolveLstsq`` traits (``:21-93,639``)
 and the decomposition structs (``:697-765``), built by the ``Mat`` methods
 (``:346-634``). Each object is a frozen dataclass of tensors (factors and
 info) with the JAX dataclass's field names, so that ``interop`` can carry
-one across. The port has ``Llt``, ``PartialPivLu``, ``Qr``, ``Svd`` and
-``SelfAdjointEigen``; the others wait for ROADMAP §1 items 8 and 9.
-Complex input raises ``NotImplementedError`` naming item 10: the JAX
-package's split (re, im) pair path is not ported, and native complex
-factorizations are that item.
+one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
+``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd`` and
+``SelfAdjointEigen``, the factorizations in float32 and float64 (the
+spectral ones in float32); the general and generalized EVD wait for
+ROADMAP §1 item 9. Complex input raises ``NotImplementedError`` naming
+item 10: the JAX package's split (re, im) pair path is not ported, and
+native complex factorizations are that item.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import torch
 from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core.config import host_read
 from faer_tpu_torch.core.errors import (
+    LbltInfo,
+    LdltInfo,
     LltInfo,
     LuInfo,
     NonPositivePivotError,
@@ -95,13 +99,95 @@ class Llt:
         return 2.0 * torch.log(torch.diagonal(self.l)).sum()
 
     def rank_update(self, w, alpha) -> "Llt":
-        raise NotImplementedError(
-            "Llt.rank_update (LLT rank up/downdates) is not ported to "
-            "faer_tpu_torch yet (ROADMAP §1 item 8)")
+        """The factor of ``L Lᵀ + α w wᵀ`` for an (n,) or (n, r) ``w``;
+        ``alpha`` a Python float, negative for a downdate."""
+        return Llt(l=_ch.llt_rank_r_update(self.l, _operand(w, self.l), alpha),
+                   info=self.info)
 
     @property
     def L(self):
         return self.l
+
+
+@dataclasses.dataclass(frozen=True)
+class Ldlt:
+    """LDLT solver object (faer ``solvers.rs:701``): ``ld`` packs unit L
+    strictly below the diagonal and D on it."""
+
+    ld: torch.Tensor
+    info: LdltInfo
+
+    @staticmethod
+    def new(a, side: Side = Side.LOWER) -> "Ldlt":
+        ld, info = _ch.ldlt_factor(_lower_of(a, side, "Ldlt"))
+        return Ldlt(ld=ld, info=info)
+
+    def solve(self, rhs):
+        return _ch.ldlt_solve(self.ld, _operand(rhs, self.ld))
+
+    def inverse(self):
+        n = self.ld.shape[0]
+        return _ch.ldlt_solve(self.ld, torch.eye(n, dtype=self.ld.dtype,
+                                                 device=self.ld.device))
+
+    def reconstruct(self):
+        return _ch.ldlt_reconstruct(self.ld)
+
+    def determinant(self):
+        return torch.diagonal(self.ld).prod()
+
+    def rank_update(self, w, alpha) -> "Ldlt":
+        """L D Lᵀ + α w wᵀ (faer ``ldlt/update.rs:376``)."""
+        return Ldlt(ld=_ch.ldlt_rank_r_update(self.ld, _operand(w, self.ld), alpha),
+                    info=self.info)
+
+    @property
+    def D(self):
+        return torch.diagonal(self.ld)
+
+
+@dataclasses.dataclass(frozen=True)
+class PivLlt:
+    """Diagonal-pivoted LLT (rank-revealing, PSD): ``A[perm][:, perm] =
+    L Lᵀ``, the columns of L past ``rank`` zero."""
+
+    l: torch.Tensor
+    perm: torch.Tensor
+    rank: torch.Tensor
+    info: LltInfo
+
+    @staticmethod
+    def new(a, side: Side = Side.LOWER) -> "PivLlt":
+        l, perm, rank, info = _ch.piv_llt_factor(_lower_of(a, side, "PivLlt"))
+        return PivLlt(l=l, perm=perm, rank=rank, info=info)
+
+    def solve(self, rhs):
+        return _ch.piv_llt_solve(self.l, self.perm, _operand(rhs, self.l))
+
+    def reconstruct(self):
+        return _ch.piv_llt_reconstruct(self.l, self.perm)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lblt:
+    """Bunch–Kaufman LBLT (faer ``solvers.rs:705``): ``A[perm][:, perm] =
+    L B Lᵀ``, B block diagonal with 1×1 and 2×2 blocks."""
+
+    lb: torch.Tensor
+    subdiag: torch.Tensor
+    perm: torch.Tensor
+    info: LbltInfo
+
+    @staticmethod
+    def new(a, side: Side = Side.LOWER) -> "Lblt":
+        lb, subdiag, perm, info = _ch.lblt_factor(_lower_of(a, side, "Lblt"))
+        return Lblt(lb=lb, subdiag=subdiag, perm=perm, info=info)
+
+    def solve(self, rhs):
+        return _ch.lblt_solve(self.lb, self.subdiag, self.perm, _operand(rhs, self.lb))
+
+    def reconstruct(self):
+        return _ch.lblt_reconstruct(self.lb, self.subdiag, self.perm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +233,38 @@ class PartialPivLu:
 
 
 @dataclasses.dataclass(frozen=True)
+class FullPivLu:
+    """Full-pivot LU (faer ``solvers.rs:721``): ``A[row_perm][:, col_perm]
+    = L·U``."""
+
+    lu: torch.Tensor
+    row_perm: torch.Tensor
+    col_perm: torch.Tensor
+    info: LuInfo
+
+    @staticmethod
+    def new(a) -> "FullPivLu":
+        lu, rp, cp, info = _lu.full_piv_lu_in_place(_matrix(a, "FullPivLu"))
+        return FullPivLu(lu=lu, row_perm=rp, col_perm=cp, info=info)
+
+    def solve(self, rhs):
+        return _lu.full_piv_lu_solve(self.lu, self.row_perm, self.col_perm,
+                                     _operand(rhs, self.lu))
+
+    def reconstruct(self):
+        return _lu.full_piv_lu_reconstruct(self.lu, self.row_perm, self.col_perm)
+
+    def determinant(self):
+        return _lu.lu_determinant(self.lu, self.row_perm, self.info.transposition_count)
+
+    def rank(self, tol=None):
+        d = torch.diagonal(self.lu).abs()
+        if tol is None:
+            tol = d.max() * max(self.lu.shape) * dtypes.eps(self.lu.dtype)
+        return (d > tol).sum()
+
+
+@dataclasses.dataclass(frozen=True)
 class Qr:
     """Householder QR solver (faer ``solvers.rs:733``)."""
 
@@ -186,6 +304,38 @@ class Qr:
     def R(self):
         k = min(self.packed.shape)
         return torch.triu(self.packed)[:k, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class ColPivQr:
+    """Column-pivoted QR (faer ``solvers.rs:741``): ``A[:, col_perm] = Q R``,
+    the reflectors below the diagonal of ``packed`` with their ``taus``."""
+
+    packed: torch.Tensor
+    taus: torch.Tensor
+    col_perm: torch.Tensor
+
+    @staticmethod
+    def new(a) -> "ColPivQr":
+        packed, taus, perm = _qr.col_piv_qr_in_place(_matrix(a, "ColPivQr"))
+        return ColPivQr(packed=packed, taus=taus, col_perm=perm)
+
+    def solve(self, rhs):
+        return self.solve_lstsq(rhs)
+
+    def solve_lstsq(self, rhs):
+        return _qr.col_piv_qr_solve_lstsq(self.packed, self.taus, self.col_perm,
+                                          _operand(rhs, self.packed))
+
+    def reconstruct(self):
+        return _qr.col_piv_qr_reconstruct(self.packed, self.taus, self.col_perm)
+
+    def rank(self, tol=None):
+        k = min(self.packed.shape)
+        d = torch.diagonal(self.packed[:k, :k]).abs()
+        if tol is None:
+            tol = d.max() * max(self.packed.shape) * dtypes.eps(self.packed.dtype)
+        return (d > tol).sum()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,4 +422,5 @@ class SelfAdjointEigen:
 
 
 SOLVERS: dict[str, Any] = {cls.__name__: cls for cls in
-                           (Llt, PartialPivLu, Qr, Svd, SelfAdjointEigen)}
+                           (Llt, Ldlt, PivLlt, Lblt, PartialPivLu, FullPivLu, Qr,
+                            ColPivQr, Svd, SelfAdjointEigen)}

@@ -10,9 +10,10 @@ faer ``make_householder_in_place`` (``householder.rs:117``) and the
   unit-lower-trapezoidal panel and T upper triangular.
 
 T is formed in closed form, ``T = (diag(1/τ) + strict_upper(VᵀV))⁻¹``: one
-product and a triangular inverse whose ≤ 128 blocks go to the ``trtri``
-kernel. Block application is three products. The port is real f32, so the
-adjoint is the transpose.
+product and a triangular inverse, whose ≤ 128 blocks go to the ``trtri``
+kernel in float32 and to the non-kernel inverse (leaves of side
+min(b, 128)) in float64. Block application is three products. The port's
+dtypes are real, so the adjoint is the transpose.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def form_block_t(v, tau):
     tau_safe = torch.where(tau == 0, torch.ones_like(tau), tau)
     tinv = torch.triu(matmul(None, v.mT, v), 1) + torch.diag(1.0 / tau_safe)
     live = (tau != 0).to(v.dtype)
-    return invert_upper_triangular(tinv) * live[None, :] * live[:, None]
+    t = invert_upper_triangular(tinv, base=tinv.shape[0])
+    return t * live[None, :] * live[:, None]
 
 
 def apply_block_on_left(v, t, b_mat, *, adjoint: bool):

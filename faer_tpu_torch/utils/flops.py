@@ -12,6 +12,10 @@ def llt_flops(n: int) -> float:
     return n**3 / 3.0
 
 
+def ldlt_flops(n: int) -> float:
+    return n**3 / 3.0
+
+
 def lu_flops(m: int, n: int) -> float:
     if m >= n:
         return m * n * n - n**3 / 3.0

@@ -1291,3 +1291,95 @@ def test_new_wrappers_raise_past_their_limits(cuda):
         chase_probe(torch.zeros(4 * 1025, 2 * 1025, device=cuda), b=1025, steps=1)
     with pytest.raises(ShapeError):
         chase_probe(torch.zeros(256, 128, device=cuda), b=64, steps=1, g=2)
+
+
+# -- the float64 route and the dense stack on the card -------------------------------
+
+def _dense_calls(n, dt, cuda, gen):
+    """Every new factorization at n on the card: (name, call) pairs."""
+    from faer_tpu_torch.linalg import cholesky as C
+    from faer_tpu_torch.linalg import lu as L
+    from faer_tpu_torch.linalg import qr as Q
+
+    g = torch.randn(n, n, generator=gen, device=cuda, dtype=dt)
+    spd = g @ g.T / n + torch.eye(n, device=cuda, dtype=dt)
+    w = torch.randn(n, 3, generator=gen, device=cuda, dtype=dt) / n ** 0.5
+    l, ld = C.llt_factor(spd)[0], C.ldlt_factor(spd)[0]
+    return {"llt": lambda: C.llt_factor(spd), "ldlt": lambda: C.ldlt_factor(spd),
+            "piv_llt": lambda: C.piv_llt_factor(spd),
+            "lblt": lambda: C.lblt_factor((g + g.T) / 2),
+            "llt_rank_r_update": lambda: C.llt_rank_r_update(l, w, -1.0),
+            "ldlt_rank_r_update": lambda: C.ldlt_rank_r_update(ld, w, 1.0),
+            "lu_in_place": lambda: L.lu_in_place(g),
+            "full_piv_lu_in_place": lambda: L.full_piv_lu_in_place(g),
+            "qr_in_place": lambda: Q.qr_in_place(g),
+            "col_piv_qr_in_place": lambda: Q.col_piv_qr_in_place(g)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_dense_stack_syncs_only_where_it_reads(cuda, dt):
+    """Pivots, ranks and counts stay on the card: torch's sync debug mode
+    sees a synchronizing call only where the driver makes a counted host
+    read (Bunch–Kaufman's one a panel). A float64 call launches no kernel."""
+    import warnings
+
+    from faer_tpu_torch.core.config import host_reads
+
+    for name, fn in _dense_calls(200, dt, cuda, torch.Generator(device=cuda).manual_seed(3)).items():
+        fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("called a synchronizing CUDA operation" in str(r.message) for r in rec)
+        assert syncs == host_reads(), (name, syncs, host_reads())
+        if dt == torch.float64:
+            assert not any(launch_counts().values()), (name, launch_counts())
+        elif name in ("ldlt", "llt", "lu_in_place", "qr_in_place"):
+            assert any(launch_counts().values()), name
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_dense_stack_objects_on_card(cuda, dt):
+    """The solver objects at n = 300 on the card, held to f64 references:
+    reconstructions and residuals within 8·n·eps of the dtype."""
+    import faer_tpu_torch as ft
+
+    n = 300
+    eps = torch.finfo(dt).eps
+    tol = 8 * n * eps
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = torch.randn(n, n, generator=gen, device=cuda, dtype=torch.float64)
+    spd = g @ g.T / n + torch.eye(n, device=cuda, dtype=torch.float64)
+    sym = (g + g.T) / 2
+    b = torch.randn(n, 4, generator=gen, device=cuda, dtype=torch.float64)
+
+    def rel(x, y):
+        return ((x.double() - y).norm() / y.norm()).item()
+
+    def res(a, x):
+        x = x.double()
+        return ((a @ x - b).norm() / (a.norm() * x.norm())).item()
+
+    objs = {"ldlt": (ft.Mat(spd.to(dt)).ldlt(), spd), "piv_llt": (ft.Mat(spd.to(dt)).piv_llt(), spd),
+            "lblt": (ft.Mat(sym.to(dt)).lblt(), sym), "full_piv_lu": (ft.Mat(g.to(dt)).full_piv_lu(), g),
+            "col_piv_qr": (ft.Mat(g.to(dt)).col_piv_qr(), g), "llt": (ft.Mat(spd.to(dt)).llt(), spd),
+            "partial_piv_lu": (ft.Mat(g.to(dt)).partial_piv_lu(), g), "qr": (ft.Mat(g.to(dt)).qr(), g)}
+    for name, (obj, a) in objs.items():
+        assert obj.reconstruct().device.type == "cuda"
+        assert rel(obj.reconstruct(), a) <= tol, name
+        solve = obj.solve_lstsq if name == "qr" else obj.solve
+        assert res(a, solve(b.to(dt))) <= tol, name
+    w = torch.randn(n, 2, generator=gen, device=cuda, dtype=torch.float64) / n ** 0.5
+    upd = spd + w @ w.T
+    assert rel(objs["llt"][0].rank_update(w.to(dt), 1.0).reconstruct(), upd) <= tol
+    assert rel(objs["ldlt"][0].rank_update(w.to(dt), 1.0).reconstruct(), upd) <= tol
+    sign = torch.linalg.slogdet(g)[0].item()
+    assert torch.sign(objs["full_piv_lu"][0].determinant()).item() == sign
+    assert torch.sign(objs["partial_piv_lu"][0].determinant()).item() == sign

@@ -165,12 +165,12 @@ def test_llt_rejects_bad_shapes_and_dtypes():
     with pytest.raises(ShapeError):
         tchol.llt_factor(torch.zeros(256, 128))
     with pytest.raises(NotImplementedError):
-        tchol.llt_factor(torch.eye(512, dtype=torch.float64),
+        tchol.llt_factor(torch.eye(512, dtype=torch.complex64),
                          params=LltParams(block_size=128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchol.llt_factor(torch.eye(300, dtype=torch.float64))
+        tchol.llt_factor(torch.eye(300, dtype=torch.complex128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlu.lu_in_place(torch.eye(300, dtype=torch.float64))
+        tlu.lu_in_place(torch.eye(300, dtype=torch.bfloat16))
 
 
 def test_lu_generic_matches_jax():

@@ -173,7 +173,7 @@ def test_qr_rejects_bad_shapes_and_dtypes():
     with pytest.raises(ShapeError):
         tqr.qr_in_place(torch.zeros(16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqr.qr_in_place(torch.eye(64, dtype=torch.float64))
+        tqr.qr_in_place(torch.eye(64, dtype=torch.complex128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tqr.qr_in_place(torch.eye(64, dtype=torch.complex64))
     # the JAX package keeps its own params type; the port's has the same fields

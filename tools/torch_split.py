@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {llt,llt_panel,lu,matmul,qr,trtri} [ROOT]
+    python tools/torch_split.py {dense,llt,llt_panel,lu,matmul,qr,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -10,6 +10,16 @@ the device (a CUDA graph of the calls). Only this checkout's
 parent commit unpacked beside this one) in turns with this one by the same
 code. The rows, per kernel:
 
+* ``dense`` (seed 15): phase 13's calls at 4096 (``chip_smoke.
+  _dense_inputs``): in float64 ``llt_factor``, ``lu_in_place``,
+  ``qr_in_place``, ``ldlt_factor``, ``piv_llt_factor``,
+  ``full_piv_lu_in_place``, ``col_piv_qr_in_place``, the rank-8
+  ``llt_rank_r_update`` and ``ldlt_rank_r_update`` and the 8-rhs
+  ``ldlt_solve``, and ``ldlt_factor`` in float32, each once per call
+  (after one warm-up) and on the device (a CUDA graph of one call; none of
+  them reads the host); ``lblt_factor``, which reads the host once a
+  panel, per call only; ``cholesky_ex``, ``ldl_factor``, ``lu_factor_ex``
+  and ``geqrf`` in float64 on the same inputs, per call;
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
@@ -225,6 +235,39 @@ def qr_rows(cs):
     yield f"Mat(a).qr().solve_lstsq(b) n={N}, tile switch off", facade, STEP_REPS, None
 
 
+def dense_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of phase 13's
+    factorizations at N, float64 unless named."""
+    from faer_tpu_torch.linalg import cholesky as C
+    from faer_tpu_torch.linalg import lu as L
+    from faer_tpu_torch.linalg import qr as Q
+
+    x = cs._dense_inputs(N, torch.Generator(device="cuda").manual_seed(15))
+    spd, sym, g, b, w = (x[k] for k in ("spd", "sym", "g", "b", "w"))
+    l, ld = C.llt_factor(spd)[0], C.ldlt_factor(spd)[0]
+    spd32 = spd.float()
+    rows = {"llt_factor": lambda: C.llt_factor(spd),
+            "lu_in_place": lambda: L.lu_in_place(g),
+            "qr_in_place": lambda: Q.qr_in_place(g),
+            "ldlt_factor": lambda: C.ldlt_factor(spd),
+            "ldlt_factor f32": lambda: C.ldlt_factor(spd32),
+            f"ldlt_solve {N}x{NRHS}": lambda: C.ldlt_solve(ld, b),
+            "piv_llt_factor": lambda: C.piv_llt_factor(spd),
+            "full_piv_lu_in_place": lambda: L.full_piv_lu_in_place(g),
+            "col_piv_qr_in_place": lambda: Q.col_piv_qr_in_place(g),
+            f"llt_rank_r_update r={cs.DENSE_R}": lambda: C.llt_rank_r_update(l, w, 1.0),
+            f"ldlt_rank_r_update r={cs.DENSE_R}": lambda: C.ldlt_rank_r_update(ld, w, 1.0)}
+    for name, fn in rows.items():
+        yield f"{name} n={N}", fn, 1, 1
+    yield f"lblt_factor n={N}", lambda: C.lblt_factor(sym), 1, None
+    for name, fn in (("cholesky_ex", lambda: torch.linalg.cholesky_ex(spd)),
+                     ("ldl_factor", lambda: torch.linalg.ldl_factor(spd)),
+                     ("ldl_factor (g + gᵀ)/2", lambda: torch.linalg.ldl_factor(sym)),
+                     ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(g)),
+                     ("geqrf", lambda: torch.geqrf(g))):
+        yield f"{name} n={N}", fn, STEP_REPS, None
+
+
 LLT_PANEL_SHAPES = ((4096, 256), (2048, 256), (256, 256), (4096, 512), (65536, 256))
 
 
@@ -317,7 +360,7 @@ def lu_rows(cs):
            STEP_REPS, STEP_REPS)
 
 
-ROWS = {"llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
+ROWS = {"dense": dense_rows, "llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
         "trtri": trtri_rows}
 
 
