@@ -51,7 +51,18 @@ Phases, each printing lines; any failure exits non-zero:
    on regularized blocks and on row-strided views at b ∈ {125, 338}, timed
    per call and on the device (CUDA-graph replay) beside ``cholesky_ex``;
    ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3), (64, 4, 24),
-   (128, 8, 24)} and on a zero-tail window;
+   (128, 8, 24)} and on a zero-tail window; the batched QR kernels
+   ``tridiag_qr_batched`` and ``bidiag_qr_batched`` (the whole iteration
+   of many problems in one launch) on the 64 leaves of a 4096 problem, the
+   ragged leaves of 4000, the bidiagonal's wide and square leaves, the
+   direct route at 384 (vectors in global memory), a max_iters case and
+   zero diagonals (both chases), each case's route printed, against their
+   plain versions (on the first two and last two problems of a batch of
+   leaves): d, e, iterations, converged and sweep steps equal to the bit,
+   vectors within 8·n·eps; timed by graph replay beside batched
+   ``eigh``/``svd`` of the same leaves as dense blocks; and their one-sweep
+   entries (``tridiag_sweep``, ``bidiag_sweep``) equal to the plain sweeps
+   to the bit at 64, 384 and 8192;
 4. flagship step: ``flagship_step`` at n = 4096 f32 (the JAX package's bench
    size) with 8 right-hand sides on inputs made from seed 0, launch counts,
    reconstruction errors, solve residuals, a reference check at n = 1024
@@ -68,12 +79,14 @@ Phases, each printing lines; any failure exits non-zero:
    counts, reconstruction errors and timings;
 7. spectral: ``self_adjoint_evd((g + gᵀ)/2)`` and ``svd(g)`` at n = 4096
    f32 (``tools/bench_spectral.py``'s cells) on inputs made from seed 0,
-   sweep-kernel launch counts and host reads, residuals and orthogonality,
+   one sweep-kernel launch and no host read per call (at 4096, 384,
+   8192 × 2048 and in the wide ``_dnc``), residuals and orthogonality,
    eigenvalues and singular values against an f64 oracle at n = 1024, the
    direct QR-iteration route at n = 384, the tall SVD at 8192 × 2048 (QR
    preprocessing), the wide bidiagonal D&C ``_dnc(d, e, 1)`` on the golden
    fixture ``tests/data/svd/svd512.txt`` (‖UᵀU − I‖_F ≤ 2e-4·n), per-layer
-   times and ``torch.linalg.eigh``/``svd`` yardsticks;
+   times, the D&C layers' leaf stage on the device beside their merges,
+   and ``torch.linalg.eigh``/``svd`` yardsticks;
 8. facade: ``Mat`` and the solver objects at n = 4096 f32 (seed 0) with the
    tile GEMM switch on (``config.use_tile_matmul``, ``f32_precision =
    "highest"``): ``Mat @ Mat``, ``llt()`` with ``solve``, ``inverse``,
@@ -179,7 +192,7 @@ TRTRI_TIMED = ((128, False), (128, True), (100, False), (100, True))
 TRTRI_BATCHES = (4096, 4000)
 TRTRI_REPS = 50
 # operations per step of the sweep kernels' chains, counted from their source
-SWEEP_STEP_FLOPS = 28
+SWEEP_STEP_FLOPS = {"tridiag_sweep": 28, "bidiag_sweep": 30}
 SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
 ORACLE_N = 1024  # spectral check against f64 eigvalsh / svdvals
 DIRECT_N = 384  # below 512: the QR iteration without D&C
@@ -793,7 +806,7 @@ def phase_kernels(gen, profs) -> dict:
     res.update(_lu_panel_family(gen))
     res.update(_qr_panel_family(gen))
     _wide_panels(gen)
-    res.update(_sweep_kernels(gen))
+    res.update(_qr_batched_kernels(gen))
     res.update(_tile_kernels(gen))
     res.update(_llt_block_kernels(gen))
     res.update(_chase_kernel(gen))
@@ -1189,8 +1202,7 @@ def _wide_panels(gen) -> None:
 
 def _sweep_case(n: int, l: int, m: int, bidiag: bool, gen):
     """(d, e, lm, mu) of one sweep on block [l, m] with the driver's shift."""
-    from faer_tpu_torch.linalg.bidiag_svd import _shift
-    from faer_tpu_torch.linalg.tridiag_evd import _wilkinson_shift
+    from faer_tpu_torch.ops.kernels.sweep import _shift, _wilkinson_shift
 
     d = torch.randn(n, generator=gen, device=DEV) + (2.0 if bidiag else 0.0)
     e = torch.randn(n - 1, generator=gen, device=DEV)
@@ -1199,53 +1211,178 @@ def _sweep_case(n: int, l: int, m: int, bidiag: bool, gen):
     return d, e, lm, mu.reshape(1)
 
 
-def _sweep_kernels(gen) -> dict:
-    """``tridiag_sweep`` and ``bidiag_sweep`` against their plain versions at
-    the D&C leaf shape (64), the direct route (384) and a length whose d and
-    e do not fit the 48 KB of shared memory (8192: global memory), each on
-    an inner block (l > 0, m < n−1); timed at a full leaf sweep (0, 63) by
-    graph replay (``graph_ms``)."""
+def _one_sweep_kernels(gen) -> None:
+    """The one-sweep entries ``tridiag_sweep`` and ``bidiag_sweep`` against
+    their plain versions at the D&C leaf shape (64), the direct route (384)
+    and a length whose d and e do not fit the 48 KB of shared memory (8192:
+    global memory), each on an inner block (l > 0, m < n−1), equal to the
+    bit; timed at a full leaf sweep (0, 63) by graph replay
+    (``graph_ms``), which gives the chain's latency a step."""
     from faer_tpu_torch.ops.kernels import sweep
 
-    res = {}
-    for name, bidiag, n_rot in (("tridiag_sweep", False, 2), ("bidiag_sweep", True, 4)):
+    for name, bidiag in (("tridiag_sweep", False), ("bidiag_sweep", True)):
         kern, plain = getattr(sweep, name), getattr(sweep, f"{name}_plain")
-        errs = []
         for n, l, m in ((64, 5, 60), (384, 7, 370), (8192, 3, 8000)):
             args = _sweep_case(n, l, m, bidiag, gen)
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
-            # the two round alike (same operations in the same order), so
-            # they should agree to the bit; the tolerance is faer's 8·n·eps
-            # relative to the largest |d|, |e| (≥ 1: c and s are ≤ 1)
-            scale = max(1.0, args[0].abs().max().item(), args[1].abs().max().item())
-            tol = 8 * n * EPS32 * scale
-            err = max((g - w).abs().max().item() for g, w in zip(got, want))
             same = all(torch.equal(g, w) for g, w in zip(got, want))
             outside = all(bool((r[:l] == v).all() and (r[m:] == v).all())
                           for r, v in zip(got[2:], (1.0, 0.0) * 2))
-            errs.append(err)
-            check(err <= tol and outside,
+            check(same and outside,
                   f"{name} n={n} (l, m) = ({l}, {m}) "
-                  f"[{'shared' if n <= 6144 else 'global'} memory]: max abs err "
-                  f"{err:.3e} <= tol {tol:.3e}, bitwise equal {same}, "
-                  f"rotations identity outside [l, m) {outside}")
-        # the kernel's device time (graph replay) and the wrapper's time per
-        # call as a driver sees it (CUDA events around each call: host-bound)
+                  f"[{'shared' if n <= 6144 else 'global'} memory]: equal to the "
+                  f"plain sweep to the bit {same}, rotations identity outside "
+                  f"[l, m) {outside}")
         full = {n: _sweep_case(n, 0, n - 1, bidiag, gen) for n in (64, 384)}
         ms = {n: graph_ms(lambda a=a: kern(*a), 50) for n, a in full.items()}
         per_step = (ms[384] - ms[64]) / (383 - 63) * 1e3
-        print(f"time {name}: device {ms[64]:.4f} ms (64 steps), {ms[384]:.4f} ms "
-              f"(384 steps): chain latency {per_step:.4f} us per step; wrapper "
-              f"call {cuda_ms(lambda: kern(*full[64]), 50):.4f} ms")
-        n = 64
-        nbytes = (2 * n + 2 * (n - 1) + n_rot * (n - 1) + 3) * 4
-        res[name] = dict(
-            max_abs_err=max(errs), ms=ms[64],
-            plain_ms=cuda_ms(lambda: plain(*full[64]), 3),
-            library_ms=None,  # no PyTorch call computes one sweep
-            **bound_of(SWEEP_STEP_FLOPS * (n - 1), nbytes))
+        print(f"time {name} (one sweep): device {ms[64]:.4f} ms (64 steps), "
+              f"{ms[384]:.4f} ms (384 steps): chain latency {per_step:.4f} us per "
+              f"step; wrapper call {cuda_ms(lambda: kern(*full[64]), 50):.4f} ms")
+
+
+def _qr_batch_cases(bidiag: bool, gen) -> dict:
+    """Phase 3's batches of the batched QR kernels: label -> (d, e, sizes[,
+    sqre], max_sweeps_factor). The 64 leaves of a 4096 problem and the
+    ragged ones (62, 63) of 4000, formed as the D&C forms them (the
+    bidiagonal's wide upper leaves and square last one), the direct route
+    at DIRECT_N (its vectors in global memory), the 4096 leaves at one
+    iteration a row (max_iters: not converged), and, for the bidiagonal,
+    zero diagonals that take the row chase and the column chase."""
+    from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
+
+    def leaves(n):
+        d = torch.randn(n, generator=gen, device=DEV)
+        e = torch.randn(n - 1, generator=gen, device=DEV)
+        return (bidiag_dnc._leaf_inputs(d, e, 0) if bidiag
+                else tridiag_dnc._leaf_inputs(d, e))
+
+    def one(n):
+        d = torch.randn(1, n, generator=gen, device=DEV)
+        e = torch.randn(1, n if bidiag else n - 1, generator=gen, device=DEV)
+        if bidiag:
+            e[0, -1] = 0.0
+        sizes = torch.full((1,), n, dtype=torch.int32, device=DEV)
+        return (d, e, sizes, torch.zeros_like(sizes)) if bidiag else (d, e, sizes)
+
+    cases = {f"the 64 leaves of {N}": (*leaves(N), 30),
+             "the ragged leaves of 4000": (*leaves(4000), 30),
+             f"direct route n={DIRECT_N}": (*one(DIRECT_N), 30),
+             f"the leaves of {N}, max_iters = n": (*leaves(N), 1)}
+    if bidiag:
+        d = torch.randn(3, 64, generator=gen, device=DEV)
+        e = torch.randn(3, 64, generator=gen, device=DEV)
+        d[0, 5] = d[2, 63] = d[1, 40] = 0.0  # row chase; column chase; wide
+        sizes = torch.full((3,), 64, dtype=torch.int32, device=DEV)
+        sqre = torch.tensor([0, 1, 0], dtype=torch.int32, device=DEV)
+        cases["zero diagonals (row and column chases)"] = (d, e, sizes, sqre, 30)
+    return cases
+
+
+QR_PLAIN_PICK = 4  # leaves of a large batch held against the plain version
+
+
+def _qr_batched_kernels(gen) -> dict:
+    """``tridiag_qr_batched`` and ``bidiag_qr_batched`` (rows 9 and 10:
+    the whole QR iteration of many problems in one launch) against their
+    plain versions on every case of ``_qr_batch_cases``, each case's route
+    printed: d, e, iterations, converged and sweep steps equal to the bit
+    (the same IEEE operations in the same order), the vectors within
+    8·nmax·eps. The kernel runs each whole batch; the plain version, whose
+    sweeps are some thirty PyTorch launches a chain step (≈ 110 s for the
+    64 leaves of N on the card), runs the batch's first two and last two
+    problems (both leaf sizes of a ragged batch, wide and square leaves),
+    and the problems are independent, so those are compared. Timed at the
+    64 leaves of N by graph replay (inputs copied inside the graph: the
+    kernel works in place), beside the plain version on its QR_PLAIN_PICK
+    leaves (one call) and the library on all the leaves as dense blocks,
+    one batched call a shape. The bound counts this run's work: the
+    kernel's own sweep steps × (the chain's operations + its rotations ×
+    rows × 6)."""
+    from faer_tpu_torch.ops.kernels import sweep
+
+    res = {}
+    for kind, bidiag in (("tridiag", False), ("bidiag", True)):
+        name = f"{kind}_sweep"
+        kern = getattr(sweep, f"{kind}_qr_batched")
+        plain = getattr(sweep, f"{kind}_qr_batched_plain")
+        errs, timed = [], None
+        for label, (*args, factor) in _qr_batch_cases(bidiag, gen).items():
+            d, e, *ints = args
+            batch, nmax = d.shape
+            d1, e1 = d.clone(), e.clone()
+            got = kern(d1, e1, *ints, max_sweeps_factor=factor)
+            torch.cuda.synchronize()
+            pick = torch.arange(batch, device=DEV)
+            if batch > QR_PLAIN_PICK:  # the first and the last problems
+                half = QR_PLAIN_PICK // 2
+                pick = torch.cat([pick[:half], pick[-half:]])
+            d2, e2 = d[pick], e[pick]
+            t0 = time.perf_counter()
+            want = plain(d2, e2, *(x[pick] for x in ints), max_sweeps_factor=factor)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            same = torch.equal(d1[pick], d2) and torch.equal(e1[pick], e2) and all(
+                torch.equal(g[pick], w) for g, w in zip(got[-3:], want[-3:]))
+            err = max((g[pick] - w).abs().max().item()
+                      for g, w in zip(got[:-3], want[:-3]))
+            its, conv = got[-3], got[-2]
+            want_conv = factor >= 30
+            check(same and err <= 8 * nmax * EPS32 and bool(conv.all()) == want_conv,
+                  f"{kind}_qr_batched {label} [B={batch}, nmax={nmax}, vectors in "
+                  f"{sweep.qr_batched_route(kind, nmax)} memory; {len(pick)} held "
+                  f"against the plain version]: d, e, iterations, converged and sweep "
+                  f"steps equal to the plain version's to the bit {same}; vectors max "
+                  f"abs err {err:.3e} <= {8 * nmax * EPS32:.3e}; all {batch} converged "
+                  f"{bool(conv.all())} ({int(its.sum())} iterations)")
+            errs.append(err)
+            if timed is None:
+                timed = (args, got, plain_s * 1e3, len(pick))
+        (d, e, *ints), got, plain_ms, n_plain = timed
+        ms = graph_ms(lambda: kern(d.clone(), e.clone(), *ints), 3)
+        sizes = ints[0].tolist()
+        sqre = ints[1].tolist() if bidiag else [0] * len(sizes)
+        steps = got[-1].tolist()
+        # each step: the chain, and its rotations of the problem's rows
+        # (tridiagonal: Z's n; bidiagonal: W's n + sqre and U's n)
+        flops = sum(st * (SWEEP_STEP_FLOPS[name] + 6 * (2 * n + sq if bidiag else n))
+                    for st, n, sq in zip(steps, sizes, sqre))
+        nbytes = sum(4 * (2 * (2 * n - 1 + sq)  # d, e in and out
+                          + ((n * n + (n + sq) ** 2) if bidiag else n * n) + 3)
+                     for n, sq in zip(sizes, sqre))
+        lib = _leaf_library_ms(d, e, ints, bidiag)
+        print(f"time {kind}_qr_batched, the {len(sizes)} leaves of {N}: device {ms:.4f} "
+              f"ms (graph replay), {sum(steps)} sweep steps; plain {plain_ms:.1f} ms on "
+              f"{n_plain} of them; library on the leaves as dense blocks {lib:.4f} ms")
+        res[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                         plain_problems=n_plain, library_ms=lib, **bound_of(flops, nbytes))
+    _one_sweep_kernels(gen)
     return res
+
+
+def _leaf_library_ms(d, e, ints, bidiag: bool) -> float:
+    """``torch.linalg.eigh`` (tridiagonal) or ``torch.linalg.svd``
+    (bidiagonal) of the batch's problems as dense blocks, one batched call
+    a shape, per call (CUDA events, median of 3): summed over the shapes."""
+    sizes = ints[0].tolist()
+    sqre = ints[1].tolist() if bidiag else [0] * len(sizes)
+    groups = {}
+    for b, (n, sq) in enumerate(zip(sizes, sqre)):
+        groups.setdefault((n, sq), []).append(b)
+    total = 0.0
+    for (n, sq), rows in groups.items():
+        idx = torch.tensor(rows, device=DEV)
+        dd = torch.diag_embed(d[idx, :n])
+        if bidiag:
+            t = torch.cat([dd, dd.new_zeros(len(rows), n, sq)], dim=2)
+            k = torch.arange(n - 1 + sq, device=DEV)
+            t[:, k, k + 1] = e[idx, :n - 1 + sq]
+            total += cuda_ms(lambda t=t: torch.linalg.svd(t, full_matrices=False), 3)
+        else:
+            t = dd + torch.diag_embed(e[idx, :n - 1], 1) + torch.diag_embed(e[idx, :n - 1], -1)
+            total += cuda_ms(lambda t=t: torch.linalg.eigh(t), 3)
+    return total
 
 
 def _row_col_scale(a, b) -> float:
@@ -1910,6 +2047,15 @@ def _counted(fn):
     return out, launch_counts(), host_reads()
 
 
+def _one_launch(label: str, name: str, counts: dict, reads: int) -> None:
+    """A spectral call's whole QR iteration (every D&C leaf, or the direct
+    route's one problem) is one launch of the batched kernel, and nothing
+    is read on the host."""
+    print(f"launches in {label}: {counts}; host reads {reads}")
+    check(counts[name] == 1 and reads == 0,
+          f"{label}: {counts[name]} {name} launch (1 predicted), {reads} host reads (0)")
+
+
 def _wide_dnc_check() -> dict:
     """The wide (n, n+1) bidiagonal D&C ``_dnc(d, e, 1)`` on the golden
     fixture ``tests/data/svd/svd512.txt`` (the reference's hard-convergence
@@ -1945,7 +2091,7 @@ def _wide_dnc_check() -> dict:
     orth_w = fro(wn.T @ wn - torch.eye(n + 1, dtype=torch.float64, device=DEV)).item()
     rec = (fro(un @ sig @ wn.T - b) / max(1.0, fro(b).item())).item()
     min_col = un.norm(dim=0).min().item()
-    print(f"launches in _dnc(svd512.txt, sqre=1): {counts}; host reads {reads}")
+    _one_launch("_dnc(svd512.txt, sqre=1)", "bidiag_sweep", counts, reads)
     check(orth_u <= 2e-4 * n and orth_w <= 2e-4 * (n + 1) and rec <= 2e-4
           and min_col >= 0.5,
           f"_dnc svd512.txt ({n}, {n + 1}): |UᵀU-I|_F {orth_u:.3e} <= "
@@ -1960,6 +2106,7 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     counts and the times, ms, of ``tridiag_in_place`` and ``eigh`` at N."""
     from faer_tpu_torch import (
         self_adjoint_eigenvalues, self_adjoint_evd, singular_values, svd)
+    from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
     from faer_tpu_torch.linalg.bidiag import (
         bidiag_apply_ql, bidiag_apply_qr_mat, bidiag_in_place)
     from faer_tpu_torch.linalg.bidiag_svd import bidiag_svd
@@ -1968,6 +2115,10 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     from faer_tpu_torch.utils import flops
 
     total = {}
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"phase 7: {what} done, {time.perf_counter() - t0:.1f} s in", flush=True)
 
     def add(counts):
         for k, v in counts.items():
@@ -1978,19 +2129,17 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     a = (g + g.T) / 2
     (w, v, info), counts, reads = _counted(lambda: self_adjoint_evd(a))
     add(counts)
-    print(f"launches in self_adjoint_evd n={n}: {counts}; host reads {reads}; "
-          f"info converged {bool(info.converged)}, iterations {int(info.iterations)}")
-    check(counts["tridiag_sweep"] > 0 and bool(info.converged),
-          f"self_adjoint_evd n={n} ran tridiag_sweep {counts['tridiag_sweep']} times")
+    _one_launch(f"self_adjoint_evd n={n}", "tridiag_sweep", counts, reads)
+    print(f"info converged {bool(info.converged)}, iterations {int(info.iterations)}")
+    check(bool(info.converged), f"self_adjoint_evd n={n} converged")
     _evd_checks(a, w, v, f"self_adjoint_evd n={n}")
     (u, s, vs, sinfo), counts, reads = _counted(lambda: svd(g))
     add(counts)
-    print(f"launches in svd n={n}: {counts}; host reads {reads}; "
-          f"info converged {bool(sinfo.converged)}, iterations {int(sinfo.iterations)}")
-    check(counts["bidiag_sweep"] > 0 and bool(sinfo.converged),
-          f"svd n={n} ran bidiag_sweep {counts['bidiag_sweep']} times")
+    _one_launch(f"svd n={n}", "bidiag_sweep", counts, reads)
+    check(bool(sinfo.converged), f"svd n={n} converged")
     _svd_checks(g, u, s, vs, f"svd n={n}")
 
+    mark("the 4096 calls and their checks")
     # eigenvalues and singular values against an f64 oracle on the card
     n1 = ORACLE_N
     g1 = torch.randn(n1, n1, generator=gen, device=DEV)
@@ -2005,32 +2154,34 @@ def phase_spectral(gen) -> tuple[dict, dict]:
           f"n={n1} vs f64 oracle: eigenvalues max err {err_w:.3e}, singular "
           f"values {err_s:.3e} (relative to the largest), both <= {tol1:.3e}")
 
+    mark("the f64 oracle at 1024")
     # the direct QR-iteration route (n < 512): the kernels sweep the full n
     n2 = DIRECT_N
     g2 = torch.randn(n2, n2, generator=gen, device=DEV)
     a2 = (g2 + g2.T) / 2
-    (w2, v2, _), counts, reads = _counted(lambda: self_adjoint_evd(a2))
+    (w2, v2, info2), counts, reads = _counted(lambda: self_adjoint_evd(a2))
     add(counts)
-    print(f"launches in self_adjoint_evd n={n2}: {counts}; host reads {reads}")
-    check(counts["tridiag_sweep"] > 0, f"self_adjoint_evd n={n2} ran tridiag_sweep")
+    _one_launch(f"self_adjoint_evd n={n2}", "tridiag_sweep", counts, reads)
+    check(bool(info2.converged), f"self_adjoint_evd n={n2} converged")
     _evd_checks(a2, w2, v2, f"self_adjoint_evd n={n2}")
-    (u2, s2, vs2, _), counts, reads = _counted(lambda: svd(g2))
+    (u2, s2, vs2, sinfo2), counts, reads = _counted(lambda: svd(g2))
     add(counts)
-    print(f"launches in svd n={n2}: {counts}; host reads {reads}")
-    check(counts["bidiag_sweep"] > 0, f"svd n={n2} ran bidiag_sweep")
+    _one_launch(f"svd n={n2}", "bidiag_sweep", counts, reads)
+    check(bool(sinfo2.converged), f"svd n={n2} converged")
     _svd_checks(g2, u2, s2, vs2, f"svd n={n2}")
 
+    mark("the direct route at 384")
     # the tall SVD takes the QR preprocessing (m/n = 4 > 11/6)
     mt, nt_ = TALL
     gt = torch.randn(mt, nt_, generator=gen, device=DEV)
     (ut, st, vt, _), counts, reads = _counted(lambda: svd(gt))
     add(counts)
-    print(f"launches in svd {mt}x{nt_}: {counts}; host reads {reads}")
-    check(counts["bidiag_sweep"] > 0 and counts["qr_panel"] > 0,
-          f"svd {mt}x{nt_} ran qr_panel and bidiag_sweep")
+    _one_launch(f"svd {mt}x{nt_}", "bidiag_sweep", counts, reads)
+    check(counts["qr_panel"] > 0, f"svd {mt}x{nt_} ran qr_panel {counts['qr_panel']} times")
     _svd_checks(gt, ut, st, vt, f"svd {mt}x{nt_}")
     add(_wide_dnc_check())
 
+    mark("the tall SVD and the wide D&C")
     # times: the entry points, their yardsticks, then the layers at 4096
     _timed(lambda: self_adjoint_evd(a), f"self_adjoint_evd n={n}", flops.evd_flops(n))
     eigh_ms = _timed(lambda: torch.linalg.eigh(a), f"library eigh n={n}")
@@ -2046,6 +2197,7 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     _timed(lambda: torch.linalg.svd(g2, full_matrices=False), f"library svd n={n2}")
     _timed(lambda: svd(gt), f"svd {mt}x{nt_}", flops.svd_flops(mt, nt_))
     _timed(lambda: torch.linalg.svd(gt, full_matrices=False), f"library svd {mt}x{nt_}")
+    mark("the timed calls")
     d, e, hh, taus = tridiag_in_place(a)
     _, z, _ = tridiag_evd(d, e)
     layers = {
@@ -2064,6 +2216,21 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     })
     for k, ms in layers.items():
         print(f"time layer {k} n={n}: {ms:.4f} ms (one call)")
+    mark("the layers")
+    # the D&C layers on the device: the leaf stage (one launch, in a CUDA
+    # graph) beside the merges (the layer's kernel spans less the leaves')
+    nrm = torch.maximum(bd[0].abs().max(), bd[1].abs().max())
+    stages = {"tridiag_evd": (lambda: tridiag_dnc._leaf_stage(d, e),
+                              lambda: tridiag_evd(d, e)),
+              "bidiag_svd": (lambda: bidiag_dnc._leaf_stage(bd[0] / nrm, bd[1] / nrm, 0),
+                             lambda: bidiag_svd(bd[0], bd[1]))}
+    for k, (leaf_fn, layer_fn) in stages.items():
+        leaf = graph_ms(leaf_fn, 3)
+        busy = device_ms(layer_fn)
+        print(f"time {k} (D&C) n={n} on the device: leaf stage {leaf:.4f} ms (graph "
+              f"replay), merges {busy - leaf:.4f} ms (the layer's kernel spans "
+              f"{busy:.4f} ms less the leaf stage)")
+    mark("the leaf stages and merges")
     print(f"launches in the spectral phase: {total}")
     return total, {"tridiag_in_place": layers["tridiag_in_place"], "eigh": eigh_ms}
 
@@ -2656,7 +2823,9 @@ def main() -> None:
     # the shared headers each kernel's source compiles with
     headers = {"matmul": ["faer_tpu_torch/csrc/hopper.cuh"],
                "syrk": ["faer_tpu_torch/csrc/tile_mma.cuh"],
-               "lu_panel_swap": ["faer_tpu_torch/csrc/pivot_argmax.cuh"]}
+               "lu_panel_swap": ["faer_tpu_torch/csrc/pivot_argmax.cuh"],
+               "tridiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, headers=headers.get(k, []), replaces=rep,

@@ -18,9 +18,11 @@
 * **Launch counters.** Each kernel wrapper adds one to its counter where it
   launches its CUDA kernel, and nowhere else, so a run can show that the
   main path went through the kernels.
-* **Host reads.** The spectral drivers decide on the host when an iteration
-  is done; each such read of a tensor goes through :func:`host_read`,
-  which counts it, so a run can show how many host syncs a call made.
+* **Host reads.** A driver that decides on the host (Bunch–Kaufman's panel
+  end, a solver object's success check) reads the tensor through
+  :func:`host_read`, which counts it, so a run can show how many host
+  syncs a call made: none in a spectral call, whose QR iterations run on
+  the card.
 
 The JAX package's ``platform_scope`` and ``effective_platform`` have no
 counterpart: the device is the input tensor's.

@@ -1,39 +1,151 @@
-// bidiag_sweep: one shifted Golub-Kahan implicit-QR sweep on the block
-// [l, m] of an upper bidiagonal (d (n,), e (n-1,)), f32.
+// bidiag_sweep: the implicit-shift Golub-Kahan QR iteration of an upper
+// bidiagonal (d (n,), e (n-1,)), f32. Two entries share one sweep routine:
+//
+// * faer_bidiag_sweep: one shifted sweep on the block [l, m], its right
+//   rotations (c1, s1, for V) and left ones (c2, s2, for U) out (the
+//   one-sweep contract of the Pallas kernel);
+// * faer_bidiag_qr_batched: the whole iteration of every problem of a
+//   batch, one CTA a problem, in one launch: what bidiag_svd's loop does per
+//   iteration (zero the negligible e and d, find the block end, chase a
+//   zero diagonal out by rows or by columns, advance l, or shift and sweep)
+//   with U and V rotated alongside. A wide problem (n, n+1) (sqre = 1, the
+//   D&C's upper leaves) first has its extra column chased to zero, and its
+//   right-vector matrix W starts from that chase's rotations, so the kernel
+//   returns W = w0 · blkdiag(V, 1).
 //
 // Replaces: faer_tpu/ops/pallas/panel_kernels.py `bidiag_sweep_pallas`
-// (:502, body `_bidiag_sweep_kernel` :423), which runs the chase on
-// VMEM-resident rows and emits the right rotations (c1, s1, for V) and the
-// left ones (c2, s2, for U).
+// (:502, body `_bidiag_sweep_kernel` :423), which runs one sweep on
+// VMEM-resident rows; the JAX package runs the iteration around it as one
+// device-resident lax.while_loop (faer_tpu/linalg/bidiag_svd.py:185-232).
 //
-// What bounds it on the H100: the serial chain, as in tridiag_sweep.cu: step
-// i needs the (x, bulge) carry of step i-1, and each step has two square
-// roots and four divides on it. Bytes (8n floats in and out) and FLOPs are
-// negligible beside that latency.
+// What bounds it on the H100: the serial chain, as in tridiag_sweep.cu:
+// step i needs the (x, bulge) carry of step i-1, and each step has two
+// square roots and four divides on it. Bytes and FLOPs are negligible
+// beside that latency.
 //
-// Design: the same as tridiag_sweep.cu. One CTA sets the rotations to the
-// identity and stages d and e in shared memory when they fit in 48 KB, else
-// works in place in the outputs in global memory; one thread runs the chase
-// over [l, m) with register carries; l, m and mu come from device memory.
-// Every operation is rounded on its own, in the Pallas body's order, so the
-// kernel and its plain PyTorch version round alike.
+// Design: as tridiag_sweep.cu. One CTA a problem; d, e, the four rotation
+// arrays and, when they fit (every D&C leaf), U and W in shared memory, else
+// U and W column-major in global memory. One thread runs each chain (the
+// sweep with d[i], e[i], d[i+1] in registers and the next step's inputs
+// loaded a step ahead; the chases), then every thread applies the
+// rotations to its rows of U and W, the running or pivot column in a
+// register. The block end, the zero diagonal and max|d| + max|e| are CTA
+// reductions. Every operation is rounded on its own in the plain versions'
+// order (spectral_qr.cuh), so d, e and the iteration counts equal the
+// plain version's bit for bit.
+#include <climits>
+
 #include <cuda_runtime.h>
+
+#include "spectral_qr.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace faer_qr;
+
+constexpr int kThreads = 256;  // the one-sweep entry
 constexpr int kMaxStagedN = 6144;  // 2n floats in 48 KB
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+// One Golub-Kahan sweep with shift mu on the block [l, m] of (d, e), by one
+// thread; the right rotations to c1, s1 and the left ones to c2, s2 at
+// [l, m). The pointers may be shared or global.
+__device__ void sweep_chain(float* d, float* e, float* c1_out, float* s1_out,
+                            float* c2_out, float* s2_out, int l, int m, float mu) {
+  float di = d[l], ei = e[l], dip1 = d[l + 1];
+  float x = sub(mul(di, di), mu), bz = mul(di, ei);
+  float e_next = l + 1 < m ? e[l + 1] : 0.0f;  // e[i+1] as the sweep found it
+  for (int i = l; i < m; ++i) {
+    const bool has_next = i + 1 < m;
+    // the next step's inputs, off the chain
+    const float dip2 = has_next ? d[i + 2] : 0.0f;
+    const float e_next2 = i + 2 < m ? e[i + 2] : 0.0f;
+    float c1, s1, r1;
+    givens_sqrt(x, bz, c1, s1, r1);
+    c1_out[i] = c1;
+    s1_out[i] = s1;
+    if (i > l) e[i - 1] = r1;
+    const float new_di = add(mul(c1, di), mul(s1, ei));
+    const float new_ei = add(mul(-s1, di), mul(c1, ei));
+    const float bulge = mul(s1, dip1);
+    const float new_dip1 = mul(c1, dip1);
+    float c2, s2, r2;
+    givens_sqrt(new_di, bulge, c2, s2, r2);
+    c2_out[i] = c2;
+    s2_out[i] = s2;
+    d[i] = r2;
+    x = add(mul(c2, new_ei), mul(s2, new_dip1));
+    di = add(mul(-s2, new_ei), mul(c2, new_dip1));
+    if (has_next) {
+      ei = mul(c2, e_next);
+      bz = mul(s2, e_next);
+    }
+    dip1 = dip2;
+    e_next = e_next2;
+  }
+  d[m] = di;
+  e[m - 1] = x;
+}
 
-// c, s, r with [[c, -s], [s, c]]^T [a, b]^T = [r, 0]^T
-__device__ __forceinline__ void givens(float a, float b, float& c, float& s,
-                                       float& r) {
-  r = __fsqrt_rn(add(mul(a, a), mul(b, b)));
-  c = (r == 0.0f) ? 1.0f : __fdiv_rn(a, r);
-  s = (r == 0.0f) ? 0.0f : __fdiv_rn(b, r);
+// The trailing 2×2 of BᵀB's Wilkinson shift at block end m (bidiag_svd._shift)
+__device__ __forceinline__ float shift(const float* d, const float* e, int m) {
+  const float dm = d[m], dm1 = d[m - 1], em1 = e[m - 1];
+  const float em2 = m >= 2 ? e[m - 2] : 0.0f;
+  return wilkinson_shift(add(mul(dm1, dm1), mul(em2, em2)), mul(dm1, em1),
+                         add(mul(dm, dm), mul(em1, em1)));
+}
+
+// d[i0] == 0 with e[i0] != 0: left rotations push row i0's off-diagonal
+// rightwards out of the block (bidiag_svd._row_chase); (c, s) at [i0+1, m]
+__device__ void row_chase(float* d, float* e, float* c, float* s, int i0, int m,
+                          int n) {
+  float b = e[i0];
+  e[i0] = 0.0f;
+  for (int k = i0 + 1; k <= m; ++k) {
+    float r;
+    givens_hypot(d[k], b, c[k], s[k], r);
+    d[k] = r;
+    const int kk = min(k, n - 2);
+    const float ek = e[kk];
+    if (k < m) {
+      e[kk] = mul(c[k], ek);
+      b = mul(-s[k], ek);
+    }
+  }
+}
+
+// d[m] == 0 with e[m-1] != 0: right rotations push column m's off-diagonal
+// upwards out of the block (bidiag_svd._col_chase); (c, s) at [l, m)
+__device__ void col_chase(float* d, float* e, float* c, float* s, int l, int m) {
+  float b = e[m - 1];
+  e[m - 1] = 0.0f;
+  for (int k = m - 1; k >= l; --k) {
+    float r;
+    givens_hypot(d[k], b, c[k], s[k], r);
+    d[k] = r;
+    if (k > l) {
+      const float ek = e[k - 1];
+      e[k - 1] = mul(c[k], ek);
+      b = mul(-s[k], ek);
+    }
+  }
+}
+
+// A wide (n, n+1) bidiagonal's last column zeroed bottom-up by right
+// rotations of columns (j, n) (bidiag_dnc._chase_extra_column); (c, s) at
+// [0, n); e[n-1] is dropped
+__device__ void extra_column_chase(float* d, float* e, float* c, float* s, int n) {
+  float f = e[n - 1];
+  for (int j = n - 1; j >= 0; --j) {
+    float r;
+    givens_sqrt(d[j], f, c[j], s[j], r);
+    d[j] = r;
+    if (j > 0) {
+      const float ej = e[j - 1];
+      e[j - 1] = mul(c[j], ej);
+      f = mul(-s[j], ej);
+    }
+  }
+  e[n - 1] = 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -56,43 +168,173 @@ bidiag_sweep_kernel(const int* __restrict__ lm, const float* __restrict__ mu_p,
   __syncthreads();
   if (threadIdx.x == 0) {
     const int l = lm[0], m = lm[1];
-    if (0 <= l && l < m && m <= n - 1) {  // else an identity sweep
-      const float dl = d[l];
-      float x = sub(mul(dl, dl), mu_p[0]);
-      float bz = mul(dl, e[l]);
-      for (int i = l; i < m; ++i) {
-        float c1, s1, r1;
-        givens(x, bz, c1, s1, r1);
-        c1_out[i] = c1;
-        s1_out[i] = s1;
-        if (i > l) e[i - 1] = r1;
-        const float di = d[i], dip1 = d[i + 1], ei = e[i];
-        const float new_di = add(mul(c1, di), mul(s1, ei));
-        const float new_ei = add(mul(-s1, di), mul(c1, ei));
-        const float bulge = mul(s1, dip1);
-        const float new_dip1 = mul(c1, dip1);
-        float c2, s2, r2;
-        givens(new_di, bulge, c2, s2, r2);
-        c2_out[i] = c2;
-        s2_out[i] = s2;
-        const float e2v = add(mul(c2, new_ei), mul(s2, new_dip1));
-        const float d2ip1 = add(mul(-s2, new_ei), mul(c2, new_dip1));
-        d[i] = r2;
-        d[i + 1] = d2ip1;
-        e[i] = e2v;
-        const bool has_next = i + 1 < m;
-        const float e_next = e[min(i + 1, n - 2)];
-        if (has_next) e[i + 1] = mul(c2, e_next);
-        bz = has_next ? mul(s2, e_next) : 0.0f;
-        x = e2v;
-      }
-    }
-  }
+    if (0 <= l && l < m && m <= n - 1)
+      sweep_chain(d, e, c1_out, s1_out, c2_out, s2_out, l, m, mu_p[0]);
+  }  // else an identity sweep
   if (staged) {
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += blockDim.x) d_out[i] = d[i];
     for (int i = threadIdx.x; i < n - 1; i += blockDim.x) e_out[i] = e[i];
   }
+}
+
+// Shared memory of a batched CTA: d, e and four rotation arrays (nmax + 1
+// each), 96 words of reduction scratch, and U (nmax²) and W ((nmax+1)²)
+// when they are kept there.
+size_t qr_smem(int nmax, bool want_u, bool want_w, bool shared) {
+  size_t words = 6 * ((size_t)nmax + 1) + 96;
+  if (shared) {
+    if (want_u) words += (size_t)nmax * nmax;
+    if (want_w) words += ((size_t)nmax + 1) * (nmax + 1);
+  }
+  return words * sizeof(float);
+}
+
+// Problem b = blockIdx.x: d_all (B, nmax), e_all (B, nmax), its size
+// sizes[b] and sqre[b] (the bidiagonal is (n, n + sqre), e[:n - 1 + sqre]);
+// U column-major (B, nmax, nmax), W column-major (B, nmax+1, nmax+1);
+// info (B, 3): iterations, converged, sweep chain steps.
+template <bool kU, bool kW>
+__global__ void __launch_bounds__(kMaxThreads)
+bidiag_qr_kernel(float* __restrict__ d_all, float* __restrict__ e_all,
+                 const int* __restrict__ sizes, const int* __restrict__ sqre_all,
+                 float* __restrict__ u_all, float* __restrict__ w_all,
+                 int* __restrict__ info, int nmax, int factor, int shared) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int nv = nmax + 1;
+  float* d = smem;
+  float* e = d + nv;
+  float* c1 = e + nv;
+  float* s1 = c1 + nv;
+  float* c2 = s1 + nv;
+  float* s2 = c2 + nv;
+  int* red = reinterpret_cast<int*>(s2 + nv);
+  const int n = sizes[b];
+  const int sq = sqre_all[b] != 0;
+  int* out = info + 3 * b;
+  if (n < 1 || n > nmax) {  // not a problem this batch holds: left as it is
+    if (tid == 0) out[0] = out[1] = out[2] = 0;
+    return;
+  }
+  float* dg = d_all + (size_t)b * nmax;
+  float* eg = e_all + (size_t)b * nmax;
+  float* ug = kU ? u_all + (size_t)b * nmax * nmax : nullptr;
+  float* wg = kW ? w_all + (size_t)b * nv * nv : nullptr;
+  float* u = ug;
+  float* w = wg;
+  if (shared) {
+    float* next = reinterpret_cast<float*>(red + 96);
+    if (kU) {
+      u = next;
+      next += (size_t)nmax * nmax;
+    }
+    if (kW) w = next;
+  }
+  for (int i = tid; i < n; i += nt) d[i] = dg[i];
+  for (int i = tid; i < n - 1 + sq; i += nt) e[i] = eg[i];
+  if (kU)
+    for (size_t k = tid; k < (size_t)nmax * nmax; k += nt)
+      u[k] = k % (nmax + 1) == 0 ? 1.0f : 0.0f;
+  if (kW)
+    for (size_t k = tid; k < (size_t)nv * nv; k += nt) w[k] = k % (nv + 1) == 0 ? 1.0f : 0.0f;
+  __syncthreads();
+  if (sq) {
+    if (tid == 0) extra_column_chase(d, e, c1, s1, n);
+    __syncthreads();
+    if (kW)
+      for (int r = tid; r < n + 1; r += nt) rotate_row_pivot(w + r, nv, n, n - 1, 0, -1, c1, s1);
+    // the next barriers keep every thread's rotations ahead of the next chain
+  }
+  int l = 0, it = 0, steps = 0;
+  const int max_iters = factor * n;
+  while (l < n - 1 && it < max_iters) {
+    ++it;
+    for (int i = tid; i < n - 1; i += nt)
+      if (fabsf(e[i]) <= mul(kEps, add(fabsf(d[i]), fabsf(d[i + 1])))) e[i] = 0.0f;
+    __syncthreads();
+    // the block end, and max|d| + max|e| (after e's zeroing)
+    int m = n - 1;
+    float dmax = 0.0f, emax = 0.0f;
+    bool found = false;
+    for (int i = tid; i < n; i += nt) {
+      dmax = nan_max(dmax, fabsf(d[i]));
+      if (i < n - 1) {
+        emax = nan_max(emax, fabsf(e[i]));
+        if (!found && i >= l && e[i] == 0.0f) {
+          m = i;
+          found = true;
+        }
+      }
+    }
+    cta_min_max_max(m, dmax, emax, red);
+    const float thr = mul(kEps, add(dmax, emax));
+    for (int i = tid; i < n; i += nt)
+      if (fabsf(d[i]) <= thr) d[i] = 0.0f;
+    __syncthreads();
+    // the first zero diagonal in [l, m]
+    int cand = INT_MAX;
+    for (int i = l + tid; i <= m; i += nt)
+      if (d[i] == 0.0f) {
+        cand = i;
+        break;
+      }
+    const int i0 = cta_min(cand, red);
+    if (i0 <= m && m > l) {
+      if (i0 == m) {
+        if (tid == 0) col_chase(d, e, c1, s1, l, m);
+        __syncthreads();
+        if (kW)
+          for (int r = tid; r < n + sq; r += nt)
+            rotate_row_pivot(w + r, nv, m, m - 1, l, -1, c1, s1);
+      } else {
+        if (tid == 0) row_chase(d, e, c2, s2, i0, m, n);
+        __syncthreads();
+        if (kU)
+          for (int r = tid; r < n; r += nt)
+            rotate_row_pivot(u + r, nmax, i0, i0 + 1, m, 1, c2, s2);
+      }
+    } else if (m <= l) {
+      ++l;
+    } else {
+      if (tid == 0) {
+        sweep_chain(d, e, c1, s1, c2, s2, l, m, shift(d, e, m));
+        steps += m - l;
+      }
+      __syncthreads();
+      // rows past n (n + sqre of W) stay those of the identity
+      if (kW)
+        for (int r = tid; r < n + sq; r += nt) rotate_row_chain(w + r, nv, l, m, c1, s1);
+      if (kU)
+        for (int r = tid; r < n; r += nt) rotate_row_chain(u + r, nmax, l, m, c2, s2);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nt) dg[i] = d[i];
+  for (int i = tid; i < n - 1 + sq; i += nt) eg[i] = e[i];
+  if (shared) {
+    if (kU)
+      for (size_t k = tid; k < (size_t)nmax * nmax; k += nt) ug[k] = u[k];
+    if (kW)
+      for (size_t k = tid; k < (size_t)nv * nv; k += nt) wg[k] = w[k];
+  }
+  if (tid == 0) {
+    out[0] = it;
+    out[1] = l >= n - 1;
+    out[2] = steps;
+  }
+}
+
+template <bool kU, bool kW>
+cudaError_t launch_qr(float* d, float* e, const int* sizes, const int* sqre, float* u,
+                      float* w, int* info, int batch, int nmax, int factor, int shared,
+                      cudaStream_t stream) {
+  const size_t smem = qr_smem(nmax, kU, kW, shared);
+  const cudaError_t err = allow_smem(bidiag_qr_kernel<kU, kW>, smem);
+  if (err != cudaSuccess) return err;
+  bidiag_qr_kernel<kU, kW><<<batch, cta_threads(nmax + 1), smem, stream>>>(
+      d, e, sizes, sqre, u, w, info, nmax, factor, shared);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -110,4 +352,34 @@ extern "C" int faer_bidiag_sweep(const int* lm, const float* mu, const float* d,
   bidiag_sweep_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       lm, mu, d, e, d_out, e_out, c1, s1, c2, s2, n, staged);
   return cudaGetLastError();
+}
+
+// Where the batched entry keeps U and W for problems of up to nmax: 0 in
+// shared memory, 1 in global memory (or neither is wanted), -1 refused
+// (nmax outside [1, kMaxN]).
+extern "C" int faer_bidiag_qr_route(int nmax, int want_u, int want_w) {
+  if (nmax < 1 || nmax > kMaxN) return -1;
+  return (want_u || want_w) && qr_smem(nmax, want_u, want_w, true) <= kMaxSmem ? 0 : 1;
+}
+
+// The iteration of `batch` problems: d (batch, nmax) and e (batch, nmax) in
+// place, sizes and sqre (batch,) int32, u (batch, nmax, nmax) and w (batch,
+// nmax+1, nmax+1) column-major (either null when not wanted), info (batch,
+// 3) int32; at most factor·n iterations a problem. All contiguous on the
+// current device. Returns the CUDA error of the launch (0 on success).
+extern "C" int faer_bidiag_qr_batched(float* d, float* e, const int* sizes,
+                                      const int* sqre, float* u, float* w, int* info,
+                                      int batch, int nmax, int factor, void* stream) {
+  const int want_u = u != nullptr, want_w = w != nullptr;
+  const int route = faer_bidiag_qr_route(nmax, want_u, want_w);
+  if (route < 0 || batch < 1 || factor < 0) return cudaErrorInvalidValue;
+  const int shared = route == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (want_u && want_w)
+    return launch_qr<true, true>(d, e, sizes, sqre, u, w, info, batch, nmax, factor, shared, s);
+  if (want_u)
+    return launch_qr<true, false>(d, e, sizes, sqre, u, w, info, batch, nmax, factor, shared, s);
+  if (want_w)
+    return launch_qr<false, true>(d, e, sizes, sqre, u, w, info, batch, nmax, factor, shared, s);
+  return launch_qr<false, false>(d, e, sizes, sqre, u, w, info, batch, nmax, factor, shared, s);
 }

@@ -1,0 +1,162 @@
+// spectral_qr.cuh: what the implicit-QR kernels of tridiag_sweep.cu and
+// bidiag_sweep.cu share.
+//
+// * IEEE operations rounded one at a time (no FMA contraction), so that a
+//   kernel repeats the rounding of its plain PyTorch version, one PyTorch
+//   launch an operation: __fmul_rn and friends, __fsqrt_rn, __fdiv_rn, and
+//   hypotf where the plain code calls torch.hypot;
+// * the Wilkinson shift and the two Givens forms of the plain versions;
+// * CTA reductions (a minimum index, NaN-propagating maxima as torch.max);
+// * the rotation of one row of a column-major matrix by a chain of Givens
+//   rotations, its running column carried in a register.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace faer_qr {
+
+constexpr float kEps = 1.1920928955078125e-07f;  // float32's eps, 2^-23
+constexpr int kMaxThreads = 512;
+constexpr int kMaxN = 8192;  // the largest problem the batched kernels take
+constexpr size_t kMaxSmem = 232448;  // 227 KB: what one block can opt into
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// The eigenvalue of [[a, b], [b, c]] closest to c, in the order of
+// tridiag_evd._wilkinson_shift (PyTorch divides by the CPU scalar 2 as a
+// product with 0.5, which rounds as the division does).
+__device__ __forceinline__ float wilkinson_shift(float a, float b, float c) {
+  const float delta = mul(sub(a, c), 0.5f);
+  const float sq = __fsqrt_rn(add(mul(delta, delta), mul(b, b)));
+  float denom = add(delta, delta >= 0.0f ? sq : -sq);
+  if (denom == 0.0f) denom = 1.0f;
+  return b == 0.0f ? c : sub(c, __fdiv_rn(mul(b, b), denom));
+}
+
+// c, s, r with [[c, -s], [s, c]]^T [x, z]^T = [r, 0]^T, r = sqrt(x² + z²):
+// the sweeps' form (and the extra-column chase's)
+__device__ __forceinline__ void givens_sqrt(float x, float z, float& c, float& s,
+                                            float& r) {
+  r = __fsqrt_rn(add(mul(x, x), mul(z, z)));
+  c = (r == 0.0f) ? 1.0f : __fdiv_rn(x, r);
+  s = (r == 0.0f) ? 0.0f : __fdiv_rn(z, r);
+}
+
+// the same with r = hypot(x, z): the zero-diagonal chases' form
+// (tridiag_evd._givens_real)
+__device__ __forceinline__ void givens_hypot(float x, float z, float& c, float& s,
+                                             float& r) {
+  r = hypotf(x, z);
+  c = (r == 0.0f) ? 1.0f : __fdiv_rn(x, r);
+  s = (r == 0.0f) ? 0.0f : __fdiv_rn(z, r);
+}
+
+// max that keeps a NaN, as torch.max does
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The minimum of v over the CTA (blockDim.x a multiple of 32), in every
+// thread. red: 32 ints of shared scratch. Ends in a barrier, so every
+// thread's reads before the call are done when any thread returns.
+__device__ __forceinline__ int cta_min(int v, int* red) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = min(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
+// The minimum of v and the NaN-propagating maxima of x and y over the CTA,
+// in every thread; red: 3 × 32 words of shared scratch. Ends in a barrier.
+__device__ __forceinline__ void cta_min_max_max(int& v, float& x, float& y, int* red) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  for (int o = 16; o > 0; o >>= 1) {
+    x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, o));
+    y = nan_max(y, __shfl_xor_sync(0xffffffffu, y, o));
+  }
+  float* fred = reinterpret_cast<float*>(red + 32);
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = v;
+    fred[threadIdx.x >> 5] = x;
+    fred[32 + (threadIdx.x >> 5)] = y;
+  }
+  __syncthreads();
+  v = red[0];
+  x = fred[0];
+  y = fred[32];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+    v = min(v, red[w]);
+    x = nan_max(x, fred[w]);
+    y = nan_max(y, fred[32 + w]);
+  }
+  __syncthreads();
+}
+
+// One row of a column-major matrix (z points at its entry in column 0,
+// columns ld apart) times G_lo G_{lo+1} ⋯ G_{hi-1}, G_i the rotation
+// [[c_i, -s_i], [s_i, c_i]] of columns (i, i+1): columns (i, i+1) ←
+// (c·z_i + s·z_{i+1}, −s·z_i + c·z_{i+1}), rounded as the plain
+// versions' column rotations. The running column i stays in a register;
+// the next kAhead columns are loaded before they are needed, which hides
+// the latency of a matrix in global memory.
+__device__ __forceinline__ void rotate_row_chain(float* z, int ld, int lo, int hi,
+                                                 const float* c, const float* s) {
+  constexpr int kAhead = 8;
+  float a = z[(size_t)lo * ld];
+  int i = lo;
+  for (; i + kAhead <= hi; i += kAhead) {
+    float b[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) b[k] = z[(size_t)(i + 1 + k) * ld];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const float ck = c[i + k], sk = s[i + k];
+      z[(size_t)(i + k) * ld] = add(mul(ck, a), mul(sk, b[k]));
+      a = add(mul(-sk, a), mul(ck, b[k]));
+    }
+  }
+  for (; i < hi; ++i) {
+    const float b = z[(size_t)(i + 1) * ld];
+    z[(size_t)i * ld] = add(mul(c[i], a), mul(s[i], b));
+    a = add(mul(-s[i], a), mul(c[i], b));
+  }
+  z[(size_t)hi * ld] = a;
+}
+
+// One row of a column-major matrix rotated in the column pairs (k, p) for
+// k = first, first + step, …, last (step ±1), with (c_k, s_k): column k ←
+// c·z_k + s·z_p, column p ← −s·z_k + c·z_p, the pivot column p carried in
+// a register. The zero-diagonal chases and the extra-column chase.
+__device__ __forceinline__ void rotate_row_pivot(float* z, int ld, int p, int first,
+                                                 int last, int step, const float* c,
+                                                 const float* s) {
+  float zp = z[(size_t)p * ld];
+  for (int k = first; step > 0 ? k <= last : k >= last; k += step) {
+    const float zk = z[(size_t)k * ld];
+    z[(size_t)k * ld] = add(mul(c[k], zk), mul(s[k], zp));
+    zp = add(mul(-s[k], zk), mul(c[k], zp));
+  }
+  z[(size_t)p * ld] = zp;
+}
+
+// Threads of a batched CTA: every row of the largest matrix, in warps
+__host__ __forceinline__ int cta_threads(int rows) {
+  const int t = (rows + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
+}
+
+// Opt a kernel into ``bytes`` of dynamic shared memory where it needs more
+// than the 48 KB every launch gets.
+template <typename Kernel>
+__host__ __forceinline__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace faer_qr

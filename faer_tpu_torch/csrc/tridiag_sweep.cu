@@ -1,37 +1,84 @@
-// tridiag_sweep: one Wilkinson-shifted implicit-QR bulge chase on the block
-// [l, m] of a symmetric tridiagonal (d (n,), e (n-1,)), f32.
+// tridiag_sweep: the implicit-shift QR iteration of a symmetric tridiagonal
+// (d (n,), e (n-1,)), f32. Two entries share one sweep routine:
+//
+// * faer_tridiag_sweep: one Wilkinson-shifted bulge chase on the block
+//   [l, m], its rotations out (the one-sweep contract of the Pallas kernel);
+// * faer_tridiag_qr_batched: the whole iteration of every problem of a
+//   batch, one CTA a problem, in one launch: what tridiag_evd's loop does
+//   per iteration (zero the negligible e, find the block end, advance l or
+//   shift and sweep) and the rotation of the eigenvector matrix Z.
 //
 // Replaces: faer_tpu/ops/pallas/panel_kernels.py `tridiag_sweep_pallas`
-// (:390, body `_tridiag_sweep_kernel` :322), which runs the same recurrence
-// on VMEM-resident rows with register carries and emits the Givens
-// coefficients for the eigenvector GEMM chain.
+// (:390, body `_tridiag_sweep_kernel` :322), which runs one sweep on
+// VMEM-resident rows and emits the Givens coefficients; the JAX package
+// runs the iteration around it as one device-resident lax.while_loop
+// (faer_tpu/linalg/tridiag_evd.py:184-210).
 //
-// What bounds it on the H100: neither bytes (6n floats in and out) nor
-// FLOPs (about 30 per step), but the serial dependence of the chase: step i
-// needs the (x, bulge) carry of step i-1, and each step has a square root
-// and two divides on that chain. Nothing inside one sweep runs in parallel.
+// What bounds it on the H100: neither bytes nor FLOPs but the serial chain
+// of each sweep: step i needs step i-1's (x, bulge) carry, and each step has
+// a square root and two divides on it. A sweep per launch with the host
+// deciding the next one costs a launch, a host read and some thirty small
+// PyTorch launches an iteration, so the batched entry keeps the iteration
+// on the card: a D&C call's 64 leaves run side by side, one CTA each, with
+// d, e, the rotations and (when it fits, every D&C leaf) Z in shared memory,
+// else Z in global memory, column-major so that a warp's rows are adjacent.
 //
-// Design: one CTA. Its threads set c = 1 and s = 0 and copy d and e to where
-// the chase works on them: shared memory when the 2n floats fit in the 48 KB
-// of dynamic shared memory a block gets without opting in (every D&C leaf and
-// every direct-route n), else in place in the outputs in global memory, so
-// that every n runs. Then one thread runs the chain over i in [l, m) in
-// registers (the Pallas loop's inactive steps are identity, so skipping them
-// computes the same thing), and the CTA copies the staged d and e out.
-// l, m and the shift mu are read from device memory, so the driver never
-// copies them to the host to launch a sweep. Every operation is rounded on
-// its own (__fmul_rn and friends, no FMA contraction), in the order of the
-// Pallas body, so the kernel and its plain PyTorch version round alike.
+// Design of the chain: one thread runs it with d[i], e[i] and d[i+1] in
+// registers and the next step's d[i+2], e[i+2] loaded a step ahead, so no
+// store-to-load round trip through shared memory sits on it; only the
+// final value of each d and e is stored. After the chain every thread owns
+// rows of Z and applies the sweep's rotations in order, its running column
+// in a register (rotate_row_chain). The block end is a CTA minimum. Every
+// operation is rounded on its own in the plain versions' order
+// (spectral_qr.cuh), so d, e and the iteration counts equal the plain
+// version's bit for bit.
 #include <cuda_runtime.h>
+
+#include "spectral_qr.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace faer_qr;
+
+constexpr int kThreads = 256;  // the one-sweep entry
 constexpr int kMaxStagedN = 6144;  // 2n floats in 48 KB
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+// One sweep with shift mu on the block [l, m] (0 <= l < m <= n-1) of (d, e),
+// by one thread; its rotations to c[i], s[i] for i in [l, m). The pointers
+// may be shared or global.
+__device__ void sweep_chain(float* d, float* e, float* c_out, float* s_out, int l,
+                            int m, float mu) {
+  float di = d[l], ei = e[l], dip1 = d[l + 1];
+  float x = sub(di, mu), bz = ei;
+  float e_next = l + 1 < m ? e[l + 1] : 0.0f;  // e[i+1] as the sweep found it
+  for (int i = l; i < m; ++i) {
+    const bool has_next = i + 1 < m;
+    // the next step's inputs, off the chain
+    const float dip2 = has_next ? d[i + 2] : 0.0f;
+    const float e_next2 = i + 2 < m ? e[i + 2] : 0.0f;
+    float c, s, r;
+    givens_sqrt(x, bz, c, s, r);
+    c_out[i] = c;
+    s_out[i] = s;
+    if (i > l) e[i - 1] = r;
+    const float cc = mul(c, c), ss = mul(s, s);
+    const float cs2 = mul(mul(2.0f, c), s);
+    const float new_di = add(add(mul(cc, di), mul(cs2, ei)), mul(ss, dip1));
+    const float new_dip1 = add(sub(mul(ss, di), mul(cs2, ei)), mul(cc, dip1));
+    const float new_ei = add(mul(mul(c, s), sub(dip1, di)), mul(sub(cc, ss), ei));
+    d[i] = new_di;
+    x = new_ei;
+    di = new_dip1;
+    if (has_next) {
+      ei = mul(c, e_next);
+      bz = mul(s, e_next);
+    }
+    dip1 = dip2;
+    e_next = e_next2;
+  }
+  d[m] = di;
+  e[m - 1] = x;
+}
 
 __global__ void __launch_bounds__(kThreads)
 tridiag_sweep_kernel(const int* __restrict__ lm, const float* __restrict__ mu_p,
@@ -51,37 +98,91 @@ tridiag_sweep_kernel(const int* __restrict__ lm, const float* __restrict__ mu_p,
   __syncthreads();
   if (threadIdx.x == 0) {
     const int l = lm[0], m = lm[1];
-    if (0 <= l && l < m && m <= n - 1) {  // else an identity sweep
-      float x = sub(d[l], mu_p[0]);
-      float bz = e[l];
-      for (int i = l; i < m; ++i) {
-        const float r = __fsqrt_rn(add(mul(x, x), mul(bz, bz)));
-        const float c = (r == 0.0f) ? 1.0f : __fdiv_rn(x, r);
-        const float s = (r == 0.0f) ? 0.0f : __fdiv_rn(bz, r);
-        c_out[i] = c;
-        s_out[i] = s;
-        if (i > l) e[i - 1] = r;
-        const float di = d[i], dip1 = d[i + 1], ei = e[i];
-        const float cc = mul(c, c), ss = mul(s, s);
-        const float cs2 = mul(mul(2.0f, c), s);
-        const float new_di = add(add(mul(cc, di), mul(cs2, ei)), mul(ss, dip1));
-        const float new_dip1 = add(sub(mul(ss, di), mul(cs2, ei)), mul(cc, dip1));
-        const float new_ei = add(mul(mul(c, s), sub(dip1, di)), mul(sub(cc, ss), ei));
-        d[i] = new_di;
-        d[i + 1] = new_dip1;
-        e[i] = new_ei;
-        const bool has_next = i + 1 < m;
-        const float e_next = e[min(i + 1, n - 2)];
-        if (has_next) e[i + 1] = mul(c, e_next);
-        bz = has_next ? mul(s, e_next) : 0.0f;
-        x = new_ei;
-      }
-    }
-  }
+    if (0 <= l && l < m && m <= n - 1) sweep_chain(d, e, c_out, s_out, l, m, mu_p[0]);
+  }  // else an identity sweep
   if (staged) {
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += blockDim.x) d_out[i] = d[i];
     for (int i = threadIdx.x; i < n - 1; i += blockDim.x) e_out[i] = e[i];
+  }
+}
+
+// Shared memory of a batched CTA: d, e, c, s (nmax each), 32 ints of
+// reduction scratch, and Z (nmax²) when it is kept there.
+size_t qr_smem(int nmax, bool z_shared) {
+  return (4 * (size_t)nmax + 32 + (z_shared ? (size_t)nmax * nmax : 0)) * sizeof(float);
+}
+
+// Problem b = blockIdx.x: d_all (B, nmax), e_all (B, nmax-1), its size
+// sizes[b]; Z column-major (B, nmax, nmax) in global memory; info (B, 3):
+// iterations, converged, chain steps.
+template <bool kVectors>
+__global__ void __launch_bounds__(kMaxThreads)
+tridiag_qr_kernel(float* __restrict__ d_all, float* __restrict__ e_all,
+                  const int* __restrict__ sizes, float* __restrict__ z_all,
+                  int* __restrict__ info, int nmax, int factor, int z_shared) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  float* d = smem;
+  float* e = d + nmax;
+  float* cs = e + nmax;
+  float* sn = cs + nmax;
+  int* red = reinterpret_cast<int*>(sn + nmax);
+  const int n = sizes[b];
+  int* out = info + 3 * b;
+  if (n < 1 || n > nmax) {  // not a problem this batch holds: left as it is
+    if (tid == 0) out[0] = out[1] = out[2] = 0;
+    return;
+  }
+  float* dg = d_all + (size_t)b * nmax;
+  float* eg = e_all + (size_t)b * (nmax - 1);
+  float* zg = z_all + (size_t)b * nmax * nmax;
+  float* z = z_shared ? reinterpret_cast<float*>(red + 32) : zg;
+  for (int i = tid; i < n; i += nt) d[i] = dg[i];
+  for (int i = tid; i < n - 1; i += nt) e[i] = eg[i];
+  if (kVectors)
+    for (size_t k = tid; k < (size_t)nmax * nmax; k += nt)
+      z[k] = k % (nmax + 1) == 0 ? 1.0f : 0.0f;
+  __syncthreads();
+  int l = 0, it = 0, steps = 0;
+  const int max_iters = factor * n;
+  while (l < n - 1 && it < max_iters) {
+    ++it;
+    for (int i = tid; i < n - 1; i += nt)
+      if (fabsf(e[i]) <= mul(kEps, add(fabsf(d[i]), fabsf(d[i + 1])))) e[i] = 0.0f;
+    __syncthreads();
+    // the end of the unreduced block starting at l
+    int cand = n - 1;
+    for (int i = l + tid; i < n - 1; i += nt)
+      if (e[i] == 0.0f) {
+        cand = i;
+        break;
+      }
+    const int m = cta_min(cand, red);
+    if (m <= l) {
+      ++l;
+      continue;
+    }
+    if (tid == 0) {
+      sweep_chain(d, e, cs, sn, l, m, wilkinson_shift(d[m - 1], e[m - 1], d[m]));
+      steps += m - l;
+    }
+    __syncthreads();
+    // rows past n stay those of the identity: the rotations leave them be
+    if (kVectors)
+      for (int r = tid; r < n; r += nt) rotate_row_chain(z + r, nmax, l, m, cs, sn);
+    // the next iteration's barriers keep the chain off cs, sn until every
+    // row is rotated
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nt) dg[i] = d[i];
+  for (int i = tid; i < n - 1; i += nt) eg[i] = e[i];
+  if (kVectors && z_shared)
+    for (size_t k = tid; k < (size_t)nmax * nmax; k += nt) zg[k] = z[k];
+  if (tid == 0) {
+    out[0] = it;
+    out[1] = l >= n - 1;
+    out[2] = steps;
   }
 }
 
@@ -99,5 +200,41 @@ extern "C" int faer_tridiag_sweep(const int* lm, const float* mu,
   const size_t smem = staged ? 2 * (size_t)n * sizeof(float) : 0;
   tridiag_sweep_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
       lm, mu, d, e, d_out, e_out, c, s, n, staged);
+  return cudaGetLastError();
+}
+
+// Where the batched entry keeps Z for problems of up to nmax: 0 in shared
+// memory, 1 in global memory (or no Z: vectors == 0), -1 refused (nmax
+// outside [1, kMaxN]).
+extern "C" int faer_tridiag_qr_route(int nmax, int vectors) {
+  if (nmax < 1 || nmax > kMaxN) return -1;
+  return vectors && qr_smem(nmax, true) <= kMaxSmem ? 0 : 1;
+}
+
+// The iteration of `batch` problems: d (batch, nmax) and e (batch, nmax-1)
+// in place, sizes (batch,) int32, z (batch, nmax, nmax) column-major (or
+// null without vectors), info (batch, 3) int32; at most factor·n iterations
+// a problem. All contiguous on the current device. Returns the CUDA error of
+// the launch (0 on success).
+extern "C" int faer_tridiag_qr_batched(float* d, float* e, const int* sizes, float* z,
+                                       int* info, int batch, int nmax, int factor,
+                                       int vectors, void* stream) {
+  const int route = faer_tridiag_qr_route(nmax, vectors);
+  if (route < 0 || batch < 1 || factor < 0) return cudaErrorInvalidValue;
+  const int z_shared = route == 0;
+  const size_t smem = qr_smem(nmax, z_shared);
+  const int threads = cta_threads(nmax);
+  cudaError_t err;
+  if (vectors) {
+    err = allow_smem(tridiag_qr_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    tridiag_qr_kernel<true><<<batch, threads, smem, (cudaStream_t)stream>>>(
+        d, e, sizes, z, info, nmax, factor, z_shared);
+  } else {
+    err = allow_smem(tridiag_qr_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
+    tridiag_qr_kernel<false><<<batch, threads, smem, (cudaStream_t)stream>>>(
+        d, e, sizes, z, info, nmax, factor, 0);
+  }
   return cudaGetLastError();
 }

@@ -9,8 +9,11 @@ secular equation ``f(σ) = 1 + Σ z_j²/((d_j − σ)(d_j + σ))`` (dlasd4 style
 the log-coordinate bisection of ``tridiag_dnc``). Right vectors come from
 the Gu–Eisenstat ẑ / Löwner formula, left ones from
 ``u ∝ (−1, d_j ẑ_j/((d_j − σ)(d_j + σ)))``; the O(n³) work is block-diagonal
-GEMMs. Leaves of ``_LEAF`` = 64 take the QR iteration (``bidiag_svd``,
-through the ``bidiag_sweep`` kernel).
+GEMMs. Leaves of ``_LEAF`` = 64 take the QR iteration: all of them, wide
+(the upper halves, (m, m+1)) and square, in one launch of the batched QR
+kernel (``bidiag_qr_batched``, counted under ``bidiag_sweep``), which
+chases a wide leaf's extra column out first; the merges then run
+bottom-up in the recursion's order.
 
 Precision: the JAX package runs the merge's secular part in f64 whenever JAX
 has x64 on (``bidiag_dnc.py:190``), as its tests run; the port always does
@@ -21,17 +24,22 @@ product of the port runs in full FP32. The deflation scan and the
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from faer_tpu_torch.core import dtypes
+from faer_tpu_torch.core.errors import SpectralInfo
 from faer_tpu_torch.linalg.tridiag_dnc import (
     _F64,
     _bisect,
+    _host_ints,
     _log_abs,
     _next_active,
     _pair_deflation,
 )
 from faer_tpu_torch.linalg.tridiag_evd import _apply_rotation_chain_rows, _info
+from faer_tpu_torch.ops.kernels.sweep import bidiag_qr_batched
 from faer_tpu_torch.ops.matmul import matmul
 
 _LEAF = 64
@@ -87,48 +95,6 @@ def _secular_solve_svd(d, z2, n_iter: int = 64):
     dms = torch.where(active[None, :], dms, delta_lo)
     dps = torch.where(active[None, :], dps, sum_lo)
     return sig, dms, dps
-
-
-def _chase_extra_column(d, e):
-    """Reduce a wide (m, m+1) upper bidiagonal to square: ``(d', e', w0)``
-    with ``B_wide @ w0 = [B_square | 0]``, w0 orthogonal (m+1)×(m+1). Right
-    Givens rotations on columns (j, m) zero the last column bottom-up."""
-    m = d.shape[0]
-    d, e = d.clone(), e.clone()
-    w0 = torch.eye(m + 1, dtype=d.dtype, device=d.device)
-    one = d.new_ones(())
-    f = e[m - 1].clone()
-    for j in range(m - 1, -1, -1):
-        dj = d[j].clone()
-        r = torch.sqrt(dj * dj + f * f)
-        safe = torch.where(r == 0, one, r)
-        c = torch.where(r == 0, one, dj / safe)
-        s = torch.where(r == 0, 0.0 * one, f / safe)
-        d[j] = r
-        if j > 0:
-            ej = e[j - 1].clone()
-            e[j - 1] = c * ej
-            f = -s * ej
-        cj, cm = w0[:, j].clone(), w0[:, m].clone()
-        w0[:, j] = c * cj + s * cm
-        w0[:, m] = -s * cj + c * cm
-    return d, e[:m - 1], w0
-
-
-def _leaf(d, e, sqre: int):
-    """Direct solve of a small block by the QR iteration (after the
-    extra-column chase in the wide case): ``(u, s, w)``, s descending,
-    ``B = u @ [diag(s) | 0_sqre] @ wᵀ``."""
-    from faer_tpu_torch.linalg.bidiag_svd import bidiag_svd
-
-    m = d.shape[0]
-    if sqre == 0:
-        s, u, v, _ = bidiag_svd(d, e)
-        return u, s, v
-    d2, e2, w0 = _chase_extra_column(d, e)
-    s, u, v, _ = bidiag_svd(d2, e2)
-    w = torch.cat([matmul(None, w0[:, :m], v), w0[:, m:]], dim=1)
-    return u, s, w
 
 
 def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int, hi: bool = False):
@@ -260,21 +226,97 @@ def _svd_merge(u1, s1, w1, u2, s2, w2, alpha, beta, sqre: int, hi: bool = False)
     return u_out, s_all, w_out
 
 
-def _dnc(d, e, sqre: int, hi: bool = False):
-    """Recursive solve of the (m, m+sqre) upper bidiagonal B: ``(u, s, w)``,
-    s descending (m + sqre entries, the last the ≈0 null root when sqre = 1),
-    ``B = u @ [diag(s[:m]) | 0] @ wᵀ``."""
+def _leaf_plan(m: int, sqre: int, leaf: int = _LEAF):
+    """The recursion's split of an (m, m + sqre) bidiagonal: its leaves
+    ``(start, rows, sqre)`` left to right. A block of more than ``leaf``
+    rows tears at its middle row k: the rows above form a wide (k, k+1)
+    block, the rows below keep the block's sqre."""
+    leaves = []
+
+    def rec(start, rows, sq):
+        if rows <= leaf:
+            leaves.append((start, rows, sq))
+            return
+        k = rows // 2
+        rec(start, k, 1)
+        rec(start + k + 1, rows - k - 1, sq)
+
+    rec(0, m, sqre)
+    return leaves
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensors(m: int, sqre: int, device):
+    """``_leaf_plan(m, sqre)`` and its leaf starts, sizes (int32) and sqre
+    (int32) on ``device``, made once per (m, sqre, device)."""
+    leaves = _leaf_plan(m, sqre)
+    packed = _host_ints([x for leaf in zip(*leaves) for x in leaf], device)
+    nl = len(leaves)
+    return (leaves, packed[:nl], packed[nl:2 * nl].to(torch.int32),
+            packed[2 * nl:].to(torch.int32))
+
+
+def _leaf_inputs(d, e, sqre: int):
+    """Every leaf's (d, e) of the (m, m + sqre) bidiagonal, padded into
+    (B, nmax) each (leaf b's e has rows − 1 + sq entries), their sizes and
+    sqre (int32 (B,)): index slices, as ``_dnc``'s recursion cuts them."""
     m = d.shape[0]
-    if m <= _LEAF:
-        u, s, w = _leaf(d, e, sqre)
-        if sqre:
-            s = torch.cat([s, s.new_zeros(1)])
-        return u, s, w
-    k = m // 2
-    u1, s1, w1 = _dnc(d[:k], e[:k], 1)
-    u2, s2, w2 = _dnc(d[k + 1:], e[k + 1:], sqre)
-    # the merge takes only each sub-block's m genuine singular values
-    return _svd_merge(u1, s1[:k], w1, u2, s2[:m - k - 1], w2, d[k], e[k], sqre, hi)
+    leaves, starts, sizes, sqres = _plan_tensors(m, sqre, d.device)
+    nmax = max(rows for _, rows, _ in leaves)
+    j = torch.arange(nmax, device=d.device)
+    idx = starts[:, None] + j[None, :]
+    dl = torch.where(j[None, :] < sizes[:, None], d[idx.clamp(max=m - 1)], 0.0)
+    e_pad = torch.cat([e, e.new_zeros(1)])  # a gather target even when e is empty
+    el = torch.where(j[None, :] < sizes[:, None] - 1 + sqres[:, None],
+                     e_pad[idx.clamp(max=e.shape[0])], 0.0)
+    return dl, el, sizes, sqres
+
+
+def _leaf_stage(d, e, sqre: int):
+    """Every leaf of the (m, m + sqre) bidiagonal solved in one batched
+    launch: ``(u, s, w, info, leaves)``, leaf b (rows, sq) with
+    ``u[b, :rows, :rows]``, descending ``s[b, :rows + sq]`` (a wide leaf's
+    last the null root 0) and ``w[b, :rows + sq, :rows + sq]``, ``leaves``
+    the (start, rows, sq) plan. Reads nothing on the host."""
+    dl, el, sizes, sqres = _leaf_inputs(d, e, sqre)
+    nmax = dl.shape[1]
+    j = torch.arange(nmax, device=d.device)
+    u, w, its, conv, _ = bidiag_qr_batched(dl, el, sizes, sqres)
+    # sign fix (σ ≥ 0, flip U's columns) and sort descending; padding last,
+    # a wide leaf's extra column (index rows) kept in place after its σ's
+    sgn = torch.where(dl < 0, -1.0, 1.0)
+    s = dl * sgn
+    pad = j[None, :] >= sizes[:, None]
+    order = torch.argsort(torch.where(pad, float("inf"), -s), dim=1, stable=True)
+    u = torch.gather(u * sgn[:, None, :], 2, order[:, None, :].expand(-1, nmax, -1))
+    order_w = torch.cat([order, order.new_full((order.shape[0], 1), nmax)], dim=1)
+    w = torch.gather(w, 2, order_w[:, None, :].expand(-1, nmax + 1, -1))
+    s = torch.cat([torch.gather(s, 1, order), s.new_zeros((s.shape[0], 1))], dim=1)
+    info = SpectralInfo(converged=conv.all(), iterations=its.sum(dtype=torch.int32))
+    return u, s, w, info, _plan_tensors(d.shape[0], sqre, d.device)[0]
+
+
+def _dnc(d, e, sqre: int, hi: bool = False):
+    """Solve of the (m, m+sqre) upper bidiagonal B by the recursion's tears:
+    ``(u, s, w)``, s descending (m + sqre entries, the last the ≈0 null root
+    when sqre = 1), ``B = u @ [diag(s[:m]) | 0] @ wᵀ``."""
+    u_leaf, s_leaf, w_leaf, _, leaves = _leaf_stage(d, e, sqre)
+    next_leaf = iter(range(len(leaves)))
+
+    def solve(start, rows, sq, top):
+        # the recursion's order: upper rows, lower rows, then their merge
+        if rows <= _LEAF:
+            b = next(next_leaf)
+            return (u_leaf[b, :rows, :rows], s_leaf[b, :rows + sq],
+                    w_leaf[b, :rows + sq, :rows + sq])
+        k = rows // 2
+        u1, s1, w1 = solve(start, k, 1, False)
+        u2, s2, w2 = solve(start + k + 1, rows - k - 1, sq, False)
+        # the merge takes only each sub-block's genuine singular values
+        return _svd_merge(u1, s1[:k], w1, u2, s2[:rows - k - 1], w2, d[start + k],
+                          e[start + k], sq, top)
+
+    return solve(0, d.shape[0], sqre, hi)
 
 
 def bidiag_svd_dnc(d, e, *, want_u: bool = True, want_v: bool = True):

@@ -2,8 +2,12 @@
 ``faer_tpu/linalg/tridiag_dnc.py``).
 
 faer ``divide_and_conquer`` (``evd/tridiag_evd.rs:608``): recursion over
-halves down to leaves of ``_LEAF`` = 64, which take the QR iteration
-(``tridiag_evd``, through the ``tridiag_sweep`` kernel). Each merge solves
+halves down to leaves of ``_LEAF`` = 64, which take the QR iteration. The
+port forms every leaf's input up front (the tears' corrections at each
+split point, the same subtractions the recursion makes, each on its own
+entry) and solves all the leaves in one launch of the batched QR kernel
+(``tridiag_qr_batched``, counted under ``tridiag_sweep``), then merges
+bottom-up in the recursion's order. Each merge solves
 the rank-one-update eigenproblem ``D + ρ z zᵀ``: all secular roots at once by
 a 64-step log-coordinate bisection, Gu–Eisenstat pair deflation, the Löwner
 formula for the vectors, and one block-diagonal back-transform GEMM pair.
@@ -23,11 +27,14 @@ row rotations is a rotation chain applied to rows in descending order.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core.errors import SpectralInfo
 from faer_tpu_torch.linalg.tridiag_evd import _apply_rotation_chain_rows
+from faer_tpu_torch.ops.kernels.sweep import tridiag_qr_batched
 from faer_tpu_torch.ops.matmul import matmul
 
 _LEAF = 64
@@ -213,6 +220,83 @@ def _merge(d1, q1, d2, q2, beta, hi: bool = False):
     return w[srt], v[:, srt]
 
 
+def _host_ints(values, device):
+    """An int64 tensor of ``values`` on ``device``, copied from pinned memory
+    without a host sync."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _tear_plan(n: int, leaf: int = _LEAF):
+    """The recursion's halving of [0, n): the leaves ``(start, size)`` left
+    to right, and the split points p (the first row of the right half)."""
+    leaves, splits = [], []
+
+    def rec(start, size):
+        if size <= leaf:
+            leaves.append((start, size))
+            return
+        k = size // 2
+        splits.append(start + k)
+        rec(start, k)
+        rec(start + k, size - k)
+
+    rec(0, n)
+    return leaves, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensors(n: int, device):
+    """``_tear_plan(n)`` and its index tensors on ``device`` (split points,
+    leaf starts, leaf sizes as int32), made once per (n, device): later
+    calls, and a CUDA graph's capture, copy nothing from the host."""
+    leaves, splits = _tear_plan(n)
+    starts, sizes = zip(*leaves)
+    packed = _host_ints([*splits, *starts, *sizes], device)
+    ns, nl = len(splits), len(leaves)
+    return (leaves, packed[:ns], packed[ns:ns + nl], packed[ns + nl:].to(torch.int32))
+
+
+def _leaf_inputs(d, e):
+    """Every leaf's (d, e), padded into (B, nmax) and (B, nmax − 1), and
+    their sizes (int32 (B,)): the tear of split point p takes e[p−1] off
+    d[p−1] and d[p], as ``tridiag_evd_dnc``'s recursion does; no entry is
+    an end of two leaves (leaves have more than one row), so each is
+    corrected once, by the same subtraction, to the same bits."""
+    n = d.shape[0]
+    leaves, splits, starts, sizes = _plan_tensors(n, d.device)
+    nmax = max(size for _, size in leaves)
+    d_torn = d.clone()
+    beta = e[splits - 1]
+    d_torn[splits - 1] -= beta
+    d_torn[splits] -= beta
+    j = torch.arange(nmax, device=d.device)
+    idx = (starts[:, None] + j[None, :]).clamp(max=n - 1)
+    dl = torch.where(j[None, :] < sizes[:, None], d_torn[idx], 0.0)
+    je = j[:nmax - 1]
+    idx_e = (starts[:, None] + je[None, :]).clamp(max=n - 2)
+    el = torch.where(je[None, :] < sizes[:, None] - 1, e[idx_e], 0.0)
+    return dl, el, sizes
+
+
+def _leaf_stage(d, e):
+    """Every leaf solved in one batched launch: ``(w, z, info, leaves)``,
+    leaf b's ascending eigenvalues ``w[b, :size]`` and eigenvectors
+    ``z[b, :size, :size]``, ``leaves`` the (start, size) plan. Reads
+    nothing on the host."""
+    dl, el, sizes = _leaf_inputs(d, e)
+    z, its, conv, _ = tridiag_qr_batched(dl, el, sizes)
+    nmax = dl.shape[1]
+    pad = torch.arange(nmax, device=d.device)[None, :] >= sizes[:, None]
+    order = torch.argsort(torch.where(pad, float("inf"), dl), dim=1, stable=True)
+    w = torch.gather(dl, 1, order)
+    z = torch.gather(z, 2, order[:, None, :].expand(-1, nmax, -1))
+    info = SpectralInfo(converged=conv.all(), iterations=its.sum(dtype=torch.int32))
+    return w, z, info, _plan_tensors(d.shape[0], d.device)[0]
+
+
 def tridiag_evd_dnc(d, e, *, want_vectors: bool = True, hi: bool = True):
     """D&C eigendecomposition of tridiag(d, e): ``(w, z, info)``."""
     from faer_tpu_torch.linalg.tridiag_evd import tridiag_evd
@@ -220,16 +304,18 @@ def tridiag_evd_dnc(d, e, *, want_vectors: bool = True, hi: bool = True):
     n = d.shape[0]
     if n <= _LEAF:
         return tridiag_evd(d, e, want_vectors=want_vectors)
-    k = n // 2
-    beta = e[k - 1]
-    # tear: T = blkdiag(T1, T2) + β (e_{k−1} + e_k)(…)ᵀ with corrected diagonals
-    d1 = d[:k].clone()
-    d1[k - 1] -= beta
-    d2 = d[k:].clone()
-    d2[0] -= beta
-    w1, q1, i1 = tridiag_evd_dnc(d1, e[:k - 1], hi=False)
-    w2, q2, i2 = tridiag_evd_dnc(d2, e[k:], hi=False)
-    w, v = _merge(w1, q1, w2, q2, beta, hi)
-    info = SpectralInfo(converged=i1.converged & i2.converged,
-                        iterations=i1.iterations + i2.iterations)
+    w_leaf, z_leaf, info, leaves = _leaf_stage(d, e)
+    next_leaf = iter(range(len(leaves)))
+
+    def merge(size, start, top):
+        # the recursion's order: left half, right half, then their merge
+        if size <= _LEAF:
+            b = next(next_leaf)
+            return w_leaf[b, :size], z_leaf[b, :size, :size]
+        k = size // 2
+        w1, q1 = merge(k, start, False)
+        w2, q2 = merge(size - k, start + k, False)
+        return _merge(w1, q1, w2, q2, e[start + k - 1], top)
+
+    w, v = merge(n, 0, hi)
     return w, (v if want_vectors else None), info

@@ -30,8 +30,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
-    # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route and
-    # faer_lu_panel_route)
+    # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
+    # faer_lu_panel_route, faer_tridiag_qr_route and faer_bidiag_qr_route)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
@@ -48,6 +48,10 @@ _SIGNATURES = {
     "faer_qr_panel_clusters": [_I, _IP, _IP],
     "faer_tridiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "faer_bidiag_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "faer_tridiag_qr_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "faer_tridiag_qr_route": [_I, _I],
+    "faer_bidiag_qr_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_bidiag_qr_route": [_I, _I, _I],
     "faer_llt_block": [_P, _I, _P, _P, _I, _F, _F, _I, _P],
     "faer_llt_block_route": [_I],
     "faer_chase_probe": [_P, _P, _I, _I, _I, _P],

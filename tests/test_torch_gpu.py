@@ -863,8 +863,7 @@ def test_factors_of_transposed_inputs_on_card(cuda):
 
 
 def _sweep_case(n, l, m, bidiag, cuda):
-    from faer_tpu_torch.linalg.bidiag_svd import _shift
-    from faer_tpu_torch.linalg.tridiag_evd import _wilkinson_shift
+    from faer_tpu_torch.ops.kernels.sweep import _shift, _wilkinson_shift
 
     gen = torch.Generator(device=cuda).manual_seed(n + l)
     d = torch.randn(n, generator=gen, device=cuda) + (2.0 if bidiag else 0.0)
@@ -901,9 +900,11 @@ def test_sweep_kernel(cuda, name, n, l, m):
 
 
 def test_spectral_on_card(cuda):
-    """The EVD and the SVD on the card through their sweep kernels: the D&C
-    route (n = 600, leaves of 75 and less) and the direct QR route (n = 100)."""
+    """The EVD and the SVD on the card through their batched QR kernels:
+    the D&C route (n = 600, leaves of 75 and less) and the direct QR route
+    (n = 100), one launch and no host read a call."""
     from faer_tpu_torch import self_adjoint_evd, svd
+    from faer_tpu_torch.core.config import host_reads
 
     gen = torch.Generator(device=cuda).manual_seed(11)
     for n in (600, 100):
@@ -914,7 +915,8 @@ def test_spectral_on_card(cuda):
         reset_launch_counts()
         w, v, info = self_adjoint_evd(a)
         torch.cuda.synchronize()
-        assert launch_counts()["tridiag_sweep"] > 0 and bool(info.converged)
+        assert launch_counts()["tridiag_sweep"] == 1 and host_reads() == 0
+        assert bool(info.converged)
         assert ((a @ v - v * w).norm() / a.norm()).item() <= tol
         assert (v.T @ v - eye).abs().max().item() <= tol
         w64 = torch.linalg.eigvalsh(a.double())
@@ -922,12 +924,102 @@ def test_spectral_on_card(cuda):
         reset_launch_counts()
         u, s, vs, info = svd(g)
         torch.cuda.synchronize()
-        assert launch_counts()["bidiag_sweep"] > 0 and bool(info.converged)
+        assert launch_counts()["bidiag_sweep"] == 1 and host_reads() == 0
+        assert bool(info.converged)
         assert (((u * s) @ vs.T - g).norm() / g.norm()).item() <= tol
         assert (u.T @ u - eye).abs().max().item() <= tol
         assert (vs.T @ vs - eye).abs().max().item() <= tol
         s64 = torch.linalg.svdvals(g.double())
         assert ((s.double() - s64).abs().max() / s64[0]).item() <= tol
+
+
+def _qr_batch(sizes, sqre, cuda, seed, zero=()):
+    """Random problems of ``sizes`` packed as the batched kernels take them
+    (d (B, nmax), e (B, nmax)); ``zero``: (problem, index) diagonals set to 0."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nmax = max(sizes)
+    d = torch.randn(len(sizes), nmax, generator=gen, device=cuda)
+    e = torch.randn(len(sizes), nmax, generator=gen, device=cuda)
+    for b, i in zero:
+        d[b, i] = 0.0
+    return (d, e, torch.tensor(sizes, dtype=torch.int32, device=cuda),
+            torch.tensor(sqre, dtype=torch.int32, device=cuda))
+
+
+QR_BATCHED_CASES = {
+    # name: (sizes, sqre, max_sweeps_factor, zero diagonals)
+    "ragged": ([64, 63, 2, 1, 17, 40], [1, 0, 1, 0, 0, 1], 30, ()),
+    "max_iters": ([40, 64], [0, 1], 1, ()),
+    "zero diagonal": ([64, 64, 30], [0, 1, 0], 30, ((0, 5), (1, 63), (2, 29))),
+    "global memory": ([300], [0], 30, ()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QR_BATCHED_CASES))
+@pytest.mark.parametrize("kind", ["tridiag", "bidiag"])
+def test_qr_batched_kernel(cuda, kind, case):
+    """Against the plain version on the card, which runs the same IEEE
+    operations in the same order: d, e, iterations, converged and sweep
+    steps equal to the bit; the vectors (rotated row by row in the kernel,
+    by chunk GEMMs in the plain version) within 8·n·eps; the identity past
+    each problem. One launch under the sweep's counter."""
+    from faer_tpu_torch.ops.kernels import sweep
+
+    sizes, sqre, factor, zero = QR_BATCHED_CASES[case]
+    d, e, sz, sq = _qr_batch(sizes, sqre, cuda, len(case), zero)
+    nmax = d.shape[1]
+    if kind == "tridiag":
+        e = e[:, :nmax - 1].contiguous()
+        args = (sz,)
+        kern, plain, counter = sweep.tridiag_qr_batched, sweep.tridiag_qr_batched_plain, \
+            "tridiag_sweep"
+    else:
+        args = (sz, sq)
+        kern, plain, counter = sweep.bidiag_qr_batched, sweep.bidiag_qr_batched_plain, \
+            "bidiag_sweep"
+    d1, e1, d2, e2 = d.clone(), e.clone(), d.clone(), e.clone()
+    reset_launch_counts()
+    got = kern(d1, e1, *args, max_sweeps_factor=factor)
+    torch.cuda.synchronize()
+    assert launch_counts()[counter] == 1
+    want = plain(d2, e2, *args, max_sweeps_factor=factor)
+    assert torch.equal(d1, d2) and torch.equal(e1, e2)
+    for g, w in zip(got[-3:], want[-3:]):  # iterations, converged, steps
+        assert torch.equal(g, w), (g, w)
+    assert bool(got[-2].all()) == (factor >= 30)
+    for g, w in zip(got[:-3], want[:-3]):  # Z; or U and W
+        assert (g - w).abs().max().item() <= 8 * nmax * EPS32
+        for b, n in enumerate(sizes):
+            k = n + (sqre[b] if g.shape[1] > nmax else 0)
+            eye = torch.eye(g.shape[1] - k, device=cuda)
+            assert torch.equal(g[b, k:, k:], eye)
+            assert not g[b, k:, :k].any() and not g[b, :k, k:].any()
+
+
+def test_leaf_stage_reads_nothing_on_the_host(cuda):
+    """``self_adjoint_evd`` 1024's leaf stage (every D&C leaf formed and
+    solved in one launch, then sorted) under torch's sync debug mode
+    "error": no operation in it synchronizes with the host."""
+    from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
+    from faer_tpu_torch.linalg.bidiag import bidiag_in_place
+    from faer_tpu_torch.linalg.tridiag import tridiag_in_place
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    g = torch.randn(1024, 1024, generator=gen, device=cuda)
+    d, e, _, _ = tridiag_in_place((g + g.T) / 2)
+    bd, be = bidiag_in_place(g)[:2]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, z, info, leaves = tridiag_dnc._leaf_stage(d, e)
+        u, s, wv, binfo, bleaves = bidiag_dnc._leaf_stage(bd, be, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert launch_counts()["tridiag_sweep"] == launch_counts()["bidiag_sweep"] == 1
+    assert len(leaves) == 16 and bool(info.converged) and bool(binfo.converged)
+    assert bool((w[:, 1:] >= w[:, :-1]).all()) and bool((s[:, 1:] <= s[:, :-1]).all())
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):

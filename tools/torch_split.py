@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {dense,llt,llt_panel,lu,matmul,qr,trtri} [ROOT]
+    python tools/torch_split.py {dense,llt,llt_panel,lu,matmul,qr,spectral,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -58,6 +58,17 @@ code. The rows, per kernel:
   ``qr_solve_lstsq`` of 4096 × 8 after it, the 8192 × 2048 factor and
   lstsq, and ``Mat(a).qr().solve_lstsq(b)`` at 4096 with the tile switch
   off;
+* ``spectral`` (seed 16): ``self_adjoint_evd`` and ``svd`` at 384 (the
+  direct QR route) and 4096, ``tridiag_evd`` and ``bidiag_svd`` (the D&C
+  layers) at 4096 on ``tridiag_in_place``'s and ``bidiag_in_place``'s
+  outputs, and the two leaf stages at 4096 (every D&C leaf solved: one
+  batched launch in a checkout that has ``tridiag_dnc._leaf_stage``, else
+  the leaves one after another, as the parent's recursion formed them);
+  ``eigh`` and ``torch.linalg.svd`` beside each call and, per shape, on the
+  leaves as dense blocks. Per call (the 4096 calls one call after a
+  warm-up); the leaf stages also in a CUDA graph when batched; the card's
+  busy time (``chip_smoke.device_ms``, torch.profiler) of the 384 calls
+  and, in a batched checkout, of the D&C layers;
 * ``trtri`` (seed 9): ``trtri`` on one 128 block (``_trtri_block``); the
   inverses of the 32 diagonal blocks of a 4096 triangle as a triangular
   solve makes them (one ``trtri_batched`` launch, or 32 ``trtri`` calls on
@@ -360,8 +371,124 @@ def lu_rows(cs):
            STEP_REPS, STEP_REPS)
 
 
+SPECTRAL_DIRECT = 384  # the direct QR route (n < 512)
+
+
+def _tridiag_leaves(d, e, leaf=64):
+    """The D&C leaves' (d, e) as ``tridiag_evd_dnc``'s recursion forms them:
+    halves, the tear's β taken off the two ends it joins."""
+    n = d.shape[0]
+    if n <= leaf:
+        return [(d, e)]
+    k = n // 2
+    d1, d2 = d[:k].clone(), d[k:].clone()
+    d1[k - 1] -= e[k - 1]
+    d2[0] -= e[k - 1]
+    return _tridiag_leaves(d1, e[:k - 1], leaf) + _tridiag_leaves(d2, e[k:], leaf)
+
+
+def _bidiag_leaves(d, e, sqre, leaf=64):
+    """The D&C leaves' (d, e, sqre) as ``bidiag_dnc._dnc``'s recursion
+    forms them: the rows above the middle one (wide), and the rows below."""
+    m = d.shape[0]
+    if m <= leaf:
+        return [(d, e, sqre)]
+    k = m // 2
+    return _bidiag_leaves(d[:k], e[:k], 1, leaf) + _bidiag_leaves(d[k + 1:], e[k + 1:],
+                                                                  sqre, leaf)
+
+
+def _tridiag_dense(blocks):
+    """The (d, e) blocks as dense symmetric tridiagonals, stacked."""
+    return torch.stack([torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+                        for d, e in blocks])
+
+
+def _bidiag_dense(blocks):
+    """The (d, e, sqre) blocks as dense (m, m + sqre) upper bidiagonals, stacked."""
+    out = []
+    for d, e, sqre in blocks:
+        m = d.shape[0]
+        b = torch.zeros(m, m + sqre, device=d.device)
+        idx = torch.arange(m, device=d.device)
+        b[idx, idx] = d
+        b[idx[:m - 1 + sqre], idx[:m - 1 + sqre] + 1] = e
+        out.append(b)
+    return torch.stack(out)
+
+
+def _by_shape(blocks, shape):
+    groups = {}
+    for blk in blocks:
+        groups.setdefault(shape(blk), []).append(blk)
+    return groups
+
+
+def spectral_rows(cs):
+    """(name, call, per-call reps, graph reps, "profile" or None) of the
+    spectral calls, their D&C layers and their leaf stages."""
+    from faer_tpu_torch import self_adjoint_evd, svd
+    from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
+    from faer_tpu_torch.linalg.bidiag import bidiag_in_place
+    from faer_tpu_torch.linalg.bidiag_svd import bidiag_svd
+    from faer_tpu_torch.linalg.tridiag import tridiag_in_place
+    from faer_tpu_torch.linalg.tridiag_evd import tridiag_evd
+
+    # a checkout with the batched leaf kernels solves every leaf in one
+    # launch and reads the host nowhere in it: its leaf stage is captured in
+    # a CUDA graph and its D&C layers are profiled; the parent's loops (one
+    # host read an iteration, ~10⁶ launches a 4096 layer) are timed per call
+    # only, as are the 4096 calls (their reductions' host loops make ~10⁵
+    # launches, which torch.profiler takes minutes to collect)
+    batched = hasattr(tridiag_dnc, "_leaf_stage")
+    dev_rows = "profile" if batched else None
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    n2 = SPECTRAL_DIRECT
+    g2 = torch.randn(n2, n2, generator=gen, device="cuda")
+    a2 = (g2 + g2.T) / 2
+    yield f"self_adjoint_evd n={n2}", lambda: self_adjoint_evd(a2), 3, None, "profile"
+    yield f"svd n={n2}", lambda: svd(g2), 3, None, "profile"
+    yield f"eigh n={n2}", lambda: torch.linalg.eigh(a2), 3, None, None
+    yield (f"torch.linalg.svd n={n2}", lambda: torch.linalg.svd(g2, full_matrices=False),
+           3, None, None)
+    g = torch.randn(N, N, generator=gen, device="cuda")
+    a = (g + g.T) / 2
+    d, e, _, _ = tridiag_in_place(a)
+    bd = bidiag_in_place(g)
+    nrm = torch.maximum(bd[0].abs().max(), bd[1].abs().max())
+    dn, en = bd[0] / nrm, bd[1] / nrm  # bidiag_svd_dnc's scaling
+    t_leaves = _tridiag_leaves(d, e)
+    b_leaves = _bidiag_leaves(dn, en, 0)
+    if batched:
+        t_stage = lambda: tridiag_dnc._leaf_stage(d, e)
+        b_stage = lambda: bidiag_dnc._leaf_stage(dn, en, 0)
+    else:
+        t_stage = lambda: [tridiag_evd(x, y) for x, y in t_leaves]
+        b_stage = lambda: [bidiag_dnc._leaf(x, y, sq) for x, y, sq in b_leaves]
+    graph = 3 if batched else None
+    yield f"tridiag leaf stage n={N} ({len(t_leaves)} leaves)", t_stage, 1, graph, None
+    yield f"bidiag leaf stage n={N} ({len(b_leaves)} leaves)", b_stage, 1, graph, None
+    yield f"tridiag_evd (D&C) n={N}", lambda: tridiag_evd(d, e), 1, None, dev_rows
+    yield f"bidiag_svd (D&C) n={N}", lambda: bidiag_svd(bd[0], bd[1]), 1, None, dev_rows
+    yield f"self_adjoint_evd n={N}", lambda: self_adjoint_evd(a), 1, None
+    yield f"svd n={N}", lambda: svd(g), 1, None
+    yield f"eigh n={N}", lambda: torch.linalg.eigh(a), 3, None, None
+    yield (f"torch.linalg.svd n={N}", lambda: torch.linalg.svd(g, full_matrices=False),
+           3, None, None)
+    # the library yardsticks of the leaf stages: the leaves as dense blocks,
+    # one batched call a shape
+    for (m,), blocks in _by_shape(t_leaves, lambda b: tuple(b[0].shape)).items():
+        t = _tridiag_dense(blocks)
+        yield (f"eigh of the {len(blocks)} tridiagonal leaves of {m}",
+               lambda t=t: torch.linalg.eigh(t), 3, None, None)
+    for (m, sq), blocks in _by_shape(b_leaves, lambda b: (b[0].shape[0], b[2])).items():
+        t = _bidiag_dense(blocks)
+        yield (f"torch.linalg.svd of the {len(blocks)} bidiagonal leaves ({m}, {m + sq})",
+               lambda t=t: torch.linalg.svd(t, full_matrices=False), 3, None, None)
+
+
 ROWS = {"dense": dense_rows, "llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
-        "trtri": trtri_rows}
+        "spectral": spectral_rows, "trtri": trtri_rows}
 
 
 def main() -> None:
@@ -380,12 +507,18 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
     rows = []
-    for name, fn, reps, graph_reps in ROWS[args.kernel](cs):
+    for name, fn, reps, graph_reps, *busy in ROWS[args.kernel](cs):
         r = dict(call=name, per_call_ms=cs.cuda_ms(fn, reps),
                  device_ms=cs.graph_ms(fn, graph_reps) if graph_reps else None)
+        if busy and busy[0] == "profile":
+            # calls that read the host cannot be captured: the card's busy
+            # time instead, the kernel spans torch.profiler records
+            r["device_busy_ms"] = cs.device_ms(fn)
         rows.append(r)
         print(f"{name}: per call {r['per_call_ms']:.4f} ms"
-              + ("" if r["device_ms"] is None else f", device {r['device_ms']:.4f} ms"))
+              + ("" if r["device_ms"] is None else f", device {r['device_ms']:.4f} ms")
+              + (f", device busy {r['device_busy_ms']:.4f} ms" if "device_busy_ms" in r
+                 else ""), flush=True)
     print(json.dumps({"kernel": args.kernel, "root": str(root), "device": smi,
                       "rows": rows}))
 
