@@ -31,7 +31,12 @@ Phases, each printing lines; any failure exits non-zero:
    ``solve_triangular(L, I)``; ``tile_matmul`` in its three modes at
    4096³, ragged, strided, on offset views, at long k and at the facade's
    thin products (split k), each case's plan printed, timed per call and
-   on the device beside ``torch.matmul``; the LU panel kernel
+   on the device beside ``torch.matmul``; ``syrk_lower_sub`` in both modes
+   at (3840, 256) with a K-major and an M-major A, ragged and at k = 257,
+   the upper triangle C's values to the bit, timed per call and on the
+   device beside ``torch.addmm``; ``lu_panel_swap`` equal to its plain
+   version to the bit on separated and Gaussian panels on both of its
+   routes, timed per call and on the device; the LU panel kernel
    (``lu_panel``, ``lu_leaf``, ``lu_panel_v2`` and its batch,
    ``lu_panel_v3``) on both sides of every route edge of
    ``csrc/lu_panel_batched.cu`` (``lu_cases``), each case's route
@@ -85,8 +90,9 @@ Phases, each printing lines; any failure exits non-zero:
    direct QR-iteration route at n = 384, the tall SVD at 8192 × 2048 (QR
    preprocessing), the wide bidiagonal D&C ``_dnc(d, e, 1)`` on the golden
    fixture ``tests/data/svd/svd512.txt`` (‖UᵀU − I‖_F ≤ 2e-4·n), per-layer
-   times, the D&C layers' leaf stage on the device beside their merges,
-   and ``torch.linalg.eigh``/``svd`` yardsticks;
+   times, the D&C layers' leaf stage on the device (at 4096 and 1024)
+   beside their merges (at 1024), and ``torch.linalg.eigh``/``svd``
+   yardsticks;
 8. facade: ``Mat`` and the solver objects at n = 4096 f32 (seed 0) with the
    tile GEMM switch on (``config.use_tile_matmul``, ``f32_precision =
    "highest"``): ``Mat @ Mat``, ``llt()`` with ``solve``, ``inverse``,
@@ -918,12 +924,15 @@ def _lu_panel_family(gen) -> dict:
     """``lu_panel_v2`` (one panel, and a batch in one launch), ``lu_panel_v3``
     and ``lu_panel_swap`` against their plain versions on separated pivots:
     perm, nt and ok exactly, packed within 8·m·eps of its largest entry, and
-    ‖A[perm] − LU‖/‖A‖ ≤ 8·m·eps. Shapes: the CALU group (4096, 256), 16 of
-    them in one batched launch, the v1 kernel's measured shape (4096, 128),
-    and ragged (1000, 100) panels. Timed on Gaussian panels beside
-    ``torch.linalg.lu_factor_ex`` on the same panel (or the same batch)."""
+    ‖A[perm] − LU‖/‖A‖ ≤ 8·m·eps; ``lu_panel_swap`` packed to the bit, on
+    Gaussian panels too (``LU_SWAP_GAUSSIAN``, both routes). Shapes: the
+    CALU group (4096, 256), 16 of them in one batched launch, the v1
+    kernel's measured shape (4096, 128), and ragged (1000, 100) panels.
+    Timed on Gaussian panels beside ``torch.linalg.lu_factor_ex`` on the
+    same panel (or the same batch), ``lu_panel_swap`` on the device too."""
     from faer_tpu_torch.ops.kernels.lu_panel import lu_panel_blocked_plain, route_label
     from faer_tpu_torch.ops.kernels.lu_panel_swap import lu_panel_swap, lu_panel_swap_plain
+    from faer_tpu_torch.ops.kernels.lu_panel_swap import route as swap_route
     from faer_tpu_torch.ops.kernels.lu_panel_v2 import (
         lu_panel_v2, lu_panel_v2_batched, lu_panel_v2_batched_plain, lu_panel_v2_plain)
     from faer_tpu_torch.ops.kernels.lu_panel_v3 import lu_panel_v3, lu_panel_v3_plain
@@ -931,24 +940,28 @@ def _lu_panel_family(gen) -> dict:
 
     def held(name, k1, p1, n1, o1, k2, p2, n2, o2, a) -> float:
         """Against the plain version; the kernels of csrc/lu_panel_batched.cu
-        also against their own order, ``lu_panel_blocked_plain`` (16·eps)."""
+        also against their own order, ``lu_panel_blocked_plain`` (16·eps);
+        ``lu_panel_swap``, which repeats its plain version's operations one
+        by one, to the bit (packed, perm, nt, ok), and its route printed."""
         m, b = a.shape
         tol, tight = 8 * m * EPS32, 16 * EPS32
         err, rel = _max_rel(k1, k2)
         rec = _lu_rec(a, k1, p1)
         same = bool((p1 == p2).all())
-        ours, rel3, bitwise = True, 0.0, None
-        if name != "lu_panel_swap":
+        if name == "lu_panel_swap":
+            ours = torch.equal(k1, k2) and bool(o1) == bool(o2)
+            tail = f"; bitwise equal {ours} [{swap_route(m, b, DEV)[0]} route]"
+        else:
             k3, p3, n3, _ = lu_panel_blocked_plain(a)
-            rel3, bitwise = _max_rel(k1, k3)[1], torch.equal(k1, k3)
+            rel3 = _max_rel(k1, k3)[1]
             ours = bool((p1 == p3).all()) and int(n1) == int(n3) and rel3 <= tight
+            tail = (f"; vs the kernel's order rel {rel3:.3e} <= {tight:.3e}, bitwise equal "
+                    f"{torch.equal(k1, k3)}")
         check(same and ours and int(n1) == int(n2) and bool(o1) and bool(o2) and rel <= tol
               and rec <= tol,
               f"{name} ({m}, {b}): perm equal {same}, nt {int(n1)} vs {int(n2)}, ok "
               f"{bool(o1)}, max abs err {err:.3e}, rel {rel:.3e}; |A[perm]-LU|/|A| "
-              f"{rec:.3e}; <= tol {tol:.3e}"
-              + ("" if bitwise is None else f"; vs the kernel's order rel {rel3:.3e} <= "
-                 f"{tight:.3e}, bitwise equal {bitwise}"))
+              f"{rec:.3e}; <= tol {tol:.3e}" + tail)
         return err
 
     def bound(g, m, b):
@@ -973,6 +986,22 @@ def _lu_panel_family(gen) -> dict:
             plain_ms=cuda_ms(lambda: plain(pan), 3),
             library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
             **bound(1, m, b))
+        if name == "lu_panel_swap":
+            res[name]["graph_ms"] = graph_ms(lambda: kern(pan), 10)
+    # lu_panel_swap to the bit on Gaussian panels too, on both routes (the
+    # grid route with its rows in shared memory and in global memory), and
+    # timed on the device (a CUDA graph) beside its per-call time
+    for m, b in LU_SWAP_GAUSSIAN:
+        a = torch.randn(m, b, generator=gen, device=DEV)
+        out1, out2 = lu_panel_swap(a), lu_panel_swap_plain(a)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(out1[:2], out2[:2]))
+        check(same and int(out1[2]) == int(out2[2]) and bool(out1[3]) == bool(out2[3]),
+              f"lu_panel_swap ({m}, {b}) Gaussian [{swap_route(m, b, DEV)[0]} route]: packed, "
+              f"perm, nt, ok equal to the plain version's to the bit: {same}")
+    r = res["lu_panel_swap"]
+    print(f"time lu_panel_swap (4096, 128): per call {r['ms']:.4f} ms, device "
+          f"{r['graph_ms']:.4f} ms, lu_factor_ex {r['library_ms']:.4f} ms per call")
 
     # the batch: each panel held against its plain version, and equal to the
     # one-panel launch to the bit (the same arithmetic on every row); 16 x
@@ -1005,6 +1034,11 @@ def _lu_panel_family(gen) -> dict:
           f"({bnd['bound_by']})")
     return res
 
+
+# lu_panel_swap's Gaussian panels held to the bit: the cluster route's
+# measured shape, the grid route with its rows in shared memory, and in
+# global memory
+LU_SWAP_GAUSSIAN = ((4096, 128), (4096, 256), (40000, 256))
 
 QR_FAMILY = ("qr_panel_v1", "qr_panel_v2", "qr_panel_v3", "qr_leaf")
 # phase 3's QR panels (m, b, all-zero column): small, the leaves of a 4096²
@@ -1443,6 +1477,14 @@ def tile_matmul_rows(gen):
             yield mode, label, x, y, call, (lambda x=x, y=y: torch.matmul(x, y))
 
 
+# phase 3's syrk_lower_sub cases (label, m, k, A M-major): the trailing
+# update of a 4096 LLT at block 256 with a row-major (K-major) A, as the
+# main path would hand it over, and with an M-major one; ragged; a k that is
+# not a multiple of 4 (A's rows not 16-byte aligned)
+SYRK_CASES = (("K-major", N - 256, 256, False), ("M-major", N - 256, 256, True),
+              ("K-major", 300, 200, False), ("K-major", 300, 257, False))
+
+
 def _tile_kernels(gen) -> dict:
     """``tile_matmul`` in its three modes (f32 "highest" and "high", bf16)
     and ``syrk_lower_sub`` in its two, against their plain versions: the
@@ -1452,15 +1494,18 @@ def _tile_kernels(gen) -> dict:
     256), split; (2048, 16384)·(16384, 2048), one CTA a tile over all of k)
     and the main path's thin products (a QR block apply Vᵀ·B and an 8-column
     Vᵀ·b, split; an 8-column TRSM update, an LLT trailing update); each
-    case's plan printed. The SYRK at (3840, 256), the trailing update of a
-    4096 LLT at block 256, and a ragged (300, 200). Limits ``F32_TOL`` and
-    ``BF16X3_TOL``; bf16x3 is also held against f64, and a bf16 result
+    case's plan printed. The SYRK at ``SYRK_CASES``: (3840, 256), the
+    trailing update of a 4096 LLT at block 256, with a K-major and an
+    M-major A, a ragged (300, 200) and (300, 257), each case's read of A
+    printed, the upper triangle C's values bit for bit. Limits ``F32_TOL``
+    and ``BF16X3_TOL``; bf16x3 is also held against f64, and a bf16 result
     against the plain f32 one, past one bf16 rounding of each entry. Timed,
     per call and on the device beside ``torch.matmul``, at 4096³ and the
-    two Vᵀ products in each mode (``tile_matmul_rows``), and at (3840, 256)."""
+    two Vᵀ products in each mode (``tile_matmul_rows``), and the SYRK at
+    (3840, 256) beside ``torch.addmm``."""
     from faer_tpu_torch.core.config import config
     from faer_tpu_torch.ops.kernels.matmul import tile_matmul, tile_matmul_plain
-    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain, syrk_read
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=DEV)
@@ -1539,8 +1584,9 @@ def _tile_kernels(gen) -> dict:
     for mode in ("highest", "high"):
         config.f32_precision = mode
         tol = BF16X3_TOL if mode == "high" else F32_TOL
-        for m, k in ((n - 256, 256), (300, 200)):
-            c, x = randn(m, m), randn(m, k)
+        for label, m, k, m_major in SYRK_CASES:
+            c = randn(m, m)
+            x = randn(k, m).mT if m_major else randn(m, k)
             got, want = syrk_lower_sub(c, x), syrk_lower_sub_plain(c, x)
             torch.cuda.synchronize()
             scale = x.norm(dim=1).max().item() ** 2
@@ -1555,23 +1601,29 @@ def _tile_kernels(gen) -> dict:
                 err64 = torch.tril(got.double() - ref).abs().max().item() / scale
                 msg += f", {err64:.3e} vs f64"
                 ok = ok and err64 <= tol
-            check(ok, f"syrk_lower_sub {mode} ({m}, {k}): lower max abs err {msg} "
-                      f"<= {tol:.3e}; upper triangle kept C's values {kept}")
-            if m != n - 256:
+            read = "split" if mode == "high" else syrk_read(x)
+            check(ok, f"syrk_lower_sub {mode} ({m}, {k}) {label} [A read {read}]: lower max "
+                      f"abs err {msg} <= {tol:.3e}; upper triangle C's values bit for bit "
+                      f"{kept}")
+            if m != n - 256 or (m_major and mode == "high"):
                 continue
             # the function's work: the lower triangle with its diagonal,
-            # m(m+1)/2 dot products of length k, read and written once, and A
+            # m(m+1)/2 dot products of length k; its bytes: A read once, the
+            # whole C read and the whole result written
             passes = 3 if mode == "high" else 1
             peak = PEAK_BF16_FLOPS if mode == "high" else PEAK_F32_FLOPS
-            timed[mode] = dict(
-                ms=cuda_ms(lambda: syrk_lower_sub(c, x), 20),
-                plain_ms=cuda_ms(lambda: syrk_lower_sub_plain(c, x), 5),
-                library_ms=cuda_ms(lambda: torch.addmm(c, x, x.mT, alpha=-1), 20),
-                **bound_of(passes * m * (m + 1) * k, (m * (m + 1) + m * k) * 4, peak))
-            r = timed[mode]
-            print(f"time syrk_lower_sub {mode} ({m}, {k}): kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, torch.addmm {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.6g} ms ({r['bound_by']}, {passes} "
+            r = dict(ms=cuda_ms(lambda: syrk_lower_sub(c, x), 20),
+                     graph_ms=graph_ms(lambda: syrk_lower_sub(c, x), 20),
+                     plain_ms=cuda_ms(lambda: syrk_lower_sub_plain(c, x), 5),
+                     library_ms=cuda_ms(lambda: torch.addmm(c, x, x.mT, alpha=-1), 20),
+                     library_graph_ms=graph_ms(lambda: torch.addmm(c, x, x.mT, alpha=-1), 20),
+                     **bound_of(passes * m * (m + 1) * k, (2 * m * m + m * k) * 4, peak))
+            if not m_major:
+                timed[mode] = r
+            print(f"time syrk_lower_sub {mode} ({m}, {k}) {label}: per call {r['ms']:.4f} ms, "
+                  f"device {r['graph_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.addmm "
+                  f"{r['library_ms']:.4f} / {r['library_graph_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.6g} ms ({r['bound_by']}, {passes} "
                   f"pass{'es' if passes > 1 else ''})")
     config.f32_precision = "highest"
     res["syrk"] = dict(max_abs_err=max(errs), **timed["highest"])
@@ -2218,18 +2270,25 @@ def phase_spectral(gen) -> tuple[dict, dict]:
         print(f"time layer {k} n={n}: {ms:.4f} ms (one call)")
     mark("the layers")
     # the D&C layers on the device: the leaf stage (one launch, in a CUDA
-    # graph) beside the merges (the layer's kernel spans less the leaves')
-    nrm = torch.maximum(bd[0].abs().max(), bd[1].abs().max())
-    stages = {"tridiag_evd": (lambda: tridiag_dnc._leaf_stage(d, e),
-                              lambda: tridiag_evd(d, e)),
-              "bidiag_svd": (lambda: bidiag_dnc._leaf_stage(bd[0] / nrm, bd[1] / nrm, 0),
-                             lambda: bidiag_svd(bd[0], bd[1]))}
-    for k, (leaf_fn, layer_fn) in stages.items():
-        leaf = graph_ms(leaf_fn, 3)
-        busy = device_ms(layer_fn)
-        print(f"time {k} (D&C) n={n} on the device: leaf stage {leaf:.4f} ms (graph "
-              f"replay), merges {busy - leaf:.4f} ms (the layer's kernel spans "
-              f"{busy:.4f} ms less the leaf stage)")
+    # graph) at N, and at ORACLE_N beside the merges (the layer's kernel
+    # spans less the leaves'): torch.profiler takes minutes to collect a
+    # 4096 layer's spans, which tools/torch_split.py spectral measures
+    d1, e1, _, _ = tridiag_in_place(a1)
+    bd1 = bidiag_in_place(g1)
+    for size, (dd, ee), (bd0, bd1_) in ((n, (d, e), bd[:2]), (n1, (d1, e1), bd1[:2])):
+        nrm = torch.maximum(bd0.abs().max(), bd1_.abs().max())
+        stages = {"tridiag_evd": (lambda: tridiag_dnc._leaf_stage(dd, ee),
+                                  lambda: tridiag_evd(dd, ee)),
+                  "bidiag_svd": (lambda: bidiag_dnc._leaf_stage(bd0 / nrm, bd1_ / nrm, 0),
+                                 lambda: bidiag_svd(bd0, bd1_))}
+        for k, (leaf_fn, layer_fn) in stages.items():
+            leaf = graph_ms(leaf_fn, 3)
+            text = f"time {k} (D&C) n={size} on the device: leaf stage {leaf:.4f} ms (graph replay)"
+            if size == n1:
+                busy = device_ms(layer_fn)
+                text += (f", merges {busy - leaf:.4f} ms (the layer's kernel spans "
+                         f"{busy:.4f} ms less the leaf stage)")
+            print(text)
     mark("the leaf stages and merges")
     print(f"launches in the spectral phase: {total}")
     return total, {"tridiag_in_place": layers["tridiag_in_place"], "eigh": eigh_ms}
@@ -2821,9 +2880,8 @@ def main() -> None:
         check(all(counts[k] > 0 for k in ks),
               f"the {label} launched {', '.join(ks)}: {[counts[k] for k in ks]}")
     # the shared headers each kernel's source compiles with
-    headers = {"matmul": ["faer_tpu_torch/csrc/hopper.cuh"],
-               "syrk": ["faer_tpu_torch/csrc/tile_mma.cuh"],
-               "lu_panel_swap": ["faer_tpu_torch/csrc/pivot_argmax.cuh"],
+    gemm = ["faer_tpu_torch/csrc/gemm_tile.cuh", "faer_tpu_torch/csrc/hopper.cuh"]
+    headers = {"matmul": gemm, "syrk": gemm,
                "tridiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"]}
     print(f"total {time.perf_counter() - t0:.1f} s")

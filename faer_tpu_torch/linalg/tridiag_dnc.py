@@ -126,12 +126,15 @@ def _pair_deflation(z_s, close):
     pair (j, j+1) a rotation moves z_{j+1} onto z_j. The reference's scan
     carries z_j unless pair j−1 was close, in which case 0; in closed form
     the carry is ``where(close_{j−1}, 0, z_j)``. Returns (z', c, s) with the
-    rotations (identity off close pairs) for ``_apply_rotation_chain_rows``."""
+    rotations (identity off close pairs) for ``_apply_rotation_chain_rows``.
+    r is ``hypot``, not the reference's ``sqrt(zc² + z²)``: PyTorch keeps
+    f32 subnormals, where XLA flushes them, so below about 1e-19 the squares
+    lose their relative accuracy and (c, s) would stop being a rotation."""
     cl = close[:-1]
     prev = torch.cat([cl.new_zeros(1), cl[:-1]])
     zc = torch.where(prev, torch.zeros_like(z_s[:-1]), z_s[:-1])
     z_next = z_s[1:]
-    r = torch.sqrt(zc * zc + z_next * z_next)
+    r = torch.hypot(zc, z_next)
     one = torch.ones_like(r)
     safe = torch.where(r == 0, one, r)
     c = torch.where(cl, torch.where(r == 0, one, zc / safe), one)

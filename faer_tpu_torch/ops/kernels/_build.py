@@ -31,18 +31,20 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
     # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
-    # faer_lu_panel_route, faer_tridiag_qr_route and faer_bidiag_qr_route)
+    # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route and
+    # faer_bidiag_qr_route)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
-    "faer_syrk_lower_sub": [_P, _L, _L, _P, _I, _I, _I, _P],
+    "faer_syrk_lower_sub": [_P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P, _P, _I, _P, _L,
+                            _P],
     "faer_trtri_batched": [_P, _L, _L, _IP, _I, _P, _I, _I, _P],
     "faer_llt_panel": [_P, _L, _P, _P, _L, _P, _I, _I, _F, _F, _P],
     "faer_llt_panel_route": [_I, _I, _IP, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_lu_panel_batched": [_P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "faer_lu_panel_route": [_I, _I, _I, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_lu_panel_clusters": [_I, _IP, _IP],
-    "faer_lu_panel_swap": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _P],
+    "faer_lu_panel_swap": [_P, _L, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "faer_lu_panel_swap_route": [_I, _I, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_qr_panel": [_P, _L, _P, _P, _P, _L, _I, _I, _P],
     "faer_qr_panel_route": [_I, _I, _IP, ctypes.POINTER(ctypes.c_longlong)],
     "faer_qr_panel_clusters": [_I, _IP, _IP],

@@ -18,16 +18,25 @@ kernels':
 :func:`lu_panel_swap_plain` is a column loop with exactly these semantics
 in f32, the twin of the JAX package's non-kernel ``_panel_lu``
 (``faer_tpu/linalg/lu.py:34-76``). The CUDA kernel is ``csrc/lu_panel_swap.cu``:
-one cooperative grid over row positions, one grid barrier per column.
+the rows held by the CTAs of one thread-block cluster (a cooperative grid
+past its shared memory), one exchange a column, a swap done by relabelling
+rows rather than moving them. It repeats the plain version's IEEE
+operations one by one, so its results equal :func:`lu_panel_swap_plain`'s
+to the bit on every route.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from faer_tpu_torch.core.config import count_launch
+from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.ops.kernels import _build
 
-MIN_ROWS_PER_CTA = 8
+# faer_lu_panel_swap_route's codes: 2 is the grid route with the rows in
+# global memory, for panels whose rows do not fit the CTAs' shared memory
+ROUTES = {1: "cluster", 0: "grid", 2: "grid, rows in global memory"}
 
 
 def lu_panel_swap_plain(panel):
@@ -56,6 +65,23 @@ def lu_panel_swap_plain(panel):
     return a, perm, nt, ok
 
 
+def route(m: int, b: int, device=None) -> tuple[str, int, int]:
+    """``(route, CTAs, scratch floats)`` of an (m, b) panel on a CUDA card,
+    as the kernel's C entry ``faer_lu_panel_swap_route`` decides them from
+    (m, b) and the card (a key of ``ROUTES``' values). Loads the kernel
+    library, which is built with ``nvcc`` at first use. Raises
+    ``ShapeError`` for a shape no route takes."""
+    ctas, scratch = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device):  # the C entry reads the current device
+        code = _build.library().faer_lu_panel_swap_route(
+            m, b, ctypes.byref(ctas), ctypes.byref(scratch))
+    if code == -1:
+        raise ShapeError(f"lu_panel_swap: no route takes {(m, b)} on this card")
+    if code not in ROUTES:
+        raise RuntimeError(f"lu_panel_swap: the device query failed with CUDA error {-code - 2}")
+    return ROUTES[code], ctas.value, scratch.value
+
+
 def lu_panel_swap(panel):
     """Partial-pivot LU with row swaps of an (m, b) float32 panel,
     m, b ≥ 1 (wide too: min(m, b) steps). On a CUDA tensor the rows must
@@ -67,23 +93,17 @@ def lu_panel_swap(panel):
         raise ValueError("lu_panel_swap: rows of the panel must be contiguous")
     m, b = panel.shape
     dev = panel.device
-    g, rpc = _build.grid(m, dev, MIN_ROWS_PER_CTA)
+    _, _, nscratch = route(m, b, dev)
     out = torch.empty((m, b), dtype=panel.dtype, device=dev)
-    perm = torch.empty(m, dtype=torch.int32, device=dev)
+    perm = torch.empty(m, dtype=torch.long, device=dev)
     nt = torch.empty(1, dtype=torch.int32, device=dev)
-    okf = torch.empty(1, dtype=torch.int32, device=dev)
-    cand_val = torch.empty(2 * g, dtype=torch.float32, device=dev)
-    cand_idx = torch.empty(2 * g, dtype=torch.int32, device=dev)
-    cand_perm = torch.empty(2 * g, dtype=torch.int32, device=dev)
-    cand_row = torch.empty((2 * g, b), dtype=torch.float32, device=dev)
-    rowj = torch.empty((2, b), dtype=torch.float32, device=dev)
-    rowj_perm = torch.empty(2, dtype=torch.int32, device=dev)
+    ok = torch.empty(1, dtype=torch.bool, device=dev)
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=dev) if nscratch else None
     with torch.cuda.device(dev):  # the C entry uses the current device
         code = _build.library().faer_lu_panel_swap(
             panel.data_ptr(), panel.stride(0), out.data_ptr(), perm.data_ptr(),
-            nt.data_ptr(), okf.data_ptr(), cand_val.data_ptr(), cand_idx.data_ptr(),
-            cand_perm.data_ptr(), cand_row.data_ptr(), rowj.data_ptr(),
-            rowj_perm.data_ptr(), m, b, g, rpc, _build.stream_of(panel))
+            nt.data_ptr(), ok.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            nscratch, m, b, _build.stream_of(panel))
     _build.check("lu_panel_swap", code)
     count_launch("lu_panel_swap")
-    return out, perm.long(), nt[0], okf[0] != 0
+    return out, perm, nt[0], ok[0]

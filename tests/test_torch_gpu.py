@@ -631,6 +631,40 @@ def test_lu_panel_v2_v3_swap_kernels(cuda, name, m, b):
         _check_lu_order(a, k1, p1, n1)
 
 
+# (m, b, route): the v1 kernel's measured shape and a ragged one on the
+# cluster route, a wide panel on each route, (4096, 256) past the cluster's
+# shared memory, and (40000, 256), whose rows (40 MiB) stay in global memory
+LU_SWAP_SHAPES = [(4096, 128, "cluster"), (1000, 100, "cluster"), (64, 200, "cluster"),
+                  (1000, 1024, "grid"), (4096, 256, "grid"),
+                  (40000, 256, "grid, rows in global memory")]
+
+
+@pytest.mark.parametrize("kind", ["separated", "gaussian"])
+@pytest.mark.parametrize("m,b,want_route", LU_SWAP_SHAPES)
+def test_lu_panel_swap_kernel_equals_the_plain_version(cuda, kind, m, b, want_route):
+    """The kernel repeats the plain version's IEEE operations one by one
+    (IEEE division for the multipliers, the product rounded before the
+    subtraction) and its pivot search is exact, so packed, perm, nt and ok
+    equal ``lu_panel_swap_plain``'s to the bit on every route, on separated
+    pivots and on Gaussian panels alike. One launch; the route the one
+    named."""
+    from faer_tpu_torch.ops.kernels.lu_panel_swap import (
+        lu_panel_swap, lu_panel_swap_plain, route)
+
+    gen = torch.Generator(device=cuda).manual_seed(m * b + len(kind))
+    a = (_separated_panel(m, b, gen, cuda)[0] if kind == "separated"
+         else torch.randn(m, b, generator=gen, device=cuda))
+    assert route(m, b, cuda)[0] == want_route
+    reset_launch_counts()
+    k1, p1, n1, o1 = lu_panel_swap(a)
+    torch.cuda.synchronize()
+    assert launch_counts()["lu_panel_swap"] == 1 and sum(launch_counts().values()) == 1
+    k2, p2, n2, o2 = lu_panel_swap_plain(a)
+    assert torch.equal(k1, k2) and torch.equal(p1, p2)
+    assert int(n1) == int(n2) and bool(o1) == bool(o2)
+    assert p1.dtype == p2.dtype and k1.shape == (m, b)
+
+
 @pytest.mark.parametrize("g,m,b", [(16, 4096, 256), (5, 1000, 100), (3, 256, 256),
                                    (16, 12288, 256)])
 def test_lu_panel_v2_batched_kernel(cuda, g, m, b):
@@ -899,6 +933,33 @@ def test_sweep_kernel(cuda, name, n, l, m):
         assert torch.equal(got[0], args[0]) and bool((got[2] == 1).all())
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_self_adjoint_evd_repeated_eigenvalues_on_card(cuda, seed):
+    """A = Q·diag(+1 ×256, −1 ×256)·Qᵀ at n = 512, the D&C route: its merges
+    deflate many close pairs whose tear components are near 1e-20, where the
+    f32 squares are subnormal (kept by PyTorch's CUDA kernels too). The
+    deflation rotations stay rotations: max|VᵀV − I| and ‖AV − VΛ‖/‖A‖
+    within 8·n·eps, the eigenvalues within 8·n·eps of f64 ``eigvalsh``."""
+    from faer_tpu_torch.linalg.evd import self_adjoint_evd
+
+    n = 512
+    torch.manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn(n, n, dtype=torch.float64))
+    sign = torch.cat([torch.ones(n // 2, dtype=torch.float64),
+                      -torch.ones(n // 2, dtype=torch.float64)])
+    a = ((q * sign) @ q.T).float().to(cuda)
+    w, v, _ = self_adjoint_evd(a)
+    torch.cuda.synchronize()
+    tol = 8 * n * EPS32
+    v64, w64, a64 = v.double(), w.double(), a.double()
+    orth = (v64.T @ v64 - torch.eye(n, dtype=torch.float64, device=cuda)).abs().max().item()
+    res = (torch.linalg.matrix_norm(a64 @ v64 - v64 * w64)
+           / torch.linalg.matrix_norm(a64)).item()
+    oracle = torch.linalg.eigvalsh(a64)
+    assert orth <= tol and res <= tol
+    assert (w64 - oracle).abs().max().item() <= tol * oracle.abs().max().item()
+
+
 def test_spectral_on_card(cuda):
     """The EVD and the SVD on the card through their batched QR kernels:
     the D&C route (n = 600, leaves of 75 and less) and the direct QR route
@@ -1144,6 +1205,54 @@ def test_syrk_lower_sub_kernel(cuda, monkeypatch, precision, m, k):
     scale = a.norm(dim=1).max().item() ** 2
     tol = BF16X3_TOL if precision == "high" else F32_TOL
     assert (torch.tril(got - want)).abs().max().item() <= tol * scale
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("case", ["main (3840, 256)", "k 257 contiguous", "k 257 of 260",
+                                  "offset", "c row stride", "m 1"])
+def test_syrk_lower_sub_kernel_reads(cuda, monkeypatch, precision, case):
+    """The FP32 kernel's reads of A and one pass over C: the main path's
+    K-major (3840, 256) (16-byte copies along k), a k that is not a multiple
+    of 4 (rows not 16-byte aligned: 4-byte copies; or a (m, 260) array's
+    first 257 columns: 16-byte copies, the last chunk partial), a view one
+    element past an aligned base, a C read in place through a row stride,
+    and m = 1. The lower triangle within 16·eps ("highest") or 2e-5
+    ("high") of max‖a_i‖² of the plain version (bf16x3 also of f64), the
+    upper triangle C's values bit for bit, one launch."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub, syrk_lower_sub_plain, syrk_read
+
+    monkeypatch.setattr(config, "f32_precision", precision)
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    m, k = {"main (3840, 256)": (3840, 256), "c row stride": (300, 256),
+            "m 1": (1, 5)}.get(case, (300, 257))
+    c = torch.randn(m, m, generator=gen, device=cuda)
+    a = torch.randn(m, k, generator=gen, device=cuda)
+    want_read = "cp16_k"
+    if case == "k 257 contiguous":
+        want_read = "cp4_k"
+    elif case == "k 257 of 260":
+        a = torch.randn(m, 260, generator=gen, device=cuda)[:, :k]
+    elif case == "offset":
+        flat = torch.randn(m * k + 1, generator=gen, device=cuda)
+        a, want_read = flat[1:].view(m, k), "cp4_k"
+    elif case == "c row stride":
+        c = torch.randn(m, m + 6, generator=gen, device=cuda)[:, :m]
+    elif case == "m 1":
+        want_read = "cp4_k"
+    assert syrk_read(a) == want_read
+    reset_launch_counts()
+    got = syrk_lower_sub(c, a)
+    torch.cuda.synchronize()
+    assert launch_counts()["syrk"] == 1 and sum(launch_counts().values()) == 1
+    want = syrk_lower_sub_plain(c, a)
+    scale = a.norm(dim=1).max().item() ** 2
+    tol = BF16X3_TOL if precision == "high" else F32_TOL
+    assert torch.tril(got - want).abs().max().item() <= tol * scale
+    if precision == "high":
+        ref = c.double() - a.double() @ a.double().mT
+        assert torch.tril(got.double() - ref).abs().max().item() <= tol * scale
     assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
 
 

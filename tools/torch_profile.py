@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {llt,llt_panel,lu,qr,trtri} [ROOT]
+    python tools/torch_profile.py {llt,llt_panel,lu,lu_swap,qr,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -74,6 +74,16 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   order); and ‖A[perm] − LU‖/‖A‖. A checkout whose kernel has no
   ``faer_lu_panel_route`` (the one-grid kernel before the cluster route)
   is driven through its own entry points, on the route it picks only.
+
+* ``lu_swap`` (``csrc/lu_panel_swap.cu``, ``-DFAER_LU_SWAP_PROFILE``), per
+  CTA, on Gaussian panels (seed 1) at ``LU_SWAP_CASES``: (4096, 128) and
+  (1000, 100) (the cluster route), (4096, 256) (the grid route) and
+  (40000, 256) (the grid route, rows in global memory), each with its route
+  and CTAs: ``stage`` (the rows in), ``local+push`` (each CTA's candidate
+  and its row published), ``exchange wait`` (the cluster or grid barrier),
+  ``pivot`` (the candidates reduced, the pivot row at hand), ``pivot row
+  out``, ``update`` (multipliers, rank-1 update, next candidates), ``final
+  write``; and whether packed equals ``lu_panel_swap_plain``'s to the bit.
 
 ROOT (default: this checkout) names the checkout whose kernel source is
 built, so that one chip call profiles a parent unpacked beside this one.
@@ -273,6 +283,41 @@ def _lu_cases(lib, gen):
         lib.faer_lu_panel_profile_force_grid(0)
 
 
+LU_SWAP_CASES = ((4096, 128), (1000, 100), (4096, 256), (40000, 256))
+
+
+def _lu_swap_cases(lib, gen):
+    """(label, launch, CTAs a launch, check) at each shape, on the route the
+    kernel picks."""
+    from faer_tpu_torch.ops.kernels.lu_panel_swap import ROUTES, lu_panel_swap_plain
+
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_lu_panel_swap_route.argtypes = [I, I, P, P]
+    for m, b in LU_SWAP_CASES:
+        a = torch.randn(m, b, generator=gen, device="cuda")
+        c_ctas, c_scratch = ctypes.c_int(), ctypes.c_longlong()
+        code = lib.faer_lu_panel_swap_route(m, b, ctypes.byref(c_ctas), ctypes.byref(c_scratch))
+        packed = torch.empty(m, b, device="cuda")
+        perm = torch.empty(m, dtype=torch.long, device="cuda")
+        nt = torch.empty(1, dtype=torch.int32, device="cuda")
+        ok = torch.empty(1, dtype=torch.bool, device="cuda")
+        scratch = torch.empty(max(c_scratch.value, 1), device="cuda")
+
+        def launch(a=a, packed=packed, perm=perm, nt=nt, ok=ok, scratch=scratch,
+                   n=c_scratch.value, m=m, b=b):
+            return lib.faer_lu_panel_swap(a.data_ptr(), b, packed.data_ptr(), perm.data_ptr(),
+                                          nt.data_ptr(), ok.data_ptr(), scratch.data_ptr(), n,
+                                          m, b, stream)
+
+        def check(a=a, packed=packed, perm=perm):
+            k2, p2, _, _ = lu_panel_swap_plain(a)
+            return (f"packed and perm equal to the plain version's to the bit "
+                    f"{torch.equal(packed, k2) and torch.equal(perm, p2)}")
+
+        yield f"({m}, {b}) {ROUTES[code]}, {c_ctas.value} CTAs", launch, c_ctas.value, check
+
+
 LLT_PANEL_CASES = ((4096, 256), (1024, 256), (256, 256), (4096, 512), (16896, 256), (65536, 256))
 # the counters of the one-launch kernel and of the two-launch one before it
 LLT_PANEL_LABELS = ("init", "wait", "copy", "look solve", "look tile", "factor", "publish",
@@ -371,6 +416,13 @@ KERNELS = {
                phases=("stage", "local search", "exchange wait", "reduction+pivot row",
                        "scale+rank-1", "deferred update", "final write"),
                cases=_lu_cases, unit="CTA"),
+    "lu_swap": dict(source="lu_panel_swap.cu", macro="FAER_LU_SWAP_PROFILE",
+                    entry="faer_lu_panel_swap", read="faer_lu_panel_swap_profile_read",
+                    labels=("stage", "local+push", "exchange wait", "pivot", "pivot row out",
+                            "update", "final write"),
+                    phases=("stage", "local+push", "exchange wait", "pivot", "pivot row out",
+                            "update", "final write"),
+                    cases=_lu_swap_cases, unit="CTA"),
     "qr": dict(source="qr_panel.cu", macro="FAER_QR_PROFILE", entry="faer_qr_panel",
                read="faer_qr_panel_profile_read",
                labels=("stage", "exchange wait", "reflector", "update", "partials", "out"),

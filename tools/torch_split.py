@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {dense,llt,llt_panel,lu,matmul,qr,spectral,trtri} [ROOT]
+    python tools/torch_split.py {dense,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -43,6 +43,10 @@ code. The rows, per kernel:
   ``Mat(g).partial_piv_lu().solve(b)`` at 4096 with the tile switch off,
   the off-route ``lu_in_place`` of a 4000², and the CALU factor of a
   65536 × 1024 at ``_CALU_GROUP`` = 4096 (the gate restored after);
+* ``lu_swap`` (seed 18): ``lu_panel_swap``, the LU panel that swaps rows,
+  on Gaussian panels at (4096, 128) (the v1 kernel's measured shape),
+  (1000, 100), (4096, 256) and (40000, 256), per call and on the device,
+  each beside ``torch.linalg.lu_factor_ex`` on the same panel per call;
 * ``matmul`` (seed 10): ``tile_matmul`` in each mode ("highest" FP32,
   "high" bf16x3, bf16) at 4096³ and at the facade's thin products
   (``chip_smoke.tile_matmul_rows``: Vᵀ·B (128, 4096)·(4096, 3968) and
@@ -69,6 +73,11 @@ code. The rows, per kernel:
   warm-up); the leaf stages also in a CUDA graph when batched; the card's
   busy time (``chip_smoke.device_ms``, torch.profiler) of the 384 calls
   and, in a batched checkout, of the D&C layers;
+* ``syrk`` (seed 17): ``syrk_lower_sub`` at (3840, 256), a 4096 LLT's
+  trailing update at block 256, on a row-major (K-major) A in
+  ``f32_precision`` "highest" (FP32) and "high" (bf16x3), and on an
+  M-major A (a ``.mT`` view) in FP32, per call and on the device, each
+  beside ``torch.addmm(c, a, aᵀ, alpha=−1)`` on the same operands;
 * ``trtri`` (seed 9): ``trtri`` on one 128 block (``_trtri_block``); the
   inverses of the 32 diagonal blocks of a 4096 triangle as a triangular
   solve makes them (one ``trtri_batched`` launch, or 32 ``trtri`` calls on
@@ -97,6 +106,8 @@ NRHS = 8
 STEP_REPS = 5  # per-call repetitions of the solves, the step and the factor
 QR_REPS = 10  # per-call repetitions, and calls in a graph, of the QR panels
 LU_REPS = 10  # the same for the LU panels
+SYRK_SHAPE = (3840, 256)  # (m, k): a 4096 LLT's trailing update at block 256
+LU_SWAP_SHAPES = ((4096, 128), (1000, 100), (4096, 256), (40000, 256))
 
 
 def _chip_smoke():
@@ -371,6 +382,43 @@ def lu_rows(cs):
            STEP_REPS, STEP_REPS)
 
 
+def syrk_rows(cs):
+    """(name, call, per-call reps, graph reps) of ``syrk_lower_sub`` in
+    both precisions and of ``torch.addmm`` on the same operands."""
+    from faer_tpu_torch.core.config import config
+    from faer_tpu_torch.ops.kernels.syrk import syrk_lower_sub
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    m, k = SYRK_SHAPE
+    c = torch.randn(m, m, generator=gen, device="cuda")
+    ak = torch.randn(m, k, generator=gen, device="cuda")
+    am = torch.randn(k, m, generator=gen, device="cuda").mT
+    reps = cs.TILE_REPS
+    for label, a, modes in (("K-major", ak, ("highest", "high")), ("M-major", am, ("highest",))):
+        for mode in modes:
+            def call(a=a, mode=mode):
+                config.f32_precision = mode
+                return syrk_lower_sub(c, a)
+
+            yield f"syrk_lower_sub {mode} ({m}, {k}) {label}", call, reps, reps
+        yield (f"torch.addmm(c, a, aᵀ, alpha=-1) ({m}, {k}) {label}",
+               lambda a=a: torch.addmm(c, a, a.mT, alpha=-1), reps, reps)
+    config.f32_precision = "highest"
+
+
+def lu_swap_rows(cs):
+    """(name, call, per-call reps, graph reps or None) of ``lu_panel_swap``
+    and ``lu_factor_ex`` on the same panels."""
+    from faer_tpu_torch.ops.kernels.lu_panel_swap import lu_panel_swap
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for m, b in LU_SWAP_SHAPES:
+        a = torch.randn(m, b, generator=gen, device="cuda")
+        yield f"lu_panel_swap ({m}, {b})", lambda a=a: lu_panel_swap(a), LU_REPS, LU_REPS
+        yield (f"lu_factor_ex ({m}, {b})", lambda a=a: torch.linalg.lu_factor_ex(a),
+               LU_REPS, None)
+
+
 SPECTRAL_DIRECT = 384  # the direct QR route (n < 512)
 
 
@@ -487,8 +535,9 @@ def spectral_rows(cs):
                lambda t=t: torch.linalg.svd(t, full_matrices=False), 3, None, None)
 
 
-ROWS = {"dense": dense_rows, "llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows, "matmul": matmul_rows, "qr": qr_rows,
-        "spectral": spectral_rows, "trtri": trtri_rows}
+ROWS = {"dense": dense_rows, "llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows,
+        "lu_swap": lu_swap_rows, "matmul": matmul_rows, "qr": qr_rows,
+        "spectral": spectral_rows, "syrk": syrk_rows, "trtri": trtri_rows}
 
 
 def main() -> None:
