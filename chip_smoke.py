@@ -56,7 +56,11 @@ Phases, each printing lines; any failure exits non-zero:
    on regularized blocks and on row-strided views at b ∈ {125, 338}, timed
    per call and on the device (CUDA-graph replay) beside ``cholesky_ex``;
    ``chase_probe`` at (b, g, steps) ∈ {(64, 1, 3), (64, 4, 24),
-   (128, 8, 24)} and on a zero-tail window; the batched QR kernels
+   (128, 8, 24)} and on both sides of its route edge (the largest b whose
+   strip a thread-block cluster holds in shared memory, and the next, on a
+   global copy), each case's route printed, and on a zero-tail window on
+   both routes; timed at (128, 8, 24) per call and on the device; the
+   batched QR kernels
    ``tridiag_qr_batched`` and ``bidiag_qr_batched`` (the whole iteration
    of many problems in one launch) on the 64 leaves of a 4096 problem, the
    ragged leaves of 4000, the bidiagonal's wide and square leaves, the
@@ -242,8 +246,10 @@ LLT_CALL_REPS = 20
 LLT_GRAPH_REPS = 30
 # phase 3's chase cases (b, g, steps): one and eight cycles of the three
 # windows; the values grow with the steps (the strip is not symmetric), so
-# the kernel is held to its plain version at these short step counts only
+# the kernel is held to its plain version at these short step counts only;
+# chase_cases adds both sides of the kernel's route edge
 CHASE_CASES = ((64, 1, 3), (64, 4, 24), (128, 8, 24))
+CHASE_REPS = 20  # phase 3's chase timings: per call and in a CUDA graph
 # phases 11 and 12: each timed call 1 + warmup + reps times
 LLT_LAB_REPS, LLT_LAB_WARMUP = 10, 2
 CHASE_LAB_REPS, CHASE_LAB_WARMUP = 5, 1
@@ -1722,55 +1728,85 @@ def chase_step_flops(b: int) -> int:
     return 20 * b * b + 11 * b
 
 
-def _chase_kernel(gen) -> dict:
-    """``chase_probe`` (row 20), one CTA per strip, against its plain
-    version at ``CHASE_CASES`` (the strip in shared memory at b = 64, in
-    global memory at 128) within 8·2b·eps of the output's largest entry
-    (the values grow with the steps, so only short runs are held), and on a
-    zero-tail window (α = 0.75, rows 2..b of column 0 zero: τ = 0), which
-    one step must leave unchanged to the bit. Timed at (128, 8, 24); no
-    PyTorch call computes a chase step; the bound counts
-    ``chase_step_flops`` and the strip read and written once (PERF.md §6
-    gives the chain latency per step from phase 12)."""
-    from faer_tpu_torch.ops.kernels.band_chase import chase_probe, chase_probe_plain
+def chase_cases() -> tuple:
+    """CHASE_CASES with both sides of the chase kernel's route edge on this
+    card: the largest b whose strip a cluster holds in shared memory, and
+    the next, whose strip the cluster keeps in a global copy."""
+    from faer_tpu_torch.ops.kernels.band_chase import device_facts, shared_edge
 
-    errs = []
-    for b, g, steps in CHASE_CASES:
-        band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
-        got = chase_probe(band, b=b, steps=steps, g=g)
-        want = chase_probe_plain(band, b=b, steps=steps, g=g)
-        torch.cuda.synchronize()
-        top = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        errs.append(err)
-        tol = 8 * 2 * b * EPS32 * top
-        check(bool(torch.isfinite(got).all()) and err <= tol,
-              f"chase_probe b={b} g={g} steps={steps}: max abs err {err:.3e} <= "
-              f"{tol:.3e} (8·2b·eps of max|out| {top:.4g}); bitwise equal "
-              f"{torch.equal(got, want)}")
-    b, g = 64, 2
+    edge = shared_edge(*device_facts())
+    return CHASE_CASES + ((edge, 1, 24), (edge + 1, 1, 24))
+
+
+def _chase_zero_tail(b: int, g: int, gen):
+    """A strip whose every first window has α = 0.75 and rows 2..b of
+    column 0 zero: tail_sq = 0, so τ = 0 and one step is the identity."""
     band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
     for gi in range(g):
         band[gi * 4 * b + 1, 0] = 0.75
         band[gi * 4 * b + 2:gi * 4 * b + b + 1, 0] = 0.0
-    one = chase_probe(band, b=b, steps=1, g=g)
-    got, want = chase_probe(band, b=b, steps=3, g=g), chase_probe_plain(band, b=b, steps=3, g=g)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = 8 * 2 * b * EPS32 * want.abs().max().item()
-    check(torch.equal(one, band) and err <= tol,
-          f"chase_probe zero-tail window b={b} g={g}: one step leaves the strip "
-          f"unchanged {torch.equal(one, band)}; 3 steps max abs err {err:.3e} <= {tol:.3e}")
+    return band
+
+
+def _chase_kernel(gen) -> dict:
+    """``chase_probe`` (row 20), one thread-block cluster a strip, against
+    its plain version at ``chase_cases`` (each case's route printed: the
+    strip's columns in the shared memory of the cluster's CTAs up to the
+    edge, in a global copy past it) within 8·2b·eps of the output's largest
+    entry (the values grow with the steps, so only short runs are held), one
+    launch a call; on a zero-tail window (α = 0.75, rows 2..b of column 0
+    zero: τ = 0) on both routes, which one step must leave unchanged to the
+    bit. Timed at (128, 8, 24) per call and on the device (a CUDA graph);
+    no PyTorch call computes a chase step; the bound counts
+    ``chase_step_flops`` and the strip read and written once (PERF.md §6
+    gives the chain latency per step from phase 12)."""
+    from faer_tpu_torch.core.config import launch_counts, reset_launch_counts
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe, chase_probe_plain, route
+
+    errs = []
+    cases = chase_cases()
+    for b, g, steps in cases:
+        band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
+        reset_launch_counts()
+        got = chase_probe(band, b=b, steps=steps, g=g)
+        torch.cuda.synchronize()
+        one = launch_counts()["chase_probe"] == 1
+        want = chase_probe_plain(band, b=b, steps=steps, g=g)
+        top = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        errs.append(err)
+        tol = 8 * 2 * b * EPS32 * top
+        p = route(b, g)
+        check(one and bool(torch.isfinite(got).all()) and err <= tol,
+              f"chase_probe b={b} g={g} steps={steps} [{p.route}, {p.ctas} CTAs of {p.cw} "
+              f"columns]: max abs err {err:.3e} <= {tol:.3e} (8·2b·eps of max|out| {top:.4g}); "
+              f"one launch {one}; bitwise equal {torch.equal(got, want)}")
+    for b in (64, cases[-1][0]):
+        g = 2
+        band = _chase_zero_tail(b, g, gen)
+        one = chase_probe(band, b=b, steps=1, g=g)
+        got = chase_probe(band, b=b, steps=3, g=g)
+        want = chase_probe_plain(band, b=b, steps=3, g=g)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 8 * 2 * b * EPS32 * want.abs().max().item()
+        check(torch.equal(one, band) and err <= tol,
+              f"chase_probe zero-tail window b={b} g={g} [{route(b, g).route}]: one step leaves "
+              f"the strip unchanged {torch.equal(one, band)}; 3 steps max abs err {err:.3e} "
+              f"<= {tol:.3e}")
     b, g, steps = CHASE_CASES[-1]
     band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=DEV)
-    r = dict(max_abs_err=max(errs),
-             ms=cuda_ms(lambda: chase_probe(band, b=b, steps=steps, g=g), 10),
+    call = lambda: chase_probe(band, b=b, steps=steps, g=g)
+    p = route(b, g)
+    r = dict(max_abs_err=max(errs), ms=cuda_ms(call, CHASE_REPS),
+             device_ms=graph_ms(call, CHASE_REPS),
+             plan=f"{p.route}, {p.ctas} CTAs of {p.cw} columns",
              plain_ms=cuda_ms(lambda: chase_probe_plain(band, b=b, steps=steps, g=g), 3),
              library_ms=None,  # no PyTorch call computes a chase step
              **bound_of(steps * g * chase_step_flops(b), 2 * g * 8 * b * b * 4))
-    print(f"time chase_probe b={b} g={g} steps={steps}: kernel {r['ms']:.4f} ms "
-          f"({r['ms'] * 1e3 / steps:.3f} us/step), plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+    print(f"time chase_probe b={b} g={g} steps={steps} [{r['plan']}]: per call {r['ms']:.4f} "
+          f"ms, device {r['device_ms']:.4f} ms ({r['device_ms'] * 1e3 / steps:.3f} us/step), "
+          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
     return {"chase_probe": r}
 
 
@@ -2883,7 +2919,8 @@ def main() -> None:
     gemm = ["faer_tpu_torch/csrc/gemm_tile.cuh", "faer_tpu_torch/csrc/hopper.cuh"]
     headers = {"matmul": gemm, "syrk": gemm,
                "tridiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
-               "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"]}
+               "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "lu_panel_swap": gemm[1:], "chase_probe": gemm[1:]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, headers=headers.get(k, []), replaces=rep,

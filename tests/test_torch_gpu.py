@@ -1442,15 +1442,35 @@ def test_llt_block_plugged_into_a_4096_factor(cuda, name):
     assert lab["llt_residual"](l, a) <= 8 * n * EPS32
 
 
+def _chase_b(b, cuda):
+    """b, or the largest b whose strip a cluster holds in shared memory on
+    this card ("edge") and the next ("edge+1")."""
+    from faer_tpu_torch.ops.kernels.band_chase import device_facts, shared_edge
+
+    edge = shared_edge(*device_facts(cuda))
+    return {"edge": edge, "edge+1": edge + 1}.get(b, b)
+
+
 @pytest.mark.parametrize("b,g,steps", [(16, 2, 6), (64, 1, 3), (64, 4, 24),
                                        (84, 1, 24), (85, 2, 24), (128, 8, 24),
-                                       (64, 1, 0)])
+                                       (64, 1, 0), (17, 3, 12), (128, 1, 24),
+                                       (128, 40, 6), (128, 2, 0), (200, 1, 12),
+                                       ("edge", 1, 12), ("edge+1", 1, 12),
+                                       ("edge+1", 2, 0), (1024, 1, 4)])
 def test_chase_kernel(cuda, b, g, steps):
-    """One CTA per strip, the strip in shared memory up to b = 84 and in
-    global memory above: within 8·2b·eps of the plain version, relative to
-    the output's largest entry; one launch a call."""
-    from faer_tpu_torch.ops.kernels.band_chase import chase_probe, chase_probe_plain
+    """One thread-block cluster a strip, the strip's columns over its CTAs:
+    in their shared memory up to the edge, in a global copy past it (the
+    planner's route asserted); g = 40 at b = 128 is 320 CTAs, more than one
+    wave; within 8·2b·eps of the plain version, relative to the output's
+    largest entry; one launch a call."""
+    from faer_tpu_torch.ops.kernels.band_chase import (
+        chase_probe, chase_probe_plain, device_facts, route, shared_edge)
 
+    b = _chase_b(b, cuda)
+    p = route(b, g, cuda)
+    want_route = ("cluster, strip in shared memory" if b <= shared_edge(*device_facts(cuda))
+                  else "cluster, strip in global memory")
+    assert p.route == want_route and 1 <= p.ctas <= device_facts(cuda)[1]
     gen = torch.Generator(device=cuda).manual_seed(b * g + steps)
     band = torch.randn(g * 4 * b, 2 * b, generator=gen, device=cuda)
     reset_launch_counts()
@@ -1464,12 +1484,28 @@ def test_chase_kernel(cuda, b, g, steps):
         assert torch.equal(got, band)
 
 
-@pytest.mark.parametrize("b", [64, 128])
+def test_chase_plans_match_the_kernel(cuda):
+    """The planner's shared memory equals the kernel's own count
+    (``faer_chase_smem_bytes``) on both routes at every b, and every b up
+    to ``MAX_B`` has a plan on this card."""
+    from faer_tpu_torch.ops.kernels import _build
+    from faer_tpu_torch.ops.kernels.band_chase import MAX_B, route, smem_bytes
+
+    lib = _build.library()
+    for b in range(1, MAX_B + 1):
+        p = route(b, 1, cuda)
+        for shared in (True, False):
+            assert lib.faer_chase_smem_bytes(b, p.cw, int(shared)) == smem_bytes(b, p.cw, shared)
+
+
+@pytest.mark.parametrize("b", [16, 64, 128, "edge", "edge+1"])
 def test_chase_kernel_zero_tail_is_the_identity(cuda, b):
     """α = 0.75 and rows 2..b of column 0 zero in every strip's first
-    window: tail_sq = 0, τ = 0, one step leaves the strip unchanged."""
+    window: tail_sq = 0, τ = 0, one step leaves the strip unchanged, on
+    both routes and on a one-CTA cluster (b = 16)."""
     from faer_tpu_torch.ops.kernels.band_chase import chase_probe
 
+    b = _chase_b(b, cuda)
     g = 2
     band = torch.randn(g * 4 * b, 2 * b, generator=torch.Generator(device=cuda).manual_seed(1),
                        device=cuda)

@@ -1,6 +1,6 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {llt,llt_panel,lu,lu_swap,qr,trtri} [ROOT]
+    python tools/torch_profile.py {chase,llt,llt_panel,lu,lu_swap,qr,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -85,8 +85,27 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   out``, ``update`` (multipliers, rank-1 update, next candidates), ``final
   write``; and whether packed equals ``lu_panel_swap_plain``'s to the bit.
 
+* ``chase`` (``csrc/band_chase.cu``, ``-DFAER_CHASE_PROFILE``), per CTA and
+  step, on Gaussian strips (seed 1) at ``CHASE_PROFILE_CASES``: (64, 1, 256)
+  and (128, 1, 256), the chase lab's chains, on clusters of several sizes
+  (the plan's and others, each on the route its columns fit), (128, 8, 24),
+  the largest b whose strip a cluster holds in shared memory and the next
+  (global route), and (1024, 1, 8), each with its route, CTAs a cluster and
+  columns a CTA, as thread 0 (warp 0) sees them: ``stage`` (the strip's
+  columns in, the first Householder, the first cluster barrier; per launch,
+  spread over the steps), ``matvec`` (the partial sums of W v),
+  ``push`` (their stores into every CTA), ``exchange wait`` (until every
+  partial sum of the step has arrived), ``u+gamma`` (the partials added,
+  one block barrier, γ), ``x0+Householder`` (warp 0's update of the
+  column-0 copy and the next step's τ and v), ``update`` (the wait for
+  warps 1.. to finish the rank-2 update, one block barrier), ``out`` (the
+  last cluster barrier, the columns out); and the largest difference from
+  ``chase_probe_plain`` relative to the largest entry (held to 8·2b·eps at
+  24 steps or fewer).
+
 ROOT (default: this checkout) names the checkout whose kernel source is
-built, so that one chip call profiles a parent unpacked beside this one.
+built, so that one chip call profiles a parent unpacked beside this one
+(for ``chase``, a kernel with the ``FAER_CHASE_PROFILE`` marks).
 
 The marks cost a few cycles each; the phase shares, not the totals, are
 what this reads. Prints the card's name and power limit first. Exits
@@ -318,6 +337,60 @@ def _lu_swap_cases(lib, gen):
         yield f"({m}, {b}) {ROUTES[code]}, {c_ctas.value} CTAs", launch, c_ctas.value, check
 
 
+CHASE_LABELS = ("stage", "matvec", "push", "exchange wait", "u+gamma", "x0+Householder",
+                "update", "out")
+# (b, g, steps, CTAs of a cluster or None for the plan's)
+CHASE_PROFILE_CASES = ((64, 1, 256, 1), (64, 1, 256, 2), (64, 1, 256, None), (64, 1, 256, 8),
+                       (128, 1, 256, 4), (128, 1, 256, None), (128, 1, 256, 16),
+                       (128, 8, 24, None), (128, 8, 24, 16), ("edge", 1, 24, None),
+                       ("edge+1", 1, 24, None), (1024, 1, 8, None))
+
+
+def _chase_cases(lib, gen):
+    """(label, launch, CTA steps a launch, check) at each case: the plan
+    the wrapper makes, or the strip's columns over the CTAs named, on the
+    shared route where they fit and the global one else."""
+    from faer_tpu_torch.ops.kernels import band_chase as bc
+
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.faer_chase_device.argtypes = [P, P]
+    smem_max, max_cluster = ctypes.c_int(), ctypes.c_int()
+    if lib.faer_chase_device(ctypes.byref(smem_max), ctypes.byref(max_cluster)):
+        sys.exit("faer_chase_device failed")
+    facts = (smem_max.value, max_cluster.value)
+    edge = bc.shared_edge(*facts)
+    eps = float(torch.finfo(torch.float32).eps)
+    for b, g, steps, ctas in CHASE_PROFILE_CASES:
+        b = {"edge": edge, "edge+1": edge + 1}.get(b, b)
+        p = bc.plan(b, g, *facts)
+        if ctas is not None:
+            ctas, cw = bc._split(b, ctas)
+            shared = bc.smem_bytes(b, cw, True) <= facts[0]
+            p = bc.Plan("cluster, strip in shared memory" if shared
+                        else "cluster, strip in global memory", ctas, cw,
+                        0 if shared else g * 4 * b * ctas * cw)
+        band = torch.randn(g * 4 * b, 2 * b, generator=gen, device="cuda")
+        out = torch.empty_like(band)
+        scratch = torch.empty(max(p.scratch, 4), device="cuda")
+
+        def launch(band=band, out=out, scratch=scratch, p=p, b=b, g=g, steps=steps):
+            return lib.faer_chase_probe(band.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                        p.scratch, b, steps, g, p.ctas, p.cw,
+                                        bc.ROUTES[p.route], stream)
+
+        def check(band=band, out=out, b=b, g=g, steps=steps):
+            want = bc.chase_probe_plain(band, b=b, steps=steps, g=g)
+            top = want.abs().max().item()
+            rel = (out - want).abs().max().item() / max(top, 1e-30)
+            held = (f"<= {8 * 2 * b * eps:.3e}: {rel <= 8 * 2 * b * eps}" if steps <= 24
+                    else "(not held: the values grow with the steps)")
+            return f"max|out - plain| / max|plain| {rel:.3e} {held}"
+
+        yield (f"b={b} g={g} steps={steps} [{p.route}], {p.ctas} CTAs of {p.cw} columns",
+               launch, p.ctas * g * max(steps, 1), check)
+
+
 LLT_PANEL_CASES = ((4096, 256), (1024, 256), (256, 256), (4096, 512), (16896, 256), (65536, 256))
 # the counters of the one-launch kernel and of the two-launch one before it
 LLT_PANEL_LABELS = ("init", "wait", "copy", "look solve", "look tile", "factor", "publish",
@@ -396,6 +469,10 @@ def _llt_panel_cases(lib, gen):
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
+    "chase": dict(source="band_chase.cu", macro="FAER_CHASE_PROFILE", entry="faer_chase_probe",
+                  read="faer_chase_profile_read",
+                  labels=CHASE_LABELS, phases=CHASE_LABELS,
+                  cases=_chase_cases, unit="CTA step"),
     "llt": dict(source="llt_block.cu", macro="FAER_LLT_PROFILE", entry="faer_llt_block",
                 read="faer_llt_block_profile_read",
                 labels=("stage", "first tile", "solve", "tile update", "factor+trailing",
@@ -460,6 +537,8 @@ def load(kernel: str, so: Path) -> ctypes.CDLL:
 
     spec = KERNELS[kernel]
     lib = ctypes.CDLL(str(so))
+    if not hasattr(lib, spec["read"]):
+        sys.exit(f"{so.name}: no {spec['read']}: this kernel source has no profile marks")
     getattr(lib, spec["entry"]).argtypes = _build._SIGNATURES[spec["entry"]]
     getattr(lib, spec["read"]).argtypes = [ctypes.c_void_p]
     return lib

@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {dense,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
+    python tools/torch_split.py {chase,dense,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -10,6 +10,12 @@ the device (a CUDA graph of the calls). Only this checkout's
 parent commit unpacked beside this one) in turns with this one by the same
 code. The rows, per kernel:
 
+* ``chase`` (seed 19): ``chase_probe`` on Gaussian strips at phase 3's
+  ``CHASE_CASES`` ((64, 1, 3), (64, 4, 24), (128, 8, 24)) and at the chase
+  lab's g = 1 chains, b ∈ {64, 128} and steps ∈ {256, 1024} (the chain's
+  time a step is the difference of the two over 768), per call and on the
+  device (a CUDA graph of the calls); no PyTorch call computes a chase
+  step;
 * ``dense`` (seed 15): phase 13's calls at 4096 (``chip_smoke.
   _dense_inputs``): in float64 ``llt_factor``, ``lu_in_place``,
   ``qr_in_place``, ``ldlt_factor``, ``piv_llt_factor``,
@@ -406,6 +412,23 @@ def syrk_rows(cs):
     config.f32_precision = "highest"
 
 
+CHASE_CHAINS = tuple((b, 1, steps) for b in (64, 128) for steps in (256, 1024))
+
+
+def chase_rows(cs):
+    """(name, call, per-call reps, graph reps) of ``chase_probe`` at phase
+    3's cases and the lab's chains."""
+    from faer_tpu_torch.ops.kernels.band_chase import chase_probe
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for b, g, steps in cs.CHASE_CASES + CHASE_CHAINS:
+        band = torch.randn(g * 4 * b, 2 * b, generator=gen, device="cuda")
+        reps = 10 if steps <= 256 else 5
+        yield (f"chase_probe b={b} g={g} steps={steps}",
+               lambda band=band, b=b, g=g, steps=steps: chase_probe(band, b=b, steps=steps, g=g),
+               reps, reps)
+
+
 def lu_swap_rows(cs):
     """(name, call, per-call reps, graph reps or None) of ``lu_panel_swap``
     and ``lu_factor_ex`` on the same panels."""
@@ -535,9 +558,10 @@ def spectral_rows(cs):
                lambda t=t: torch.linalg.svd(t, full_matrices=False), 3, None, None)
 
 
-ROWS = {"dense": dense_rows, "llt": llt_rows, "llt_panel": llt_panel_rows, "lu": lu_rows,
-        "lu_swap": lu_swap_rows, "matmul": matmul_rows, "qr": qr_rows,
-        "spectral": spectral_rows, "syrk": syrk_rows, "trtri": trtri_rows}
+ROWS = {"chase": chase_rows, "dense": dense_rows, "llt": llt_rows,
+        "llt_panel": llt_panel_rows, "lu": lu_rows, "lu_swap": lu_swap_rows,
+        "matmul": matmul_rows, "qr": qr_rows, "spectral": spectral_rows,
+        "syrk": syrk_rows, "trtri": trtri_rows}
 
 
 def main() -> None:
