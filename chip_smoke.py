@@ -151,7 +151,26 @@ Phases, each printing lines; any failure exits non-zero:
    library call (``cholesky_ex``, ``ldl_factor``, ``lu_factor_ex``,
    ``geqrf``) on the same input in the same dtype. The factors are loops
    of small launches, set by the host; ``tools/torch_split.py dense`` times
-   them on the device too (CUDA graphs).
+   them on the device too (CUDA graphs);
+14. general EVD and f64 spectral: at n = 1024 (ns = 64, AED window 96) the
+   Schur step as ``evd`` runs it (``hessenberg_blocked``, then multishift QR
+   with AED, each window one ``real_schur`` launch), with ‖A − QTQᵀ‖/‖A‖,
+   max|QᵀQ − I| and the eigenvalues against f64 ``numpy.linalg.eigvals``,
+   each within 8·n·eps; ``evd`` and ``eigenvalues`` in float32 and float64
+   (the residual and the eigenvalues within 8·n·eps of the dtype), each
+   call timed once (host clock) with its AED and sweep shares, beside
+   ``torch.linalg.eig`` and ``eigvals``; ``Mat(a).eigen()`` and
+   ``.eigenvalues()`` at 127 (one direct ``real_schur`` launch) and 128
+   (multishift); every ``real_schur`` launch equal to the AED windows and
+   direct calls the drivers made (counted by wrappers); the float64
+   ``self_adjoint_evd`` and ``svd`` at 1024 (D&C) and 384 (the direct QR
+   route), each exactly one sweep launch and no host read, checked and
+   timed beside ``eigh`` and ``svd`` in float64. Phase 3 holds
+   ``real_schur`` against its plain version (T, Q, iterations, converged
+   and chase steps to the bit) at the AED windows 48 and 96, a batch of 16s
+   and both sides of its shared-memory edge in float32 and float64, its
+   shared route against the global one, and times it at 96; and the
+   float64 batched QR kernels against theirs on the 16 leaves of 1024.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase prints its own time. The second-to-last line is
@@ -173,9 +192,10 @@ DEV = "cuda"  # every tensor of the run lives on the card
 N = 4096  # flagship size: a 64 MiB f32 matrix
 SEED = 0
 EPS32 = float(torch.finfo(torch.float32).eps)
-# NVIDIA's data sheet, H100 SXM at 700 W: FP32 outside the tensor cores, bf16
-# dense on the tensor cores, HBM3
+# NVIDIA's data sheet, H100 SXM at 700 W: FP32 (and FP64) outside the tensor
+# cores, bf16 dense on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # FP64 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # launches the code predicts (PERF.md §6), trtri one batched launch per
@@ -228,8 +248,8 @@ CALU_SOLVE = (4000, 1024)  # (n, gate) of phase 9's square factor and solve
 CALU_LAUNCHES = {CALU: dict(lu_panel_v2=8, lu_leaf=0, trtri=4 + 3),
                  (4000, 4000): dict(lu_panel_v2=24, lu_leaf=4, trtri=12 + 8 + 7)}
 # phase 10's timing: each panel wrapper is called 1 + warmup + reps times a
-# shape (tools/torch_qr_panels.py)
-LAB_REPS, LAB_WARMUP = 10, 2
+# shape (tools/torch_qr_panels.py; 3 reps, from 10, to make room for phase 14)
+LAB_REPS, LAB_WARMUP = 3, 1
 WIDE = ((64, 200), (1000, 1024))  # phase 3's wide panels (m < b)
 # phase 3's LLT blocks: the labs' sizes, ragged ones, both sides of the
 # shared-memory edge (337), the largest; the regularized ones (b, the bad
@@ -250,9 +270,10 @@ LLT_GRAPH_REPS = 30
 # chase_cases adds both sides of the kernel's route edge
 CHASE_CASES = ((64, 1, 3), (64, 4, 24), (128, 8, 24))
 CHASE_REPS = 20  # phase 3's chase timings: per call and in a CUDA graph
-# phases 11 and 12: each timed call 1 + warmup + reps times
-LLT_LAB_REPS, LLT_LAB_WARMUP = 10, 2
-CHASE_LAB_REPS, CHASE_LAB_WARMUP = 5, 1
+# phases 11 and 12: each timed call 1 + warmup + reps times (the LLT lab at
+# 3 reps, from 10, and the chase lab at 3, from 5, to make room for phase 14)
+LLT_LAB_REPS, LLT_LAB_WARMUP = 3, 1
+CHASE_LAB_REPS, CHASE_LAB_WARMUP = 3, 1
 # phase 13: the PSD rank of the pivoted LLT's input, the rank-update width
 DENSE_RANK = 3072
 DENSE_R = 8
@@ -271,6 +292,27 @@ DENSE_LAUNCHES = {
     "col_piv_qr().reconstruct()": dict(trtri=128), "llt()": dict(llt_panel=16),
 }
 DENSE_WARM_N = 160  # each call once at this size first: loads and first allocations
+# phase 3's real_schur cases (n, batch): the multishift driver's AED windows
+# below n = 590 (48) and up to 3000 (96), a batch of the smallest blocks; the
+# shared-memory edge and the next size join them (real_schur_cases)
+SCHUR_CASES = ((48, 4), (96, 2), (16, 8))
+SCHUR_REPS = 20  # the timed window: per call and in a CUDA graph
+# operations of one chase step of the real_schur kernel at width n, counted
+# from its source: the row update (n − i + 1 columns) and the column update
+# (i + 4 rows of H) together n + 5 columns or rows, and Q's n rows, 12 flops
+# each (w: 2 products, 2 sums; the three updates: 2, 3 and 3), plus 25 for
+# the reflector; and per iteration the deflation test, 5 flops an entry of
+# the subdiagonal
+def schur_step_flops(n: int) -> int:
+    return 12 * (2 * n + 5) + 25
+
+
+# phase 14: the general EVD at full width (ns = 64, AED window 96 by
+# _params_for), the multishift route edge, and the f64 spectral calls (D&C
+# at 1024, the direct QR route at DIRECT_N)
+GEVD_N = 1024
+GEVD_EDGE = (127, 128)
+F64_SPECTRAL = (1024, DIRECT_N)
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -819,6 +861,8 @@ def phase_kernels(gen, profs) -> dict:
     res.update(_qr_panel_family(gen))
     _wide_panels(gen)
     res.update(_qr_batched_kernels(gen))
+    _qr_batched_kernels_f64(gen, res)
+    res.update(_real_schur_kernel(gen))
     res.update(_tile_kernels(gen))
     res.update(_llt_block_kernels(gen))
     res.update(_chase_kernel(gen))
@@ -1399,6 +1443,143 @@ def _qr_batched_kernels(gen) -> dict:
                          plain_problems=n_plain, library_ms=lib, **bound_of(flops, nbytes))
     _one_sweep_kernels(gen)
     return res
+
+
+def _qr_batched_kernels_f64(gen, res: dict) -> None:
+    """The float64 instantiations of ``tridiag_qr_batched`` and
+    ``bidiag_qr_batched`` (the f64 spectral entry points' route) against
+    their plain versions, as ``_qr_batched_kernels`` holds the float32 ones
+    (d, e, iterations, converged and sweep steps to the bit, vectors within
+    8·nmax·eps_f64): the 16 leaves of an f64 1024 D&C, the first and the
+    last held against the plain version (the direct route's f64 call,
+    whose plain version takes minutes on the card, runs in phase 14). The
+    64 leaves of N in float64 timed by graph replay go into rows 9 and 10
+    as ``ms_f64``."""
+    from faer_tpu_torch.ops.kernels import sweep
+    from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
+
+    eps64 = torch.finfo(torch.float64).eps
+    for kind, bidiag in (("tridiag", False), ("bidiag", True)):
+        kern = getattr(sweep, f"{kind}_qr_batched")
+        plain = getattr(sweep, f"{kind}_qr_batched_plain")
+
+        def leaves(n):
+            d = torch.randn(n, generator=gen, device=DEV, dtype=torch.float64)
+            e = torch.randn(n - 1, generator=gen, device=DEV, dtype=torch.float64)
+            return (bidiag_dnc._leaf_inputs(d, e, 0) if bidiag
+                    else tridiag_dnc._leaf_inputs(d, e))
+
+        for label, args in (("the 16 leaves of 1024", leaves(1024)),):
+            d, e, *ints = args
+            batch, nmax = d.shape
+            dk, ek = d.clone(), e.clone()
+            got = kern(dk, ek, *ints)
+            torch.cuda.synchronize()
+            pick = torch.tensor([0, batch - 1], device=DEV)
+            dp, ep = d[pick], e[pick]
+            want = plain(dp, ep, *(x[pick] for x in ints))
+            same = torch.equal(dk[pick], dp) and torch.equal(ek[pick], ep) and all(
+                torch.equal(g[pick], w) for g, w in zip(got[-3:], want[-3:]))
+            err = max((g[pick] - w).abs().max().item() for g, w in zip(got[:-3], want[:-3]))
+            check(same and err <= 8 * nmax * eps64 and bool(got[-2].all()),
+                  f"{kind}_qr_batched f64 {label} [B={batch}, nmax={nmax}, vectors in "
+                  f"{sweep.qr_batched_route(kind, nmax, dtype=torch.float64)} memory; "
+                  f"{len(pick)} held against the plain version]: d, e, iterations, "
+                  f"converged and sweep steps equal to the bit {same}; vectors max abs "
+                  f"err {err:.3e} <= {8 * nmax * eps64:.3e}")
+        d, e, *ints = leaves(N)
+        ms = graph_ms(lambda: kern(d.clone(), e.clone(), *ints), 3)
+        res[f"{kind}_sweep"]["ms_f64"] = ms
+        print(f"time {kind}_qr_batched f64, the {d.shape[0]} leaves of {N}: device "
+              f"{ms:.4f} ms (graph replay)")
+
+
+def real_schur_cases() -> tuple:
+    """(n, batch, dtype) of phase 3's real_schur checks: SCHUR_CASES in
+    float32 and float64, and both sides of each dtype's shared-memory edge
+    (the largest nmax whose H and Q the kernel keeps in shared memory, by
+    bisection over its route, and the next, in global memory)."""
+    from faer_tpu_torch.ops.kernels import real_schur as krs
+
+    out = []
+    for dt in (torch.float32, torch.float64):
+        edge = krs.shared_edge(dt)
+        out += [(n, b, dt) for n, b in SCHUR_CASES] + [(edge, 1, dt), (edge + 1, 1, dt)]
+    return tuple(out)
+
+
+def _schur_inputs(n: int, batch: int, dt, gen):
+    h = torch.triu(torch.randn(batch, n, n, generator=gen, device=DEV,
+                               dtype=torch.float64), -1).to(dt)
+    q = torch.eye(n, device=DEV, dtype=dt).repeat(batch, 1, 1)
+    return h, q, torch.full((batch,), n, dtype=torch.int32, device=DEV)
+
+
+def _real_schur_kernel(gen) -> dict:
+    """``real_schur_batched`` (the Francis double-shift iteration of every
+    problem of a batch, one CTA each, one launch) against its plain
+    version on every case of ``real_schur_cases``, each case's route
+    printed: T, Q, iterations, converged and chase steps equal to the bit
+    (the plain version runs on CPU copies: IEEE operations only, so the two
+    devices round alike), every problem converged, ‖H − QTQᵀ‖/‖H‖ ≤
+    8·n·eps; the shared-memory route equal to the global one forced onto
+    the same inputs; timed at the AED window of GEVD_N (96) per call and
+    on the device (CUDA graph) in both dtypes, beside the plain version on
+    the card (one call) and ``torch.linalg.eigvals`` of the same window.
+    The bound counts this run's work: the kernel's chase steps ×
+    ``schur_step_flops`` + its iterations × 5 flops an entry of the
+    subdiagonal over the FP32 (FP64) peak, and H, Q read and T, Q written
+    once."""
+    from faer_tpu_torch.ops.kernels import real_schur as krs
+
+    errs = []
+    for n, batch, dt in real_schur_cases():
+        h, q, sizes = _schur_inputs(n, batch, dt, gen)
+        got = krs.real_schur_batched(h, q, sizes)
+        torch.cuda.synchronize()
+        want = krs.real_schur_batched_plain(h.cpu(), q.cpu(), sizes.cpu())
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        t, qo = got[0].double(), got[1].double()
+        rec = max(rel_norm(qo[b] @ t[b] @ qo[b].T, h[b].double()) for b in range(batch))
+        tol = 8 * n * torch.finfo(dt).eps
+        errs.append(0.0 if same else float("inf"))
+        name = "f32" if dt == torch.float32 else "f64"
+        check(same and bool(got[3].all()) and rec <= tol,
+              f"real_schur_batched n={n} B={batch} {name} [H and Q in "
+              f"{krs.route(n, dt)} memory]: T, Q, iterations, converged and chase steps "
+              f"equal to the plain version's to the bit {same}; all converged "
+              f"{bool(got[3].all())} ({got[2].tolist()} iterations, {got[4].tolist()} "
+              f"steps); |H - QTQᵀ|/|H| {rec:.3e} <= {tol:.3e}")
+    out = None
+    for dt in (torch.float32, torch.float64):
+        w = 96
+        h, q, sizes = _schur_inputs(w, 1, dt, gen)
+        got = krs.real_schur_batched(h, q, sizes)
+        ms = cuda_ms(lambda: krs.real_schur_batched(h, q, sizes), SCHUR_REPS)
+        dev_ms = graph_ms(lambda: krs.real_schur_batched(h, q, sizes), SCHUR_REPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        krs.real_schur_batched_plain(h, q, sizes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lib = cuda_ms(lambda: torch.linalg.eigvals(h[0]), 5)
+        its, steps = int(got[2][0]), int(got[4][0])
+        flops = steps * schur_step_flops(w) + its * 5 * (w - 1)
+        nbytes = 4 * w * w * h.element_size()
+        name = "f32" if dt == torch.float32 else "f64"
+        print(f"time real_schur_batched w={w} {name}: per call {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms (graph replay), {its} iterations, {steps} chase steps "
+              f"({dev_ms / max(steps, 1) * 1e3:.3f} us a step); plain {plain_ms:.1f} ms "
+              f"(one call on the card); library eigvals of the window {lib:.4f} ms")
+        if dt == torch.float32:
+            out = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=lib, **bound_of(flops, nbytes))
+        else:
+            f64 = bound_of(flops, nbytes, PEAK_F64_FLOPS)
+            out.update(ms_f64=ms, device_ms_f64=dev_ms, plain_ms_f64=plain_ms,
+                       library_ms_f64=lib, bound_ms_f64=f64["bound_ms"],
+                       bound_by_f64=f64["bound_by"])
+    return {"real_schur": out}
 
 
 def _leaf_library_ms(d, e, ints, bidiag: bool) -> float:
@@ -2078,10 +2259,10 @@ def _timed(fn, label: str, flops: float | None = None) -> float:
 
 def _evd_checks(a, w, v, label: str) -> None:
     n = a.shape[0]
-    tol = 8 * n * EPS32
+    tol = 8 * n * torch.finfo(a.dtype).eps
     res = (torch.linalg.matrix_norm(a @ v - v * w[None, :])
            / torch.linalg.matrix_norm(a)).item()
-    orth = (v.T @ v - torch.eye(n, device=DEV)).abs().max().item()
+    orth = (v.T @ v - torch.eye(n, device=DEV, dtype=a.dtype)).abs().max().item()
     check(tuple(w.shape) == (n,) and tuple(v.shape) == (n, n)
           and bool(torch.isfinite(v).all()) and bool((w[1:] >= w[:-1]).all()),
           f"{label}: finite, of the expected shapes, ascending")
@@ -2093,9 +2274,9 @@ def _evd_checks(a, w, v, label: str) -> None:
 def _svd_checks(a, u, s, v, label: str) -> None:
     m, n = a.shape
     k = min(m, n)
-    tol = 8 * max(m, n) * EPS32
+    tol = 8 * max(m, n) * torch.finfo(a.dtype).eps
     res = rel_norm((u * s[None, :]) @ v.T, a)
-    eye = torch.eye(k, device=DEV)
+    eye = torch.eye(k, device=DEV, dtype=a.dtype)
     orth_u = (u.T @ u - eye).abs().max().item()
     orth_v = (v.T @ v - eye).abs().max().item()
     check(tuple(u.shape) == (m, k) and tuple(v.shape) == (n, k)
@@ -2674,6 +2855,241 @@ def phase_dense_stack(gen) -> dict:
     return total
 
 
+def _eig_ratio(w, ref, kappa, eta: float) -> float:
+    """How far the eigenvalues ``w`` lie from the reference ``ref`` (both
+    complex, on the card), against each reference eigenvalue's own bound
+    2·κ_i·η: the first-order perturbation bound κ_i·η (κ_i = ‖x_i‖‖y_i‖/
+    |y_iᴴx_i|, its condition number; η the Schur step's measured backward
+    error, :func:`_schur_backward`), doubled for the reference's own error
+    of the same kind. The largest ratio, each eigenvalue matched to the
+    nearest of the other set in both directions. A sorted comparison can
+    pair the wrong eigenvalues where two real parts lie closer than their
+    errors, and a bound without κ fails on the near-collisions of a random
+    matrix's spectrum, which move by √eps."""
+    # the distances themselves (torch.cdist's product form cancels near 0)
+    dist = (w.to(torch.complex128)[:, None] - ref.to(torch.complex128)[None, :]).abs()
+    tol = 2 * kappa * eta
+    near_ref = dist.min(dim=1)  # each computed eigenvalue's nearest reference
+    near_w = dist.min(dim=0)  # each reference eigenvalue's nearest computed one
+    return max((near_ref.values / tol[near_ref.indices]).max().item(),
+               (near_w.values / tol).max().item())
+
+
+def _schur_backward(a, t, q) -> tuple[float, float, float]:
+    """The Schur step's A = Q T Qᵀ in float64: ‖A − QTQᵀ‖_F/‖A‖_F,
+    max|QᵀQ − I| and the backward error η = ‖A − QTQᵀ‖₂ + ‖A‖₂‖QᵀQ − I‖₂
+    of T's eigenvalues (T's eigenvalues are those of Q T Q⁻¹ = A − E − Q T F
+    Qᵀ + O(‖F‖²), E = A − QTQᵀ, F = QᵀQ − I)."""
+    ad, td, qd = a.double(), t.double(), q.double()
+    e = ad - qd @ td @ qd.T
+    f = qd.T @ qd - torch.eye(a.shape[0], device=a.device, dtype=torch.float64)
+    e2, a2, f2 = (torch.linalg.matrix_norm(x, ord=2).item() for x in (e, ad, f))
+    return (torch.linalg.matrix_norm(e).item() / torch.linalg.matrix_norm(ad).item(),
+            f.abs().max().item(), e2 + a2 * f2)
+
+
+def phase_general_evd(gen) -> dict:
+    """The general real EVD and the f64 spectral entry points.
+
+    * at GEVD_N, ``evd`` and ``eigenvalues`` in float32 and float64, each
+      call's Schur step (``hessenberg_blocked`` then
+      ``_real_schur_dispatch``: multishift QR, every AED window one
+      ``real_schur`` launch) with ‖A − QTQᵀ‖/‖A‖ and max|QᵀQ − I| within
+      8·n·eps of its dtype, the eigenvalues against f64
+      ``numpy.linalg.eigvals`` within 2·κ_i·η (:func:`_eig_ratio`, η the
+      step's measured backward error), ``evd``'s ‖AV − VΛ‖/(‖A‖‖V‖)
+      within 8·n·eps; each call's time (host clock, one call) and layers,
+      beside ``torch.linalg.eig`` and ``eigvals`` in the same dtype;
+    * ``Mat(a).eigen()`` and ``Mat(a).eigenvalues()`` at the route edge
+      (127: one direct ``real_schur`` launch; 128: multishift);
+    * ``self_adjoint_evd`` and ``svd`` in float64 at F64_SPECTRAL (D&C,
+      and the direct QR route), each exactly one sweep launch and no host
+      read, against ``eigh``/``svd`` in float64.
+
+    Every ``real_schur`` launch is one AED window or one direct call:
+    ``_aed`` and the direct ``real_schur`` are counted by wrappers. Returns
+    the summed launch counts."""
+    import numpy as np
+
+    from faer_tpu_torch import Mat, eigenvalues, evd, self_adjoint_evd, svd
+    from faer_tpu_torch.core import dtypes
+    from faer_tpu_torch.linalg import eigvec, real_schur as trs, schur_multishift as tms
+    from faer_tpu_torch.linalg import evd as tevd
+
+    total = {}
+    calls = {"aed": 0, "direct": 0, "aed_ms": 0.0, "sweep": 0, "sweep_ms": 0.0,
+             "hess": 0, "hess_ms": 0.0, "schur": 0, "schur_ms": 0.0, "vecs": 0,
+             "vecs_ms": 0.0}
+    schur_out = []  # the Schur step's (t, q, info) of the last call
+
+    def wrap(mod, name, key):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls[key] += 1
+            if key + "_ms" in calls:
+                calls[key + "_ms"] += (time.perf_counter() - t) * 1e3
+            if key == "schur":
+                schur_out[:] = [out]
+            return out
+        setattr(mod, name, counted)
+        return fn
+
+    saved = [(tms, "_aed", wrap(tms, "_aed", "aed")),
+             (trs, "real_schur", wrap(trs, "real_schur", "direct")),
+             (tms, "_sweep", wrap(tms, "_sweep", "sweep")),
+             (tevd, "hessenberg_blocked", wrap(tevd, "hessenberg_blocked", "hess")),
+             (tevd, "_real_schur_dispatch", wrap(tevd, "_real_schur_dispatch", "schur")),
+             (eigvec, "quasi_triangular_eigenvectors_pair",
+              wrap(eigvec, "quasi_triangular_eigenvectors_pair", "vecs"))]
+
+    def run(label, fn, dt):
+        """fn once with every counter at 0 (the wrappers' too), timed by
+        the host clock: (result, ms, counts, host reads)."""
+        for k in calls:
+            calls[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts, reads = _counted(fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        launches = counts["real_schur"]
+        check(launches == calls["aed"] + calls["direct"] and launches > 0
+              and counts["tridiag_sweep"] == counts["bidiag_sweep"] == 0,
+              f"{label}: {launches} real_schur launches = {calls['aed']} AED windows + "
+              f"{calls['direct']} direct calls; {calls['sweep']} multishift sweeps; "
+              f"{reads} host reads")
+        print(f"time {label}: {ms:.4f} ms (one call, host clock); layers: "
+              f"hessenberg_blocked {calls['hess_ms']:.1f} ms, the Schur step "
+              f"{calls['schur_ms']:.1f} ms (AED {calls['aed_ms']:.1f} ms in {calls['aed']} "
+              f"windows, sweeps {calls['sweep_ms']:.1f} ms in {calls['sweep']}), "
+              f"eigenvectors {calls['vecs_ms']:.1f} ms")
+        return out, ms
+
+    try:
+        import scipy.linalg
+
+        n = GEVD_N
+        a64 = torch.randn(n, n, generator=gen, device=DEV, dtype=torch.float64)
+        # the reference: f64 LAPACK eigenvalues (numpy.linalg.eigvals) and
+        # their condition numbers from scipy's left and right vectors
+        an = a64.cpu().numpy()
+        ref = torch.from_numpy(np.linalg.eigvals(an)).to(DEV)
+        lw, yl, xr = scipy.linalg.eig(an, left=True, right=True)
+        kappa_np = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+                    / np.abs(np.sum(yl.conj() * xr, axis=0)))
+        # scipy's order to numpy's: each of numpy's eigenvalues takes the
+        # condition number of scipy's nearest one
+        kappa = torch.from_numpy(kappa_np[np.abs(np.asarray(ref.cpu())[:, None]
+                                                 - lw[None, :]).argmin(axis=1)]).to(DEV)
+        anorm2 = torch.linalg.matrix_norm(a64, ord=2).item()
+        print(f"reference n={n}: f64 numpy.linalg.eigvals, condition numbers from "
+              f"scipy.linalg.eig: median {kappa.median().item():.3g}, largest "
+              f"{kappa.max().item():.3g}; |A|₂ {anorm2:.6g}")
+        for dt in (torch.float32, torch.float64):
+            name = "f32" if dt == torch.float32 else "f64"
+            eps = torch.finfo(dt).eps
+            tol = 8 * n * eps
+            a = a64.to(dt)
+            for label, fn in ((f"evd n={n} {name}", lambda: evd(a)),
+                              (f"eigenvalues n={n} {name}", lambda: eigenvalues(a))):
+                out, _ = run(label, fn, dt)
+                # the Schur step of that call (A = Q T Qᵀ, Q from the
+                # Hessenberg reduction and the multishift iteration)
+                t, qs, sinfo = schur_out[0]
+                rec, orth, eta = _schur_backward(a, t, qs)
+                check(bool(sinfo.converged) and rec <= tol and orth <= tol
+                      and not bool(torch.tril(t, -2).any()),
+                      f"{label}, the Schur step: converged in {int(sinfo.iterations)} rounds, "
+                      f"quasi-triangular; |A - QTQᵀ|/|A| {rec:.3e}, max|QᵀQ - I| {orth:.3e}, "
+                      f"both <= {tol:.3e}; backward error η = |A - QTQᵀ|₂ + |A|₂|QᵀQ - I|₂ "
+                      f"{eta:.3e} (|A|₂ {anorm2:.6g})")
+                w = out[0] if label.startswith("evd") else out
+                ratio = _eig_ratio(w, ref, kappa, eta)
+                check(w.dtype == dtypes.complex_dtype_of(dt) and ratio <= 1,
+                      f"{label}: eigenvalues vs f64 numpy.linalg.eigvals within {ratio:.3e} "
+                      f"of their bounds 2·κ_i·η")
+                if label.startswith("evd"):
+                    _, v, info = out
+                    vd = v.to(torch.complex128)
+                    res = (torch.linalg.matrix_norm(a64.to(torch.complex128) @ vd
+                                                    - vd * w[None, :])
+                           / (torch.linalg.matrix_norm(a64) * torch.linalg.matrix_norm(vd))
+                           ).item()
+                    check(bool(info.converged) and res <= tol,
+                          f"{label}: |AV - VΛ|/(|A||V|) {res:.3e} <= {tol:.3e}")
+            lib = cuda_ms(lambda: torch.linalg.eig(a), 1)
+            libv = cuda_ms(lambda: torch.linalg.eigvals(a), 1)
+            print(f"time library n={n} {name}: torch.linalg.eig {lib:.4f} ms, eigvals "
+                  f"{libv:.4f} ms (one call each, CUDA events)")
+        # the multishift route edge through the facade: 127 takes one direct
+        # real_schur launch
+        for n2 in GEVD_EDGE:
+            a2 = torch.randn(n2, n2, generator=gen, device=DEV)
+            eig, _ = run(f"Mat(a).eigen() n={n2} f32", lambda: Mat(a2).eigen(),
+                         torch.float32)
+            w2, v2, info2 = eig.eigenvalues, eig.eigenvectors, eig.info
+            n_direct, n_aed = calls["direct"], calls["aed"]
+            wv2 = Mat(a2).eigenvalues()
+            check(torch.equal(wv2, w2), f"Mat(a).eigenvalues() n={n2} f32: the "
+                                        f"eigenvalues of Mat(a).eigen(), to the bit")
+            tol2 = 8 * n2 * EPS32
+            vd = v2.to(torch.complex128)
+            res = (torch.linalg.matrix_norm(a2.double().to(torch.complex128) @ vd
+                                            - vd * w2[None, :])
+                   / (torch.linalg.matrix_norm(a2.double()) * torch.linalg.matrix_norm(vd))
+                   ).item()
+            direct = n2 < tevd._MULTISHIFT_MIN_N
+            check(bool(info2.converged) and res <= tol2 and n_direct == int(direct)
+                  and (n_aed == 0) == direct,
+                  f"Mat(a).eigen() n={n2} f32 ({'direct real_schur' if direct else 'multishift'}): "
+                  f"|AV - VΛ|/(|A||V|) {res:.3e} <= {tol2:.3e}")
+    finally:
+        for mod, fname, fn in saved:
+            setattr(mod, fname, fn)
+
+    # the f64 spectral entry points: one sweep launch, no host read
+    for n3 in F64_SPECTRAL:
+        g = torch.randn(n3, n3, generator=gen, device=DEV, dtype=torch.float64)
+        a3 = (g + g.T) / 2
+        tol3 = 8 * n3 * torch.finfo(torch.float64).eps
+        for label, fn, kernel in ((f"self_adjoint_evd n={n3} f64", lambda: self_adjoint_evd(a3),
+                                   "tridiag_sweep"),
+                                  (f"svd n={n3} f64", lambda: svd(g), "bidiag_sweep")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts, reads = _counted(fn)
+            ms = (time.perf_counter() - t0) * 1e3
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            _one_launch(label, kernel, counts, reads)
+            if kernel == "tridiag_sweep":
+                w3, v3, info3 = out
+                _evd_checks(a3, w3, v3, label)
+                ref3 = torch.linalg.eigvalsh(a3)
+                err = ((w3 - ref3).abs().max() / ref3.abs().max()).item()
+                lib = cuda_ms(lambda: torch.linalg.eigh(a3), 1)
+                libname = "eigh"
+            else:
+                u3, s3, vs3, info3 = out
+                _svd_checks(g, u3, s3, vs3, label)
+                ref3 = torch.linalg.svdvals(g)
+                err = ((s3 - ref3).abs().max() / ref3[0]).item()
+                lib = cuda_ms(lambda: torch.linalg.svd(g, full_matrices=False), 1)
+                libname = "svd"
+            check(bool(info3.converged) and err <= tol3,
+                  f"{label}: converged, values vs torch.linalg f64 {err:.3e} <= {tol3:.3e}")
+            print(f"time {label}: {ms:.4f} ms (one call, host clock); library {libname} "
+                  f"{lib:.4f} ms")
+    print(f"launches in the general EVD phase: {total}")
+    return total
+
+
 def phase_calu(gen) -> dict:
     """The tournament (CALU) leaf through ``lu_in_place``, with the module
     gate ``faer_tpu_torch.linalg.lu._CALU_GROUP`` set for the phase and
@@ -2855,7 +3271,8 @@ def main() -> None:
     llt_lab = timed("11 LLT block lab", phase_llt_lab)
     chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
     dense = timed("13 dense stack", phase_dense_stack, gen)
-    paths += [lab, llt_lab, chase_lab, dense]
+    gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
+    paths += [lab, llt_lab, chase_lab, dense, gevd]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -2899,6 +3316,9 @@ def main() -> None:
                          "faer_tpu/ops/pallas/panel_kernels.py:586"),
         "chase_probe": ("faer_tpu_torch/csrc/band_chase.cu",
                         "faer_tpu/ops/pallas/band_chase.py:89"),
+        # no Pallas kernel: the XLA while_loop of the JAX package's real_schur
+        "real_schur": ("faer_tpu_torch/csrc/real_schur.cu",
+                       "faer_tpu/linalg/real_schur.py:74"),
     }
     # on no library path, as in the JAX package: syrk_lower_sub is unwired,
     # the v3 and v1 LU panels are called by nothing, the QR panels v1, v2,
@@ -2920,6 +3340,7 @@ def main() -> None:
     headers = {"matmul": gemm, "syrk": gemm,
                "tridiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "real_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "lu_panel_swap": gemm[1:], "chase_probe": gemm[1:]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [

@@ -16,10 +16,15 @@ pivoted LLT, Bunch–Kaufman LBLT, the LLT and LDLT rank updates
 through the hand-written kernels, float64 through the JAX package's
 non-kernel bodies); the self-adjoint EVD and the SVD, ``linalg.evd``
 (``self_adjoint_evd`` and its siblings) and ``linalg.svd`` (``svd`` and its
-siblings), in float32; and the facade over them: ``Mat``, ``Col``, ``Row``,
-``Diag``, ``Scale`` and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``,
-``Lblt``, ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
-``SelfAdjointEigen``, whose products go through the GEMM front door
+siblings), in float32 and float64; the general real EVD, ``linalg.evd``
+(``evd``, ``eigenvalues``, their ``_pair`` forms, ``hessenberg_in_place``,
+``hessenberg_blocked``), ``linalg.real_schur`` (``real_schur``, one launch
+of the ``real_schur`` kernel on a card), ``linalg.schur_multishift``
+(``multishift_real_schur``) and ``linalg.eigvec``, in float32 and float64;
+and the facade over them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale``
+and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
+``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
+``SelfAdjointEigen``, ``Eigen``, whose products go through the GEMM front door
 (``ops.matmul``) and, with the switch ``core.config.config.use_tile_matmul``
 on, its tile kernel.
 """
@@ -71,6 +76,12 @@ from faer_tpu_torch.linalg.cholesky import (
     piv_llt_solve,
 )
 from faer_tpu_torch.linalg.evd import (
+    eigenvalues,
+    eigenvalues_pair,
+    evd,
+    evd_pair,
+    hessenberg_blocked,
+    hessenberg_in_place,
     self_adjoint_eigenvalues,
     self_adjoint_evd,
     self_adjoint_pseudoinverse,
@@ -100,6 +111,7 @@ from faer_tpu_torch.linalg.qr import (
 )
 from faer_tpu_torch.linalg.solvers import (
     ColPivQr,
+    Eigen,
     FullPivLu,
     Lblt,
     Ldlt,
@@ -110,6 +122,8 @@ from faer_tpu_torch.linalg.solvers import (
     SelfAdjointEigen,
     Svd,
 )
+from faer_tpu_torch.linalg.real_schur import real_schur
+from faer_tpu_torch.linalg.schur_multishift import multishift_real_schur
 from faer_tpu_torch.linalg.svd import (
     pseudoinverse,
     pseudoinverse_from_svd,
@@ -136,7 +150,7 @@ __all__ = [
     "Accum", "BlockStructure", "Conj", "NanHandling", "Norm", "Par", "Side",
     "Mat", "Scale", "Col", "Row", "Diag",
     "Llt", "Ldlt", "PivLlt", "Lblt", "PartialPivLu", "FullPivLu", "Qr",
-    "ColPivQr", "Svd", "SelfAdjointEigen",
+    "ColPivQr", "Svd", "SelfAdjointEigen", "Eigen",
     "matmul", "matvec", "rank_update",
     "norm", "norm_l1", "norm_l2", "norm_l2_sqr", "norm_max", "sum_all",
     "prod_diag", "log_abs_det_diag",
@@ -153,4 +167,6 @@ __all__ = [
     "SpectralInfo", "EvdParams", "SvdParams",
     "self_adjoint_evd", "self_adjoint_eigenvalues", "self_adjoint_pseudoinverse",
     "svd", "singular_values", "pseudoinverse", "pseudoinverse_from_svd",
+    "evd", "eigenvalues", "evd_pair", "eigenvalues_pair", "hessenberg_in_place",
+    "hessenberg_blocked", "real_schur", "multishift_real_schur",
 ]

@@ -21,8 +21,10 @@
 * **Host reads.** A driver that decides on the host (Bunch–Kaufman's panel
   end, a solver object's success check) reads the tensor through
   :func:`host_read`, which counts it, so a run can show how many host
-  syncs a call made: none in a spectral call, whose QR iterations run on
-  the card.
+  syncs a call made: none in a self-adjoint EVD or SVD call, whose QR
+  iterations run on the card; a few a round in the general EVD's
+  multishift driver, which decides on the host where its AED window sits
+  and whether to sweep.
 
 The JAX package's ``platform_scope`` and ``effective_platform`` have no
 counterpart: the device is the input tensor's.
@@ -36,7 +38,8 @@ import torch
 KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
            "tridiag_sweep", "bidiag_sweep", "matmul", "syrk", "lu_panel_v2",
            "lu_panel_v3", "lu_panel_swap", "qr_panel_v1", "qr_panel_v2",
-           "qr_panel_v3", "qr_leaf", "llt_block", "llt_block_v3", "chase_probe")
+           "qr_panel_v3", "qr_leaf", "llt_block", "llt_block_v3", "chase_probe",
+           "real_schur")
 F32_PRECISIONS = ("highest", "high")
 
 

@@ -1,15 +1,26 @@
 """Dtype policy (counterpart of ``faer_tpu/core/dtypes.py``).
 
-The factorizations take ``torch.float32`` and ``torch.float64``
-(:func:`require_real`). The dtype alone picks the route, as the JAX
-package's ``panel_kernels_enabled`` picks it (``faer_tpu/core/config.py:
-99-107``, f32 only): float32 goes to the hand-written kernels
-(:func:`kernel_route`), float64 to the JAX package's non-kernel bodies in
-plain PyTorch. The spectral entry points are still float32 only
-(:func:`require_f32`). The other helpers stay generic over the real and
-complex torch dtypes so the later slices can reuse them.
+Every real entry point takes ``torch.float32`` and ``torch.float64``
+(:func:`require_real`); complex input raises ``NotImplementedError``
+naming ROADMAP §1 item 10. What the dtype decides:
+
+* the dense factorizations: float32 goes to the hand-written kernels
+  (:func:`kernel_route`), as the JAX package's ``panel_kernels_enabled``
+  picks its kernel route (``faer_tpu/core/config.py:99-107``, f32 only);
+  float64 runs the JAX package's non-kernel bodies in plain PyTorch and
+  launches no kernel;
+* the spectral entry points (the self-adjoint EVD, the SVD, the general
+  EVD): both dtypes run the same drivers, and each QR iteration is one
+  launch of a batched kernel instantiated for float32 and for float64
+  (``tridiag_qr_batched``, ``bidiag_qr_batched``, ``real_schur_batched``),
+  as the JAX package runs f64 through the same spectral drivers.
+
+The other helpers stay generic over the real and complex torch dtypes so
+the later slices can reuse them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,9 +34,28 @@ def real_dtype_of(dtype):
     return dtype
 
 
+def complex_dtype_of(dtype):
+    """The complex dtype of the same precision: f64, c128 → c128; else c64."""
+    if dtype in (torch.float64, torch.complex128):
+        return torch.complex128
+    return torch.complex64
+
+
 def eps(dtype) -> float:
     """Machine epsilon of the associated real dtype (faer ``ApproxEq::eps``)."""
     return float(torch.finfo(real_dtype_of(dtype)).eps)
+
+
+def min_positive(dtype) -> float:
+    """The smallest positive normal number of the associated real dtype."""
+    return float(torch.finfo(real_dtype_of(dtype)).tiny)
+
+
+def deflation_stall_cap(dtype) -> int:
+    """Exponent cap for the progressive deflation floor ``2**(stall // 5)``
+    of the Schur iterations: keeps the loosened absolute floor at or below
+    ``√eps·‖H‖`` in every dtype (11 in float32, 24 in float64)."""
+    return min(24, int(-0.5 * math.log2(eps(dtype))))
 
 
 def kernel_route(dtype) -> bool:
@@ -43,11 +73,3 @@ def require_real(a, name: str) -> None:
             "factorizations are ROADMAP §1 item 10")
 
 
-def require_f32(a, name: str) -> None:
-    """Raise ``NotImplementedError`` unless ``a`` is float32 (the spectral
-    entry points)."""
-    if a.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name}: float32 only, got {a.dtype}; the f64 spectral entry "
-            "points and the complex ones are ROADMAP §1 items 5c (what "
-            "remains of it) and 10")

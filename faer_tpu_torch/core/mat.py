@@ -272,10 +272,12 @@ class Mat:
         return solvers.SelfAdjointEigen.new(self.a, side)
 
     def eigen(self):
-        _not_ported("Mat.eigen (general EVD)", "9")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.Eigen.new(self.a)
 
     def generalized_eigen(self, b):
-        _not_ported("Mat.generalized_eigen (generalized EVD)", "9")
+        _not_ported("Mat.generalized_eigen (generalized EVD)", "9b")
 
     def singular_values(self):
         from faer_tpu_torch.linalg import svd as _svd
@@ -283,7 +285,9 @@ class Mat:
         return _svd.singular_values(self.a)
 
     def eigenvalues(self):
-        _not_ported("Mat.eigenvalues (general EVD)", "9")
+        from faer_tpu_torch.linalg import evd as _evd
+
+        return _evd.eigenvalues(self.a)
 
     def self_adjoint_eigenvalues(self, side: Side = Side.LOWER):
         from faer_tpu_torch.linalg import evd as _evd

@@ -4,7 +4,10 @@
 // * IEEE operations rounded one at a time (no FMA contraction), so that a
 //   kernel repeats the rounding of its plain PyTorch version, one PyTorch
 //   launch an operation: __fmul_rn and friends, __fsqrt_rn, __fdiv_rn, and
-//   hypotf where the plain code calls torch.hypot;
+//   hypotf where the plain code calls torch.hypot; the same names take
+//   double (__dmul_rn, __dsqrt_rn, __ddiv_rn, hypot), so that every routine
+//   below is a template on the element type T, float or double;
+// * the element types' eps and smallest normal number;
 // * the Wilkinson shift and the two Givens forms of the plain versions;
 // * CTA reductions (a minimum index, NaN-propagating maxima as torch.max);
 // * the rotation of one row of a column-major matrix by a chain of Givens
@@ -15,46 +18,70 @@
 
 namespace faer_qr {
 
-constexpr float kEps = 1.1920928955078125e-07f;  // float32's eps, 2^-23
 constexpr int kMaxThreads = 512;
 constexpr int kMaxN = 8192;  // the largest problem the batched kernels take
 constexpr size_t kMaxSmem = 232448;  // 227 KB: what one block can opt into
 
+// the element type's machine epsilon (torch.finfo(dtype).eps) and smallest
+// normal number (torch.finfo(dtype).tiny)
+template <typename T> struct Limits;
+template <> struct Limits<float> {
+  static constexpr float eps = 1.1920928955078125e-07f;  // 2^-23
+  static constexpr float tiny = 1.1754943508222875e-38f;  // 2^-126
+};
+template <> struct Limits<double> {
+  static constexpr double eps = 2.220446049250313e-16;  // 2^-52
+  static constexpr double tiny = 2.2250738585072014e-308;  // 2^-1022
+};
+
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ float absv(float a) { return fabsf(a); }
+__device__ __forceinline__ float hypot_of(float a, float b) { return hypotf(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ double absv(double a) { return fabs(a); }
+__device__ __forceinline__ double hypot_of(double a, double b) { return hypot(a, b); }
 
 // The eigenvalue of [[a, b], [b, c]] closest to c, in the order of
 // tridiag_evd._wilkinson_shift (PyTorch divides by the CPU scalar 2 as a
 // product with 0.5, which rounds as the division does).
-__device__ __forceinline__ float wilkinson_shift(float a, float b, float c) {
-  const float delta = mul(sub(a, c), 0.5f);
-  const float sq = __fsqrt_rn(add(mul(delta, delta), mul(b, b)));
-  float denom = add(delta, delta >= 0.0f ? sq : -sq);
-  if (denom == 0.0f) denom = 1.0f;
-  return b == 0.0f ? c : sub(c, __fdiv_rn(mul(b, b), denom));
+template <typename T>
+__device__ __forceinline__ T wilkinson_shift(T a, T b, T c) {
+  const T delta = mul(sub(a, c), T(0.5));
+  const T sq = sqrt_rn(add(mul(delta, delta), mul(b, b)));
+  T denom = add(delta, delta >= T(0) ? sq : -sq);
+  if (denom == T(0)) denom = T(1);
+  return b == T(0) ? c : sub(c, dvd(mul(b, b), denom));
 }
 
 // c, s, r with [[c, -s], [s, c]]^T [x, z]^T = [r, 0]^T, r = sqrt(x² + z²):
 // the sweeps' form (and the extra-column chase's)
-__device__ __forceinline__ void givens_sqrt(float x, float z, float& c, float& s,
-                                            float& r) {
-  r = __fsqrt_rn(add(mul(x, x), mul(z, z)));
-  c = (r == 0.0f) ? 1.0f : __fdiv_rn(x, r);
-  s = (r == 0.0f) ? 0.0f : __fdiv_rn(z, r);
+template <typename T>
+__device__ __forceinline__ void givens_sqrt(T x, T z, T& c, T& s, T& r) {
+  r = sqrt_rn(add(mul(x, x), mul(z, z)));
+  c = (r == T(0)) ? T(1) : dvd(x, r);
+  s = (r == T(0)) ? T(0) : dvd(z, r);
 }
 
 // the same with r = hypot(x, z): the zero-diagonal chases' form
 // (tridiag_evd._givens_real)
-__device__ __forceinline__ void givens_hypot(float x, float z, float& c, float& s,
-                                             float& r) {
-  r = hypotf(x, z);
-  c = (r == 0.0f) ? 1.0f : __fdiv_rn(x, r);
-  s = (r == 0.0f) ? 0.0f : __fdiv_rn(z, r);
+template <typename T>
+__device__ __forceinline__ void givens_hypot(T x, T z, T& c, T& s, T& r) {
+  r = hypot_of(x, z);
+  c = (r == T(0)) ? T(1) : dvd(x, r);
+  s = (r == T(0)) ? T(0) : dvd(z, r);
 }
 
 // max that keeps a NaN, as torch.max does
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
@@ -71,15 +98,23 @@ __device__ __forceinline__ int cta_min(int v, int* red) {
   return v;
 }
 
+// Bytes of the reduction scratch of cta_min_max_max: 32 ints and 64 T's.
+template <typename T>
+__host__ __device__ constexpr size_t red_bytes() {
+  return 32 * sizeof(int) + 64 * sizeof(T);
+}
+
 // The minimum of v and the NaN-propagating maxima of x and y over the CTA,
-// in every thread; red: 3 × 32 words of shared scratch. Ends in a barrier.
-__device__ __forceinline__ void cta_min_max_max(int& v, float& x, float& y, int* red) {
+// in every thread; red: red_bytes<T>() of shared scratch (its start 8-byte
+// aligned). Ends in a barrier.
+template <typename T>
+__device__ __forceinline__ void cta_min_max_max(int& v, T& x, T& y, int* red) {
   v = __reduce_min_sync(0xffffffffu, v);
   for (int o = 16; o > 0; o >>= 1) {
     x = nan_max(x, __shfl_xor_sync(0xffffffffu, x, o));
     y = nan_max(y, __shfl_xor_sync(0xffffffffu, y, o));
   }
-  float* fred = reinterpret_cast<float*>(red + 32);
+  T* fred = reinterpret_cast<T*>(red + 32);
   if ((threadIdx.x & 31) == 0) {
     red[threadIdx.x >> 5] = v;
     fred[threadIdx.x >> 5] = x;
@@ -104,24 +139,25 @@ __device__ __forceinline__ void cta_min_max_max(int& v, float& x, float& y, int*
 // versions' column rotations. The running column i stays in a register;
 // the next kAhead columns are loaded before they are needed, which hides
 // the latency of a matrix in global memory.
-__device__ __forceinline__ void rotate_row_chain(float* z, int ld, int lo, int hi,
-                                                 const float* c, const float* s) {
+template <typename T>
+__device__ __forceinline__ void rotate_row_chain(T* z, int ld, int lo, int hi, const T* c,
+                                                 const T* s) {
   constexpr int kAhead = 8;
-  float a = z[(size_t)lo * ld];
+  T a = z[(size_t)lo * ld];
   int i = lo;
   for (; i + kAhead <= hi; i += kAhead) {
-    float b[kAhead];
+    T b[kAhead];
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) b[k] = z[(size_t)(i + 1 + k) * ld];
 #pragma unroll
     for (int k = 0; k < kAhead; ++k) {
-      const float ck = c[i + k], sk = s[i + k];
+      const T ck = c[i + k], sk = s[i + k];
       z[(size_t)(i + k) * ld] = add(mul(ck, a), mul(sk, b[k]));
       a = add(mul(-sk, a), mul(ck, b[k]));
     }
   }
   for (; i < hi; ++i) {
-    const float b = z[(size_t)(i + 1) * ld];
+    const T b = z[(size_t)(i + 1) * ld];
     z[(size_t)i * ld] = add(mul(c[i], a), mul(s[i], b));
     a = add(mul(-s[i], a), mul(c[i], b));
   }
@@ -132,12 +168,12 @@ __device__ __forceinline__ void rotate_row_chain(float* z, int ld, int lo, int h
 // k = first, first + step, …, last (step ±1), with (c_k, s_k): column k ←
 // c·z_k + s·z_p, column p ← −s·z_k + c·z_p, the pivot column p carried in
 // a register. The zero-diagonal chases and the extra-column chase.
-__device__ __forceinline__ void rotate_row_pivot(float* z, int ld, int p, int first,
-                                                 int last, int step, const float* c,
-                                                 const float* s) {
-  float zp = z[(size_t)p * ld];
+template <typename T>
+__device__ __forceinline__ void rotate_row_pivot(T* z, int ld, int p, int first, int last,
+                                                 int step, const T* c, const T* s) {
+  T zp = z[(size_t)p * ld];
   for (int k = first; step > 0 ? k <= last : k >= last; k += step) {
-    const float zk = z[(size_t)k * ld];
+    const T zk = z[(size_t)k * ld];
     z[(size_t)k * ld] = add(mul(c[k], zk), mul(s[k], zp));
     zp = add(mul(-s[k], zk), mul(c[k], zp));
   }

@@ -1,12 +1,14 @@
 // tridiag_sweep: the implicit-shift QR iteration of a symmetric tridiagonal
-// (d (n,), e (n-1,)), f32. Two entries share one sweep routine:
+// (d (n,), e (n-1,)). Two entries share one sweep routine:
 //
 // * faer_tridiag_sweep: one Wilkinson-shifted bulge chase on the block
 //   [l, m], its rotations out (the one-sweep contract of the Pallas kernel);
 // * faer_tridiag_qr_batched: the whole iteration of every problem of a
 //   batch, one CTA a problem, in one launch: what tridiag_evd's loop does
 //   per iteration (zero the negligible e, find the block end, advance l or
-//   shift and sweep) and the rotation of the eigenvector matrix Z.
+//   shift and sweep) and the rotation of the eigenvector matrix Z, in
+//   float32 (faer_tridiag_qr_batched) and in float64
+//   (faer_tridiag_qr_batched_f64, the f64 spectral entry points' route).
 //
 // Replaces: faer_tpu/ops/pallas/panel_kernels.py `tridiag_sweep_pallas`
 // (:390, body `_tridiag_sweep_kernel` :322), which runs one sweep on
@@ -23,7 +25,7 @@
 // d, e, the rotations and (when it fits, every D&C leaf) Z in shared memory,
 // else Z in global memory, column-major so that a warp's rows are adjacent.
 //
-// Design of the chain: one thread runs it with d[i], e[i] and d[i+1] in
+// Design of the chain (a template on the element type T): one thread runs it with d[i], e[i] and d[i+1] in
 // registers and the next step's d[i+2], e[i+2] loaded a step ahead, so no
 // store-to-load round trip through shared memory sits on it; only the
 // final value of each d and e is stored. After the chain every thread owns
@@ -46,26 +48,26 @@ constexpr int kMaxStagedN = 6144;  // 2n floats in 48 KB
 // One sweep with shift mu on the block [l, m] (0 <= l < m <= n-1) of (d, e),
 // by one thread; its rotations to c[i], s[i] for i in [l, m). The pointers
 // may be shared or global.
-__device__ void sweep_chain(float* d, float* e, float* c_out, float* s_out, int l,
-                            int m, float mu) {
-  float di = d[l], ei = e[l], dip1 = d[l + 1];
-  float x = sub(di, mu), bz = ei;
-  float e_next = l + 1 < m ? e[l + 1] : 0.0f;  // e[i+1] as the sweep found it
+template <typename T>
+__device__ void sweep_chain(T* d, T* e, T* c_out, T* s_out, int l, int m, T mu) {
+  T di = d[l], ei = e[l], dip1 = d[l + 1];
+  T x = sub(di, mu), bz = ei;
+  T e_next = l + 1 < m ? e[l + 1] : T(0);  // e[i+1] as the sweep found it
   for (int i = l; i < m; ++i) {
     const bool has_next = i + 1 < m;
     // the next step's inputs, off the chain
-    const float dip2 = has_next ? d[i + 2] : 0.0f;
-    const float e_next2 = i + 2 < m ? e[i + 2] : 0.0f;
-    float c, s, r;
+    const T dip2 = has_next ? d[i + 2] : T(0);
+    const T e_next2 = i + 2 < m ? e[i + 2] : T(0);
+    T c, s, r;
     givens_sqrt(x, bz, c, s, r);
     c_out[i] = c;
     s_out[i] = s;
     if (i > l) e[i - 1] = r;
-    const float cc = mul(c, c), ss = mul(s, s);
-    const float cs2 = mul(mul(2.0f, c), s);
-    const float new_di = add(add(mul(cc, di), mul(cs2, ei)), mul(ss, dip1));
-    const float new_dip1 = add(sub(mul(ss, di), mul(cs2, ei)), mul(cc, dip1));
-    const float new_ei = add(mul(mul(c, s), sub(dip1, di)), mul(sub(cc, ss), ei));
+    const T cc = mul(c, c), ss = mul(s, s);
+    const T cs2 = mul(mul(T(2), c), s);
+    const T new_di = add(add(mul(cc, di), mul(cs2, ei)), mul(ss, dip1));
+    const T new_dip1 = add(sub(mul(ss, di), mul(cs2, ei)), mul(cc, dip1));
+    const T new_ei = add(mul(mul(c, s), sub(dip1, di)), mul(sub(cc, ss), ei));
     d[i] = new_di;
     x = new_ei;
     di = new_dip1;
@@ -108,25 +110,29 @@ tridiag_sweep_kernel(const int* __restrict__ lm, const float* __restrict__ mu_p,
 }
 
 // Shared memory of a batched CTA: d, e, c, s (nmax each), 32 ints of
-// reduction scratch, and Z (nmax²) when it is kept there.
+// reduction scratch (padded to 8 bytes' alignment), and Z (nmax²) when it
+// is kept there.
+template <typename T>
 size_t qr_smem(int nmax, bool z_shared) {
-  return (4 * (size_t)nmax + 32 + (z_shared ? (size_t)nmax * nmax : 0)) * sizeof(float);
+  return (4 * (size_t)nmax + (z_shared ? (size_t)nmax * nmax : 0)) * sizeof(T) +
+         32 * sizeof(int);
 }
 
 // Problem b = blockIdx.x: d_all (B, nmax), e_all (B, nmax-1), its size
 // sizes[b]; Z column-major (B, nmax, nmax) in global memory; info (B, 3):
 // iterations, converged, chain steps.
-template <bool kVectors>
+template <typename T, bool kVectors>
 __global__ void __launch_bounds__(kMaxThreads)
-tridiag_qr_kernel(float* __restrict__ d_all, float* __restrict__ e_all,
-                  const int* __restrict__ sizes, float* __restrict__ z_all,
+tridiag_qr_kernel(T* __restrict__ d_all, T* __restrict__ e_all,
+                  const int* __restrict__ sizes, T* __restrict__ z_all,
                   int* __restrict__ info, int nmax, int factor, int z_shared) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  float* d = smem;
-  float* e = d + nmax;
-  float* cs = e + nmax;
-  float* sn = cs + nmax;
+  T* d = smem;
+  T* e = d + nmax;
+  T* cs = e + nmax;
+  T* sn = cs + nmax;
   int* red = reinterpret_cast<int*>(sn + nmax);
   const int n = sizes[b];
   int* out = info + 3 * b;
@@ -134,27 +140,27 @@ tridiag_qr_kernel(float* __restrict__ d_all, float* __restrict__ e_all,
     if (tid == 0) out[0] = out[1] = out[2] = 0;
     return;
   }
-  float* dg = d_all + (size_t)b * nmax;
-  float* eg = e_all + (size_t)b * (nmax - 1);
-  float* zg = z_all + (size_t)b * nmax * nmax;
-  float* z = z_shared ? reinterpret_cast<float*>(red + 32) : zg;
+  T* dg = d_all + (size_t)b * nmax;
+  T* eg = e_all + (size_t)b * (nmax - 1);
+  T* zg = z_all + (size_t)b * nmax * nmax;
+  T* z = z_shared ? reinterpret_cast<T*>(red + 32) : zg;
   for (int i = tid; i < n; i += nt) d[i] = dg[i];
   for (int i = tid; i < n - 1; i += nt) e[i] = eg[i];
   if (kVectors)
     for (size_t k = tid; k < (size_t)nmax * nmax; k += nt)
-      z[k] = k % (nmax + 1) == 0 ? 1.0f : 0.0f;
+      z[k] = k % (nmax + 1) == 0 ? T(1) : T(0);
   __syncthreads();
   int l = 0, it = 0, steps = 0;
   const int max_iters = factor * n;
   while (l < n - 1 && it < max_iters) {
     ++it;
     for (int i = tid; i < n - 1; i += nt)
-      if (fabsf(e[i]) <= mul(kEps, add(fabsf(d[i]), fabsf(d[i + 1])))) e[i] = 0.0f;
+      if (absv(e[i]) <= mul(Limits<T>::eps, add(absv(d[i]), absv(d[i + 1])))) e[i] = T(0);
     __syncthreads();
     // the end of the unreduced block starting at l
     int cand = n - 1;
     for (int i = l + tid; i < n - 1; i += nt)
-      if (e[i] == 0.0f) {
+      if (e[i] == T(0)) {
         cand = i;
         break;
       }
@@ -203,38 +209,61 @@ extern "C" int faer_tridiag_sweep(const int* lm, const float* mu,
   return cudaGetLastError();
 }
 
+namespace {
+
+template <typename T>
+int qr_route(int nmax, int vectors) {
+  if (nmax < 1 || nmax > kMaxN) return -1;
+  return vectors && qr_smem<T>(nmax, true) <= kMaxSmem ? 0 : 1;
+}
+
+template <typename T>
+int qr_batched(T* d, T* e, const int* sizes, T* z, int* info, int batch, int nmax,
+               int factor, int vectors, void* stream) {
+  const int route = qr_route<T>(nmax, vectors);
+  if (route < 0 || batch < 1 || factor < 0) return cudaErrorInvalidValue;
+  const int z_shared = route == 0;
+  const size_t smem = qr_smem<T>(nmax, z_shared);
+  const int threads = cta_threads(nmax);
+  cudaError_t err;
+  if (vectors) {
+    err = allow_smem(tridiag_qr_kernel<T, true>, smem);
+    if (err != cudaSuccess) return err;
+    tridiag_qr_kernel<T, true><<<batch, threads, smem, (cudaStream_t)stream>>>(
+        d, e, sizes, z, info, nmax, factor, z_shared);
+  } else {
+    err = allow_smem(tridiag_qr_kernel<T, false>, smem);
+    if (err != cudaSuccess) return err;
+    tridiag_qr_kernel<T, false><<<batch, threads, smem, (cudaStream_t)stream>>>(
+        d, e, sizes, z, info, nmax, factor, 0);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // Where the batched entry keeps Z for problems of up to nmax: 0 in shared
 // memory, 1 in global memory (or no Z: vectors == 0), -1 refused (nmax
-// outside [1, kMaxN]).
+// outside [1, kMaxN]); float32 and float64 entries.
 extern "C" int faer_tridiag_qr_route(int nmax, int vectors) {
-  if (nmax < 1 || nmax > kMaxN) return -1;
-  return vectors && qr_smem(nmax, true) <= kMaxSmem ? 0 : 1;
+  return qr_route<float>(nmax, vectors);
+}
+extern "C" int faer_tridiag_qr_route_f64(int nmax, int vectors) {
+  return qr_route<double>(nmax, vectors);
 }
 
 // The iteration of `batch` problems: d (batch, nmax) and e (batch, nmax-1)
 // in place, sizes (batch,) int32, z (batch, nmax, nmax) column-major (or
 // null without vectors), info (batch, 3) int32; at most factor·n iterations
 // a problem. All contiguous on the current device. Returns the CUDA error of
-// the launch (0 on success).
+// the launch (0 on success). float32 and float64 entries.
 extern "C" int faer_tridiag_qr_batched(float* d, float* e, const int* sizes, float* z,
                                        int* info, int batch, int nmax, int factor,
                                        int vectors, void* stream) {
-  const int route = faer_tridiag_qr_route(nmax, vectors);
-  if (route < 0 || batch < 1 || factor < 0) return cudaErrorInvalidValue;
-  const int z_shared = route == 0;
-  const size_t smem = qr_smem(nmax, z_shared);
-  const int threads = cta_threads(nmax);
-  cudaError_t err;
-  if (vectors) {
-    err = allow_smem(tridiag_qr_kernel<true>, smem);
-    if (err != cudaSuccess) return err;
-    tridiag_qr_kernel<true><<<batch, threads, smem, (cudaStream_t)stream>>>(
-        d, e, sizes, z, info, nmax, factor, z_shared);
-  } else {
-    err = allow_smem(tridiag_qr_kernel<false>, smem);
-    if (err != cudaSuccess) return err;
-    tridiag_qr_kernel<false><<<batch, threads, smem, (cudaStream_t)stream>>>(
-        d, e, sizes, z, info, nmax, factor, 0);
-  }
-  return cudaGetLastError();
+  return qr_batched<float>(d, e, sizes, z, info, batch, nmax, factor, vectors, stream);
+}
+extern "C" int faer_tridiag_qr_batched_f64(double* d, double* e, const int* sizes,
+                                           double* z, int* info, int batch, int nmax,
+                                           int factor, int vectors, void* stream) {
+  return qr_batched<double>(d, e, sizes, z, info, batch, nmax, factor, vectors, stream);
 }

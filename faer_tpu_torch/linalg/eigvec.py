@@ -1,0 +1,101 @@
+"""Eigenvectors of a real quasi-triangular Schur form (counterpart of
+``faer_tpu/linalg/eigvec.py``).
+
+faer's shifted quasi-triangular back-substitution (``evd/mod.rs:670-882``):
+column k of V solves (T − λ_k I) x = 0 with the components below λ_k's own
+block pinned. Every eigenvector is solved at once, bottom-up, one row (or
+one 2×2 block's pair of rows) a step: each step is one product of T's rows
+with the whole batch of eigenvectors, in real arithmetic with (re, im)
+pairs. ``triangular_eigenvectors`` (complex Schur) waits for ROADMAP §1
+item 10 and ``quasi_triangular_generalized_eigenvectors_pair`` for item 9b.
+"""
+from __future__ import annotations
+
+import torch
+
+from faer_tpu_torch.core import dtypes
+from faer_tpu_torch.ops.matmul import matmul
+
+
+def _cdiv2(nr, ni, dr, di):
+    """(nr + i·ni) / (dr + i·di), componentwise on real tensors."""
+    d2 = dr * dr + di * di
+    return (nr * dr + ni * di) / d2, (ni * dr - nr * di) / d2
+
+
+def quasi_triangular_eigenvectors_pair(t, wr, wi):
+    """Right eigenvectors of the real quasi-triangular Schur ``t`` with
+    eigenvalues ``wr + i·wi``, as real ``(Vr, Vi)``: column k of Vr + i·Vi
+    satisfies T v ≈ (wr_k + i·wi_k) v, conjugate pairs give conjugate
+    columns, each of unit 2-norm. faer ``evd/mod.rs:670-882`` for the real
+    path."""
+    n = t.shape[0]
+    dt, dev = t.dtype, t.device
+    eps = dtypes.eps(dt)
+    floor = eps * torch.maximum(t.abs().amax(), torch.ones((), dtype=dt, device=dev))
+    zero_n = torch.zeros(n, dtype=dt, device=dev)
+    sd = zero_n.clone()
+    sup = zero_n.clone()
+    if n > 1:
+        sd[:n - 1] = t.diagonal(-1)
+        sup[:n - 1] = t.diagonal(1)
+    pair_top = sd != 0  # rows (j, j+1) form a 2×2 block
+    pair_bot = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), pair_top[:-1]])
+    ks = torch.arange(n, device=dev)
+    # the first row of eigenvalue k's own block
+    start = torch.where(pair_bot, ks - 1, ks)
+    diag = t.diagonal()
+    # seeds: 1×1 → e_k; the 2×2 block (m, m+1) with λ = a ± i·b →
+    # (t[m, m+1], λ − t[m, m]) on rows (m, m+1)
+    xr = torch.zeros((n + 1, n), dtype=dt, device=dev)  # row n: padding
+    xi = torch.zeros((n + 1, n), dtype=dt, device=dev)
+    in_pair = pair_top[start]
+    xr[start, ks] = torch.where(in_pair | pair_bot[ks], sup[start], torch.ones_like(zero_n))
+    row2 = torch.where(in_pair, start + 1, start)
+    xr[row2, ks] += torch.where(in_pair, wr - diag[start], zero_n)
+    xi[row2, ks] += torch.where(in_pair, wi, zero_n)
+
+    tp = torch.zeros((n + 1, n), dtype=dt, device=dev)
+    tp[:n] = t
+    dfloor = floor * floor
+    for j in range(n - 1, -1, -1):
+        j1 = min(j + 1, n)
+        jc = min(j + 1, n - 1)
+        rows = tp[[j, j1]]  # (2, n)
+        rhs_r = -matmul(None, rows, xr[:n])
+        rhs_i = -matmul(None, rows, xi[:n])
+        rhs0r, rhs1r = rhs_r[0], rhs_r[1]
+        rhs0i, rhs1i = rhs_i[0], rhs_i[1]
+        # singleton: x_j = rhs_j / (t_jj − λ)
+        d0r = tp[j, j] - wr
+        d0i = -wi
+        small = torch.sqrt(d0r * d0r + d0i * d0i) < floor
+        d0r = torch.where(small, floor, d0r)
+        d0i = torch.where(small, zero_n, d0i)
+        sing_r, sing_i = _cdiv2(rhs0r, rhs0i, d0r, d0i)
+        # 2×2 pair: complex Cramer on rows (j, j+1)
+        p11r, p11i = tp[j, j] - wr, -wi
+        p22r, p22i = tp[j1, jc] - wr, -wi
+        p12, p21 = tp[j, jc], tp[j1, j]
+        detr = p11r * p22r - p11i * p22i - p12 * p21
+        deti = p11r * p22i + p11i * p22r
+        bad = torch.sqrt(detr * detr + deti * deti) < dfloor
+        detr = torch.where(bad, dfloor, detr)
+        deti = torch.where(bad, zero_n, deti)
+        n0r = rhs0r * p22r - rhs0i * p22i - p12 * rhs1r
+        n0i = rhs0r * p22i + rhs0i * p22r - p12 * rhs1i
+        n1r = p11r * rhs1r - p11i * rhs1i - p21 * rhs0r
+        n1i = p11r * rhs1i + p11i * rhs1r - p21 * rhs0i
+        pj_r, pj_i = _cdiv2(n0r, n0i, detr, deti)
+        pj1_r, pj1_i = _cdiv2(n1r, n1i, detr, deti)
+        is_top, is_bot = pair_top[j], pair_bot[j]
+        solve = (j < start) & ~is_bot  # the eigenvectors this row commits
+        xr[j] = torch.where(solve, torch.where(is_top, pj_r, sing_r), xr[j])
+        xi[j] = torch.where(solve, torch.where(is_top, pj_i, sing_i), xi[j])
+        pair = solve & is_top
+        xr[j1] = torch.where(pair, pj1_r, xr[j1])
+        xi[j1] = torch.where(pair, pj1_i, xi[j1])
+    xr, xi = xr[:n], xi[:n]
+    norms = torch.sqrt((xr * xr + xi * xi).sum(dim=0))
+    norms = torch.where(norms == 0, torch.ones_like(norms), norms)
+    return xr / norms[None, :], xi / norms[None, :]

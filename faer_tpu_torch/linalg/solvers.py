@@ -6,12 +6,12 @@ and the decomposition structs (``:697-765``), built by the ``Mat`` methods
 (``:346-634``). Each object is a frozen dataclass of tensors (factors and
 info) with the JAX dataclass's field names, so that ``interop`` can carry
 one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
-``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd`` and
-``SelfAdjointEigen``, the factorizations in float32 and float64 (the
-spectral ones in float32); the general and generalized EVD wait for
-ROADMAP §1 item 9. Complex input raises ``NotImplementedError`` naming
-item 10: the JAX package's split (re, im) pair path is not ported, and
-native complex factorizations are that item.
+``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
+``SelfAdjointEigen`` and ``Eigen`` (the general real EVD), in float32 and
+float64; the generalized EVD waits for ROADMAP §1 item 9b. Complex input
+raises ``NotImplementedError`` naming item 10: the JAX package's split
+(re, im) pair path is not ported, and native complex factorizations are
+that item.
 """
 from __future__ import annotations
 
@@ -421,6 +421,31 @@ class SelfAdjointEigen:
         return matmul(None, self.v, y / w)
 
 
+@dataclasses.dataclass(frozen=True)
+class Eigen:
+    """General eigendecomposition of a real matrix: A V = V diag(w), w and
+    V complex (faer ``solvers.rs:761``)."""
+
+    v: torch.Tensor
+    w: torch.Tensor
+    info: SpectralInfo
+
+    @staticmethod
+    def new(a) -> "Eigen":
+        from faer_tpu_torch.linalg import evd as _evd
+
+        w, v, info = _evd.evd(_matrix(a, "Eigen"))
+        return Eigen(v=v, w=w, info=info)
+
+    @property
+    def eigenvalues(self):
+        return self.w
+
+    @property
+    def eigenvectors(self):
+        return self.v
+
+
 SOLVERS: dict[str, Any] = {cls.__name__: cls for cls in
                            (Llt, Ldlt, PivLlt, Lblt, PartialPivLu, FullPivLu, Qr,
-                            ColPivQr, Svd, SelfAdjointEigen)}
+                            ColPivQr, Svd, SelfAdjointEigen, Eigen)}

@@ -6,7 +6,7 @@ kernel) when m/n exceeds ``SvdParams.qr_ratio_threshold`` (11/6); then
 ``bidiag_in_place`` → ``bidiag_svd`` (divide & conquer for n ≥ 512, else
 the QR iteration, both through the ``bidiag_sweep`` kernel) → the
 Householder back-transforms. ``pseudoinverse_from_svd`` is faer's
-``svd/mod.rs:689``. float32 only.
+``svd/mod.rs:689``. float32 and float64, through the same drivers.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ def svd(a, *, thin: bool = True, params: SvdParams | None = None,
     """
     if a.dim() != 2:
         raise ShapeError(f"svd: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_f32(a, "svd")
+    dtypes.require_real(a, "svd")
     if a.is_cuda:
         check_f32_policy()
     params = params or SvdParams.auto(a.dtype, a.shape)

@@ -31,8 +31,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
     # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
-    # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route and
-    # faer_bidiag_qr_route; bytes for faer_chase_smem_bytes)
+    # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route,
+    # faer_bidiag_qr_route, faer_real_schur_route and their _f64 twins; bytes
+    # for faer_chase_smem_bytes)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
     "faer_syrk_lower_sub": [_P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P, _P, _I, _P, _L,
@@ -54,6 +55,14 @@ _SIGNATURES = {
     "faer_tridiag_qr_route": [_I, _I],
     "faer_bidiag_qr_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "faer_bidiag_qr_route": [_I, _I, _I],
+    "faer_tridiag_qr_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "faer_tridiag_qr_route_f64": [_I, _I],
+    "faer_bidiag_qr_batched_f64": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_bidiag_qr_route_f64": [_I, _I, _I],
+    "faer_real_schur_batched": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_real_schur_batched_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_real_schur_route": [_I],
+    "faer_real_schur_route_f64": [_I],
     "faer_llt_block": [_P, _I, _P, _P, _I, _F, _F, _I, _P],
     "faer_llt_block_route": [_I],
     "faer_chase_probe": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],

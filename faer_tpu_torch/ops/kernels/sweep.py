@@ -14,7 +14,8 @@ Counterparts of ``faer_tpu/ops/pallas/panel_kernels.py``:
   loops, the JAX package's ``lax.while_loop``), for a batch of problems in
   one launch of the same CUDA sources, with the eigen- or singular vectors.
   They count under the sweeps' counters, ``tridiag_sweep`` and
-  ``bidiag_sweep``.
+  ``bidiag_sweep``, and take float32 and float64 (one instantiation of the
+  CUDA sources each: the f64 spectral entry points' route).
 
 The one-sweep rotation arrays have n − 1 entries and are 1 and 0 outside
 [l, m). ``lm`` is an int32 tensor (l, m) and ``mu`` an f32 shift, both on
@@ -488,10 +489,12 @@ def bidiag_sweep(d, e, lm, mu):
 
 
 def _check_batched(name: str, d, e, e_cols: int, ints, max_sweeps_factor) -> None:
-    """d (B, nmax) and e (B, ``e_cols``) float32, the int32 (B,) tensors
-    ``ints``, all contiguous on one CPU or CUDA device."""
-    if d.dtype != torch.float32 or e.dtype != torch.float32:
-        raise TypeError(f"{name}: d and e must be float32, got {d.dtype}, {e.dtype}")
+    """d (B, nmax) and e (B, ``e_cols``) of one dtype, float32 or float64,
+    the int32 (B,) tensors ``ints``, all contiguous on one CPU or CUDA
+    device."""
+    if d.dtype not in (torch.float32, torch.float64) or e.dtype != d.dtype:
+        raise TypeError(f"{name}: d and e must be float32 or float64 (one dtype), "
+                        f"got {d.dtype}, {e.dtype}")
     if d.dim() != 2 or not 1 <= d.shape[1] <= MAX_N or d.shape[0] < 1:
         raise ShapeError(f"{name}: needs d (B, nmax) with B ≥ 1 and 1 ≤ nmax ≤ "
                          f"{MAX_N}, got {tuple(d.shape)}")
@@ -515,7 +518,7 @@ def tridiag_qr_batched(d, e, sizes, *, max_sweeps_factor: int = 30,
                        want_vectors: bool = True):
     """The implicit-QR iteration of B symmetric tridiagonals in one launch.
 
-    ``d`` (B, nmax) and ``e`` (B, nmax − 1) f32 hold problem b in
+    ``d`` (B, nmax) and ``e`` (B, nmax − 1) (float32 or float64) hold problem b in
     ``d[b, :n]``, ``e[b, :n − 1]`` with n = ``sizes[b]`` (int32, on the
     card: the batch may be ragged); each runs ``tridiag_evd``'s loop of at
     most ``max_sweeps_factor``·n iterations. d and e are overwritten: d with
@@ -538,7 +541,7 @@ def tridiag_qr_batched(d, e, sizes, *, max_sweeps_factor: int = 30,
         if want_vectors else None
     info = torch.empty((batch, 3), dtype=torch.int32, device=d.device)
     with torch.cuda.device(d.device):  # the C entry launches on the current device
-        code = _build.library().faer_tridiag_qr_batched(
+        code = _entry("faer_tridiag_qr_batched", d.dtype)(
             d.data_ptr(), e.data_ptr(), sizes.data_ptr(),
             zt.data_ptr() if want_vectors else None, info.data_ptr(), batch, nmax,
             int(max_sweeps_factor), int(want_vectors), _build.stream_of(d))
@@ -551,7 +554,7 @@ def bidiag_qr_batched(d, e, sizes, sqre, *, max_sweeps_factor: int = 30,
                       want_u: bool = True, want_v: bool = True):
     """The implicit-QR iteration of B upper bidiagonals in one launch.
 
-    ``d`` and ``e`` (B, nmax) f32 hold problem b, an (n, n + sqre) upper
+    ``d`` and ``e`` (B, nmax) (float32 or float64) hold problem b, an (n, n + sqre) upper
     bidiagonal with n = ``sizes[b]`` and sqre = ``sqre[b]`` (int32 (B,), on
     the card), in ``d[b, :n]`` and ``e[b, :n − 1 + sqre]``. A wide one
     (sqre 1) first has its extra column chased out by right rotations; then
@@ -580,7 +583,7 @@ def bidiag_qr_batched(d, e, sizes, sqre, *, max_sweeps_factor: int = 30,
         if want_v else None
     info = torch.empty((batch, 3), dtype=torch.int32, device=d.device)
     with torch.cuda.device(d.device):  # the C entry launches on the current device
-        code = _build.library().faer_bidiag_qr_batched(
+        code = _entry("faer_bidiag_qr_batched", d.dtype)(
             d.data_ptr(), e.data_ptr(), sizes.data_ptr(), sqre.data_ptr(),
             ut.data_ptr() if want_u else None, wt.data_ptr() if want_v else None,
             info.data_ptr(), batch, nmax, int(max_sweeps_factor), _build.stream_of(d))
@@ -590,12 +593,18 @@ def bidiag_qr_batched(d, e, sizes, sqre, *, max_sweeps_factor: int = 30,
             *_info_of(info))
 
 
-def qr_batched_route(kind: str, nmax: int, *, vectors: bool = True) -> str:
+def _entry(name: str, dtype):
+    """The float32 entry ``name`` of the kernel library, or its float64
+    twin ``name_f64``."""
+    return getattr(_build.library(), name + ("_f64" if dtype == torch.float64 else ""))
+
+
+def qr_batched_route(kind: str, nmax: int, *, vectors: bool = True,
+                     dtype=torch.float32) -> str:
     """Where the batched kernel of ``kind`` ("tridiag" or "bidiag") keeps
-    its vectors for problems of up to ``nmax``: "shared" or "global" memory
-    (as ``csrc/*_sweep.cu`` decide it), or "refused". Needs the built
-    library."""
-    lib = _build.library()
-    route = (lib.faer_tridiag_qr_route(nmax, int(vectors)) if kind == "tridiag"
-             else lib.faer_bidiag_qr_route(nmax, int(vectors), int(vectors)))
+    its vectors for problems of up to ``nmax`` in ``dtype``: "shared" or
+    "global" memory (as ``csrc/*_sweep.cu`` decide it), or "refused". Needs
+    the built library."""
+    route = (_entry("faer_tridiag_qr_route", dtype)(nmax, int(vectors)) if kind == "tridiag"
+             else _entry("faer_bidiag_qr_route", dtype)(nmax, int(vectors), int(vectors)))
     return {0: "shared", 1: "global"}.get(route, "refused")

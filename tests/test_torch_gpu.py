@@ -1620,3 +1620,120 @@ def test_dense_stack_objects_on_card(cuda, dt):
     sign = torch.linalg.slogdet(g)[0].item()
     assert torch.sign(objs["full_piv_lu"][0].determinant()).item() == sign
     assert torch.sign(objs["partial_piv_lu"][0].determinant()).item() == sign
+
+
+# -- the real Schur kernel and the f64 spectral kernels -----------------------
+
+def _hess_batch(n, batch, seed, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.triu(torch.randn(batch, n, n, generator=gen, dtype=torch.float64), -1).to(dtype)
+
+
+def _schur_pair(h, cuda):
+    """The kernel on the card and its plain version on the CPU copies (IEEE
+    operations only, so the two devices round alike): T, Q, iterations and
+    converged of each."""
+    from faer_tpu_torch.ops.kernels import real_schur as krs
+
+    batch, n, _ = h.shape
+    q = torch.eye(n, dtype=h.dtype).repeat(batch, 1, 1)
+    sizes = torch.full((batch,), n, dtype=torch.int32)
+    reset_launch_counts()
+    got = krs.real_schur_batched(h.to(cuda), q.to(cuda), sizes.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["real_schur"] == 1
+    want = krs.real_schur_batched_plain(h, q, sizes)
+    return [g.cpu() for g in got], want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,batch", [(2, 3), (3, 3), (16, 4), (48, 2), (96, 1)])
+def test_real_schur_kernel_equals_its_plain_version(cuda, n, batch, dtype):
+    """T, Q, the iteration counts, the convergence flags and the chase steps
+    equal to the bit, every problem converged."""
+    got, want = _schur_pair(_hess_batch(n, batch, n, dtype), cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[3].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("past", [0, 1])
+def test_real_schur_kernel_at_its_shared_memory_edge(cuda, dtype, past):
+    """The largest nmax whose H and Q the kernel keeps in shared memory
+    (169 in float32, 119 in float64 on an H100) and the next, in global
+    memory: equal to the plain version to the bit."""
+    from faer_tpu_torch.ops.kernels import real_schur as krs
+
+    n = krs.shared_edge(dtype) + past
+    assert krs.route(n, dtype) == ("global" if past else "shared")
+    got, want = _schur_pair(_hess_batch(n, 1, 3, dtype), cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["ragged", "global memory"])
+@pytest.mark.parametrize("kind", ["tridiag", "bidiag"])
+def test_qr_batched_kernel_f64(cuda, kind, case):
+    """The float64 instantiations: d, e, iterations, converged and sweep
+    steps equal to the plain version's to the bit, the vectors within
+    8·n·eps_f64; one launch under the sweep's counter."""
+    from faer_tpu_torch.ops.kernels import sweep
+
+    sizes, sqre, factor, _ = QR_BATCHED_CASES[case]
+    d, e, sz, sq = _qr_batch(sizes, sqre, cuda, len(case))
+    d, e = d.double(), e.double()
+    nmax = d.shape[1]
+    if kind == "tridiag":
+        e = e[:, :nmax - 1].contiguous()
+        args, kern, plain, counter = ((sz,), sweep.tridiag_qr_batched,
+                                      sweep.tridiag_qr_batched_plain, "tridiag_sweep")
+    else:
+        args, kern, plain, counter = ((sz, sq), sweep.bidiag_qr_batched,
+                                      sweep.bidiag_qr_batched_plain, "bidiag_sweep")
+    d1, e1, d2, e2 = d.clone(), e.clone(), d.clone(), e.clone()
+    reset_launch_counts()
+    got = kern(d1, e1, *args, max_sweeps_factor=factor)
+    torch.cuda.synchronize()
+    assert launch_counts()[counter] == 1
+    want = plain(d2, e2, *args, max_sweeps_factor=factor)
+    assert torch.equal(d1, d2) and torch.equal(e1, e2)
+    for g, w in zip(got[-3:], want[-3:]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[:-3], want[:-3]):
+        assert g.dtype == torch.float64
+        assert (g - w).abs().max().item() <= 8 * nmax * float(np.finfo(np.float64).eps)
+
+
+def test_evd_on_card_against_the_cpu_route(cuda, monkeypatch):
+    """``evd`` at 300 (multishift with AED, each window one real_schur
+    launch) on the card and on the CPU: both residuals ‖AV − V diag(w)‖/‖A‖
+    and the sorted eigenvalues within 8·n·eps_f32 of each other; one launch
+    per AED call, no sweep kernel."""
+    import faer_tpu_torch as ft
+    from faer_tpu_torch.linalg import schur_multishift as tms
+
+    calls = []
+    aed = tms._aed
+    monkeypatch.setattr(tms, "_aed", lambda *a, **k: calls.append(1) or aed(*a, **k))
+    n = 300
+    g = np.random.default_rng(300).standard_normal((n, n)).astype(np.float32)
+    a = torch.tensor(g)
+    reset_launch_counts()
+    w, v, info = ft.evd(a.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert bool(info.converged) and counts["real_schur"] == len(calls) > 0
+    assert counts["tridiag_sweep"] == counts["bidiag_sweep"] == 0
+    wc, vc, _ = ft.evd(a)
+    an = g.astype(np.float64)
+    tol = 8 * n * EPS32
+
+    def resid(w, v):
+        w, v = w.cpu().numpy().astype(np.complex128), v.cpu().numpy().astype(np.complex128)
+        return np.linalg.norm(an @ v - v * w) / np.linalg.norm(an)
+
+    assert resid(w, v) <= tol and resid(wc, vc) <= tol
+    wg = np.sort_complex(w.cpu().numpy().astype(np.complex128))
+    wcp = np.sort_complex(wc.numpy().astype(np.complex128))
+    assert np.abs(wg - wcp).max() <= tol * np.abs(wcp).max()

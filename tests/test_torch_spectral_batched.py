@@ -281,7 +281,7 @@ def test_zero_diagonals_take_each_chase(monkeypatch):
 
 
 @pytest.mark.parametrize("call", [
-    lambda d, e, s, q: sweep.tridiag_qr_batched(d.double(), e[:, :-1].double(), s),
+    lambda d, e, s, q: sweep.tridiag_qr_batched(d.double(), e[:, :-1], s),  # mixed dtypes
     lambda d, e, s, q: sweep.tridiag_qr_batched(d, e, s),  # e must be (B, nmax − 1)
     lambda d, e, s, q: sweep.tridiag_qr_batched(d, e[:, :-1], s.long()),
     lambda d, e, s, q: sweep.tridiag_qr_batched(d[0], e[0, :-1], s),

@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {chase,dense,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
+    python tools/torch_split.py {chase,dense,gevd,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -26,6 +26,11 @@ code. The rows, per kernel:
   them reads the host); ``lblt_factor``, which reads the host once a
   panel, per call only; ``cholesky_ex``, ``ldl_factor``, ``lu_factor_ex``
   and ``geqrf`` in float64 on the same inputs, per call;
+* ``gevd`` (seed 20): the general EVD's host-driven layer,
+  ``multishift_real_schur`` at ``GEVD_N`` in float32 on
+  ``hessenberg_blocked``'s output (one call after a warm-up: its sweeps
+  and AED rounds read the host), and ``Mat(a).eigen()`` at 128 (the
+  multishift route's edge) per call;
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
@@ -122,6 +127,22 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def gevd_rows(cs):
+    """(name, call, per-call reps, graph reps) of the general EVD's Schur
+    step at ``GEVD_N`` and the facade's EVD at 128, both float32."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.linalg.evd import hessenberg_blocked
+    from faer_tpu_torch.linalg.schur_multishift import multishift_real_schur
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    a = torch.randn(cs.GEVD_N, cs.GEVD_N, generator=gen, device="cuda")
+    h, q = hessenberg_blocked(a)
+    yield (f"multishift_real_schur n={cs.GEVD_N} f32", lambda: multishift_real_schur(h, q),
+           1, None)
+    a2 = torch.randn(128, 128, generator=gen, device="cuda")
+    yield "Mat(a).eigen() n=128 f32", lambda: Mat(a2).eigen(), 3, None
 
 
 def llt_rows(cs):
@@ -558,7 +579,7 @@ def spectral_rows(cs):
                lambda t=t: torch.linalg.svd(t, full_matrices=False), 3, None, None)
 
 
-ROWS = {"chase": chase_rows, "dense": dense_rows, "llt": llt_rows,
+ROWS = {"chase": chase_rows, "dense": dense_rows, "gevd": gevd_rows, "llt": llt_rows,
         "llt_panel": llt_panel_rows, "lu": lu_rows, "lu_swap": lu_swap_rows,
         "matmul": matmul_rows, "qr": qr_rows, "spectral": spectral_rows,
         "syrk": syrk_rows, "trtri": trtri_rows}
