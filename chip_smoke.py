@@ -170,7 +170,25 @@ Phases, each printing lines; any failure exits non-zero:
    and chase steps to the bit) at the AED windows 48 and 96, a batch of 16s
    and both sides of its shared-memory edge in float32 and float64, its
    shared route against the global one, and times it at 96; and the
-   float64 batched QR kernels against theirs on the 16 leaves of 1024.
+   float64 batched QR kernels against theirs on the 16 leaves of 1024;
+15. generalized EVD: ``gevd`` at n = 1024 in float32 and float64 on one
+   Gaussian pencil (the Hessenberg–triangular reduction, one ``hess_tri``
+   launch after the QR of B; the QZ iteration, one ``real_qz`` launch;
+   the pencil's eigenvectors), with ‖A − QSZᵀ‖/‖A‖, ‖B − QTZᵀ‖/‖B‖ and the
+   orthogonality of Q and Z within 8·n·eps, the residual of A V diag(β) =
+   B V diag(α), and every (α, β) against f64 ``scipy.linalg.eig`` within
+   2·κ_i·η in the chordal metric; each call and its stages timed once; a B
+   of rank 192 at 256 (64 β within n·eps·‖B‖ of 0); the reduction method
+   at 512 beside ``torch.linalg.eig(torch.linalg.solve(B, A))``;
+   ``gevd_self_adjoint`` at 1024; ``Mat(a).generalized_eigen(b)`` once.
+   Phase 3 holds ``hess_tri`` and ``real_qz`` against their plain versions
+   to the bit at 1, 2, 3, 16, 48, 96, both sides of each one's
+   shared-memory edge, a rank-deficient B and a ragged batch, in float32
+   and float64 (the plain versions in host processes while the card runs
+   the kernels), and times both at 96 once those processes have ended;
+   then past the kernels' 512 threads a CTA, at 1024 in float32 and 600
+   in float64, whose plain versions run in four host processes beside
+   phases 4–14 and are held against the kernels before phase 15.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase prints its own time. The second-to-last line is
@@ -223,7 +241,10 @@ TRTRI_BATCHES = (4096, 4000)
 TRTRI_REPS = 50
 # operations per step of the sweep kernels' chains, counted from their source
 SWEEP_STEP_FLOPS = {"tridiag_sweep": 28, "bidiag_sweep": 30}
-SPECTRAL_SLOW_S = 10.0  # above this a call is timed once, not 1 + median of 3
+# above this a call is timed once (its first call, host clock), not 1 +
+# median of 3: the 4096 and 8192 × 2048 spectral calls (from 10 s, to make
+# room for phase 15)
+SPECTRAL_SLOW_S = 1.0
 ORACLE_N = 1024  # spectral check against f64 eigvalsh / svdvals
 DIRECT_N = 384  # below 512: the QR iteration without D&C
 TALL = (8192, 2048)  # m/n > 11/6: the SVD's QR preprocessing
@@ -307,12 +328,56 @@ def schur_step_flops(n: int) -> int:
     return 12 * (2 * n + 5) + 25
 
 
+# phase 3's hess_tri and real_qz cases (n, batch): the trivial sizes, a
+# batch of 16s, 48 and 96; gevd_cases adds both sides of each kernel's
+# shared-memory edge, the rank-deficient B and the ragged batch
+GEVD_CASES = ((1, 2), (2, 2), (3, 3), (16, 3), (48, 1), (96, 1))
+GEVD_RAGGED = (40, (40, 7, 1, 0, 33))  # (nmax, sizes)
+GEVD_WORKERS = 6  # processes that run the plain versions on the host
+# the most threads a CTA of the spectral kernels has (kMaxThreads of
+# csrc/spectral_qr.cuh); phase 3's cases past it: the main path's width in
+# float32, and 600 in float64 (their plain versions take minutes of a host
+# core, so they run beside phases 4–14)
+CTA_THREADS = 512
+GEVD_WIDE = ((1024, torch.float32), (600, torch.float64))
+GEVD_REPS = 5  # the timed pencil at 96: per call and in a CUDA graph
+
+
+# operations of the hess_tri kernel's chain at n, counted from its source:
+# pair (j, i) rotates pairs of entries in H's columns j..n−1, R's i..n−1 and
+# Q's n rows, then in R's rows 0..i+1 and H's and Z's n rows, 5n − j + 2
+# pairs, 6 flops each, plus 20 for the two rotations; column j has n − 2 − j
+# pairs
+def hess_tri_flops(n: int) -> int:
+    return sum((n - 2 - j) * (6 * (5 * n - j + 2) + 20) for j in range(n - 2))
+
+
+# operations of one chase step of the real_qz kernel at width n, counted
+# from its source: the left reflector on 3 rows of H (n − i + 1 columns), of
+# T (n − i) and of Qᵀ (n), 12 flops a column; the reversed reflector and the
+# rotation on the columns of H (i + 4 rows), T (i + 3) and Zᵀ (n), 18 flops
+# a row; 60 for the two reflectors and the rotation; with i at n/2, the
+# mean over a sweep of the whole pencil; and per iteration the deflation
+# tests, 6 flops a row
+def qz_step_flops(n: int) -> int:
+    i = n // 2
+    return 12 * (3 * n - 2 * i + 1) + 18 * (n + 2 * i + 7) + 60
+
+
 # phase 14: the general EVD at full width (ns = 64, AED window 96 by
 # _params_for), the multishift route edge, and the f64 spectral calls (D&C
 # at 1024, the direct QR route at DIRECT_N)
 GEVD_N = 1024
 GEVD_EDGE = (127, 128)
 F64_SPECTRAL = (1024, DIRECT_N)
+# phase 15: the generalized EVD at full width (one hess_tri and one real_qz
+# launch a call); a B of rank 192 at 256 (64 infinite eigenvalues); the
+# reduction method at 512; the self-adjoint-definite pencil at 1024; the
+# facade once
+GEVD_RANK = (256, 192)
+GEVD_REDUCTION_N = 512
+GEVD_SA_N = 1024
+GEVD_FACADE_N = 256
 # tile_matmul launches per facade call with the switch on (PERF.md §6):
 # the drivers' products, counted from their control flow, which does not
 # depend on the data (4096 unless the name says otherwise)
@@ -801,8 +866,14 @@ def phase_kernels(gen, profs) -> dict:
     from faer_tpu_torch.ops.kernels.qr_panel import qr_panel, qr_panel_plain
     from faer_tpu_torch.utils import flops
 
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"phase 3: {what} done, {time.perf_counter() - t0:.1f} s in", flush=True)
+
     res = {"trtri": _trtri_kernel(gen)}
     res["llt_panel"] = _llt_panel_kernel(gen, profs["llt_panel"])
+    mark("trtri and llt_panel")
 
     # lu_panel on both sides of every route edge of csrc/lu_panel_batched.cu
     # (lu_cases), held against its two plain versions; then the cluster
@@ -857,15 +928,23 @@ def phase_kernels(gen, profs) -> dict:
         plain_ms=cuda_ms(lambda: lu_leaf_plain(pan), 3),
         library_ms=cuda_ms(lambda: torch.linalg.lu_factor_ex(pan), 10),
         **bound_of(flops.lu_flops(4000, 256), 2 * 4000 * 256 * 4 + 4000 * 8))
+    mark("lu_panel, qr_panel and lu_leaf")
     res.update(_lu_panel_family(gen))
     res.update(_qr_panel_family(gen))
     _wide_panels(gen)
+    mark("the panel families and the wide panels")
     res.update(_qr_batched_kernels(gen))
     _qr_batched_kernels_f64(gen, res)
+    mark("the sweep kernels")
     res.update(_real_schur_kernel(gen))
+    mark("real_schur")
+    res.update(_gevd_kernels(gen))
+    mark("hess_tri and real_qz")
     res.update(_tile_kernels(gen))
+    mark("the tile kernels")
     res.update(_llt_block_kernels(gen))
     res.update(_chase_kernel(gen))
+    mark("the LLT blocks and chase_probe")
     for name, r in res.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -1580,6 +1659,270 @@ def _real_schur_kernel(gen) -> dict:
                        library_ms_f64=lib, bound_ms_f64=f64["bound_ms"],
                        bound_by_f64=f64["bound_by"])
     return {"real_schur": out}
+
+
+def _gevd_plain_case(mats):
+    """A host process's job: the plain versions of ``hess_tri_batched`` and
+    ``real_qz_batched`` on the CPU copies ``mats`` = (h, r, q, z, sizes), on
+    one thread, the second on the first's output as on the card."""
+    torch.set_num_threads(1)
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    *m, sizes = mats
+    red = kh.hess_tri_batched_plain(*m, sizes)
+    return red, kq.real_qz_batched_plain(*red, sizes)
+
+
+def gevd_cases() -> tuple:
+    """(nmax, sizes, dtype, rank-deficient B) of phase 3's hess_tri and
+    real_qz checks: GEVD_CASES in float32 and float64, both sides of each
+    kernel's shared-memory edge (the largest nmax whose four matrices it
+    keeps in shared memory, by bisection over its route, and the next), a
+    pencil whose B has a zero column at 48 (the infinite-eigenvalue step),
+    and the ragged batch GEVD_RAGGED."""
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    out = []
+    for dt in (torch.float32, torch.float64):
+        edges = sorted({e + d for e in (kh.shared_edge(dt), kq.shared_edge(dt)) for d in (0, 1)})
+        out += [(n, (n,) * b, dt, False) for n, b in GEVD_CASES]
+        out += [(n, (n,), dt, False) for n in edges]
+        out += [(48, (48,), dt, True), (GEVD_RAGGED[0], GEVD_RAGGED[1], dt, False)]
+    return tuple(out)
+
+
+def _gevd_inputs(nmax: int, batch: int, dt, rank_deficient: bool, gen):
+    """The Givens chain's inputs on the card, (h, r, q, z) (batch, nmax,
+    nmax) in ``dt``: the QR of a Gaussian B (a zero column 3 when
+    ``rank_deficient``), Q₀ᵀA for a Gaussian A, Z = I."""
+    a = torch.randn(batch, nmax, nmax, generator=gen, device=DEV, dtype=torch.float64)
+    b = torch.randn(batch, nmax, nmax, generator=gen, device=DEV, dtype=torch.float64)
+    if rank_deficient:
+        b[:, :, min(3, nmax - 1)] = 0
+    q, r = torch.linalg.qr(b)
+    z = torch.eye(nmax, device=DEV, dtype=torch.float64).repeat(batch, 1, 1)
+    return tuple(x.to(dt).contiguous() for x in (q.mT @ a, torch.triu(r), q, z))
+
+
+def _gevd_kernels(gen) -> dict:
+    """``hess_tri_batched`` (the Hessenberg–triangular Givens chain) and
+    ``real_qz_batched`` (the QZ iteration, on the first's output), one CTA
+    a problem and one launch each, against their plain versions on every
+    case of ``gevd_cases``, each case's routes printed: the reduction's H,
+    R, Q, Z and the QZ's S, T, Q, Z, iterations, converged and chase steps
+    equal to the bit (the plain versions run on CPU copies in
+    GEVD_WORKERS host processes while the card runs the kernels: IEEE
+    operations only, so the two devices round alike); every problem
+    converged; on the full pencils Q S Zᵀ and Q T Zᵀ within 8·n·eps of
+    Q₀H₀ and Q₀R₀ (A and B), the rank-deficient B's T with one zero on its
+    diagonal (:func:`_check_gevd_case`). Once those processes have ended,
+    each kernel timed at 96 per call and on the device (CUDA
+    graph) in both dtypes, beside its plain version on the card (one call,
+    float32) and scipy.linalg.qz of the same pencil on the host (PyTorch
+    has no QZ). The bounds count this run's work: ``hess_tri_flops``, and the QZ's
+    chase steps × ``qz_step_flops`` + its iterations × 6 flops a row, over
+    the FP32 (FP64) peak; the four matrices read and written once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import scipy.linalg
+
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    cases = gevd_cases()
+    inputs = [_gevd_inputs(nmax, len(sizes), dt, rd, gen) for nmax, sizes, dt, rd in cases]
+    sizes_all = [torch.tensor(sz, dtype=torch.int32, device=DEV) for _, sz, _, _ in cases]
+    res = {}
+    with ProcessPoolExecutor(GEVD_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(_gevd_plain_case, tuple(x.cpu() for x in (*mats, sz)))
+                for mats, sz in zip(inputs, sizes_all)]
+        got = []
+        for mats, sz in zip(inputs, sizes_all):
+            red = kh.hess_tri_batched(*mats, sz)
+            got.append((red, kq.real_qz_batched(*red, sz)))
+        torch.cuda.synchronize()
+        plains = [job.result() for job in jobs]
+    # the timed pencil at 96, once the host processes have ended
+    for dt in (torch.float32, torch.float64):
+        n = 96
+        mats = _gevd_inputs(n, 1, dt, False, gen)
+        sz = torch.full((1,), n, dtype=torch.int32, device=DEV)
+        red = kh.hess_tri_batched(*mats, sz)
+        out = kq.real_qz_batched(*red, sz)
+        its, steps = int(out[4][0]), int(out[6][0])
+        times = {}
+        for name, fn, plain in (
+                ("hess_tri", lambda: kh.hess_tri_batched(*mats, sz),
+                 lambda: kh.hess_tri_batched_plain(*mats, sz)),
+                ("real_qz", lambda: kq.real_qz_batched(*red, sz),
+                 lambda: kq.real_qz_batched_plain(*red, sz))):
+            ms = cuda_ms(fn, GEVD_REPS)
+            dev = graph_ms(fn, GEVD_REPS)
+            plain_ms = None
+            if dt == torch.float32:  # the plain version on the card, f32 only
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain()
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            times[name] = (ms, dev, plain_ms)
+        a64 = (mats[2][0].double() @ mats[0][0].double()).cpu().numpy()
+        b64 = (mats[2][0].double() @ mats[1][0].double()).cpu().numpy()
+        scipy_ms = statistics.median(_host_ms(lambda: scipy.linalg.qz(a64, b64)) for _ in range(3))
+        esize = torch.finfo(dt).bits // 8
+        nbytes = 8 * n * n * esize
+        peak = PEAK_F32_FLOPS if dt == torch.float32 else PEAK_F64_FLOPS
+        bounds = {"hess_tri": bound_of(hess_tri_flops(n), nbytes, peak),
+                  "real_qz": bound_of(steps * qz_step_flops(n) + its * 6 * n, nbytes, peak)}
+        tag = "f32" if dt == torch.float32 else "f64"
+        for name, (ms, dev, plain_ms) in times.items():
+            extra = f", {its} iterations, {steps} chase steps ({dev / max(steps, 1) * 1e3:.3f} us a step)" \
+                if name == "real_qz" else f" ({dev / ((n - 1) * (n - 2) / 2) * 1e3:.3f} us a pair)"
+            plain = "" if plain_ms is None else f"; plain {plain_ms:.1f} ms (one call on the card)"
+            print(f"time {name} n={n} {tag}: per call {ms:.4f} ms, device {dev:.4f} ms "
+                  f"(graph replay){extra}{plain}; scipy.linalg.qz of the pencil "
+                  f"{scipy_ms:.3f} ms (host CPU); bound {bounds[name]['bound_ms']:.6g} ms "
+                  f"({bounds[name]['bound_by']})")
+            if dt == torch.float32:
+                res[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=None,
+                                 scipy_cpu_ms=scipy_ms, **bounds[name])
+            else:
+                res[name].update(ms_f64=ms, device_ms_f64=dev, scipy_cpu_ms_f64=scipy_ms,
+                                 bound_ms_f64=bounds[name]["bound_ms"],
+                                 bound_by_f64=bounds[name]["bound_by"])
+    errs = {"hess_tri": 0.0, "real_qz": 0.0}
+    for (nmax, sizes, dt, rd), mats, (red, qz), plain in zip(cases, inputs, got, plains):
+        _check_gevd_case(nmax, sizes, dt, rd, mats, red, qz, plain, errs)
+    for name in res:
+        res[name]["max_abs_err"] = errs[name]
+    return res
+
+
+def _check_gevd_case(nmax, sizes, dt, rd, mats, red, qz, plain, errs: dict) -> None:
+    """One case of phase 3's hess_tri and real_qz checks: the kernels'
+    outputs ``red`` and ``qz`` against their plain versions' ``plain`` =
+    (reduction, QZ) to the bit, each kernel's largest difference folded
+    into ``errs``; every problem converged; on a full pencil Q S Zᵀ and
+    Q T Zᵀ within 8·n·eps of Q₀H₀ and Q₀R₀ (A and B), and a rank-deficient
+    B's T with one zero on its diagonal."""
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    pred, pqz = plain
+    red, qz = [x.cpu() for x in red], [x.cpu() for x in qz]
+    same_red = all(torch.equal(g, w) for g, w in zip(red, pred))
+    same_qz = all(torch.equal(g, w) for g, w in zip(qz, pqz))
+    for name, g, w, same in (("hess_tri", red, pred, same_red), ("real_qz", qz[:4], pqz[:4], same_qz)):
+        errs[name] = max(errs[name], 0.0 if same else max(
+            (x.double() - y.double()).abs().max().item() for x, y in zip(g, w)))
+    live = [b for b, n in enumerate(sizes) if n >= 1]
+    conv = bool(qz[5][live].all())
+    tag = "f32" if dt == torch.float32 else "f64"
+    detail = ""
+    ok = same_red and same_qz and conv
+    if len(set(sizes)) == 1 and nmax > 1:  # a full pencil: A = Q₀H₀, B = Q₀R₀
+        tol = 8 * nmax * torch.finfo(dt).eps
+        q0, h0, r0 = (x.double().to(DEV) for x in (mats[2], mats[0], mats[1]))
+        s, t, q, z = (x.double().to(DEV) for x in qz[:4])
+        a, b = q0 @ h0, q0 @ r0
+        rec = max(((q @ x @ z.mT - y).norm(dim=(-2, -1)) / y.norm(dim=(-2, -1))).max().item()
+                  for x, y in ((s, a), (t, b)))
+        ok = ok and rec <= tol
+        detail = f"; |A - QSZᵀ|, |B - QTZᵀ| relative {rec:.3e} <= {tol:.3e}"
+        if rd:
+            zeros = int((torch.diagonal(qz[1][0]) == 0).sum())
+            ok = ok and zeros == 1
+            detail += f"; B of rank n - 1: {zeros} zero on T's diagonal (1)"
+    check(ok, f"hess_tri + real_qz nmax={nmax} sizes={list(sizes)} {tag} [hess_tri in "
+              f"{kh.route(nmax, dt)}, real_qz in {kq.route(nmax, dt)} memory, "
+              f"{min(CTA_THREADS, (nmax + 31) // 32 * 32)} threads a CTA]: reduction "
+              f"and QZ equal to the plain versions to the bit {same_red}, {same_qz}; all "
+              f"converged {conv} ({qz[4].tolist()} iterations, {qz[6].tolist()} chase "
+              f"steps){detail}")
+
+
+def _gevd_plain_daemon(name: str, mats, sizes, conn) -> None:
+    """A host process's job: the plain version of ``hess_tri_batched``
+    (``name`` "hess_tri") or of ``real_qz_batched`` on the CPU copies
+    ``mats``, on one thread; its outputs sent down ``conn`` as arrays,
+    with the seconds it took."""
+    torch.set_num_threads(1)
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    fn = kh.hess_tri_batched_plain if name == "hess_tri" else kq.real_qz_batched_plain
+    t0 = time.perf_counter()
+    out = [x.numpy() for x in fn(*mats, sizes)]
+    conn.send((out, time.perf_counter() - t0))
+    conn.close()
+
+
+def start_gevd_wide() -> list:
+    """Phase 3's hess_tri and real_qz cases past the kernels' CTA_THREADS
+    (GEVD_WIDE, the first at the main path's width): each thread takes two
+    entries of every row, the CTA reductions span 16 warps, the four
+    matrices sit in global memory. The kernels run on the card (inputs
+    from a generator of their own, seed SEED + 3), and the plain version
+    of each on the same inputs (the QZ's on the kernel's reduction) starts
+    in a spawned daemon process of its own, one thread each, to run beside
+    phases 4–14: [(nmax, dtype, inputs, reduction, QZ, [(process,
+    receiving end of its pipe)] × 2)], the tensors on the CPU, for
+    :func:`finish_gevd_wide`."""
+    import multiprocessing
+
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    ctx = multiprocessing.get_context("spawn")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    pending = []
+    for n, dt in GEVD_WIDE:
+        mats = _gevd_inputs(n, 1, dt, False, gen)
+        sz = torch.full((1,), n, dtype=torch.int32, device=DEV)
+        red = kh.hess_tri_batched(*mats, sz)
+        qz = kq.real_qz_batched(*red, sz)
+        mats, red, qz = ([x.cpu() for x in xs] for xs in (mats, red, qz))
+        jobs = []
+        for name, args in (("hess_tri", mats), ("real_qz", red)):
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_gevd_plain_daemon, daemon=True,
+                               args=(name, args, sz.cpu(), send))
+            proc.start()
+            send.close()
+            jobs.append((proc, recv))
+        pending.append((n, dt, mats, red, qz, jobs))
+    return pending
+
+
+def finish_gevd_wide(pending: list, kern: dict) -> None:
+    """Wait for :func:`start_gevd_wide`'s plain versions and their
+    processes; check each case as phase 3 does (:func:`_check_gevd_case`),
+    and fold each kernel's largest difference into ``kern``'s
+    max_abs_err."""
+    errs = {name: kern[name]["max_abs_err"] for name in ("hess_tri", "real_qz")}
+    for n, dt, mats, red, qz, jobs in pending:
+        plain, secs = [], []
+        for proc, recv in jobs:
+            out, sec = recv.recv()
+            plain.append([torch.from_numpy(x) for x in out])
+            secs.append(sec)
+            proc.join()
+        print(f"time plain hess_tri, real_qz n={n} {'f32' if dt == torch.float32 else 'f64'}: "
+              f"{secs[0]:.1f} s, {secs[1]:.1f} s (one host core each, beside phases 4–14)")
+        _check_gevd_case(n, (n,), dt, False, mats, red, qz, plain, errs)
+    for name, err in errs.items():
+        kern[name]["max_abs_err"] = err
+
+
+def _host_ms(fn) -> float:
+    """One call of the host function ``fn``, in ms (host clock)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def _leaf_library_ms(d, e, ints, bidiag: bool) -> float:
@@ -3090,6 +3433,319 @@ def phase_general_evd(gen) -> dict:
     return total
 
 
+def _scipy_pencil_reference(a, b, conn) -> None:
+    """A host process: the f64 LAPACK eigenvalues of the pencil (a, b) as
+    homogeneous (α, β) (``scipy.linalg.eig``), each one's chordal
+    condition number κ_i = ‖x_i‖‖y_i‖/‖(y_iᴴAx_i, y_iᴴBx_i)‖ from the
+    left and right vectors, and the call's time in ms, sent through
+    ``conn``."""
+    import numpy as np
+    import scipy.linalg
+
+    t0 = time.perf_counter()
+    (ra, rb), yl, xr = scipy.linalg.eig(a, b, left=True, right=True, homogeneous_eigvals=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    kappa = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+             / np.hypot(np.abs(np.sum(yl.conj() * (a @ xr), axis=0)),
+                        np.abs(np.sum(yl.conj() * (b @ xr), axis=0))))
+    conn.send((ra, rb, kappa, ms))
+    conn.close()
+
+
+def gevd_pencil() -> tuple:
+    """Phase 15's Gaussian pencil (A, B) at GEVD_N, float32 on the card,
+    from a generator of its own (seed SEED + 15), so that its reference can
+    start before the phases run."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    return tuple(torch.randn(GEVD_N, GEVD_N, generator=g, device=DEV) for _ in range(2))
+
+
+def start_gevd_reference(a, b) -> tuple:
+    """Start :func:`_scipy_pencil_reference` of (a, b) in float64 in a
+    spawned daemon process with one BLAS thread, so that it runs beside
+    phases 3–14 on one core: (process, receiving end of its pipe)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(dict.fromkeys(names, "1"))  # read by the child at its start
+    try:
+        proc = ctx.Process(target=_scipy_pencil_reference, daemon=True,
+                           args=(a.double().cpu().numpy(), b.double().cpu().numpy(), send))
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    send.close()
+    return proc, recv
+
+
+def _chordal_ratio(al, be, ra, rb, kappa, eta: float) -> float:
+    """How far the computed (α, β) lie from the reference (α̂, β̂) (all
+    complex, on the card) in the chordal metric |αβ̂ − α̂β|/(‖(α, β)‖
+    ‖(α̂, β̂)‖), against each reference eigenvalue's bound 2·κ_i·η (the
+    first-order perturbation bound κ_i·η, κ_i its chordal condition number,
+    η the call's backward error ‖(A − QSZᵀ, B − QTZᵀ)‖₂, doubled for the
+    reference's own error): the largest ratio, each eigenvalue matched to
+    the nearest of the other set in both directions."""
+    al, be = al.to(torch.complex128), be.to(torch.complex128)
+    chord = ((al[:, None] * rb[None, :] - ra[None, :] * be[:, None]).abs()
+             / (torch.hypot(al.abs(), be.abs())[:, None]
+                * torch.hypot(ra.abs(), rb.abs())[None, :]))
+    tol = 2 * kappa * eta
+    near_ref = chord.min(dim=1)
+    near_w = chord.min(dim=0)
+    return max((near_ref.values / tol[near_ref.indices]).max().item(),
+               (near_w.values / tol).max().item())
+
+
+def _pencil_residual(a, b, alpha, beta, v) -> float:
+    """max_k ‖A v_k β_k − B v_k α_k‖ / ((‖A‖₂|β_k| + ‖B‖₂|α_k|)‖v_k‖), in
+    float64 on the card."""
+    c = torch.complex128
+    ad, bd, vd = a.double().to(c), b.double().to(c), v.to(c)
+    al, be = alpha.to(c), beta.to(c)
+    num = torch.linalg.vector_norm(ad @ vd * be[None, :] - bd @ vd * al[None, :], dim=0)
+    den = ((torch.linalg.matrix_norm(a.double(), ord=2) * be.abs()
+            + torch.linalg.matrix_norm(b.double(), ord=2) * al.abs())
+           * torch.linalg.vector_norm(vd, dim=0))
+    return (num / den).max().item()
+
+
+def phase_generalized_evd(gen, pencil, reference) -> dict:
+    """The generalized real EVD.
+
+    * ``gevd`` at GEVD_N in float32 and float64 on ``pencil``
+      (:func:`gevd_pencil`, made in float32, so that both runs and the
+      reference see the same numbers): the QZ step's ‖A − QSZᵀ‖/‖A‖, ‖B − QTZᵀ‖/‖B‖,
+      max|QᵀQ − I| and max|ZᵀZ − I| within 8·n·eps of the dtype, S
+      quasi-triangular and T triangular; the pencil residual
+      (:func:`_pencil_residual`) within 8·n·eps; every (α, β) against f64
+      ``scipy.linalg.eig`` (``reference``: the host process that
+      :func:`start_gevd_reference` started after the build) within
+      2·κ_i·η (:func:`_chordal_ratio`); each call's time (host clock, one
+      call) and its stages (the reduction, the QZ iteration, the
+      eigenvectors), its launches (one ``hess_tri``, one ``real_qz``, and
+      in float32 the QR of B's ``qr_panel`` and ``trtri``) and host reads;
+    * a B of rank 192 at 256: as many β within n·eps·‖B‖₂ of 0 as B's
+      nullity (64), the pencil residual of the rest;
+    * ``gevd(method="reduction")`` at 512 beside
+      ``torch.linalg.eig(torch.linalg.solve(B, A))``;
+    * ``gevd_self_adjoint`` at 1024: ‖AV − BVΛ‖ and max|VᵀBV − I|;
+    * ``Mat(a).generalized_eigen(b)`` once, equal to ``gevd`` to the bit.
+
+    Returns the summed launch counts."""
+    from faer_tpu_torch import Mat, gevd, gevd_self_adjoint
+    from faer_tpu_torch.linalg import eigvec, qz as tqz, qz_real as tqr
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    stages = {"hessenberg_triangular": 0.0, "real_qz_iteration": 0.0,
+              "quasi_triangular_generalized_eigenvectors_pair": 0.0}
+    qz_out = []
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stages[name] += (time.perf_counter() - t) * 1e3
+            if name == "real_qz_iteration":
+                qz_out[:] = [out]
+            return out
+        setattr(mod, name, timed)
+        return mod, name, fn
+
+    a, b = pencil
+    n = a.shape[0]
+    steps = []  # the QZ kernel's chase steps in the last call
+    qz_batched = kq.real_qz_batched
+
+    def counted_steps(*args, **kw):
+        out = qz_batched(*args, **kw)
+        steps[:] = out[6].tolist()
+        return out
+
+    kq.real_qz_batched = counted_steps
+    saved = [wrap(tqz, "hessenberg_triangular"), wrap(tqr, "real_qz_iteration"),
+             wrap(eigvec, "quasi_triangular_generalized_eigenvectors_pair"),
+             (kq, "real_qz_batched", qz_batched)]
+    try:
+        runs = {}
+        for dt in (torch.float32, torch.float64):
+            for k in stages:
+                stages[k] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts, reads = _counted(lambda: gevd(a.to(dt), b.to(dt)))
+            ms = (time.perf_counter() - t0) * 1e3
+            add(counts)
+            runs[dt] = (out, qz_out[0], ms, dict(stages), counts, reads, steps[0])
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    proc, recv = reference
+    t0 = time.perf_counter()
+    ra, rb, kappa, ref_ms = recv.recv()
+    proc.join()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    ra, rb, kappa = (torch.from_numpy(x).to(DEV) for x in (ra, rb, kappa))
+    print(f"reference n={n}: f64 scipy.linalg.eig with left and right vectors, {ref_ms:.1f} "
+          f"ms (host CPU, one BLAS thread, beside phases 3-14; waited {wait_ms:.1f} ms for "
+          f"it here); chordal condition numbers median {kappa.median().item():.3g}, "
+          f"largest {kappa.max().item():.3g}")
+    for dt, ((alpha, beta, v, info), (s, t, q, z, qinfo), ms, st, counts, reads,
+             nsteps) in runs.items():
+        name = "f32" if dt == torch.float32 else "f64"
+        tol = 8 * n * torch.finfo(dt).eps
+        ad, bd = a.double(), b.double()
+        sd, td, qd, zd = (x.double() for x in (s, t, q, z))
+        eye = torch.eye(n, device=DEV, dtype=torch.float64)
+        ea, eb = ad - qd @ sd @ zd.T, bd - qd @ td @ zd.T
+        rec_a = (torch.linalg.matrix_norm(ea) / torch.linalg.matrix_norm(ad)).item()
+        rec_b = (torch.linalg.matrix_norm(eb) / torch.linalg.matrix_norm(bd)).item()
+        orth_q = (qd.T @ qd - eye).abs().max().item()
+        orth_z = (zd.T @ zd - eye).abs().max().item()
+        eta = torch.hypot(torch.linalg.matrix_norm(ea, ord=2),
+                          torch.linalg.matrix_norm(eb, ord=2)).item()
+        shape_ok = not bool(torch.tril(s, -2).any()) and not bool(torch.tril(t, -1).any())
+        check(bool(qinfo.converged) and shape_ok and max(rec_a, rec_b, orth_q, orth_z) <= tol,
+              f"gevd n={n} {name}, the QZ step: converged in {int(qinfo.iterations)} "
+              f"iterations, S quasi-triangular, T triangular; |A - QSZᵀ|/|A| {rec_a:.3e}, "
+              f"|B - QTZᵀ|/|B| {rec_b:.3e}, max|QᵀQ - I| {orth_q:.3e}, max|ZᵀZ - I| "
+              f"{orth_z:.3e}, all <= {tol:.3e}; backward error η = |(A - QSZᵀ, B - QTZᵀ)|₂ "
+              f"{eta:.3e}")
+        res = _pencil_residual(a.to(dt), b.to(dt), alpha, beta, v)
+        ratio = _chordal_ratio(alpha, beta, ra, rb, kappa, eta)
+        cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+        check(bool(info.converged) and alpha.dtype == beta.dtype == v.dtype == cdt
+              and res <= tol and ratio <= 1,
+              f"gevd n={n} {name}: |AVβ - BVα| column by column {res:.3e} <= {tol:.3e} of "
+              f"(|A||β| + |B||α|)|v|; (α, β) vs f64 scipy.linalg.eig within {ratio:.3e} of "
+              f"their chordal bounds 2·κ_i·η")
+        want = dict(hess_tri=1, real_qz=1)
+        launched = {k: counts[k] for k in ("hess_tri", "real_qz", "qr_panel", "trtri")}
+        check(all(counts[k] == v for k, v in want.items())
+              and (dt == torch.float64 or (counts["qr_panel"] > 0 and counts["trtri"] > 0)),
+              f"gevd n={n} {name}: launches {launched} (one hess_tri, one real_qz; the "
+              f"QR of B's qr_panel and trtri in float32), {reads} host reads")
+        lib = cuda_ms(lambda: torch.linalg.eig(torch.linalg.solve(b.to(dt), a.to(dt))), 1)
+        red_ms, qz_ms = st["hessenberg_triangular"], st["real_qz_iteration"]
+        print(f"time gevd n={n} {name}: {ms:.1f} ms (one call, host clock); stages: "
+              f"the reduction {red_ms:.1f} ms ({red_ms / ((n - 1) * (n - 2) / 2) * 1e3:.3f} us "
+              f"a Givens pair, the QR of B included), QZ {qz_ms:.1f} ms ({nsteps} chase "
+              f"steps, {qz_ms / max(nsteps, 1) * 1e3:.3f} us a step), the eigenvectors "
+              f"{st['quasi_triangular_generalized_eigenvectors_pair']:.1f} ms; library "
+              f"torch.linalg.eig(torch.linalg.solve(B, A)) {lib:.1f} ms; the reference "
+              f"scipy.linalg.eig (f64, host CPU, one thread) {ref_ms:.1f} ms")
+
+    # a B of rank r: n − r infinite eigenvalues
+    m, r = GEVD_RANK
+    for dt in (torch.float32, torch.float64):
+        name = "f32" if dt == torch.float32 else "f64"
+        a2 = torch.randn(m, m, generator=gen, device=DEV, dtype=torch.float64).to(dt)
+        b2 = (torch.randn(m, r, generator=gen, device=DEV, dtype=torch.float64)
+              @ torch.randn(r, m, generator=gen, device=DEV, dtype=torch.float64)).to(dt)
+        out, counts, reads = _counted(lambda: gevd(a2, b2))
+        add(counts)
+        alpha, beta, v, info = out
+        floor = m * torch.finfo(dt).eps * torch.linalg.matrix_norm(b2.double(), ord=2).item()
+        inf = beta.abs() <= floor
+        res = _pencil_residual(a2, b2, alpha[~inf], beta[~inf], v[:, ~inf])
+        tol = 8 * m * torch.finfo(dt).eps
+        check(bool(info.converged) and int(inf.sum()) == m - r and res <= tol,
+              f"gevd n={m}, B of rank {r} {name}: {int(inf.sum())} β within {floor:.3e} "
+              f"(n·eps·|B|₂) of 0 ({m - r}), of them {int((beta == 0).sum())} exactly 0; "
+              f"the finite ones' residual {res:.3e} <= {tol:.3e}")
+
+    # the reduction method: C = B⁻¹A, evd(C)
+    n3 = GEVD_REDUCTION_N
+    a3 = torch.randn(n3, n3, generator=gen, device=DEV)
+    b3 = torch.randn(n3, n3, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts, reads = _counted(lambda: gevd(a3, b3, method="reduction"))
+    ms = (time.perf_counter() - t0) * 1e3
+    add(counts)
+    alpha, beta, v, info = out
+    res = _pencil_residual(a3, b3, alpha, beta, v)
+    lib = cuda_ms(lambda: torch.linalg.eig(torch.linalg.solve(b3, a3)), 1)
+    tol = 8 * n3 * EPS32
+    # the LU of B below 1024 is the recursive driver's (lu_leaf leaves), as
+    # in the JAX package; from 1024 the fused lu_panel route
+    check(bool(info.converged) and bool((beta == 1).all()) and res <= tol
+          and counts["lu_panel"] + counts["lu_leaf"] > 0 and counts["real_schur"] > 0,
+          f"gevd n={n3} f32 method='reduction': β = 1, |AV - BVΛ| column by column "
+          f"{res:.3e} <= {tol:.3e}; launches {({k: v for k, v in counts.items() if v})}")
+    print(f"time gevd n={n3} f32 method='reduction': {ms:.1f} ms (one call, host clock); "
+          f"library torch.linalg.eig(torch.linalg.solve(B, A)) {lib:.1f} ms")
+
+    # the self-adjoint-definite pencil
+    n4 = GEVD_SA_N
+    g = torch.randn(n4, n4, generator=gen, device=DEV)
+    a4 = (g + g.T) / 2
+    g2 = torch.randn(n4, n4, generator=gen, device=DEV)
+    b4 = g2 @ g2.T / n4 + torch.eye(n4, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts, reads = _counted(lambda: gevd_self_adjoint(a4, b4))
+    ms = (time.perf_counter() - t0) * 1e3
+    add(counts)
+    w, v, info = out
+    vd, ad, bd = v.double(), a4.double(), b4.double()
+    res = (torch.linalg.matrix_norm(ad @ vd - bd @ vd * w.double()[None, :])
+           / (torch.linalg.matrix_norm(ad) * torch.linalg.matrix_norm(vd)
+              + torch.linalg.matrix_norm(bd) * torch.linalg.matrix_norm(vd * w.double()[None, :]))
+           ).item()
+    cond_b = torch.linalg.cond(bd).item()
+    orth = (vd.T @ bd @ vd - torch.eye(n4, device=DEV, dtype=torch.float64)).abs().max().item()
+    tol = 8 * n4 * EPS32
+    check(bool(info.converged) and bool((w[1:] >= w[:-1]).all()) and res <= tol
+          and orth <= tol * cond_b and counts["llt_panel"] > 0
+          and counts["tridiag_sweep"] == 1,
+          f"gevd_self_adjoint n={n4} f32: w ascending, |AV - BVΛ|/(|A||V| + |B||VΛ|) "
+          f"{res:.3e} <= {tol:.3e}, max|VᵀBV - I| {orth:.3e} <= {tol * cond_b:.3e} "
+          f"(8·n·eps·κ(B)); launches llt_panel {counts['llt_panel']}, trtri "
+          f"{counts['trtri']}, tridiag_sweep {counts['tridiag_sweep']}")
+
+    def library_sa():
+        l4 = torch.linalg.cholesky(b4)
+        c4 = torch.linalg.solve_triangular(l4, a4, upper=False)
+        c4 = torch.linalg.solve_triangular(l4, c4.T, upper=False)
+        w4, y4 = torch.linalg.eigh(c4)
+        return w4, torch.linalg.solve_triangular(l4.T, y4, upper=True)
+
+    print(f"time gevd_self_adjoint n={n4} f32: {ms:.1f} ms (one call, host clock); library "
+          f"cholesky, solve_triangular and eigh {cuda_ms(library_sa, 1):.1f} ms")
+
+    # the facade
+    n5 = GEVD_FACADE_N
+    a5 = torch.randn(n5, n5, generator=gen, device=DEV)
+    b5 = torch.randn(n5, n5, generator=gen, device=DEV)
+    ge, counts, reads = _counted(lambda: Mat(a5).generalized_eigen(Mat(b5)))
+    add(counts)
+    alpha, beta, v, _ = gevd(a5, b5)
+    check(torch.equal(ge.alpha, alpha) and torch.equal(ge.beta, beta) and torch.equal(ge.v, v)
+          and bool(ge.info.converged) and counts["hess_tri"] == counts["real_qz"] == 1,
+          f"Mat(a).generalized_eigen(b) n={n5} f32: gevd's α, β and V to the bit, "
+          f"converged; launches hess_tri {counts['hess_tri']}, real_qz {counts['real_qz']}")
+    print(f"launches in the generalized EVD phase: { {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def phase_calu(gen) -> dict:
     """The tournament (CALU) leaf through ``lu_in_place``, with the module
     gate ``faer_tpu_torch.linalg.lu._CALU_GROUP`` set for the phase and
@@ -3261,8 +3917,11 @@ def main() -> None:
         return out
 
     profs = timed("2 build", phase_build)
+    pencil = gevd_pencil()
+    reference = start_gevd_reference(*pencil)  # phase 15's, on one host core meanwhile
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kern = timed("3 kernels", phase_kernels, gen, profs)
+    wide = timed("3 wide QZ cases, their plain versions started", start_gevd_wide)
     paths = [timed("4 flagship", phase_flagship, gen), timed("5 qr", phase_qr, gen),
              timed("6 off-route", phase_off_route, gen)]
     spectral, spectral_ms = timed("7 spectral", phase_spectral, gen)
@@ -3272,7 +3931,9 @@ def main() -> None:
     chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
     dense = timed("13 dense stack", phase_dense_stack, gen)
     gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
-    paths += [lab, llt_lab, chase_lab, dense, gevd]
+    timed("3 wide QZ cases checked", finish_gevd_wide, wide, kern)
+    ggevd = timed("15 generalized EVD", phase_generalized_evd, gen, pencil, reference)
+    paths += [lab, llt_lab, chase_lab, dense, gevd, ggevd]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -3319,6 +3980,10 @@ def main() -> None:
         # no Pallas kernel: the XLA while_loop of the JAX package's real_schur
         "real_schur": ("faer_tpu_torch/csrc/real_schur.cu",
                        "faer_tpu/linalg/real_schur.py:74"),
+        # no Pallas kernel: the XLA fori_loops of the JAX package's
+        # hessenberg_triangular and the while_loop of its real_qz_iteration
+        "hess_tri": ("faer_tpu_torch/csrc/hess_tri.cu", "faer_tpu/linalg/qz.py:45"),
+        "real_qz": ("faer_tpu_torch/csrc/real_qz.cu", "faer_tpu/linalg/qz_real.py:56"),
     }
     # on no library path, as in the JAX package: syrk_lower_sub is unwired,
     # the v3 and v1 LU panels are called by nothing, the QR panels v1, v2,
@@ -3341,6 +4006,8 @@ def main() -> None:
                "tridiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "bidiag_sweep": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "real_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "hess_tri": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "real_qz": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "lu_panel_swap": gemm[1:], "chase_probe": gemm[1:]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [

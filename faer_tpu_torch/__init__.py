@@ -21,12 +21,17 @@ siblings), in float32 and float64; the general real EVD, ``linalg.evd``
 ``hessenberg_blocked``), ``linalg.real_schur`` (``real_schur``, one launch
 of the ``real_schur`` kernel on a card), ``linalg.schur_multishift``
 (``multishift_real_schur``) and ``linalg.eigvec``, in float32 and float64;
-and the facade over them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale``
+the generalized real EVD, ``linalg.gevd`` (``gevd``, ``gevd_eigenvalues``,
+``gevd_self_adjoint``), ``linalg.qz`` (``hessenberg_triangular``, one
+launch of the ``hess_tri`` kernel on a card; ``qz``, ``gevd_qz``) and
+``linalg.qz_real`` (``real_qz``, one launch of the ``real_qz`` kernel on a
+card; ``qz_eigenvalues_pair``), in float32 and float64; and the facade
+over them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale``
 and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
-``SelfAdjointEigen``, ``Eigen``, whose products go through the GEMM front door
-(``ops.matmul``) and, with the switch ``core.config.config.use_tile_matmul``
-on, its tile kernel.
+``SelfAdjointEigen``, ``Eigen``, ``GeneralizedEigen``, whose products go
+through the GEMM front door (``ops.matmul``) and, with the switch
+``core.config.config.use_tile_matmul`` on, its tile kernel.
 """
 from faer_tpu_torch.core import dtypes, params, perm
 from faer_tpu_torch.core.config import (
@@ -56,7 +61,7 @@ from faer_tpu_torch.core.flags import (
     Side,
 )
 from faer_tpu_torch.core.mat import Mat, Scale
-from faer_tpu_torch.core.params import EvdParams, QrParams, SvdParams
+from faer_tpu_torch.core.params import EvdParams, GevdParams, QrParams, SvdParams
 from faer_tpu_torch.core.vec import Col, Diag, Row
 from faer_tpu_torch.linalg.cholesky import (
     lblt_factor,
@@ -113,6 +118,7 @@ from faer_tpu_torch.linalg.solvers import (
     ColPivQr,
     Eigen,
     FullPivLu,
+    GeneralizedEigen,
     Lblt,
     Ldlt,
     Llt,
@@ -122,6 +128,9 @@ from faer_tpu_torch.linalg.solvers import (
     SelfAdjointEigen,
     Svd,
 )
+from faer_tpu_torch.linalg.gevd import gevd, gevd_eigenvalues, gevd_self_adjoint
+from faer_tpu_torch.linalg.qz import gevd_qz, hessenberg_triangular, qz
+from faer_tpu_torch.linalg.qz_real import qz_eigenvalues_pair, real_qz
 from faer_tpu_torch.linalg.real_schur import real_schur
 from faer_tpu_torch.linalg.schur_multishift import multishift_real_schur
 from faer_tpu_torch.linalg.svd import (
@@ -150,7 +159,7 @@ __all__ = [
     "Accum", "BlockStructure", "Conj", "NanHandling", "Norm", "Par", "Side",
     "Mat", "Scale", "Col", "Row", "Diag",
     "Llt", "Ldlt", "PivLlt", "Lblt", "PartialPivLu", "FullPivLu", "Qr",
-    "ColPivQr", "Svd", "SelfAdjointEigen", "Eigen",
+    "ColPivQr", "Svd", "SelfAdjointEigen", "Eigen", "GeneralizedEigen",
     "matmul", "matvec", "rank_update",
     "norm", "norm_l1", "norm_l2", "norm_l2_sqr", "norm_max", "sum_all",
     "prod_diag", "log_abs_det_diag",
@@ -169,4 +178,6 @@ __all__ = [
     "svd", "singular_values", "pseudoinverse", "pseudoinverse_from_svd",
     "evd", "eigenvalues", "evd_pair", "eigenvalues_pair", "hessenberg_in_place",
     "hessenberg_blocked", "real_schur", "multishift_real_schur",
+    "GevdParams", "gevd", "gevd_eigenvalues", "gevd_self_adjoint", "gevd_qz", "qz",
+    "real_qz", "qz_eigenvalues_pair", "hessenberg_triangular",
 ]

@@ -44,11 +44,6 @@ def as_tensor(a, name: str, *, device=None):
     return x
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to faer_tpu_torch yet (ROADMAP §1 item {item})")
-
-
 class Mat:
     """Dense matrix facade over a tensor of rank ≥ 2."""
 
@@ -277,7 +272,9 @@ class Mat:
         return solvers.Eigen.new(self.a)
 
     def generalized_eigen(self, b):
-        _not_ported("Mat.generalized_eigen (generalized EVD)", "9b")
+        from faer_tpu_torch.linalg import solvers
+
+        return solvers.GeneralizedEigen.new(self.a, b)
 
     def singular_values(self):
         from faer_tpu_torch.linalg import svd as _svd

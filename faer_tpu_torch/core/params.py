@@ -150,6 +150,18 @@ class EvdParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class GevdParams:
+    """Generalized EVD budget (faer ``gevd/mod.rs``): at most
+    ``max_iters_per_value``·n QZ iterations."""
+
+    max_iters_per_value: int = 30
+
+    @staticmethod
+    def auto(dtype=torch.float32, shape=None) -> "GevdParams":
+        return GevdParams()
+
+
+@dataclasses.dataclass(frozen=True)
 class LltRegularization:
     """Dynamic regularization (faer ``cholesky/llt/factor.rs:8``).
 

@@ -54,79 +54,10 @@ __host__ __device__ constexpr size_t scratch_bytes() {
   return (32 * sizeof(int) + 35 * sizeof(T) + 15) / 16 * 16;
 }
 
-// the leading dimension of H and Q in shared memory: odd
-__host__ __device__ __forceinline__ int shared_ld(int nmax) { return nmax | 1; }
-
 template <typename T>
 size_t schur_smem(int nmax, bool shared) {
   return scratch_bytes<T>() +
          (shared ? 2 * (size_t)nmax * shared_ld(nmax) * sizeof(T) : 0);
-}
-
-// the exponent cap of the loosened deflation floor 2^(stall / 5)
-// (dtypes.deflation_stall_cap): min(24, ⌊−½·log2 eps⌋)
-template <typename T>
-__host__ __device__ constexpr int stall_cap() {
-  return sizeof(T) == 4 ? 11 : 24;
-}
-
-// The maximum of v over the CTA, in every thread; ends in a barrier.
-__device__ __forceinline__ int cta_max_int(int v, int* red) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = max(v, red[w]);
-  __syncthreads();
-  return v;
-}
-
-// The NaN-propagating maximum of v over the CTA, in every thread; ends in a
-// barrier.
-template <typename T>
-__device__ __forceinline__ T cta_max_val(T v, T* fred) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) fred[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = fred[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = nan_max(v, fred[w]);
-  __syncthreads();
-  return v;
-}
-
-// real_schur._house3: (tau, u2, u3, beta) of the reflector clearing (v2, v3)
-// against v1, from the vector scaled by its largest magnitude
-template <typename T>
-__device__ __forceinline__ void house3(T v1, T v2, T v3, T& tau, T& u2, T& u3, T& beta) {
-  T sc = nan_max(nan_max(absv(v1), absv(v2)), absv(v3));
-  if (sc == T(0)) sc = T(1);
-  const T w1 = dvd(v1, sc), w2 = dvd(v2, sc), w3 = dvd(v3, sc);
-  const T tail2 = add(mul(w2, w2), mul(w3, w3));
-  const T nrm = sqrt_rn(add(mul(w1, w1), tail2));
-  if (tail2 == T(0)) {
-    tau = u2 = u3 = T(0);
-    beta = v1;
-    return;
-  }
-  const T bs = w1 >= T(0) ? -nrm : nrm;
-  const T denom = sub(w1, bs);
-  u2 = dvd(w2, denom);
-  u3 = dvd(w3, denom);
-  tau = dvd(sub(bs, w1), bs);
-  beta = mul(bs, sc);
-}
-
-// real_schur._unit_pair: (x, y)/‖(x, y)‖ from the pair scaled by its larger
-// magnitude; (1, 0) for (0, 0)
-template <typename T>
-__device__ __forceinline__ void unit_pair(T x, T y, T& c, T& s) {
-  const T sc = nan_max(absv(x), absv(y));
-  const bool zero = sc == T(0);
-  const T scs = zero ? T(1) : sc;
-  const T xs = dvd(x, scs), ys = dvd(y, scs);
-  const T r = sqrt_rn(add(mul(xs, xs), mul(ys, ys)));
-  c = zero ? T(1) : dvd(xs, r);
-  s = zero ? T(0) : dvd(ys, r);
 }
 
 // real_schur._standardize_2x2: the rotation (cs, sn) standardizing
@@ -154,25 +85,6 @@ __device__ __forceinline__ bool standardize_2x2(T a, T b, T c, T d, T& cs, T& sn
     sn = small;
   }
   return false;
-}
-
-template <typename T>
-struct Mat {
-  T* p;
-  int ld;
-  __device__ __forceinline__ T& operator()(int r, int c) const { return p[(size_t)r * ld + c]; }
-};
-
-// real_schur._negligible_subdiag: zero each H[i+1, i] at most
-// max(eps·(|H[i,i]| + |H[i+1,i+1]|), floor). Ends in a barrier.
-template <typename T>
-__device__ __forceinline__ void negligible_subdiag(Mat<T> h, int n, T floor) {
-  for (int i = threadIdx.x; i < n - 1; i += blockDim.x) {
-    const T tol = nan_max(mul(Limits<T>::eps, add(absv(h(i, i)), absv(h(i + 1, i + 1)))),
-                          floor);
-    if (absv(h(i + 1, i)) <= tol) h(i + 1, i) = T(0);
-  }
-  __syncthreads();
 }
 
 // real_schur._standardize_block: the 2×2 diagonal block at (lo, lo)

@@ -1,5 +1,5 @@
-// spectral_qr.cuh: what the implicit-QR kernels of tridiag_sweep.cu and
-// bidiag_sweep.cu share.
+// spectral_qr.cuh: what the implicit-QR kernels of tridiag_sweep.cu,
+// bidiag_sweep.cu, real_schur.cu, hess_tri.cu and real_qz.cu share.
 //
 // * IEEE operations rounded one at a time (no FMA contraction), so that a
 //   kernel repeats the rounding of its plain PyTorch version, one PyTorch
@@ -11,7 +11,11 @@
 // * the Wilkinson shift and the two Givens forms of the plain versions;
 // * CTA reductions (a minimum index, NaN-propagating maxima as torch.max);
 // * the rotation of one row of a column-major matrix by a chain of Givens
-//   rotations, its running column carried in a register.
+//   rotations, its running column carried in a register;
+// * the Schur and QZ kernels' pieces: a row-major matrix view, the odd
+//   leading dimension of a matrix in shared memory, the 3-vector reflector
+//   and the rotations from scaled entries, the loosened deflation floor's
+//   cap and the negligible-subdiagonal pass.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -178,6 +182,104 @@ __device__ __forceinline__ void rotate_row_pivot(T* z, int ld, int p, int first,
     zp = add(mul(-s[k], zk), mul(c[k], zp));
   }
   z[(size_t)p * ld] = zp;
+}
+
+// the leading dimension of a matrix in shared memory: odd, so that a column
+// is read without bank conflicts
+__host__ __device__ __forceinline__ int shared_ld(int nmax) { return nmax | 1; }
+
+// the exponent cap of the loosened deflation floor 2^(stall / 5)
+// (dtypes.deflation_stall_cap): min(24, ⌊−½·log2 eps⌋)
+template <typename T>
+__host__ __device__ constexpr int stall_cap() {
+  return sizeof(T) == 4 ? 11 : 24;
+}
+
+// The maximum of v over the CTA, in every thread; ends in a barrier.
+__device__ __forceinline__ int cta_max_int(int v, int* red) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = max(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
+// The NaN-propagating maximum of v over the CTA, in every thread; ends in a
+// barrier.
+template <typename T>
+__device__ __forceinline__ T cta_max_val(T v, T* fred) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) fred[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = fred[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = nan_max(v, fred[w]);
+  __syncthreads();
+  return v;
+}
+
+// real_schur._house3: (tau, u2, u3, beta) of the reflector clearing (v2, v3)
+// against v1, from the vector scaled by its largest magnitude
+template <typename T>
+__device__ __forceinline__ void house3(T v1, T v2, T v3, T& tau, T& u2, T& u3, T& beta) {
+  T sc = nan_max(nan_max(absv(v1), absv(v2)), absv(v3));
+  if (sc == T(0)) sc = T(1);
+  const T w1 = dvd(v1, sc), w2 = dvd(v2, sc), w3 = dvd(v3, sc);
+  const T tail2 = add(mul(w2, w2), mul(w3, w3));
+  const T nrm = sqrt_rn(add(mul(w1, w1), tail2));
+  if (tail2 == T(0)) {
+    tau = u2 = u3 = T(0);
+    beta = v1;
+    return;
+  }
+  const T bs = w1 >= T(0) ? -nrm : nrm;
+  const T denom = sub(w1, bs);
+  u2 = dvd(w2, denom);
+  u3 = dvd(w3, denom);
+  tau = dvd(sub(bs, w1), bs);
+  beta = mul(bs, sc);
+}
+
+// real_schur._unit_pair: (x, y)/‖(x, y)‖ from the pair scaled by its larger
+// magnitude; (1, 0) for (0, 0)
+template <typename T>
+__device__ __forceinline__ void unit_pair(T x, T y, T& c, T& s) {
+  const T sc = nan_max(absv(x), absv(y));
+  const bool zero = sc == T(0);
+  const T scs = zero ? T(1) : sc;
+  const T xs = dvd(x, scs), ys = dvd(y, scs);
+  const T r = sqrt_rn(add(mul(xs, xs), mul(ys, ys)));
+  c = zero ? T(1) : dvd(xs, r);
+  s = zero ? T(0) : dvd(ys, r);
+}
+
+// A rotation of the pair (x0, x1): (c·x0 + s·x1, −s·x0 + c·x1), rounded as
+// the plain versions' row and column rotations
+template <typename T>
+__device__ __forceinline__ void rot_pair(T& x0, T& x1, T c, T s) {
+  const T a = x0, b = x1;
+  x0 = add(mul(c, a), mul(s, b));
+  x1 = add(mul(-s, a), mul(c, b));
+}
+
+template <typename T>
+struct Mat {
+  T* p;
+  int ld;
+  __device__ __forceinline__ T& operator()(int r, int c) const { return p[(size_t)r * ld + c]; }
+};
+
+// real_schur._negligible_subdiag: zero each H[i+1, i] at most
+// max(eps·(|H[i,i]| + |H[i+1,i+1]|), floor). Ends in a barrier.
+template <typename T>
+__device__ __forceinline__ void negligible_subdiag(Mat<T> h, int n, T floor) {
+  for (int i = threadIdx.x; i < n - 1; i += blockDim.x) {
+    const T tol = nan_max(mul(Limits<T>::eps, add(absv(h(i, i)), absv(h(i + 1, i + 1)))),
+                          floor);
+    if (absv(h(i + 1, i)) <= tol) h(i + 1, i) = T(0);
+  }
+  __syncthreads();
 }
 
 // Threads of a batched CTA: every row of the largest matrix, in warps

@@ -76,7 +76,8 @@ def tridiag_to_numpy(d, e, hh, taus):
 
 _INFO_TYPES = {"Llt": LltInfo, "Ldlt": LdltInfo, "PivLlt": LltInfo, "Lblt": LbltInfo,
                "PartialPivLu": LuInfo, "FullPivLu": LuInfo, "Svd": SpectralInfo,
-               "SelfAdjointEigen": SpectralInfo, "Eigen": SpectralInfo}
+               "SelfAdjointEigen": SpectralInfo, "Eigen": SpectralInfo,
+               "GeneralizedEigen": SpectralInfo}
 # int32 in the JAX package, int64 in the port
 _INDEX_FIELDS = ("row_perm", "col_perm", "perm")
 _INFO_DTYPES = {"dynamic_regularization_count": torch.int32,
@@ -88,8 +89,9 @@ def solver_from_numpy(kind: str, *, device="cuda", **fields):
     """A port solver object (``linalg/solvers.py``) of class ``kind``
     (``"Llt"``, ``"Ldlt"``, ``"PivLlt"``, ``"Lblt"``, ``"PartialPivLu"``,
     ``"FullPivLu"``, ``"Qr"``, ``"ColPivQr"``, ``"Svd"``,
-    ``"SelfAdjointEigen"`` or ``"Eigen"``, whose ``w`` and ``v`` are
-    complex) from the fields of the JAX package's solver
+    ``"SelfAdjointEigen"``, ``"Eigen"``, whose ``w`` and ``v`` are
+    complex, or ``"GeneralizedEigen"``, whose ``alpha``, ``beta`` and ``v``
+    are) from the fields of the JAX package's solver
     dataclass of the same name, as numpy arrays: ``info`` as a mapping of
     its field names to arrays, ``Qr.block`` as an int, permutations as any
     integer array. Data goes to ``device`` in its own dtype (float64 stays

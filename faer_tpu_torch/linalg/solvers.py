@@ -7,10 +7,11 @@ and the decomposition structs (``:697-765``), built by the ``Mat`` methods
 info) with the JAX dataclass's field names, so that ``interop`` can carry
 one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
-``SelfAdjointEigen`` and ``Eigen`` (the general real EVD), in float32 and
-float64; the generalized EVD waits for ROADMAP §1 item 9b. Complex input
-raises ``NotImplementedError`` naming item 10: the JAX package's split
-(re, im) pair path is not ported, and native complex factorizations are
+``SelfAdjointEigen``, ``Eigen`` (the general real EVD) and
+``GeneralizedEigen`` (the real pencil's EVD by QZ), in float32 and float64.
+Complex input raises ``NotImplementedError`` naming item 10: the JAX
+package's split (re, im) pair path is not ported, and native complex
+factorizations (the complex Schur form and the complex QZ among them) are
 that item.
 """
 from __future__ import annotations
@@ -39,9 +40,10 @@ from faer_tpu_torch.linalg import qr as _qr
 from faer_tpu_torch.ops.matmul import matmul
 
 
-def _matrix(a, name: str):
-    """The tensor of a ``Mat``, tensor or array-like; complex raises."""
-    x = as_tensor(a.a if isinstance(a, Mat) else a, name)
+def _matrix(a, name: str, device=None):
+    """The tensor of a ``Mat``, tensor or array-like (on ``device`` when
+    given); complex raises."""
+    x = as_tensor(a.a if isinstance(a, Mat) else a, name, device=device)
     if x.is_complex():
         raise NotImplementedError(
             f"{name}: complex input is not ported to faer_tpu_torch yet "
@@ -446,6 +448,30 @@ class Eigen:
         return self.v
 
 
+@dataclasses.dataclass(frozen=True)
+class GeneralizedEigen:
+    """Generalized eigendecomposition of a real pencil (A, B) as (α, β)
+    pairs: A V diag(β) = B V diag(α), α, β and V complex; β = 0 marks an
+    infinite eigenvalue (``gevd.gevd``, the real QZ)."""
+
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    v: torch.Tensor
+    info: SpectralInfo
+
+    @staticmethod
+    def new(a, b) -> "GeneralizedEigen":
+        from faer_tpu_torch.linalg import gevd as _gevd
+
+        a = _matrix(a, "GeneralizedEigen")
+        alpha, beta, v, info = _gevd.gevd(a, _matrix(b, "GeneralizedEigen", a.device))
+        return GeneralizedEigen(alpha=alpha, beta=beta, v=v, info=info)
+
+    @property
+    def eigenvalues(self):
+        return self.alpha / self.beta
+
+
 SOLVERS: dict[str, Any] = {cls.__name__: cls for cls in
                            (Llt, Ldlt, PivLlt, Lblt, PartialPivLu, FullPivLu, Qr,
-                            ColPivQr, Svd, SelfAdjointEigen, Eigen)}
+                            ColPivQr, Svd, SelfAdjointEigen, Eigen, GeneralizedEigen)}

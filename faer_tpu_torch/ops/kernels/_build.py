@@ -32,7 +32,8 @@ _SIGNATURES = {
     # name: argtypes (each returns an int: a CUDA error code, or the route
     # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
     # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route,
-    # faer_bidiag_qr_route, faer_real_schur_route and their _f64 twins; bytes
+    # faer_bidiag_qr_route, faer_real_schur_route, faer_hess_tri_route,
+    # faer_real_qz_route and their _f64 twins; bytes
     # for faer_chase_smem_bytes)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
@@ -63,6 +64,14 @@ _SIGNATURES = {
     "faer_real_schur_batched_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "faer_real_schur_route": [_I],
     "faer_real_schur_route_f64": [_I],
+    "faer_hess_tri_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "faer_hess_tri_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "faer_hess_tri_route": [_I],
+    "faer_hess_tri_route_f64": [_I],
+    "faer_real_qz_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_real_qz_batched_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_real_qz_route": [_I],
+    "faer_real_qz_route_f64": [_I],
     "faer_llt_block": [_P, _I, _P, _P, _I, _F, _F, _I, _P],
     "faer_llt_block_route": [_I],
     "faer_chase_probe": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
@@ -162,6 +171,20 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: the cooperative grid cannot be co-resident")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error code {code}")
+
+
+def shared_edge(route, dtype, max_n: int) -> int:
+    """The largest nmax in [1, max_n] for which ``route(nmax, dtype)`` says
+    "shared" (a kernel keeps its matrices in shared memory up to a size,
+    in global memory past it), by bisection. Needs the built library."""
+    lo, hi = 1, max_n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if route(mid, dtype) == "shared":
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def check_f32_matrix(x, name: str) -> None:

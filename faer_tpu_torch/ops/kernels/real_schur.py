@@ -115,11 +115,4 @@ def route(nmax: int, dtype=torch.float32) -> str:
 def shared_edge(dtype=torch.float32) -> int:
     """The largest nmax whose H and Q the kernel keeps in shared memory, by
     bisection over :func:`route`. Needs the built library."""
-    lo, hi = 1, MAX_N
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if route(mid, dtype) == "shared":
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
+    return _build.shared_edge(route, dtype, MAX_N)

@@ -117,7 +117,9 @@ def test_eigen_interop_with_jax():
 def test_general_evd_refusals():
     with pytest.raises(NotImplementedError, match="item 10"):
         ft.evd(torch.eye(3, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ft.Mat(torch.eye(3)).generalized_eigen(ft.Mat(torch.eye(3)))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ft.Mat(torch.eye(3, dtype=torch.complex64)).generalized_eigen(torch.eye(3))
+    ge = ft.Mat(torch.eye(3)).generalized_eigen(ft.Mat(2 * torch.eye(3)))
+    assert torch.equal(ge.eigenvalues, torch.full((3,), 0.5, dtype=torch.complex64))
     with pytest.raises(ShapeError):
         ft.evd(torch.zeros(3, 4))

@@ -402,19 +402,19 @@ def test_error_cases_match_jax():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("eigen", "10"), ("eigenvalues", "10"), ("generalized_eigen", "9b"),
+    ("eigen", "10"), ("eigenvalues", "10"), ("generalized_eigen", "10"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """The general EVD of a complex matrix waits for item 10, the
-    generalized EVD for item 9b (the real general EVD is ported)."""
-    if method == "generalized_eigen":
-        a = _tm(np.eye(4, dtype=np.float32))
-        args = (a,)
-    else:
-        a = tft.Mat(torch.eye(4, dtype=torch.complex64))
-        args = ()
+    """The general and generalized EVD of complex input wait for item 10;
+    the real ones are ported (a real pencil (I, I) has the eigenvalues 1)."""
+    c = tft.Mat(torch.eye(4, dtype=torch.complex64))
+    args = (c,) if method == "generalized_eigen" else ()
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        getattr(a, method)(*args)
+        getattr(c, method)(*args)
+    real = _tm(np.eye(4, dtype=np.float32))
+    out = getattr(real, method)(*((real,) if method == "generalized_eigen" else ()))
+    w = out if method == "eigenvalues" else out.eigenvalues
+    assert torch.equal(w, torch.ones(4, dtype=torch.complex64))
 
 
 # -- interop: solver objects across the two packages ------------------------------

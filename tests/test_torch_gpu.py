@@ -1737,3 +1737,140 @@ def test_evd_on_card_against_the_cpu_route(cuda, monkeypatch):
     wg = np.sort_complex(w.cpu().numpy().astype(np.complex128))
     wcp = np.sort_complex(wc.numpy().astype(np.complex128))
     assert np.abs(wg - wcp).max() <= tol * np.abs(wcp).max()
+
+
+# -- the generalized EVD's kernels --------------------------------------------
+
+def _gevd_inputs(n, batch, seed, dtype, rank_deficient=False):
+    """The Givens chain's inputs on the CPU, (h, r, q, z) (batch, n, n):
+    the QR of a Gaussian B (of rank n − 1 when ``rank_deficient``: a zero
+    column, so R has a zero diagonal entry and T one the QZ must deflate),
+    Q₀ᵀA, Z = I."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(batch, n, n, generator=gen, dtype=torch.float64)
+    b = torch.randn(batch, n, n, generator=gen, dtype=torch.float64)
+    if rank_deficient:
+        b[:, :, min(3, n - 1)] = 0
+    q, r = torch.linalg.qr(b)
+    z = torch.eye(n, dtype=torch.float64).repeat(batch, 1, 1)
+    return tuple(x.to(dtype).contiguous() for x in (q.mT @ a, torch.triu(r), q, z))
+
+
+def _gevd_kernel_pairs(mats, sizes, cuda):
+    """``hess_tri_batched`` and then ``real_qz_batched`` on the card (one
+    launch each, the second on the first's output), and their plain
+    versions on the CPU copies: (kernel outputs, plain outputs) of each."""
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    reset_launch_counts()
+    red = kh.hess_tri_batched(*(x.to(cuda) for x in mats), sizes.to(cuda))
+    qz = kq.real_qz_batched(*red, sizes.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["hess_tri"] == 1 and launch_counts()["real_qz"] == 1
+    red_cpu = [x.cpu() for x in red]
+    return ((red_cpu, kh.hess_tri_batched_plain(*mats, sizes)),
+            ([x.cpu() for x in qz], kq.real_qz_batched_plain(*red_cpu, sizes)))
+
+
+def _assert_bitwise(pairs):
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,batch", [(1, 2), (2, 2), (3, 3), (16, 3), (48, 1), (96, 1)])
+def test_gevd_kernels_equal_their_plain_versions(cuda, n, batch, dtype):
+    """H, R, Q, Z of the reduction and S, T, Q, Z, iterations, converged and
+    chase steps of the QZ equal to the bit; every problem converged."""
+    mats = _gevd_inputs(n, batch, n, dtype)
+    pairs = _gevd_kernel_pairs(mats, torch.full((batch,), n, dtype=torch.int32), cuda)
+    _assert_bitwise(pairs)
+    assert bool(pairs[1][0][5].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gevd_kernels_ragged_and_rank_deficient(cuda, dtype):
+    """A ragged batch (sizes 0 and 1 among them) and a B of rank n − 1 (the
+    infinite-eigenvalue step on the card): equal to the bit, one β = 0."""
+    mats = _gevd_inputs(40, 5, 7, dtype, rank_deficient=True)
+    sizes = torch.tensor([40, 7, 1, 0, 33], dtype=torch.int32)
+    pairs = _gevd_kernel_pairs(mats, sizes, cuda)
+    _assert_bitwise(pairs)
+    s, t = pairs[1][0][0][0], pairs[1][0][1][0]
+    assert int((torch.diagonal(t) == 0).sum()) == 1 and bool(pairs[1][0][5][0])
+    assert torch.equal(torch.tril(s, -2), torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["hess_tri", "real_qz"])
+@pytest.mark.parametrize("past", [0, 1])
+def test_gevd_kernels_at_their_shared_memory_edge(cuda, dtype, kernel, past):
+    """The largest nmax whose four matrices the kernel keeps in shared
+    memory (120 and 119 in float32, 85 in float64 on an H100) and the next,
+    in global memory: both kernels equal to their plain versions."""
+    from faer_tpu_torch.ops.kernels import hess_tri as kh
+    from faer_tpu_torch.ops.kernels import real_qz as kq
+
+    mod = kh if kernel == "hess_tri" else kq
+    n = mod.shared_edge(dtype) + past
+    assert mod.route(n, dtype) == ("global" if past else "shared")
+    mats = _gevd_inputs(n, 1, 5, dtype)
+    _assert_bitwise(_gevd_kernel_pairs(mats, torch.full((1,), n, dtype=torch.int32), cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gevd_kernels_past_the_cta_width(cuda, dtype):
+    """At 520, past the kernels' 512 threads a CTA (the width of the main
+    path's 1024): some threads take two entries of a row, the CTA
+    reductions span 16 warps, the matrices sit in global memory. Both
+    kernels equal to their plain versions; the QZ converged."""
+    n = 520
+    mats = _gevd_inputs(n, 1, 520, dtype)
+    pairs = _gevd_kernel_pairs(mats, torch.full((1,), n, dtype=torch.int32), cuda)
+    _assert_bitwise(pairs)
+    assert bool(pairs[1][0][5].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gevd_on_card_against_scipy(cuda, dtype):
+    """``gevd`` at 256 on the card (one ``hess_tri`` and one ``real_qz``
+    launch): A V diag(β) − B V diag(α) within 8·n·eps of (‖A‖|β| + ‖B‖|α|)
+    column by column, and every (α, β) within 2·κ_i·η of scipy's in the
+    chordal metric (κ_i the pencil's chordal condition number from scipy's
+    vectors, η the call's backward error ‖(A − QSZᵀ, B − QTZᵀ)‖₂)."""
+    import faer_tpu_torch as ft
+    import scipy.linalg as sla
+
+    n = 256
+    rng = np.random.default_rng(256)
+    a64, b64 = rng.standard_normal((n, n)), rng.standard_normal((n, n))
+    a, b = (torch.tensor(x, dtype=dtype, device=cuda) for x in (a64, b64))
+    reset_launch_counts()
+    s, t, q, z, info = ft.real_qz(a, b)
+    alpha, beta, v, info2 = ft.gevd(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["hess_tri"] == 2 and launch_counts()["real_qz"] == 2
+    assert bool(info.converged) and bool(info2.converged)
+    ad, bd = (x.double() for x in (a, b))
+    sd, td, qd, zd = (x.double() for x in (s, t, q, z))
+    eta = float(np.hypot(torch.linalg.matrix_norm(ad - qd @ sd @ zd.T, ord=2).item(),
+                         torch.linalg.matrix_norm(bd - qd @ td @ zd.T, ord=2).item()))
+    al, be = (x.cpu().numpy().astype(np.complex128) for x in (alpha, beta))
+    vn = v.cpu().numpy().astype(np.complex128)
+    eps = float(torch.finfo(dtype).eps)
+    num = np.linalg.norm(a64 @ vn * be[None, :] - b64 @ vn * al[None, :], axis=0)
+    den = (np.linalg.norm(a64, 2) * np.abs(be) + np.linalg.norm(b64, 2) * np.abs(al)) \
+        * np.linalg.norm(vn, axis=0)
+    assert (num / den).max() <= 8 * n * eps
+    (ra, rb), yl, xr = sla.eig(a64, b64, left=True, right=True, homogeneous_eigvals=True)
+    kappa = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+             / np.hypot(np.abs(np.sum(yl.conj() * (a64 @ xr), axis=0)),
+                        np.abs(np.sum(yl.conj() * (b64 @ xr), axis=0))))
+    chord = (np.abs(al[:, None] * rb[None, :] - ra[None, :] * be[:, None])
+             / (np.hypot(np.abs(al), np.abs(be))[:, None]
+                * np.hypot(np.abs(ra), np.abs(rb))[None, :]))
+    tol = 2 * kappa * eta
+    assert (chord.min(axis=0) / tol).max() <= 1
+    assert (chord.min(axis=1) / tol[chord.argmin(axis=1)]).max() <= 1
