@@ -931,6 +931,7 @@ def phase_kernels(gen, profs) -> dict:
     mark("lu_panel, qr_panel and lu_leaf")
     res.update(_lu_panel_family(gen))
     res.update(_qr_panel_family(gen))
+    _qr_subnormal(gen)
     _wide_panels(gen)
     mark("the panel families and the wide panels")
     res.update(_qr_batched_kernels(gen))
@@ -1234,6 +1235,47 @@ def _qr_against_references(a, k1, t1, zero, label: str) -> float:
     return (k1 - refs["plain"][0]).abs().max().item()
 
 
+QR_TINY = 1e-20  # F2's scale: a Gaussian panel's squares are subnormal in f32
+
+
+def _qr_subnormal(gen) -> None:
+    """F2: the QR panel kernel on Gaussian panels scaled by 1e-20, whose
+    f32 squares are subnormal, on the cluster route (4096, 128) and the
+    grid route (one past the cluster edge at b = 128, and 60000 rows, past
+    the grid's shared memory): R and V each within 2·b·eps of their own
+    largest entry and τ within 2·b·eps of ``qr_panel_plain`` and of the
+    kernel's one-pass order (whose column loop rescales as the kernel
+    does), max|QᵀQ − I| and ‖QR − A‖/‖A‖ within 2·b·eps in f64 (the whole
+    Q up to 8192 rows, its first b columns past that); every wrapper of
+    the family equal to ``qr_panel`` to the bit. (The routes' sums run in
+    different orders, so no two of them, and no plain version, are bitwise
+    twins at any scale; the difference reaches the later columns through
+    at most b reflectors, and this script's readings of phase 3's QR panels,
+    at scale 1 as here, stay below 0.4·b·eps: 2·b·eps, 3.1e-5 at b = 128,
+    is five times that.)"""
+    from faer_tpu_torch.ops.kernels.qr_panel import (
+        cluster_edge, qr_panel, qr_panel_onepass_plain, qr_panel_plain, route)
+
+    for m, b in ((4096, 128), (cluster_edge(128) + 1, 128), (60000, 128)):
+        a = torch.randn(m, b, generator=gen, device=DEV) * QR_TINY
+        k1, t1 = qr_panel(a)
+        refs = {"plain": qr_panel_plain(a), "one-pass": qr_panel_onepass_plain(a)}
+        same = all(torch.equal(x, y) for name in QR_FAMILY
+                   for x, y in zip(_qr_wrapper(name)[0](a), (k1, t1)))
+        torch.cuda.synchronize()
+        tol = 2 * b * EPS32
+        errs = {ref: max(_max_rel(torch.triu(k1[:b]), torch.triu(k[:b]))[1],
+                         _max_rel(torch.tril(k1, -1), torch.tril(k, -1))[1],
+                         (t1 - t).abs().max().item()) for ref, (k, t) in refs.items()}
+        orth, rec = (_qr_checks if m <= 8192 else _qr_checks_thin)(a, k1, t1)
+        check(max(*errs.values(), orth, rec) <= tol and same,
+              f"qr_panel ({m}, {b}) x {QR_TINY:g} [{route(m, b)[0]} route]: rel err (R, "
+              "V, τ) vs " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f"; |QᵀQ-I| {orth:.3e}, |QR-A|/|A| {rec:.3e}"
+              + (f" (f64, Q's first {b} columns)" if m > 8192 else " (f64)")
+              + f"; all <= {tol:.3e} (2·b·eps); the family equal to the bit {same}")
+
+
 def _qr_wrapper(name: str):
     """(wrapper, plain version) of a QR panel wrapper of the port."""
     import importlib
@@ -1255,6 +1297,24 @@ def _qr_checks(a, packed, taus) -> tuple[float, float]:
         q -= taus[j].double() * torch.outer(v[:, j], v[:, j] @ q)
     orth = (q.T @ q - torch.eye(m, dtype=torch.float64, device=DEV)).abs().max().item()
     return orth, rel_norm(q @ torch.triu(pk), a.double())
+
+
+def _qr_checks_thin(a, packed, taus) -> tuple[float, float]:
+    """(max|Q₁ᵀQ₁ − I|, ‖Q·R − A‖/‖A‖) of a packed (m, b) panel factor in
+    f64 for any m: Q₁ = Q[:, :b] and Q·R formed by applying the reflectors
+    H_{k−1}, …, H_0 in turn to (m, b) blocks, never the (m, m) Q."""
+    m, b = a.shape
+    k = taus.shape[0]
+    pk = packed.double()
+    v = torch.tril(pk[:, :k], -1) + torch.eye(m, k, dtype=torch.float64, device=DEV)
+    q1 = torch.eye(m, b, dtype=torch.float64, device=DEV)
+    qr = torch.triu(pk)
+    for j in range(k - 1, -1, -1):
+        vj, tj = v[:, j], taus[j].double()
+        q1 -= tj * torch.outer(vj, vj @ q1)
+        qr -= tj * torch.outer(vj, vj @ qr)
+    orth = (q1.T @ q1 - torch.eye(b, dtype=torch.float64, device=DEV)).abs().max().item()
+    return orth, rel_norm(qr, a.double())
 
 
 def _qr_panel_family(gen) -> dict:
@@ -1443,7 +1503,11 @@ def _qr_batch_cases(bidiag: bool, gen) -> dict:
     return cases
 
 
-QR_PLAIN_PICK = 4  # leaves of a large batch held against the plain version
+# leaves of a large batch held against the plain version on the card: the
+# first two and the last two (a host core's plain version is not the card's
+# to the bit: a sweep's rounding differs between the two, so it stays on
+# the card)
+QR_PLAIN_PICK = 4
 
 
 def _qr_batched_kernels(gen) -> dict:
@@ -1453,10 +1517,11 @@ def _qr_batched_kernels(gen) -> dict:
     printed: d, e, iterations, converged and sweep steps equal to the bit
     (the same IEEE operations in the same order), the vectors within
     8·nmax·eps. The kernel runs each whole batch; the plain version, whose
-    sweeps are some thirty PyTorch launches a chain step (≈ 110 s for the
-    64 leaves of N on the card), runs the batch's first two and last two
-    problems (both leaf sizes of a ragged batch, wide and square leaves),
-    and the problems are independent, so those are compared. Timed at the
+    sweeps are some thirty PyTorch launches a chain step (≈ 8 s for four
+    of the 64 leaves of N on an H100, ≈ 160 s for every case here), runs
+    the batch's first two and last two problems (both leaf sizes of a
+    ragged batch, wide and square leaves), and the problems are
+    independent, so those are compared. Timed at the
     64 leaves of N by graph replay (inputs copied inside the graph: the
     kernel works in place), beside the plain version on its QR_PLAIN_PICK
     leaves (one call) and the library on all the leaves as dense blocks,
@@ -3517,6 +3582,62 @@ def _pencil_residual(a, b, alpha, beta, v) -> float:
     return (num / den).max().item()
 
 
+def gevd_reduction_readings(a, b) -> dict:
+    """``gevd(a, b, method="reduction")`` in float32 on the card, held to
+    the backward error of its two steps: Ĉ, the LU solve of B Ĉ = A
+    (captured from ``lu_solve``), with η_s = ‖A − BĈ‖₂/(‖B‖₂‖Ĉ‖₂), and
+    evd(Ĉ), with η_e = max_k ‖Ĉv_k − λ_k v_k‖/(‖Ĉ‖₂‖v_k‖), each within
+    8·n·eps; then, since A v − λ B v = (A − BĈ)v + B(Ĉv − λv), the pencil
+    residual (:func:`_pencil_residual`, β = 1) within 2·κ₂(B)·η, η =
+    max(η_s, η_e): the first-order bound (η_s + η_e)·‖B‖₂‖Ĉ‖₂/‖A‖₂, with
+    ‖Ĉ‖₂ ≤ ‖B⁻¹‖₂‖A‖₂. No bound of the form 8·n·eps holds for the pencil
+    residual here, as κ₂(B) enters it. Returns the readings, ``ok``, a
+    ``message``, the launch counts, the host reads and the call's time
+    (host clock)."""
+    from faer_tpu_torch import gevd
+    from faer_tpu_torch.linalg import lu as tlu
+
+    n = a.shape[0]
+    solved = []
+    lu_solve = tlu.lu_solve
+
+    def keep(*args, **kw):
+        solved[:] = [lu_solve(*args, **kw)]
+        return solved[0]
+
+    tlu.lu_solve = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (alpha, beta, v, info), counts, reads = _counted(
+            lambda: gevd(a, b, method="reduction"))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tlu.lu_solve = lu_solve
+    c128 = torch.complex128
+    ad, bd, cd = a.double(), b.double(), solved[0].double()
+    norm_a, norm_b, norm_c = (torch.linalg.matrix_norm(x, ord=2).item() for x in (ad, bd, cd))
+    eta_s = torch.linalg.matrix_norm(ad - bd @ cd, ord=2).item() / (norm_b * norm_c)
+    vx, w = v.to(c128), alpha.to(c128)
+    eta_e = (torch.linalg.vector_norm(cd.to(c128) @ vx - vx * w[None, :], dim=0)
+             / (norm_c * torch.linalg.vector_norm(vx, dim=0))).max().item()
+    kappa = torch.linalg.cond(bd).item()
+    eta = max(eta_s, eta_e)
+    res = _pencil_residual(a, b, alpha, beta, v)
+    tol = 8 * n * EPS32
+    launched = {k: c for k, c in counts.items() if c}
+    ok = (bool(info.converged) and bool((beta == 1).all()) and max(eta_s, eta_e) <= tol
+          and res <= 2 * kappa * eta
+          and counts["lu_panel"] + counts["lu_leaf"] > 0 and counts["real_schur"] > 0)
+    message = (f"β = 1; backward errors of the LU solve η_s {eta_s:.3e} and of evd(Ĉ) "
+               f"η_e {eta_e:.3e}, both <= {tol:.3e} (8·n·eps); |AV - BVΛ| column by column "
+               f"{res:.3e} <= 2·κ₂(B)·η {2 * kappa * eta:.3e} (κ₂(B) {kappa:.4g}, "
+               f"‖B‖‖Ĉ‖/‖A‖ {norm_b * norm_c / norm_a:.4g}; {res / tol:.3g} of 8·n·eps); "
+               f"launches {launched}")
+    return dict(ok=ok, message=message, eta_s=eta_s, eta_e=eta_e, kappa=kappa,
+                residual=res, bound=2 * kappa * eta, counts=counts, reads=reads, ms=ms)
+
+
 def phase_generalized_evd(gen, pencil, reference) -> dict:
     """The generalized real EVD.
 
@@ -3534,8 +3655,8 @@ def phase_generalized_evd(gen, pencil, reference) -> dict:
       in float32 the QR of B's ``qr_panel`` and ``trtri``) and host reads;
     * a B of rank 192 at 256: as many β within n·eps·‖B‖₂ of 0 as B's
       nullity (64), the pencil residual of the rest;
-    * ``gevd(method="reduction")`` at 512 beside
-      ``torch.linalg.eig(torch.linalg.solve(B, A))``;
+    * ``gevd(method="reduction")`` at 512 (:func:`gevd_reduction_readings`)
+      beside ``torch.linalg.eig(torch.linalg.solve(B, A))``;
     * ``gevd_self_adjoint`` at 1024: ‖AV − BVΛ‖ and max|VᵀBV − I|;
     * ``Mat(a).generalized_eigen(b)`` once, equal to ``gevd`` to the bit.
 
@@ -3675,23 +3796,14 @@ def phase_generalized_evd(gen, pencil, reference) -> dict:
     n3 = GEVD_REDUCTION_N
     a3 = torch.randn(n3, n3, generator=gen, device=DEV)
     b3 = torch.randn(n3, n3, generator=gen, device=DEV)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, counts, reads = _counted(lambda: gevd(a3, b3, method="reduction"))
-    ms = (time.perf_counter() - t0) * 1e3
-    add(counts)
-    alpha, beta, v, info = out
-    res = _pencil_residual(a3, b3, alpha, beta, v)
+    r = gevd_reduction_readings(a3, b3)
+    add(r["counts"])
     lib = cuda_ms(lambda: torch.linalg.eig(torch.linalg.solve(b3, a3)), 1)
-    tol = 8 * n3 * EPS32
     # the LU of B below 1024 is the recursive driver's (lu_leaf leaves), as
     # in the JAX package; from 1024 the fused lu_panel route
-    check(bool(info.converged) and bool((beta == 1).all()) and res <= tol
-          and counts["lu_panel"] + counts["lu_leaf"] > 0 and counts["real_schur"] > 0,
-          f"gevd n={n3} f32 method='reduction': β = 1, |AV - BVΛ| column by column "
-          f"{res:.3e} <= {tol:.3e}; launches {({k: v for k, v in counts.items() if v})}")
-    print(f"time gevd n={n3} f32 method='reduction': {ms:.1f} ms (one call, host clock); "
-          f"library torch.linalg.eig(torch.linalg.solve(B, A)) {lib:.1f} ms")
+    check(r["ok"], f"gevd n={n3} f32 method='reduction': {r['message']}")
+    print(f"time gevd n={n3} f32 method='reduction': {r['ms']:.1f} ms (one call, host "
+          f"clock); library torch.linalg.eig(torch.linalg.solve(B, A)) {lib:.1f} ms")
 
     # the self-adjoint-definite pencil
     n4 = GEVD_SA_N
@@ -3901,6 +4013,259 @@ def phase_chase_lab(spectral_ms: dict) -> dict:
     return counts
 
 
+# phase 16: complex input (ROADMAP item 10a), full width
+COMPLEX_N = ((torch.complex64, N), (torch.complex128, 1024))
+COMPLEX_FACADE_N = 1024
+COMPLEX_BATCH = (64, 128)  # llt_solve_batched: B problems of n²
+COMPLEX_RHS = 8
+COMPLEX_WARM_N = 96  # each call once at this size first: loads and first allocations
+
+
+def llt_panel_launches(n: int) -> int:
+    """The ``llt_panel`` launches of a float32 ``llt_factor`` of side n on
+    the fused-panel route (``_llt_factor_v5``: block 256 from n = 1024,
+    outer strips of 1024 from 2048), one a panel of each strip, counted
+    from the code."""
+    block = 256
+    ob = max(block, 1024) if n >= 2048 else block
+    return sum(-(-min(ob, n - k) // block) for k in range(0, n, ob))
+
+
+def _complex_inputs(n: int, dt, gen) -> dict:
+    """g (complex Gaussian), spd = g gᴴ/n + I, herm = (g + gᴴ)/2 and an
+    n × COMPLEX_RHS right-hand side, made on the card in ``dt``."""
+    rdt = dt.to_real()
+
+    def randn(*shape):
+        return torch.complex(torch.randn(*shape, generator=gen, device=DEV, dtype=rdt),
+                             torch.randn(*shape, generator=gen, device=DEV, dtype=rdt))
+
+    g = randn(n, n)
+    return dict(g=g, spd=g @ g.mH / n + torch.eye(n, device=DEV, dtype=dt),
+                herm=(g + g.mH) / 2, b=randn(n, COMPLEX_RHS))
+
+
+def _complex_calls(x: dict) -> list:
+    """Phase 16's calls on the inputs ``x``: (key, call, check, library
+    yardstick, predicted launches or None). A check returns [(value,
+    limit, text)]; the predictions are {counter: count} with every other
+    counter 0, the spectral ones with 0 host reads."""
+    from faer_tpu_torch.linalg import cholesky as ch
+    from faer_tpu_torch.linalg import evd, lu, qr, svd
+
+    g, spd, herm, b = x["g"], x["spd"], x["herm"], x["b"]
+    n, dt = g.shape[0], g.dtype
+    tol = 8 * n * float(torch.finfo(dt.to_real()).eps)
+    eye = torch.eye(n, device=DEV, dtype=dt)
+    c64 = dt == torch.complex64
+
+    def llt():
+        l, info = ch.llt_factor(spd)
+        return l, info, ch.llt_solve(l, b)
+
+    def ldlt():
+        ld, info = ch.ldlt_factor(spd)
+        return ld, info, ch.ldlt_solve(ld, b)
+
+    def lu_():
+        f, p, info = lu.lu_in_place(g)
+        return f, p, info, lu.lu_solve(f, p, b)
+
+    def qr_():
+        pk, ts, blk = qr.qr_in_place(g)
+        return pk, ts, blk, qr.qr_solve_lstsq(pk, ts, blk, b)
+
+    def cpqr():
+        pk, taus, perm = qr.col_piv_qr_in_place(g)
+        return pk, taus, perm, qr.col_piv_qr_solve_lstsq(pk, taus, perm, b)
+
+    def oracle_w():
+        return torch.linalg.eigvalsh(herm.to(torch.complex128))
+
+    def oracle_s():
+        return torch.linalg.svdvals(g.to(torch.complex128))
+
+    def chk_evd(r):
+        w, v, info = r
+        res = (torch.linalg.matrix_norm(herm @ v - v * w[None, :].to(dt))
+               / torch.linalg.matrix_norm(herm)).item()
+        orth = (v.mH @ v - eye).abs().max().item()
+        w64 = oracle_w()
+        werr = ((w.double() - w64).abs().max() / w64.abs().max()).item()
+        return [(res, tol, "|AV - VΛ|/|A|"), (orth, tol, "max|VᴴV - I|"),
+                (werr, tol, "max|w - eigvalsh(c128)|/max|w|"),
+                (0.0 if bool(info.converged) and w.dtype == dt.to_real() else 1.0, 0.5,
+                 "converged, w real")]
+
+    def chk_svd(r):
+        u, s, v, info = r
+        s64 = oracle_s()
+        return [(rel_norm((u * s[None, :].to(dt)) @ v.mH, g), tol, "|U diag(s) Vᴴ - A|/|A|"),
+                ((u.mH @ u - eye).abs().max().item(), tol, "max|UᴴU - I|"),
+                ((v.mH @ v - eye).abs().max().item(), tol, "max|VᴴV - I|"),
+                (((s.double() - s64).abs().max() / s64[0]).item(), tol,
+                 "max|s - svdvals(c128)|/s_max"),
+                (0.0 if bool(info.converged) and s.dtype == dt.to_real() else 1.0, 0.5,
+                 "converged, s real")]
+
+    none: dict = {}
+    return [
+        ("llt + solve", llt,
+         lambda r: [(rel_norm(r[0] @ r[0].mH, spd), tol, "|LLᴴ - A|/|A|"),
+                    (_res(spd, r[2], b), tol, "|Ax - b|/(|A||x|)"),
+                    (0.0 if bool(r[1].success) else 1.0, 0.5, "success")],
+         ("cholesky_ex", lambda: torch.linalg.cholesky_ex(spd)),
+         # the 2n f32 factor's panels; one batched trtri a triangular solve
+         dict(llt_panel=llt_panel_launches(2 * n), trtri=2) if c64 else none),
+        ("ldlt + solve", ldlt,
+         lambda r: [(rel_norm(ch.ldlt_reconstruct(r[0]), spd), tol, "|LDLᴴ - A|/|A|"),
+                    (_res(spd, r[2], b), tol, "|Ax - b|/(|A||x|)")],
+         ("ldl_factor_ex", lambda: torch.linalg.ldl_factor_ex(spd, hermitian=True)),
+         None if c64 else none),
+        ("lu + solve", lu_,
+         lambda r: [(rel_norm(lu.lu_reconstruct(r[0], r[1]), g), tol, "|P⁻¹LU - A|/|A|"),
+                    (_res(g, r[3], b), tol, "|Ax - b|/(|A||x|)")],
+         ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(g)), none),
+        ("qr + lstsq", qr_,
+         lambda r: [(rel_norm(qr.qr_reconstruct(r[0], r[1], r[2]), g), tol, "|QR - A|/|A|"),
+                    (_res(g, r[3], b), tol, "|Ax - b|/(|A||x|)")],
+         ("geqrf", lambda: torch.geqrf(g)), none),
+        ("col_piv_qr + lstsq", cpqr,
+         lambda r: [(rel_norm(qr.col_piv_qr_reconstruct(r[0], r[1], r[2]), g), tol,
+                     "|QRPᵀ - A|/|A|"), (_res(g, r[3], b), tol, "|Ax - b|/(|A||x|)")],
+         ("geqrf", lambda: torch.geqrf(g)), none),
+        ("self_adjoint_evd", lambda: evd.self_adjoint_evd(herm), chk_evd,
+         ("eigh", lambda: torch.linalg.eigh(herm)), dict(tridiag_sweep=1)),
+        ("svd", lambda: svd.svd(g), chk_svd,
+         ("svd", lambda: torch.linalg.svd(g, full_matrices=False)), dict(bidiag_sweep=1)),
+    ]
+
+
+def _complex_run(key: str, fn, predicted, total: dict, label: str):
+    """One call counted on its own (every counter 0 just before, read just
+    after) and timed once on the host clock (it ends in a synchronize);
+    its launches against ``predicted`` (None: printed only); a CUDA
+    result checked never to leave the card."""
+    from faer_tpu_torch.core.config import (
+        KERNELS, host_reads, launch_counts, reset_launch_counts)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, reads = launch_counts(), host_reads()
+    for k, v in counts.items():
+        total[k] += v
+    got = {k: v for k, v in counts.items() if v}
+    tensors = [t for t in (out if isinstance(out, tuple) else (out,))
+               if isinstance(t, torch.Tensor)]
+    check(all(t.is_cuda for t in tensors), f"{label} {key}: every result on the card")
+    if predicted is not None:
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(predicted)
+        check(counts == want and reads == 0,
+              f"{label} {key}: launches {got or 'none'}, host reads {reads}; predicted "
+              f"{ {k: v for k, v in want.items() if v} or 'none'}, 0 host reads")
+    else:
+        print(f"launches in {label} {key}: {got or 'none'}, host reads {reads}")
+    return out, ms
+
+
+def phase_complex(gen) -> dict:
+    """Complex input through the main paths (ROADMAP item 10a): LLT and
+    LDLT (each with an 8-rhs solve; the c64 ones through the 2n float32
+    embedding, so the ``llt_panel`` kernel, as many launches as an f32
+    ``llt_factor`` of 2n, and ``trtri`` in the solves), the partial-pivot
+    LU, QR and column-pivoted QR of a complex Gaussian with their solves
+    (no kernel), ``self_adjoint_evd((g + gᴴ)/2)`` and ``svd(g)`` (one
+    sweep launch and no host read each), in complex64 at N and complex128
+    at 1024, inputs made on the card; each call counted on its own, timed
+    once on the host clock (so the EVD and SVD by their first call) beside
+    the library call in the same dtype (one warm call, then one timed by
+    CUDA events), and checked: reconstructions, residuals, max|VᴴV − I|
+    and max|UᴴU − I| within 8·max(m, n)·eps of the dtype, the eigen- and
+    singular values against f64 ``eigvalsh``/``svdvals`` of the
+    complex128 matrix. Then the facade (``Mat(a).llt().solve``,
+    ``.partial_piv_lu().solve``, ``.svd()`` at COMPLEX_FACADE_N c64) and
+    ``batched.llt_solve_batched`` on COMPLEX_BATCH c64 problems beside
+    ``cholesky_ex`` + ``cholesky_solve`` on the batch. Returns the
+    phase's launch counts."""
+    from faer_tpu_torch import Mat
+    from faer_tpu_torch.core.config import KERNELS
+    from faer_tpu_torch.linalg import batched
+
+    total = dict.fromkeys(KERNELS, 0)
+    for dt, n in COMPLEX_N:
+        warm = _complex_inputs(COMPLEX_WARM_N, dt, gen)
+        for _, fn, _, lib, _ in _complex_calls(warm):
+            fn()
+            lib[1]()
+    torch.cuda.synchronize()
+    for dt, n in COMPLEX_N:
+        label = f"{'c64' if dt == torch.complex64 else 'c128'} n={n}"
+        x = _complex_inputs(n, dt, gen)
+        for key, fn, chk, lib, predicted in _complex_calls(x):
+            out, ms = _complex_run(key, fn, predicted, total, label)
+            for val, lim, text in chk(out):
+                check(val <= lim, f"{label} {key}: {text} {val:.3e} <= {lim:.3e}")
+            del out
+            lib_ms = cuda_ms(lib[1], 1, warmup=0)  # warmed at COMPLEX_WARM_N
+            print(f"time complex {key} {label}: {ms:.1f} ms (one call, host clock); "
+                  f"library {lib[0]} {lib_ms:.4f} ms", flush=True)
+        del x
+    # the facade at COMPLEX_FACADE_N, complex64
+    n = COMPLEX_FACADE_N
+    x = _complex_inputs(n, torch.complex64, gen)
+    tol = 8 * n * EPS32
+    label = f"facade c64 n={n}"
+    facade = [
+        ("Mat(a).llt().solve", lambda: Mat(x["spd"]).llt().solve(x["b"]),
+         lambda r: [(_res(x["spd"], r, x["b"]), tol, "|Ax - b|/(|A||x|)")],
+         ("cholesky_ex", lambda: torch.linalg.cholesky_ex(x["spd"])),
+         None),  # its check reads info.success on the host once
+        ("Mat(g).partial_piv_lu().solve", lambda: Mat(x["g"]).partial_piv_lu().solve(x["b"]),
+         lambda r: [(_res(x["g"], r, x["b"]), tol, "|Ax - b|/(|A||x|)")],
+         ("lu_factor_ex", lambda: torch.linalg.lu_factor_ex(x["g"])), {}),
+        ("Mat(g).svd()", lambda: Mat(x["g"]).svd(),
+         lambda r: [(rel_norm((r.u * r.s[None, :].to(r.u.dtype)) @ r.v.mH, x["g"]), tol,
+                     "|U diag(s) Vᴴ - A|/|A|"),
+                    ((r.u.mH @ r.u - torch.eye(n, device=DEV)).abs().max().item(), tol,
+                     "max|UᴴU - I|")],
+         ("svd", lambda: torch.linalg.svd(x["g"], full_matrices=False)),
+         dict(bidiag_sweep=1)),
+    ]
+    for key, fn, chk, lib, predicted in facade:
+        out, ms = _complex_run(key, fn, predicted, total, label)
+        for val, lim, text in chk(out):
+            check(val <= lim, f"{label} {key}: {text} {val:.3e} <= {lim:.3e}")
+        print(f"time complex {key} {label}: {ms:.1f} ms (one call, host clock); library "
+              f"{lib[0]} {cuda_ms(lib[1], 1, warmup=0):.4f} ms", flush=True)
+    # batched: B problems of n² through llt_solve_batched
+    nb, n = COMPLEX_BATCH
+    xs = [_complex_inputs(n, torch.complex64, gen) for _ in range(nb)]
+    a_b = torch.stack([v["spd"] for v in xs])
+    b_b = torch.stack([v["b"] for v in xs])
+    label = f"batched c64 {nb} x {n}²"
+    (xb, info), ms = _complex_run("llt_solve_batched", lambda: batched.llt_solve_batched(
+        a_b, b_b), None, total, label)
+    res = max(_res(a_b[k], xb[k], b_b[k]) for k in range(nb))
+    tol = 8 * n * EPS32
+    check(res <= tol and bool(info.success.all()) and tuple(xb.shape) == (nb, n, COMPLEX_RHS),
+          f"{label}: max over the problems of |Ax - b|/(|A||x|) {res:.3e} <= {tol:.3e}, "
+          f"success")
+
+    def lib_batch():
+        lc, _ = torch.linalg.cholesky_ex(a_b)
+        return torch.cholesky_solve(b_b, lc)
+
+    print(f"time complex llt_solve_batched {label}: {ms:.1f} ms (one call, host clock); "
+          f"library cholesky_ex + cholesky_solve on the batch {cuda_ms(lib_batch, 1):.4f} ms",
+          flush=True)
+    return total
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3933,7 +4298,8 @@ def main() -> None:
     gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
     timed("3 wide QZ cases checked", finish_gevd_wide, wide, kern)
     ggevd = timed("15 generalized EVD", phase_generalized_evd, gen, pencil, reference)
-    paths += [lab, llt_lab, chase_lab, dense, gevd, ggevd]
+    cplx = timed("16 complex", phase_complex, gen)
+    paths += [lab, llt_lab, chase_lab, dense, gevd, ggevd, cplx]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {

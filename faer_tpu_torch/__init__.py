@@ -31,7 +31,11 @@ and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
 ``SelfAdjointEigen``, ``Eigen``, ``GeneralizedEigen``, whose products go
 through the GEMM front door (``ops.matmul``) and, with the switch
-``core.config.config.use_tile_matmul`` on, its tile kernel.
+``core.config.config.use_tile_matmul`` on, its tile kernel; and
+``linalg.batched``, ``ops.jacobi``, ``ops.zip``. complex64 and complex128
+run through every factorization, solver object, the self-adjoint EVD and
+the SVD (``core/dtypes.py`` says which route each takes); the complex
+general and generalized EVD are ROADMAP item 10b.
 """
 from faer_tpu_torch.core import dtypes, params, perm
 from faer_tpu_torch.core.config import (

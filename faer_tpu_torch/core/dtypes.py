@@ -1,8 +1,11 @@
 """Dtype policy (counterpart of ``faer_tpu/core/dtypes.py``).
 
-Every real entry point takes ``torch.float32`` and ``torch.float64``
-(:func:`require_real`); complex input raises ``NotImplementedError``
-naming ROADMAP §1 item 10. What the dtype decides:
+The factorizations, their solves, the self-adjoint EVD and the SVD take
+``torch.float32``, ``torch.float64``, ``torch.complex64`` and
+``torch.complex128`` (:func:`require_field`). The general and generalized
+EVD take the real dtypes only (:func:`require_real`): complex input raises
+``NotImplementedError`` naming ROADMAP §1 item 10b (the complex Schur form
+and the complex QZ). What the dtype decides:
 
 * the dense factorizations: float32 goes to the hand-written kernels
   (:func:`kernel_route`), as the JAX package's ``panel_kernels_enabled``
@@ -13,7 +16,19 @@ naming ROADMAP §1 item 10. What the dtype decides:
   EVD): both dtypes run the same drivers, and each QR iteration is one
   launch of a batched kernel instantiated for float32 and for float64
   (``tridiag_qr_batched``, ``bidiag_qr_batched``, ``real_schur_batched``),
-  as the JAX package runs f64 through the same spectral drivers.
+  as the JAX package runs f64 through the same spectral drivers;
+* complex64 LLT and LDLT (and their solves) go through the interleaved
+  real embedding (``linalg/cholesky.py``): a 2n float32 problem on the
+  float32 route, so the ``llt_panel`` (or ``llt_leaf``) and ``trtri``
+  kernels run; complex128 takes the float64 body the same way;
+* every other complex factorization runs the non-kernel bodies natively in
+  complex, as the JAX package keeps complex off its kernels
+  (``faer_tpu/linalg/qr.py:233,253``); the self-adjoint EVD and the SVD of
+  complex input reduce to a real tridiagonal or bidiagonal, whose QR
+  iteration is the same one launch of ``tridiag_qr_batched`` /
+  ``bidiag_qr_batched`` as for the real dtypes.
+
+The dtype picks each route; no route is a fallback for another.
 
 The other helpers stay generic over the real and complex torch dtypes so
 the later slices can reuse them.
@@ -65,11 +80,27 @@ def kernel_route(dtype) -> bool:
     return dtype == torch.float32
 
 
+def abs2(x):
+    """|x|² entrywise, in x's real field (x·x for a real tensor)."""
+    return x.real * x.real + x.imag * x.imag if x.is_complex() else x * x
+
+
 def require_real(a, name: str) -> None:
-    """Raise ``NotImplementedError`` unless ``a`` is float32 or float64."""
+    """Raise ``NotImplementedError`` unless ``a`` is float32 or float64: the
+    entry points whose complex form is the complex Schur form or the
+    complex QZ."""
     if a.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"{name}: float32 and float64 only, got {a.dtype}; complex "
-            "factorizations are ROADMAP §1 item 10")
+            f"{name}: float32 and float64 only, got {a.dtype}; the complex "
+            "Schur form and the complex QZ are ROADMAP §1 item 10b")
+
+
+def require_field(a, name: str) -> None:
+    """Raise ``NotImplementedError`` unless ``a`` is float32, float64,
+    complex64 or complex128."""
+    if a.dtype not in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+        raise NotImplementedError(
+            f"{name}: float32, float64, complex64 and complex128 only, got {a.dtype} "
+            "(the dtypes of ROADMAP §1)")
 
 

@@ -41,7 +41,7 @@ def as_tensor(a, name: str, *, device=None):
             x = x.to(torch.float32)
         else:
             raise TypeError(f"{name}: unsupported dtype {x.dtype}")
-    return x
+    return x.resolve_conj()  # a conjugate view (``Mat.H``) as plain data
 
 
 class Mat:

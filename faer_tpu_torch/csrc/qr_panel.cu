@@ -14,9 +14,15 @@
 // taus[j] = tau_j (kmax of them), with H_j = I - tau_j v v^T. Signs as in
 // the TPU kernels (qr_panel_v5.py:92-108) and LAPACK larfg: beta =
 // -sign(alpha) * norm with sign = +1 for alpha >= 0 (so -0.0 counts as
-// >= 0), norm = sqrt(alpha^2 + sum(tail^2)) unscaled, tau = (beta - alpha)
-// / beta, v = x / (alpha - beta); a zero tail gives tau = 0, beta = alpha
-// and v = e_j. So the last step of a wide panel (j = m - 1, no tail) has
+// >= 0), norm = sqrt(alpha^2 + sum(tail^2)), tau = (beta - alpha) / beta,
+// v = x / (alpha - beta); a zero tail gives tau = 0, beta = alpha and
+// v = e_j. Where alpha^2 + |t|^2 < 2^-103 (tiny / eps: the squares are
+// subnormal and lose bits) the reflector is formed on the column scaled by
+// 2^64, an exact power of two, as LAPACK's slarfg and snrm2 scale (the
+// plain twins and ops/householder.py do the same); above it every bit is
+// as without the scaling. This deliberately differs from the reference,
+// whose unscaled squares (faer_tpu/linalg/qr.py:51-53) XLA flushes to
+// zero: a Gaussian panel of scale 1e-20 reconstructed to 56 n eps. So the last step of a wide panel (j = m - 1, no tail) has
 // tau = 0, and every step still updates all b columns, as the Pallas
 // bodies do.
 //
@@ -154,21 +160,36 @@ __host__ __device__ constexpr long long row_floats(int b) { return row_stride(b)
 // Reflector j from the gathered |t|^2 (sigma) and alpha: the same bits in
 // every thread of every CTA.
 struct Reflector {
-  float beta, tau, sc;  // sc = s = 1 / (alpha - beta)
+  float beta, tau, sc;  // sc = s = 1 / (alpha - beta) (of the scaled column)
+  float pre, wsc;       // v_i = (x_i pre) sc; tau w_c = tau (R[c] + wsc P[c])
   bool is_id;           // a zero tail: tau = 0, beta = alpha, v = e_j
 };
 
-__device__ __forceinline__ Reflector reflector_of(float sigma, float alpha) {
-  const float norm = sqrtf(__fmaf_rn(alpha, alpha, sigma));
+constexpr float kSmallNormSq = 9.86076131526264760e-32f;  // 2^-103 = tiny / eps
+constexpr float kUp = 18446744073709551616.0f;             // 2^64
+constexpr float kDown = 5.42101086242752217e-20f;          // 2^-64
+
+// pre = 1: sigma and P[c] = t^T A[:, c] are unscaled and w = R + s P. pre =
+// 2^64 (the scaled branch): sigma is |t 2^64|^2 and P[c] is v^T A[:, c]
+// itself, so w = R + P.
+__device__ __forceinline__ Reflector reflector_of(float sigma, float alpha, float pre) {
+  const float as = alpha * pre;  // exact
+  const float norm = sqrtf(__fmaf_rn(as, as, sigma));
   const float bt = alpha >= 0.0f ? -norm : norm;
   const bool is_id = sigma == 0.0f;
-  return Reflector{is_id ? alpha : bt, is_id ? 0.0f : (bt - alpha) / bt,
-                   is_id ? 1.0f : 1.0f / (alpha - bt), is_id};
+  const float sc = is_id ? 1.0f : 1.0f / (as - bt);
+  return Reflector{is_id ? alpha : (pre == 1.0f ? bt : bt * kDown),
+                   is_id ? 0.0f : (bt - as) / bt, sc, pre, pre == 1.0f ? sc : 1.0f, is_id};
 }
 
 // tau w_c = tau (R[c] + s P[c]) of a later column.
 __device__ __forceinline__ float tau_w(const Reflector& f, float p, float r) {
-  return __fmul_rn(f.tau, __fmaf_rn(f.sc, p, r));
+  return __fmul_rn(f.tau, __fmaf_rn(f.wsc, p, r));
+}
+
+// v_i of a row below j.
+__device__ __forceinline__ float v_of(const Reflector& f, float x) {
+  return __fmul_rn(__fmul_rn(x, f.pre), f.sc);
 }
 
 // Cluster route, after the barrier of step j: P[c] (c >= j) summed over the
@@ -284,7 +305,53 @@ __global__ void __launch_bounds__(kThreads, 1) qr_panel_kernel(Args p) {
       }
       __syncthreads();
       // 1. the reflector, the same bits in every thread of every CTA
-      f = reflector_of(sP[j], sR[j]);
+      f = reflector_of(sP[j], sR[j], 1.0f);
+      if (__fmaf_rn(sR[j], sR[j], sP[j]) < kSmallNormSq) {
+        // F2, the same branch in every CTA: the column's squares lose bits.
+        // Two more exchanges: |2^64 t|^2 (half 1 - h, slot j; its last
+        // readers passed this step's barrier), then P[c] = v^T A[:, c] for
+        // the later columns (half h, once every CTA has read it above).
+        const int r1 = max(0, j + 1 - r_begin);  // the first local row > j
+        float acc = 0.0f;
+        for (int r = r1 + tid; r < nrows; r += kThreads) {
+          const float x = rows[(size_t)r * ld + j] * kUp;
+          acc = __fmaf_rn(x, x, acc);
+        }
+        for (int o = 16; o > 0; o /= 2) acc += __shfl_down_sync(0xffffffffu, acc, o);
+        __syncthreads();  // sRed is free: step 0's sums were read
+        if (lane == 0) sRed[warp] = acc;
+        __syncthreads();
+        if (tid == 0) {
+          float t = 0.0f;
+          for (int q = 0; q < kWarps; ++q) t += sRed[q];
+          put(share_at(1 - h) + j, t);
+        }
+        if constexpr (kCl) cg::this_cluster().sync(); else cg::this_grid().sync();
+        if (tid == 0) {
+          float t = 0.0f;
+          for (int g = 0; g < G; ++g)
+            t += kCl ? cg::this_cluster().map_shared_rank(pub, g)[(1 - h) * b4 + j]
+                     : __ldcg(p.scratch + ((size_t)(1 - h) * G + g) * b + j);
+          sP[j] = t;
+        }
+        __syncthreads();
+        f = reflector_of(sP[j], sR[j], kUp);
+        for (int c = j + 1 + tid; c < b; c += kThreads) {
+          float pc = 0.0f;
+          for (int r = r1; r < nrows; ++r)
+            pc = __fmaf_rn(v_of(f, rows[(size_t)r * ld + j]), rows[(size_t)r * ld + c], pc);
+          put(share_at(h) + c, pc);
+        }
+        if constexpr (kCl) cg::this_cluster().sync(); else cg::this_grid().sync();
+        for (int c = j + 1 + tid; c < b; c += kThreads) {
+          float t = 0.0f;
+          for (int g = 0; g < G; ++g)
+            t += kCl ? cg::this_cluster().map_shared_rank(pub, g)[h * b4 + c]
+                     : __ldcg(p.scratch + ((size_t)h * G + g) * b + c);
+          sP[c] = t;
+        }
+        __syncthreads();
+      }
       for (int c = j + 1 + tid; c < b; c += kThreads) sTw[c] = tau_w(f, sP[c], sR[c]);
       if (j + 1 < b) tw1 = tau_w(f, sP[j + 1], sR[j + 1]);
       if (tid == 0) sTau[j] = f.tau;
@@ -299,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, 1) qr_panel_kernel(Args p) {
       float* row = rows + (size_t)r * ld;
       float v = 0.0f, xn = 0.0f;
       if (j >= 0) {
-        v = gi == j ? 1.0f : (f.is_id ? 0.0f : __fmul_rn(row[j], f.sc));
+        v = gi == j ? 1.0f : (f.is_id ? 0.0f : v_of(f, row[j]));
         row[j] = gi == j ? f.beta : v;
       }
       if (next && gi > j + 1) xn = __fmaf_rn(-tw1, v, row[j + 1]);

@@ -3,7 +3,11 @@
 The library has no weights: its state is factor objects. These functions
 turn the JAX package's factor outputs and solver objects, as numpy arrays,
 into the port's tensors, info dataclasses and solver objects, and back, so
-that a factor computed by one package can be solved by the other.
+that a factor computed by one package can be solved by the other. Complex
+numpy arrays become complex64 or complex128 tensors and back; the JAX
+package's split (re, im) pairs (its TPU path, ``factor_cpair``) become
+native complex tensors (:func:`complex_from_pair`, and any field of
+:func:`solver_from_numpy` given as an ``(re, im)`` tuple).
 """
 from __future__ import annotations
 
@@ -19,11 +23,30 @@ def _scalar(x, dtype, device):
     return torch.tensor(np.asarray(x)).to(dtype=dtype, device=device)
 
 
+def complex_from_pair(re, im, device="cuda"):
+    """The complex tensor ``re + i·im`` on ``device`` from a JAX (re, im)
+    pair of real arrays (complex64 from float32, complex128 from float64)."""
+    return torch.complex(torch.tensor(np.asarray(re)), torch.tensor(np.asarray(im))).to(device)
+
+
+def complex_to_pair(x):
+    """A complex tensor as the JAX package's ``(re, im)`` numpy pair."""
+    x = x.detach().cpu().resolve_conj()
+    return x.real.numpy(), x.imag.numpy()
+
+
+def _array(value, device):
+    """A numpy array, or an (re, im) pair of them, as a tensor on device."""
+    if isinstance(value, tuple) and len(value) == 2:
+        return complex_from_pair(*value, device=device)
+    return torch.tensor(np.asarray(value)).to(device)
+
+
 def llt_from_numpy(l, count, success, device="cuda"):
     """``(L, LltInfo)`` on ``device`` from the numpy outputs of ``llt_factor``."""
     info = LltInfo(dynamic_regularization_count=_scalar(count, torch.int32, device),
                    success=_scalar(success, torch.bool, device))
-    return torch.tensor(np.asarray(l)).to(device), info
+    return _array(l, device), info
 
 
 def llt_to_numpy(l, info: LltInfo):
@@ -38,7 +61,7 @@ def lu_from_numpy(lu, perm, nt, success, device="cuda"):
     ``lu_in_place``; ``perm`` becomes an int64 index tensor."""
     info = LuInfo(transposition_count=_scalar(nt, torch.int32, device),
                   success=_scalar(success, torch.bool, device))
-    return (torch.tensor(np.asarray(lu)).to(device),
+    return (_array(lu, device),
             torch.tensor(np.asarray(perm).astype(np.int64)).to(device), info)
 
 
@@ -52,8 +75,7 @@ def lu_to_numpy(lu, perm, info: LuInfo):
 def qr_from_numpy(packed, t_stack, block, device="cuda"):
     """``(packed, t_stack, block)`` on ``device`` from the numpy outputs of
     ``qr_in_place``."""
-    return (torch.tensor(np.asarray(packed)).to(device),
-            torch.tensor(np.asarray(t_stack)).to(device), int(block))
+    return _array(packed, device), _array(t_stack, device), int(block)
 
 
 def qr_to_numpy(packed, t_stack, block):
@@ -66,7 +88,7 @@ def tridiag_from_numpy(d, e, hh, taus, device="cuda"):
     """``(d, e, hh, taus)`` on ``device`` from the numpy outputs of
     ``tridiag_in_place``, so either package's reflectors can be applied by
     the port's ``tridiag_apply_q``."""
-    return tuple(torch.tensor(np.asarray(x)).to(device) for x in (d, e, hh, taus))
+    return tuple(_array(x, device) for x in (d, e, hh, taus))
 
 
 def tridiag_to_numpy(d, e, hh, taus):
@@ -94,8 +116,9 @@ def solver_from_numpy(kind: str, *, device="cuda", **fields):
     are) from the fields of the JAX package's solver
     dataclass of the same name, as numpy arrays: ``info`` as a mapping of
     its field names to arrays, ``Qr.block`` as an int, permutations as any
-    integer array. Data goes to ``device`` in its own dtype (float64 stays
-    float64)."""
+    integer array, a complex field as a complex array or an ``(re, im)``
+    pair. Data goes to ``device`` in its own dtype (float64 stays float64,
+    complex128 complex128)."""
     from faer_tpu_torch.linalg.solvers import SOLVERS
 
     cls = SOLVERS[kind]
@@ -106,11 +129,10 @@ def solver_from_numpy(kind: str, *, device="cuda", **fields):
                 k: _scalar(v, _INFO_DTYPES[k], device) for k, v in value.items()})
         elif name == "block":
             out[name] = int(value)
+        elif name in _INDEX_FIELDS:
+            out[name] = torch.tensor(np.asarray(value).astype(np.int64)).to(device)
         else:
-            arr = np.asarray(value)
-            if name in _INDEX_FIELDS:
-                arr = arr.astype(np.int64)
-            out[name] = torch.tensor(arr).to(device)
+            out[name] = _array(value, device)
     return cls(**out)
 
 

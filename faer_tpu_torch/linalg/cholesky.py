@@ -5,8 +5,21 @@ faer ``cholesky_in_place`` (``llt/factor.rs:67``, ``ldlt/factor.rs:725``),
 ``llt_pivoting/factor.rs:199``, ``bunch_kaufman/factor.rs:1161``, the
 updates of ``llt/update.rs:360`` and ``ldlt/update.rs:376``, and the
 solves. Every routine reads the lower triangle (callers mirror through
-``Side``) and takes float32 or float64; the dtype picks the route, as the
-JAX package's ``panel_kernels_enabled`` picks it.
+``Side``) and takes float32, float64, complex64 or complex128 (Hermitian
+input, ``A = L Lᴴ``); the dtype picks the route, as the JAX package's
+``panel_kernels_enabled`` picks it.
+
+Complex LLT and LDLT (and their solves and inverse) go through the
+interleaved real embedding of the JAX package's pair path
+(``faer_tpu/linalg/factor_cpair.py:42-107``): each entry becomes the real
+2×2 block [[re, −im], [im, re]], a *-algebra isomorphism under which the
+factor is unique, so ``chol(embed(C)) = embed(chol(C))`` and
+``ldlt(embed(C)) = embed(ldlt(C))``. A complex64 matrix of side n is a
+2n float32 problem on the kernel route (``llt_panel`` or ``llt_leaf``
+leaves, ``trtri`` in the solves); complex128 runs the float64 body. The
+pivoted LLT, LBLT and the rank updates run natively in complex on their
+non-kernel bodies, as the JAX package's do (pivoting does not commute with
+the embedding).
 
 LLT has three drivers, chosen as the JAX package chooses them
 (``cholesky.py:119-175``):
@@ -62,11 +75,59 @@ _BK_ALPHA = (1.0 + 17.0 ** 0.5) / 8.0  # Bunch–Kaufman's growth bound
 
 
 def _square(a, name: str):
-    """``a`` checked: a real square float32 or float64 matrix."""
+    """``a`` checked: a square float32, float64, complex64 or complex128
+    matrix."""
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ShapeError(f"{name}: needs a square matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, name)
+    dtypes.require_field(a, name)
     return a
+
+
+# ---------------------------------------------------------------------------
+# the interleaved real embedding (faer_tpu/linalg/factor_cpair.py:42-66)
+# ---------------------------------------------------------------------------
+
+def embed_pair(c):
+    """A complex (n, m) matrix → its (2n, 2m) interleaved real embedding,
+    entry (i, j) the block [[re, −im], [im, re]] at rows 2i, 2i+1 and
+    columns 2j, 2j+1."""
+    n, m = c.shape
+    re, im = c.real, c.imag
+    out = re.new_empty((2 * n, 2 * m))
+    out[0::2, 0::2] = re
+    out[1::2, 1::2] = re
+    out[0::2, 1::2] = -im
+    out[1::2, 0::2] = im
+    return out
+
+
+def extract_pair(m2):
+    """The complex matrix of an interleaved embedding (its even rows' even
+    columns and odd rows' even columns)."""
+    return torch.complex(m2[0::2, 0::2], m2[1::2, 0::2])
+
+
+def _extract_factor(m2):
+    """The complex factor (L, or packed L\\D) of an embedded one, its
+    diagonal real: the embedding's (2k+1, 2k) entries are the imaginary
+    parts of a real diagonal, zero up to rounding."""
+    im = m2[1::2, 0::2].clone()
+    im.diagonal().zero_()
+    return torch.complex(m2[0::2, 0::2], im)
+
+
+def embed_rhs(b):
+    """A complex (n,) or (n, k) right-hand side → the interleaved real
+    (2n,) or (2n, k) one."""
+    re, im = b.real, b.imag
+    out = re.new_empty((2 * b.shape[0],) + tuple(b.shape[1:]))
+    out[0::2] = re
+    out[1::2] = im
+    return out
+
+
+def extract_rhs(x2):
+    return torch.complex(x2[0::2], x2[1::2])
 
 
 def _counters(a):
@@ -76,9 +137,10 @@ def _counters(a):
 
 
 def _symmetric_from_lower(a):
-    """The full symmetric matrix of ``a``'s lower triangle, a fresh tensor."""
+    """The full symmetric (Hermitian) matrix of ``a``'s lower triangle, a
+    fresh tensor."""
     lo = torch.tril(a)
-    return lo + torch.tril(lo, -1).mT
+    return lo + torch.tril(lo, -1).mH
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +149,16 @@ def _symmetric_from_lower(a):
 
 def llt_factor(a, *, reg: LltRegularization | None = None,
                params: LltParams | None = None):
-    """Blocked LLT of the lower triangle of ``a``: returns ``(L, LltInfo)``."""
+    """Blocked LLT of the lower triangle of ``a``: returns ``(L, LltInfo)``.
+    Complex input factors its real embedding (``L`` complex, real
+    diagonal; the regularization count is the embedding's halved, rounded
+    up: each complex pivot is two real ones)."""
     _square(a, "llt_factor")
+    if a.is_complex():
+        l2, info = llt_factor(embed_pair(a), reg=reg, params=params)
+        return _extract_factor(l2), LltInfo(
+            dynamic_regularization_count=(info.dynamic_regularization_count + 1) // 2,
+            success=info.success)
     # the kernels read rows with unit stride: a strided input is copied once
     a = a.contiguous()
     params = params or LltParams.auto(a.dtype, a.shape)
@@ -221,7 +291,10 @@ def _llt_factor_v5(a, reg: LltRegularization, block: int):
 
 
 def llt_solve(l, b):
-    """Solve L Lᴴ x = b (faer ``llt/solve.rs:12``)."""
+    """Solve L Lᴴ x = b (faer ``llt/solve.rs:12``); a complex L solves
+    through the real embedding."""
+    if l.is_complex():
+        return extract_rhs(llt_solve(embed_pair(l), embed_rhs(b.to(l.dtype))))
     y = solve_lower_triangular(l, b)
     return solve_lower_triangular_adjoint(l, y)
 
@@ -272,8 +345,14 @@ def ldlt_factor(a, *, reg: LdltRegularization | None = None,
     it (faer ``cholesky_in_place``, ``ldlt/factor.rs:725``;
     ``cholesky.py:289-325``). Per panel: ``_panel_ldlt``, then
     L21 = A21·L11⁻ᵀ·D⁻¹ through one unit-lower solve and a rank-``block``
-    update of the lower trail, in place on a fresh copy."""
+    update of the lower trail, in place on a fresh copy. Complex input
+    factors its real embedding (D real on the diagonal)."""
     _square(a, "ldlt_factor")
+    if a.is_complex():
+        ld2, info = ldlt_factor(embed_pair(a), reg=reg, params=params)
+        return _extract_factor(ld2), LdltInfo(
+            dynamic_regularization_count=(info.dynamic_regularization_count + 1) // 2,
+            success=info.success)
     params = params or LdltParams.auto(a.dtype, a.shape)
     reg = reg or LdltRegularization()
     n = a.shape[0]
@@ -296,7 +375,10 @@ def ldlt_factor(a, *, reg: LdltRegularization | None = None,
 
 
 def ldlt_solve(ld, b):
-    """Solve (L D Lᵀ) x = b from the packed LDLT, for an (n,) or (n, k) b."""
+    """Solve (L D Lᴴ) x = b from the packed LDLT, for an (n,) or (n, k) b;
+    a complex factor solves through the real embedding."""
+    if ld.is_complex():
+        return extract_rhs(ldlt_solve(embed_pair(ld), embed_rhs(b.to(ld.dtype))))
     y = solve_unit_lower_triangular(ld, b)
     d = torch.diagonal(ld)
     y = y / (d if y.dim() == 1 else d[:, None])
@@ -306,7 +388,7 @@ def ldlt_solve(ld, b):
 def ldlt_reconstruct(ld):
     n = ld.shape[0]
     l = torch.tril(ld, -1) + torch.eye(n, dtype=ld.dtype, device=ld.device)
-    return matmul(None, l * torch.diagonal(ld)[None, :], l.mT)
+    return matmul(None, l * torch.diagonal(ld).real[None, :], l.mH)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +397,7 @@ def ldlt_reconstruct(ld):
 
 def piv_llt_factor(a):
     """Diagonal-pivoted LLT: returns ``(L, perm, rank, LltInfo)`` with
-    ``A[perm][:, perm] = L Lᵀ`` (faer ``llt_pivoting/factor.rs:199``,
+    ``A[perm][:, perm] = L Lᴴ`` (faer ``llt_pivoting/factor.rs:199``,
     LAPACK ``pstrf``). A column whose remaining pivot is at most
     ``n·eps·max(diag)`` is zeroed (in the blocked form) and left out of
     ``rank``; ``dynamic_regularization_count`` counts those columns.
@@ -328,7 +410,7 @@ def piv_llt_factor(a):
 
 def _piv_tol(a):
     n = a.shape[0]
-    return n * dtypes.eps(a.dtype) * torch.clamp(torch.diagonal(a), min=0).max()
+    return n * dtypes.eps(a.dtype) * torch.clamp(torch.diagonal(a).real, min=0).max()
 
 
 def _piv_llt_unblocked(a):
@@ -341,25 +423,26 @@ def _piv_llt_unblocked(a):
     rank, _ = _counters(a)
     count = rank.clone()
     one = a.new_ones(())
+    rone = one.real
     for j in range(n):
-        p = torch.argmax(torch.diagonal(a)[j:]) + j
+        p = torch.argmax(torch.diagonal(a)[j:].real) + j
         idx = permod.pair_index(a, j, p)
         rev = idx.flip(0)
         a[idx] = a[rev]
         a[:, idx] = a[:, rev]
         perm[idx] = perm[rev]
-        pj = a[j, j]
+        pj = a[j, j].real
         alive = pj > tol
         rank = rank + alive.to(torch.int32)
         count = count + (~alive).to(torch.int32)
-        piv = torch.sqrt(torch.where(alive, pj, one))
+        piv = torch.sqrt(torch.where(alive, pj, rone)).to(a.dtype)
         # a dead column keeps its entries below (over a pivot of 1) and a 0
         # on the diagonal, as the JAX body leaves them
         col = a[j + 1:, j] / piv
         a[j, j] = torch.where(alive, piv, 0 * one)
         a[j + 1:, j] = col
-        a[j, j + 1:] = col  # the mirror, for later swaps
-        a[j + 1:, j + 1:].sub_(torch.outer(col, col))
+        a[j, j + 1:] = col.conj()  # the mirror, for later swaps
+        a[j + 1:, j + 1:].sub_(torch.outer(col, col.conj()))
     info = LltInfo(dynamic_regularization_count=count, success=count == 0)
     return torch.tril(a), perm, rank, info
 
@@ -377,7 +460,7 @@ def _piv_llt_blocked(a, block: int):
     rank, _ = _counters(a)
     count = rank.clone()
     one = a.new_ones(())
-    diag_v = torch.diagonal(a).clone()
+    diag_v = torch.diagonal(a).real.clone()
     for k0 in range(0, n, block):
         bw = min(block, n - k0)
         v_p = a.new_zeros((n, bw))
@@ -391,26 +474,26 @@ def _piv_llt_blocked(a, block: int):
             v_p[idx] = v_p[rev]
             diag_v[idx] = diag_v[rev]
             perm[idx] = perm[rev]
-            c = a[j:, j] - matmul(None, v_p[j:], v_p[j])
-            pj = c[0]
+            c = a[j:, j] - matmul(None, v_p[j:], v_p[j].conj())
+            pj = c[0].real
             alive = pj > tol
             rank = rank + alive.to(torch.int32)
             count = count + (~alive).to(torch.int32)
-            piv = torch.sqrt(torch.where(alive, pj, one))
+            piv = torch.sqrt(torch.where(alive, pj, one.real)).to(a.dtype)
             lcol = torch.where(alive, torch.cat([piv.reshape(1), c[1:] / piv]), 0 * one)
             a[j:, j] = lcol
             v_p[j:, i] = lcol
-            diag_v[j + 1:] -= lcol[1:] * lcol[1:]
+            diag_v[j + 1:] -= (lcol[1:] * lcol[1:].conj()).real
         end = k0 + bw
         if end < n:
-            a[end:, end:] -= matmul(None, v_p[end:], v_p[end:].mT)
-            diag_v = torch.diagonal(a).clone()
+            a[end:, end:] -= matmul(None, v_p[end:], v_p[end:].mH)
+            diag_v = torch.diagonal(a).real.clone()
     info = LltInfo(dynamic_regularization_count=count, success=count == 0)
     return torch.tril(a), perm, rank, info
 
 
 def piv_llt_solve(l, perm, b):
-    """Solve A x = b from ``A[perm][:, perm] = L Lᵀ`` (full rank)."""
+    """Solve A x = b from ``A[perm][:, perm] = L Lᴴ`` (full rank)."""
     x = llt_solve(l, b.index_select(0, perm))
     return permod.permute_rows_inverse(x, perm)
 
@@ -454,19 +537,19 @@ def _lblt_unblocked(a):
     nt, count = _counters(a)[0], _counters(a)[0]
     k = 0
     while k < n:
-        absakk = a[k, k].abs()
+        absakk = a[k, k].real.abs()
         if k + 1 < n:
             colmag = a[k + 1:, k].abs()
             r = torch.argmax(colmag) + (k + 1)
             colmax = colmag.max()
         else:  # no entry below: the JAX body's argmax over −1s picks row 0
             r = torch.zeros((), dtype=torch.long, device=dev)
-            colmax = a.new_zeros(())
+            colmax = a.new_zeros(()).real
         rows = torch.arange(n, device=dev)
         rowmag = torch.where((rows >= k) & (rows != r), a.index_select(0, r.reshape(1))[0].abs(),
-                             -a.new_ones(()))
+                             -a.new_ones(()).real)
         rowmax = torch.clamp(rowmag.max(), min=0)
-        arr = a[r, r].abs()
+        arr = a[r, r].real.abs()
         zero_piv = torch.maximum(absakk, colmax) == 0
         u11_a = absakk >= _BK_ALPHA * colmax
         u11_b = absakk * rowmax >= _BK_ALPHA * colmax * colmax
@@ -482,24 +565,25 @@ def _lblt_unblocked(a):
             permod.swap_rows_(perm, swap_row, kp)
             nt = nt + 1
         if one or k + 1 >= n:
-            d = a[k, k]
-            safe = torch.where(d == 0, torch.ones_like(d), d)
+            d = a[k, k].real
+            safe = torch.where(d == 0, torch.ones_like(d), d).to(a.dtype)
             col = a[k + 1:, k] / safe
-            a[k + 1:, k + 1:].sub_(torch.outer(col * safe, col))
+            a[k + 1:, k + 1:].sub_(torch.outer(col * safe, col.conj()))
             a[k + 1:, k] = col
-            a[k, k + 1:] = col
+            a[k, k + 1:] = col.conj()
             k += 1
         else:
+            # D = [[d11, conj(d21)], [d21, d22]], Hermitian
             d11, d21, d22 = a[k, k], a[k + 1, k], a[k + 1, k + 1]
-            det = d11 * d22 - d21 * d21
+            det = (d11 * d22 - d21 * d21.conj()).real
             safe_det = torch.where(det == 0, torch.ones_like(det), det)
             w = a[k + 2:, k:k + 2]
-            inv = torch.stack([torch.stack([d22, -d21]),
-                               torch.stack([-d21, d11])]) / safe_det
+            inv = torch.stack([torch.stack([d22.real.to(a.dtype), -d21.conj()]),
+                               torch.stack([-d21, d11.real.to(a.dtype)])]) / safe_det
             lw = matmul(None, w, inv)  # [l1 l2] = W inv(D)
-            a[k + 2:, k + 2:] -= matmul(None, lw, w.mT)
+            a[k + 2:, k + 2:] -= matmul(None, lw, w.mH)
             a[k + 2:, k:k + 2] = lw
-            a[k:k + 2, k + 2:] = lw.mT
+            a[k:k + 2, k + 2:] = lw.mH
             subdiag[k] = d21
             k += 2
         count = count + zero_piv.to(torch.int32)
@@ -536,8 +620,8 @@ def _lblt_blocked(a, bw: int):
         kl = torch.zeros((), dtype=torch.long, device=dev)
 
         def vcols(idx):
-            """(A − V Wᵀ)[:, idx] for a (k,) index tensor: (n, k)."""
-            return a.index_select(1, idx) - matmul(None, v_p, w_p.index_select(0, idx).mT)
+            """(A − V Wᴴ)[:, idx] for a (k,) index tensor: (n, k)."""
+            return a.index_select(1, idx) - matmul(None, v_p, w_p.index_select(0, idx).mH)
 
         # a step can only be active while the column it would start is in
         # range: kl ≥ i after i active steps
@@ -546,14 +630,14 @@ def _lblt_blocked(a, bw: int):
             active = (kl <= bw - 2) & (j < n)
             jc = torch.clamp(j, max=n - 1).reshape(1)
             c = vcols(jc)[:, 0]
-            absakk = c.index_select(0, jc)[0].abs()
-            colmag = torch.where(rows > j, c.abs(), neg1)
+            absakk = c.index_select(0, jc)[0].real.abs()
+            colmag = torch.where(rows > j, c.abs(), neg1.real)
             r = torch.argmax(colmag)
             colmax = torch.clamp(colmag.index_select(0, r.reshape(1))[0], min=0)
             cr = vcols(r.reshape(1))[:, 0]
-            rowmag = torch.where((rows >= j) & (rows != r), cr.abs(), neg1)
+            rowmag = torch.where((rows >= j) & (rows != r), cr.abs(), neg1.real)
             rowmax = torch.clamp(rowmag.max(), min=0)
-            arr = cr.index_select(0, r.reshape(1))[0].abs()
+            arr = cr.index_select(0, r.reshape(1))[0].real.abs()
             zero_piv = torch.maximum(absakk, colmax) == 0
             u11_a = absakk >= _BK_ALPHA * colmax
             u11_b = absakk * rowmax >= _BK_ALPHA * colmax * colmax
@@ -580,20 +664,21 @@ def _lblt_blocked(a, bw: int):
             c12 = vcols(torch.cat([jc, j1]))
             c1, c2 = c12[:, 0], c12[:, 1]
             on, below = rows == j, rows > j
-            d = c1.index_select(0, jc)[0]
-            safe = torch.where(d == 0, torch.ones_like(d), d)
+            d11 = c1.index_select(0, jc)[0]
+            d = d11.real
+            safe = torch.where(d == 0, torch.ones_like(d), d).to(a.dtype)
             l = torch.where(below, c1 / safe, 0 * neg1)
-            packed1 = torch.where(on, d, torch.where(below, l, c1))
+            packed1 = torch.where(on, d.to(a.dtype), torch.where(below, l, c1))
             wm = torch.where(below, c1, 0 * neg1)
-            d11 = d
             d21 = c1.index_select(0, j1)[0]
             d22 = c2.index_select(0, j1)[0]
-            det = d11 * d22 - d21 * d21
+            det = (d11 * d22 - d21 * d21.conj()).real
             safe_det = torch.where(det == 0, torch.ones_like(det), det)
-            inv11, inv22, inv21 = d22 / safe_det, d11 / safe_det, -d21 / safe_det
+            inv11, inv22 = d22.real / safe_det, d11.real / safe_det
+            inv21 = -d21 / safe_det
             below2 = rows > j + 1
             l1 = torch.where(below2, c1 * inv11 + c2 * inv21, 0 * neg1)
-            l2 = torch.where(below2, c1 * inv21 + c2 * inv22, 0 * neg1)
+            l2 = torch.where(below2, c1 * inv21.conj() + c2 * inv22, 0 * neg1)
             p1 = torch.where(on, d11, torch.where(rows == j + 1, d21,
                                                   torch.where(below2, l1, c1)))
             p2 = torch.where(rows == j + 1, d22, torch.where(below2, l2, c2))
@@ -616,18 +701,19 @@ def _lblt_blocked(a, bw: int):
             kl = kl + torch.where(active, torch.where(one, 1, 2), 0)
         end = kg + host_read(kl)
         if end < n:
-            a[end:, end:] -= matmul(None, v_p[end:], w_p[end:].mT)
+            a[end:, end:] -= matmul(None, v_p[end:], w_p[end:].mH)
         kg = end
     info = LbltInfo(dynamic_regularization_count=count, transposition_count=nt)
     return torch.tril(a), subdiag, perm, info
 
 
 def _solve_block_diag(diag, subdiag, b):
-    """Solve B x = b for the symmetric block diagonal B of 1×1 and 2×2
+    """Solve B x = b for the Hermitian block diagonal B of 1×1 and 2×2
     blocks (``cholesky.py:773-805``): ``subdiag[k] ≠ 0`` starts a 2×2
     block at (k, k+1). Vectorized with shifted copies and masks."""
     vec = b.dim() == 1
     b = b[:, None] if vec else b
+    diag = diag.real.to(b.dtype)
     is2 = subdiag != 0
     is2_second = torch.cat([is2.new_zeros(1), is2[:-1]])
     d, e = diag, subdiag
@@ -638,11 +724,11 @@ def _solve_block_diag(diag, subdiag, b):
     zrow = b.new_zeros((1, b.shape[1]))
     b_next = torch.cat([b[1:], zrow])
     b_prev = torch.cat([zrow, b[:-1]])
-    det = torch.where(is2, d * d_next - e * e, torch.ones_like(d))
+    det = torch.where(is2, d * d_next - e * e.conj(), torch.ones_like(d))
     det_prev = torch.cat([one, det[:-1]])
     safe_d = torch.where(d == 0, torch.ones_like(d), d)
     x_1x1 = b / safe_d[:, None]
-    x_first = (d_next[:, None] * b - e[:, None] * b_next) / det[:, None]
+    x_first = (d_next[:, None] * b - e.conj()[:, None] * b_next) / det[:, None]
     x_second = (d_prev[:, None] * b - e_prev[:, None] * b_prev) / det_prev[:, None]
     x = torch.where(is2[:, None], x_first,
                     torch.where(is2_second[:, None], x_second, x_1x1))
@@ -664,7 +750,7 @@ def lblt_solve(lb, subdiag, perm, b):
     lb = _lblt_strip_l(lb, subdiag)
     y = solve_unit_lower_triangular(lb, b.index_select(0, perm))
     z = _solve_block_diag(torch.diagonal(lb), subdiag, y)
-    w = solve_upper_triangular(lb.mT, z, unit=True)
+    w = solve_upper_triangular(lb.mH, z, unit=True)
     return permod.permute_rows_inverse(w, perm)
 
 
@@ -672,11 +758,11 @@ def lblt_reconstruct(lb, subdiag, perm):
     n = lb.shape[0]
     l = torch.tril(_lblt_strip_l(lb, subdiag), -1) + torch.eye(
         n, dtype=lb.dtype, device=lb.device)
-    bmat = torch.diag(torch.diagonal(lb))
+    bmat = torch.diag(torch.diagonal(lb).real.to(lb.dtype))
     if n > 1:
         off = torch.diag(subdiag[:-1], -1)
-        bmat = bmat + off + off.mT
-    a = matmul(None, matmul(None, l, bmat), l.mT)
+        bmat = bmat + off + off.mH
+    a = matmul(None, matmul(None, l, bmat), l.mH)
     iperm = permod.invert_perm(perm)
     return a.index_select(0, iperm).index_select(1, iperm)
 
@@ -706,7 +792,7 @@ def _wavefronts(n: int, r: int, device):
 
 
 def llt_rank_r_update(l, w, alpha: float):
-    """The LLT factor of ``L Lᵀ + α W Wᵀ`` (faer ``rank_r_update_clobber``,
+    """The LLT factor of ``L Lᴴ + α W Wᴴ`` (faer ``rank_r_update_clobber``,
     ``llt/update.rs:360``; ``cholesky.py:847-903``): one rank-1 update a
     column of ``W`` (n,) or (n, r), in order.
 
@@ -726,35 +812,36 @@ def llt_rank_r_update(l, w, alpha: float):
     for ks, js in _wavefronts(n, v.shape[0], l.device):
         col, vec = lt.index_select(0, js), v.index_select(0, ks)
         jj = js[:, None]
-        a_, b_ = col.gather(1, jj), vec.gather(1, jj)
+        # L's diagonal is real: c (and γ) real, s (and t) of w's field
+        a_, b_ = col.gather(1, jj).real, vec.gather(1, jj)
         below = cols[None, :] > jj
         if alpha >= 0:
-            r = torch.sqrt(a_ * a_ + b_ * b_)
+            r = torch.sqrt(a_ * a_ + (b_ * b_.conj()).real)
             safe_r = torch.where(r == 0, torch.ones_like(r), r)
             c, s = a_ / safe_r, b_ / safe_r
-            new_col = torch.where(below, c * col + s * vec, col)
+            new_col = torch.where(below, c * col + s.conj() * vec, col)
             new_vec = torch.where(below, c * vec - s * col, vec)
-            new_col.scatter_(1, jj, r)
+            new_col.scatter_(1, jj, r.to(l.dtype))
         else:
             safe_a = torch.where(a_ == 0, torch.ones_like(a_), a_)
             t = b_ / safe_a
-            one_m = torch.clamp(1.0 - t * t, min=floor)
+            one_m = torch.clamp(1.0 - (t * t.conj()).real, min=floor)
             gamma = 1.0 / torch.sqrt(one_m)
-            new_col = torch.where(below, gamma * (col - t * vec), col)
+            new_col = torch.where(below, gamma * (col - t.conj() * vec), col)
             new_vec = torch.where(below, gamma * (vec - t * col), vec)
-            new_col.scatter_(1, jj, a_ * torch.sqrt(one_m))
+            new_col.scatter_(1, jj, (a_ * torch.sqrt(one_m)).to(l.dtype))
         lt.index_copy_(0, js, new_col)
         v.index_copy_(0, ks, new_vec)
     return lt.mT.contiguous()
 
 
 def llt_rank_1_update(l, w, alpha: float):
-    """The LLT factor of ``L Lᵀ + α w wᵀ`` for an (n,) ``w``."""
+    """The LLT factor of ``L Lᴴ + α w wᴴ`` for an (n,) ``w``."""
     return llt_rank_r_update(l, w, alpha)
 
 
 def ldlt_rank_r_update(ld, w, alpha: float):
-    """The packed LDLT factor of ``L D Lᵀ + α W Wᵀ`` (faer
+    """The packed LDLT factor of ``L D Lᴴ + α W Wᴴ`` (faer
     ``ldlt/update.rs:376``; ``cholesky.py:906-945``): one rank-1 update a
     column of ``W``, in order, each Gill–Golub–Murray–Saunders algorithm
     C1, a forward pass carrying its running multiplier (from ``alpha``, a
@@ -763,19 +850,21 @@ def ldlt_rank_r_update(ld, w, alpha: float):
     n = ld.shape[0]
     ldt = torch.tril(ld).mT.contiguous()  # row j: column j, D_j on the diagonal
     v = _column(w, ld.dtype).mT.contiguous()  # (r, n)
-    mult = torch.full((v.shape[0], 1), float(alpha), dtype=ld.dtype, device=ld.device)
+    # the running multipliers and D are real in every field
+    mult = torch.full((v.shape[0], 1), float(alpha), dtype=dtypes.real_dtype_of(ld.dtype),
+                      device=ld.device)
     cols = torch.arange(n, device=ld.device)
     for ks, js in _wavefronts(n, v.shape[0], ld.device):
         col, vec, a = ldt.index_select(0, js), v.index_select(0, ks), mult.index_select(0, ks)
         jj = js[:, None]
-        p, dj = vec.gather(1, jj), col.gather(1, jj)
-        dj_new = dj + a * p * p
+        p, dj = vec.gather(1, jj), col.gather(1, jj).real
+        dj_new = dj + (a * p * p.conj()).real
         safe = torch.where(dj_new == 0, torch.ones_like(dj_new), dj_new)
-        beta = a * p / safe
+        beta = a * p.conj() / safe
         below = cols[None, :] > jj
         new_vec = torch.where(below, vec - p * col, vec)
         new_col = torch.where(below, col + beta * new_vec, col)
-        new_col.scatter_(1, jj, dj_new)
+        new_col.scatter_(1, jj, dj_new.to(ld.dtype))
         ldt.index_copy_(0, js, new_col)
         v.index_copy_(0, ks, new_vec)
         mult.index_copy_(0, ks, a * dj / safe)
@@ -783,5 +872,5 @@ def ldlt_rank_r_update(ld, w, alpha: float):
 
 
 def ldlt_rank_1_update(ld, w, alpha: float):
-    """The packed LDLT factor of ``L D Lᵀ + α w wᵀ`` for an (n,) ``w``."""
+    """The packed LDLT factor of ``L D Lᴴ + α w wᴴ`` for an (n,) ``w``."""
     return ldlt_rank_r_update(ld, w, alpha)

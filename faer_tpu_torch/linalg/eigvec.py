@@ -9,7 +9,7 @@ with the whole batch of eigenvectors, in real arithmetic with (re, im)
 pairs. The pencil form,
 :func:`quasi_triangular_generalized_eigenvectors_pair`, solves the
 homogeneous (β S − α T) y = 0 the same way. ``triangular_eigenvectors``
-(complex Schur) waits for ROADMAP §1 item 10.
+(complex Schur) waits for ROADMAP §1 item 10b.
 """
 from __future__ import annotations
 

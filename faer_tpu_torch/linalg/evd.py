@@ -16,8 +16,12 @@
   ``evd`` and ``eigenvalues`` combine them into native complex tensors
   (``torch.complex``), on the input's device.
 
-float32 and float64. Complex input raises ``NotImplementedError`` naming
-ROADMAP §1 item 10, which holds ``complex_schur`` and the complex
+The self-adjoint EVD takes float32, float64, complex64 and complex128:
+Hermitian input reduces to a real tridiagonal (real d, e), whose QR
+iteration is the same one batched launch as for the real dtypes, and the
+back-transform is complex (``A = V diag(w) Vᴴ``, w real). The general EVD
+takes float32 and float64; complex input raises ``NotImplementedError``
+naming ROADMAP §1 item 10b, which holds ``complex_schur`` and the complex
 branches.
 """
 from __future__ import annotations
@@ -41,16 +45,17 @@ from faer_tpu_torch.ops.matmul import matmul
 def _full_from_lower(a, name: str):
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ShapeError(f"{name}: needs a square matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, name)
+    dtypes.require_field(a, name)
     if a.is_cuda:
         check_f32_policy()
-    return torch.tril(a) + torch.tril(a, -1).T
+    return torch.tril(a) + torch.tril(a, -1).mH
 
 
 def self_adjoint_evd(a):
     """Full self-adjoint EVD of the lower triangle of ``a``.
 
-    Returns ``(w, v, info)`` with ``A = V diag(w) Vᵀ``, w ascending.
+    Returns ``(w, v, info)`` with ``A = V diag(w) Vᴴ``, w real ascending,
+    V of a's dtype.
     """
     full = _full_from_lower(a, "self_adjoint_evd")
     d, e, hh, taus = tridiag_in_place(full)
@@ -61,7 +66,7 @@ def self_adjoint_evd(a):
 def self_adjoint_eigenvalues(a, side: Side = Side.LOWER):
     """Eigenvalues (ascending) of the self-adjoint matrix stored in the
     ``side`` triangle of ``a``."""
-    full = _full_from_lower(a if side is Side.LOWER else a.T,
+    full = _full_from_lower(a if side is Side.LOWER else a.mH,
                             "self_adjoint_eigenvalues")
     d, e, _, _ = tridiag_in_place(full)
     w, _, _ = tridiag_evd(d, e, want_vectors=False)
@@ -78,7 +83,7 @@ def self_adjoint_pseudoinverse(a, tol=None):
         tol = aw.max() * a.shape[0] * dtypes.eps(a.dtype)
     winv = torch.where(aw > tol, 1.0 / torch.where(w == 0, torch.ones_like(w), w),
                        torch.zeros_like(w))
-    return matmul(None, v * winv[None, :], v.T)
+    return matmul(None, v * winv[None, :], v.mH)
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +261,12 @@ def evd(a, *, max_sweeps_factor: int = 30):
     """General eigendecomposition: ``(w, v, info)`` with A v_k = w_k v_k,
     w and v complex (complex64 from float32, complex128 from float64).
     faer ``evd_real`` (``evd/mod.rs:1213``); complex input (``evd_cplx``,
-    ``complex_schur``) is ROADMAP §1 item 10."""
+    ``complex_schur``) is ROADMAP §1 item 10b."""
     (wr, wi), (vr, vi), info = evd_pair(a, max_sweeps_factor=max_sweeps_factor)
     return _combine_pair(wr, wi), _combine_pair(vr, vi), info
 
 
 def eigenvalues(a, *, max_sweeps_factor: int = 30):
     """Eigenvalues of a real matrix as a complex tensor (conjugate pairs
-    adjacent); complex input is ROADMAP §1 item 10."""
+    adjacent); complex input is ROADMAP §1 item 10b."""
     return _combine_pair(*eigenvalues_pair(a, max_sweeps_factor=max_sweeps_factor))

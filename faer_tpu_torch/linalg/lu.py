@@ -29,6 +29,12 @@ Full pivoting (``full_piv_lu_in_place``, ``lu.py:381-491``) runs blocks of
 256 steps, each a global argmax, a row and a column swap and a rank-1
 update of the live trail, over a trail that shrinks a block at a time.
 Permutations are int64 index tensors: ``A[perm] = L·U``.
+
+complex64 and complex128 take the float64 route's non-kernel bodies
+natively (the recursive driver over ``_panel_lu`` leaves, the pivot the
+largest modulus, as in the reference), as the JAX package keeps complex
+off its kernels; they launch no kernel. ``lu_solve_transpose`` solves
+with Aᵀ (no conjugation), as the reference's does.
 """
 from __future__ import annotations
 
@@ -304,7 +310,7 @@ def lu_in_place(a, params: PartialPivLuParams | None = None):
     """
     if a.dim() != 2:
         raise ShapeError(f"lu_in_place: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, "lu_in_place")
+    dtypes.require_field(a, "lu_in_place")
     # the kernels read rows with unit stride: a strided input is copied once
     a = a.contiguous()
     params = params or PartialPivLuParams.auto(a.dtype, a.shape)
@@ -368,7 +374,7 @@ def full_piv_lu_in_place(a, params: FullPivLuParams | None = None):
     del params
     if a.dim() != 2:
         raise ShapeError(f"full_piv_lu_in_place: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, "full_piv_lu_in_place")
+    dtypes.require_field(a, "full_piv_lu_in_place")
     m, n = a.shape
     kmax = min(m, n)
     block = 256 if kmax > 256 else kmax

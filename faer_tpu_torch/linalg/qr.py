@@ -21,6 +21,11 @@ out: the CholeskyQR2 panel (``_panel_qr_cholqr``, gated off at
 The column-pivoted QR (``col_piv_qr_in_place``, ``qr.py:386-500``) has no
 kernel in either package: LAPACK ``geqp3`` panels of 64 columns, the pivot
 by ``torch.argmax`` of the downdated column norms on the card.
+
+complex64 and complex128 run natively on the non-kernel leaves of 32
+columns, as the JAX package keeps complex off its kernels
+(``qr.py:233,253``): complex reflectors with real β and complex τ,
+``A = Q R`` with ``Qᴴ A = R``, every adjoint conjugating.
 """
 from __future__ import annotations
 
@@ -59,11 +64,12 @@ def _qr_block(kmax: int, params: QrParams) -> int:
 def _masked_householder_col(a, taus, j: int):
     """One reflector step on the panel ``a`` in place (``qr.py:39-78``):
     H_j from rows ≥ j of column j, (β, v tail) stored back into the column,
-    H_jᵀ applied to the columns past j (rows ≥ j, where v lives)."""
+    H_jᴴ = I − τ̄ v vᴴ applied to the columns past j (rows ≥ j, where v
+    lives)."""
     vj, tau, beta = make_householder(a[j:, j])
     taus[j] = tau
-    w = matmul(None, vj[None, :], a[j:, j + 1:])[0]  # vᵀ A
-    a[j:, j + 1:] -= tau * vj[:, None] * w[None, :]
+    w = matmul(None, vj.conj()[None, :], a[j:, j + 1:])[0]  # vᴴ A
+    a[j:, j + 1:] -= tau.conj() * vj[:, None] * w[None, :]
     a[j + 1:, j] = vj[1:]
     a[j, j] = beta
 
@@ -137,7 +143,7 @@ def qr_in_place(a, params: QrParams | None = None):
     """
     if a.dim() != 2:
         raise ShapeError(f"qr_in_place: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, "qr_in_place")
+    dtypes.require_field(a, "qr_in_place")
     # the kernels read rows with unit stride: a strided input is copied once
     a = a.contiguous()
     params = params or QrParams.auto(a.dtype, a.shape)
@@ -160,7 +166,7 @@ def qr_compute_q(packed, t_stack, block: int, *, thin: bool = True):
 
 
 def qr_apply_q(packed, t_stack, block: int, b, *, adjoint: bool):
-    """``Q b`` or ``Qᵀ b``."""
+    """``Q b`` or ``Qᴴ b``."""
     return apply_sequence_on_left(packed, t_stack, b, adjoint=adjoint, block=block)
 
 
@@ -174,7 +180,7 @@ def qr_reconstruct(packed, t_stack, block: int):
 
 
 def qr_solve_lstsq(packed, t_stack, block: int, b):
-    """Least-squares solve through Qᵀ b and the R triangle (faer
+    """Least-squares solve through Qᴴ b and the R triangle (faer
     ``solvers.rs:639``); m ≥ n."""
     n = packed.shape[1]
     qtb = apply_sequence_on_left(packed, t_stack, b, adjoint=True, block=block)
@@ -187,7 +193,7 @@ def qr_solve(packed, t_stack, block: int, b):
 
 
 def qr_inverse(packed, t_stack, block: int):
-    """A⁻¹ = R⁻¹ Qᵀ of a square factor."""
+    """A⁻¹ = R⁻¹ Qᴴ of a square factor."""
     n = packed.shape[1]
     eye = torch.eye(n, dtype=packed.dtype, device=packed.device)
     qt = apply_sequence_on_left(packed, t_stack, eye, adjoint=True, block=block)
@@ -211,7 +217,7 @@ def col_piv_qr_in_place(a, params: ColPivQrParams | None = None):
     del params
     if a.dim() != 2:
         raise ShapeError(f"col_piv_qr_in_place: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, "col_piv_qr_in_place")
+    dtypes.require_field(a, "col_piv_qr_in_place")
     m, n = a.shape
     if min(m, n) <= 64 or n <= 64:
         return _col_piv_qr_unblocked(a)
@@ -227,7 +233,7 @@ def _col_piv_qr_unblocked(a):
     taus = a.new_zeros((kmax,))
     perm = torch.arange(n, dtype=torch.long, device=a.device)
     for j in range(kmax):
-        sq = (a[j:, j:] * a[j:, j:]).sum(0)
+        sq = dtypes.abs2(a[j:, j:]).sum(0)
         p = torch.argmax(sq) + j
         idx = permod.pair_index(a, j, p)
         rev = idx.flip(0)
@@ -250,7 +256,7 @@ def _col_piv_qr_blocked(a, block: int):
     a = a.clone(memory_format=torch.contiguous_format)
     taus = a.new_zeros((kmax,))
     perm = torch.arange(n, dtype=torch.long, device=dev)
-    norms = (a * a).sum(0)
+    norms = dtypes.abs2(a).sum(0)
     for k0 in range(0, kmax, block):
         bw = min(block, kmax - k0)
         v_p = a.new_zeros((m, bw))
@@ -264,23 +270,24 @@ def _col_piv_qr_blocked(a, block: int):
             f_p[idx] = f_p[rev]
             norms[idx] = norms[rev]
             perm[idx] = perm[rev]
-            c = a[:, j] - matmul(None, v_p, f_p[j])
+            c = a[:, j] - matmul(None, v_p, f_p[j].conj())
             vj, tau, beta = make_householder(c[j:])
             c[j] = beta
             c[j + 1:] = vj[1:]
             a[:, j] = c
             taus[j] = tau
-            wrow = (matmul(None, vj[None, :], a[j:, j:])[0]
-                    - matmul(None, matmul(None, vj[None, :], v_p[j:]), f_p[j:].mT)[0])
+            vh = vj.conj()[None, :]
+            wrow = (matmul(None, vh, a[j:, j:])[0]
+                    - matmul(None, matmul(None, vh, v_p[j:]), f_p[j:].mH)[0])
             v_p[j:, i] = vj
-            f_p[j:, i] = tau * wrow
-            arow = a[j, j + 1:] - matmul(None, v_p[j], f_p[j + 1:].mT)
-            norms[j + 1:] = torch.clamp(norms[j + 1:] - arow * arow, min=0)
+            f_p[j:, i] = tau * wrow.conj()  # F[:, i] = wᴴ with w = τ̄ vᴴ A_virt
+            arow = a[j, j + 1:] - matmul(None, v_p[j], f_p[j + 1:].mH)
+            norms[j + 1:] = torch.clamp(norms[j + 1:] - dtypes.abs2(arow), min=0)
         end = k0 + bw
         if end < n:
-            a[k0:, end:] -= matmul(None, v_p[k0:], f_p[end:].mT)
+            a[k0:, end:] -= matmul(None, v_p[k0:], f_p[end:].mH)
             # exact trailing norms: the downdate's drift stays within a panel
-            norms[end:] = (a[end:, end:] * a[end:, end:]).sum(0)
+            norms[end:] = dtypes.abs2(a[end:, end:]).sum(0)
     return a, taus, perm
 
 

@@ -8,11 +8,15 @@ info) with the JAX dataclass's field names, so that ``interop`` can carry
 one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
 ``SelfAdjointEigen``, ``Eigen`` (the general real EVD) and
-``GeneralizedEigen`` (the real pencil's EVD by QZ), in float32 and float64.
-Complex input raises ``NotImplementedError`` naming item 10: the JAX
-package's split (re, im) pair path is not ported, and native complex
-factorizations (the complex Schur form and the complex QZ among them) are
-that item.
+``GeneralizedEigen`` (the real pencil's EVD by QZ). Every object but the
+last two takes float32, float64, complex64 and complex128, as the JAX
+package's native path does (the JAX package's split (re, im) pair path is
+not ported: ``interop`` turns its pairs into complex tensors); a complex
+determinant is complex, L's and D's diagonals real. ``Eigen`` and
+``GeneralizedEigen`` of complex input raise ``NotImplementedError`` naming
+ROADMAP §1 item 10b (the complex Schur form and the complex QZ). A real
+factor solves a complex right-hand side as its real and imaginary parts;
+a complex factor promotes a real one.
 """
 from __future__ import annotations
 
@@ -42,13 +46,8 @@ from faer_tpu_torch.ops.matmul import matmul
 
 def _matrix(a, name: str, device=None):
     """The tensor of a ``Mat``, tensor or array-like (on ``device`` when
-    given); complex raises."""
-    x = as_tensor(a.a if isinstance(a, Mat) else a, name, device=device)
-    if x.is_complex():
-        raise NotImplementedError(
-            f"{name}: complex input is not ported to faer_tpu_torch yet "
-            "(ROADMAP §1 item 10)")
-    return x
+    given)."""
+    return as_tensor(a.a if isinstance(a, Mat) else a, name, device=device)
 
 
 def _operand(rhs, like):
@@ -57,11 +56,23 @@ def _operand(rhs, like):
     return as_tensor(x, "rhs", device=like.device)
 
 
+def _solve(fn, like, rhs):
+    """``fn(b)`` for the right-hand side ``rhs`` against the factor
+    ``like``: a complex factor takes b in its dtype; a real factor solves a
+    complex b as its real and imaginary parts."""
+    b = _operand(rhs, like)
+    if like.is_complex():
+        return fn(b.to(like.dtype))
+    if b.is_complex():
+        return torch.complex(fn(b.real), fn(b.imag))
+    return fn(b)
+
+
 def _lower_of(a, side: Side, name: str):
     a = _matrix(a, name)
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ShapeError(f"{name}: expected a square matrix, got {tuple(a.shape)}")
-    return a if side is Side.LOWER else a.mT
+    return a if side is Side.LOWER else a.mH.resolve_conj()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,11 +92,13 @@ class Llt:
         return Llt(l=l, info=info)
 
     def solve(self, rhs):
-        return _ch.llt_solve(self.l, _operand(rhs, self.l))
+        return _solve(lambda b: _ch.llt_solve(self.l, b), self.l, rhs)
 
     def solve_conjugate(self, rhs):
-        """Solve with conj(A): the plain solve for the port's real dtypes."""
-        return self.solve(rhs)
+        """Solve with conj(A): conj(solve(conj(L), conj(b)))."""
+        lc = self.l.conj().resolve_conj()
+        return _solve(lambda b: _ch.llt_solve(lc, b.conj()).conj().resolve_conj(),
+                      self.l, rhs)
 
     def inverse(self):
         return _ch.llt_inverse(self.l)
@@ -94,14 +107,15 @@ class Llt:
         return _ch.llt_reconstruct(self.l)
 
     def determinant(self):
-        d = torch.diagonal(self.l).prod()
-        return d * d
+        """det(A) = ∏ L_ii², real, in the factor's dtype."""
+        d = torch.diagonal(self.l).real.prod()
+        return (d * d).to(self.l.dtype)
 
     def logdet(self):
-        return 2.0 * torch.log(torch.diagonal(self.l)).sum()
+        return 2.0 * torch.log(torch.diagonal(self.l).real).sum()
 
     def rank_update(self, w, alpha) -> "Llt":
-        """The factor of ``L Lᵀ + α w wᵀ`` for an (n,) or (n, r) ``w``;
+        """The factor of ``L Lᴴ + α w wᴴ`` for an (n,) or (n, r) ``w``;
         ``alpha`` a Python float, negative for a downdate."""
         return Llt(l=_ch.llt_rank_r_update(self.l, _operand(w, self.l), alpha),
                    info=self.info)
@@ -125,7 +139,7 @@ class Ldlt:
         return Ldlt(ld=ld, info=info)
 
     def solve(self, rhs):
-        return _ch.ldlt_solve(self.ld, _operand(rhs, self.ld))
+        return _solve(lambda b: _ch.ldlt_solve(self.ld, b), self.ld, rhs)
 
     def inverse(self):
         n = self.ld.shape[0]
@@ -136,22 +150,22 @@ class Ldlt:
         return _ch.ldlt_reconstruct(self.ld)
 
     def determinant(self):
-        return torch.diagonal(self.ld).prod()
+        return torch.diagonal(self.ld).real.prod().to(self.ld.dtype)
 
     def rank_update(self, w, alpha) -> "Ldlt":
-        """L D Lᵀ + α w wᵀ (faer ``ldlt/update.rs:376``)."""
+        """L D Lᴴ + α w wᴴ (faer ``ldlt/update.rs:376``)."""
         return Ldlt(ld=_ch.ldlt_rank_r_update(self.ld, _operand(w, self.ld), alpha),
                     info=self.info)
 
     @property
     def D(self):
-        return torch.diagonal(self.ld)
+        return torch.diagonal(self.ld).real
 
 
 @dataclasses.dataclass(frozen=True)
 class PivLlt:
     """Diagonal-pivoted LLT (rank-revealing, PSD): ``A[perm][:, perm] =
-    L Lᵀ``, the columns of L past ``rank`` zero."""
+    L Lᴴ``, the columns of L past ``rank`` zero."""
 
     l: torch.Tensor
     perm: torch.Tensor
@@ -164,7 +178,7 @@ class PivLlt:
         return PivLlt(l=l, perm=perm, rank=rank, info=info)
 
     def solve(self, rhs):
-        return _ch.piv_llt_solve(self.l, self.perm, _operand(rhs, self.l))
+        return _solve(lambda b: _ch.piv_llt_solve(self.l, self.perm, b), self.l, rhs)
 
     def reconstruct(self):
         return _ch.piv_llt_reconstruct(self.l, self.perm)
@@ -173,7 +187,7 @@ class PivLlt:
 @dataclasses.dataclass(frozen=True)
 class Lblt:
     """Bunch–Kaufman LBLT (faer ``solvers.rs:705``): ``A[perm][:, perm] =
-    L B Lᵀ``, B block diagonal with 1×1 and 2×2 blocks."""
+    L B Lᴴ``, B block diagonal with 1×1 and 2×2 blocks."""
 
     lb: torch.Tensor
     subdiag: torch.Tensor
@@ -186,7 +200,8 @@ class Lblt:
         return Lblt(lb=lb, subdiag=subdiag, perm=perm, info=info)
 
     def solve(self, rhs):
-        return _ch.lblt_solve(self.lb, self.subdiag, self.perm, _operand(rhs, self.lb))
+        return _solve(lambda b: _ch.lblt_solve(self.lb, self.subdiag, self.perm, b),
+                      self.lb, rhs)
 
     def reconstruct(self):
         return _ch.lblt_reconstruct(self.lb, self.subdiag, self.perm)
@@ -209,10 +224,12 @@ class PartialPivLu:
         return PartialPivLu(lu=lu, row_perm=perm, info=info)
 
     def solve(self, rhs):
-        return _lu.lu_solve(self.lu, self.row_perm, _operand(rhs, self.lu))
+        return _solve(lambda b: _lu.lu_solve(self.lu, self.row_perm, b), self.lu, rhs)
 
     def solve_transpose(self, rhs):
-        return _lu.lu_solve_transpose(self.lu, self.row_perm, _operand(rhs, self.lu))
+        """Solve Aᵀ x = b (no conjugation, as the reference's)."""
+        return _solve(lambda b: _lu.lu_solve_transpose(self.lu, self.row_perm, b),
+                      self.lu, rhs)
 
     def inverse(self):
         return _lu.lu_inverse(self.lu, self.row_perm)
@@ -250,8 +267,8 @@ class FullPivLu:
         return FullPivLu(lu=lu, row_perm=rp, col_perm=cp, info=info)
 
     def solve(self, rhs):
-        return _lu.full_piv_lu_solve(self.lu, self.row_perm, self.col_perm,
-                                     _operand(rhs, self.lu))
+        return _solve(lambda b: _lu.full_piv_lu_solve(self.lu, self.row_perm,
+                                                      self.col_perm, b), self.lu, rhs)
 
     def reconstruct(self):
         return _lu.full_piv_lu_reconstruct(self.lu, self.row_perm, self.col_perm)
@@ -282,12 +299,12 @@ class Qr:
     def solve(self, rhs):
         if self.packed.shape[0] != self.packed.shape[1]:
             raise ShapeError("Qr.solve requires a square matrix; use solve_lstsq")
-        return _qr.qr_solve(self.packed, self.t_stack, self.block,
-                            _operand(rhs, self.packed))
+        return _solve(lambda b: _qr.qr_solve(self.packed, self.t_stack, self.block, b),
+                      self.packed, rhs)
 
     def solve_lstsq(self, rhs):
-        return _qr.qr_solve_lstsq(self.packed, self.t_stack, self.block,
-                                  _operand(rhs, self.packed))
+        return _solve(lambda b: _qr.qr_solve_lstsq(self.packed, self.t_stack,
+                                                   self.block, b), self.packed, rhs)
 
     def inverse(self):
         return _qr.qr_inverse(self.packed, self.t_stack, self.block)
@@ -299,8 +316,8 @@ class Qr:
         return _qr.qr_compute_q(self.packed, self.t_stack, self.block, thin=thin)
 
     def apply_q(self, rhs, *, adjoint: bool = False):
-        return _qr.qr_apply_q(self.packed, self.t_stack, self.block,
-                              _operand(rhs, self.packed), adjoint=adjoint)
+        return _solve(lambda b: _qr.qr_apply_q(self.packed, self.t_stack, self.block, b,
+                                               adjoint=adjoint), self.packed, rhs)
 
     @property
     def R(self):
@@ -326,8 +343,9 @@ class ColPivQr:
         return self.solve_lstsq(rhs)
 
     def solve_lstsq(self, rhs):
-        return _qr.col_piv_qr_solve_lstsq(self.packed, self.taus, self.col_perm,
-                                          _operand(rhs, self.packed))
+        return _solve(lambda b: _qr.col_piv_qr_solve_lstsq(self.packed, self.taus,
+                                                           self.col_perm, b),
+                      self.packed, rhs)
 
     def reconstruct(self):
         return _qr.col_piv_qr_reconstruct(self.packed, self.taus, self.col_perm)
@@ -342,7 +360,7 @@ class ColPivQr:
 
 @dataclasses.dataclass(frozen=True)
 class Svd:
-    """SVD solver object (faer ``solvers.rs:749``): ``A = U diag(S) Vᵀ``."""
+    """SVD solver object (faer ``solvers.rs:749``): ``A = U diag(S) Vᴴ``."""
 
     u: torch.Tensor
     s: torch.Tensor
@@ -370,7 +388,7 @@ class Svd:
 
     def reconstruct(self):
         k = self.s.shape[0]
-        return matmul(None, self.u[:, :k] * self.s[None, :], self.v[:, :k].mT)
+        return matmul(None, self.u[:, :k] * self.s[None, :], self.v[:, :k].mH)
 
     def pseudoinverse(self, tol=None):
         from faer_tpu_torch.linalg import svd as _svd
@@ -379,7 +397,7 @@ class Svd:
         return _svd.pseudoinverse_from_svd(self.u[:, :k], self.s, self.v[:, :k], tol=tol)
 
     def solve_lstsq(self, rhs):
-        return matmul(None, self.pseudoinverse(), _operand(rhs, self.u))
+        return _solve(lambda b: matmul(None, self.pseudoinverse(), b), self.u, rhs)
 
     def rank(self, tol=None):
         if tol is None:
@@ -390,7 +408,7 @@ class Svd:
 
 @dataclasses.dataclass(frozen=True)
 class SelfAdjointEigen:
-    """Self-adjoint EVD: ``A = V diag(w) Vᵀ``, w ascending (faer
+    """Self-adjoint EVD: ``A = V diag(w) Vᴴ``, w real ascending (faer
     ``solvers.rs:757``)."""
 
     v: torch.Tensor
@@ -413,20 +431,25 @@ class SelfAdjointEigen:
         return self.v
 
     def reconstruct(self):
-        return matmul(None, self.v * self.w[None, :], self.v.mT)
+        return matmul(None, self.v * self.w[None, :], self.v.mH)
 
     def solve(self, rhs):
-        """x = V diag(w)⁻¹ Vᵀ b for an (n,) or (n, k) right-hand side (or a
+        """x = V diag(w)⁻¹ Vᴴ b for an (n,) or (n, k) right-hand side (or a
         ``Col``/``Mat``); x has b's shape."""
-        y = matmul(None, self.v.mT, _operand(rhs, self.v))
-        w = self.w if y.dim() == 1 else self.w[:, None]  # y's first dimension
-        return matmul(None, self.v, y / w)
+
+        def one(b):
+            y = matmul(None, self.v.mH, b)
+            w = self.w if y.dim() == 1 else self.w[:, None]  # y's first dimension
+            return matmul(None, self.v, y / w)
+
+        return _solve(one, self.v, rhs)
 
 
 @dataclasses.dataclass(frozen=True)
 class Eigen:
     """General eigendecomposition of a real matrix: A V = V diag(w), w and
-    V complex (faer ``solvers.rs:761``)."""
+    V complex (faer ``solvers.rs:761``); complex input is ROADMAP §1 item
+    10b."""
 
     v: torch.Tensor
     w: torch.Tensor

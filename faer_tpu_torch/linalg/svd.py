@@ -6,7 +6,10 @@ kernel) when m/n exceeds ``SvdParams.qr_ratio_threshold`` (11/6); then
 ``bidiag_in_place`` → ``bidiag_svd`` (divide & conquer for n ≥ 512, else
 the QR iteration, both through the ``bidiag_sweep`` kernel) → the
 Householder back-transforms. ``pseudoinverse_from_svd`` is faer's
-``svd/mod.rs:689``. float32 and float64, through the same drivers.
+``svd/mod.rs:689``. float32, float64, complex64 and complex128, through
+the same drivers: complex input reduces to a real bidiagonal (real d, e),
+whose QR iteration is the same one batched launch as for the real dtypes,
+and the back-transforms are complex (``A = U diag(s) Vᴴ``, s real).
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def _svd_tall(a, params: SvdParams, want_u: bool, want_v: bool):
 
 def svd(a, *, thin: bool = True, params: SvdParams | None = None,
         want_u: bool = True, want_v: bool = True):
-    """``A = U diag(s) Vᵀ``: returns ``(u, s, v, info)``, s descending.
+    """``A = U diag(s) Vᴴ``: returns ``(u, s, v, info)``, s real descending.
 
     ``thin=True`` gives U (m × k) and V (n × k), k = min(m, n); otherwise
     U and V are completed to square orthogonal matrices (faer
@@ -62,7 +65,7 @@ def svd(a, *, thin: bool = True, params: SvdParams | None = None,
     """
     if a.dim() != 2:
         raise ShapeError(f"svd: needs a matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, "svd")
+    dtypes.require_field(a, "svd")
     if a.is_cuda:
         check_f32_policy()
     params = params or SvdParams.auto(a.dtype, a.shape)
@@ -70,7 +73,7 @@ def svd(a, *, thin: bool = True, params: SvdParams | None = None,
     if m >= n:
         u, s, v, info = _svd_tall(a, params, want_u, want_v)
     else:
-        v, s, u, info = _svd_tall(a.T, params, want_v, want_u)
+        v, s, u, info = _svd_tall(a.mH.resolve_conj(), params, want_v, want_u)
     if not thin:
         if want_u and u.shape[1] < m:
             u = _complete_orthonormal(u)
@@ -95,14 +98,14 @@ def singular_values(a, params: SvdParams | None = None):
 
 
 def pseudoinverse_from_svd(u, s, v, tol=None):
-    """Moore–Penrose pseudoinverse ``V diag(1/s) Uᵀ`` over the singular
+    """Moore–Penrose pseudoinverse ``V diag(1/s) Uᴴ`` over the singular
     values above ``tol`` (default max(s)·max(m, n)·eps) (faer
     ``svd/mod.rs:689``)."""
     if tol is None:
         tol = s.max() * max(u.shape[0], v.shape[0]) * dtypes.eps(u.dtype)
     sinv = torch.where(s > tol, 1.0 / torch.where(s == 0, torch.ones_like(s), s),
                        torch.zeros_like(s))
-    return matmul(None, v * sinv[None, :], u.T)
+    return matmul(None, v * sinv[None, :], u.mH)
 
 
 def pseudoinverse(a, tol=None):

@@ -35,6 +35,7 @@ import torch
 
 from faer_tpu_torch.core.config import count_launch
 from faer_tpu_torch.core.errors import ShapeError
+from faer_tpu_torch.ops.householder import rescale_of
 from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.llt_panel import _neumann_unit_inv
 
@@ -59,8 +60,12 @@ def qr_panel_plain(panel, *, sb: int = 16):
         tau_v = panel.new_zeros(sb)
         for jl in range(nj):
             j = sb0 + jl
-            colj = pt[j].clone()
             below = lanes > j
+            # the column scaled by an exact power of two where its squares
+            # lose bits (F2; ops/householder.py:rescale_of), else by 1
+            sq0 = torch.where(below, pt[j] * pt[j], 0.0).sum()
+            scale = rescale_of(pt[j, j] * pt[j, j] + sq0)
+            colj = pt[j] * scale
             alpha = colj[j]
             tail_sq = torch.where(below, colj * colj, 0.0).sum()
             norm = torch.sqrt(alpha * alpha + tail_sq)
@@ -70,13 +75,13 @@ def qr_panel_plain(panel, *, sb: int = 16):
             safe_s = torch.where(is_id, one, alpha - beta)
             safe_b = torch.where(is_id, one, beta)
             tau = torch.where(is_id, 0.0, (beta - alpha) / safe_b)
-            beta = torch.where(is_id, alpha, beta)
+            beta = torch.where(is_id, alpha, beta) / scale
             v = torch.where(below & ~is_id, colj * (1.0 / safe_s), 0.0)
             v[j] = 1.0
             taus[j] = tau
             tau_v[jl] = tau
             vmat[jl] = v
-            pt[j] = torch.where(lanes == j, beta, torch.where(below, v, colj))
+            pt[j] = torch.where(lanes == j, beta, torch.where(below, v, pt[j]))
             if jl < nj - 1:
                 rest = pt[j + 1:top]
                 w = rest @ v
@@ -108,20 +113,26 @@ def qr_panel_onepass_plain(panel):
     taus = panel.new_zeros(kmax)
     one = panel.new_ones(())
     for j in range(kmax):
-        alpha = a[j, j].clone()
+        alpha0 = a[j, j].clone()
         tail = a[j + 1:, j].clone()
-        tail_sq = (tail * tail).sum()
         shares = tail @ a[j + 1:, j + 1:]  # tailᵀ·A_tail, with ‖tail‖² one pass
+        # F2: where the column's squares lose bits the kernel forms the
+        # reflector on the column scaled by 2⁶⁴ and, in two more exchanges,
+        # w from v itself: w = A[j, j+1:] + vᵀ·A_tail
+        scale = rescale_of(alpha0 * alpha0 + (tail * tail).sum())
+        alpha, tail = alpha0 * scale, tail * scale
+        tail_sq = (tail * tail).sum()
         norm = torch.sqrt(alpha * alpha + tail_sq)
         beta = torch.where(alpha >= 0, -norm, norm)
         is_id = tail_sq == 0
         tau = torch.where(is_id, 0.0, (beta - alpha) / torch.where(is_id, one, beta))
         s = torch.where(is_id, one, 1.0 / torch.where(is_id, one, alpha - beta))
-        w = a[j, j + 1:] + s * shares
         v = torch.where(is_id, 0.0, tail * s)
+        w = torch.where(scale == 1, a[j, j + 1:] + s * shares,
+                        a[j, j + 1:] + v @ a[j + 1:, j + 1:])
         a[j, j + 1:] -= tau * w
         a[j + 1:, j + 1:] -= (tau * v)[:, None] * w[None, :]
-        a[j, j] = torch.where(is_id, alpha, beta)
+        a[j, j] = torch.where(is_id, alpha0, beta / scale)
         a[j + 1:, j] = v
         taus[j] = tau
     return a, taus

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from faer_tpu_torch.core.config import count_launch
+from faer_tpu_torch.ops.householder import rescale_of
 from faer_tpu_torch.ops.kernels import _build
 from faer_tpu_torch.ops.kernels.qr_panel import launch
 
@@ -29,8 +30,11 @@ def qr_panel_v1_plain(panel):
     taus = panel.new_zeros(kmax)
     one = panel.new_ones(())
     for j in range(kmax):
-        alpha = a[j, j].clone()
+        alpha0 = a[j, j].clone()
         tail = a[j + 1:, j].clone()
+        # scaled by 2⁶⁴ where the squares lose bits (F2), else by 1
+        scale = rescale_of(alpha0 * alpha0 + (tail * tail).sum())
+        alpha, tail = alpha0 * scale, tail * scale
         tail_sq = (tail * tail).sum()
         norm = torch.sqrt(alpha * alpha + tail_sq)
         sign = torch.where(alpha >= 0, one, -one)
@@ -45,7 +49,7 @@ def qr_panel_v1_plain(panel):
         rest = a[j:, j + 1:]
         w = v @ rest
         a[j:, j + 1:] = rest - (tau * v)[:, None] * w[None, :]
-        a[j, j] = torch.where(is_id, alpha, beta)
+        a[j, j] = torch.where(is_id, alpha0, beta / scale)
         a[j + 1:, j] = v[1:]
     return a, taus
 

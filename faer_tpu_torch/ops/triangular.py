@@ -11,11 +11,12 @@ picks the route, as the JAX package's ``panel_kernels_enabled`` does:
   of that halving do not depend on each other (in the JAX package they are
   independent ops of one traced graph), so all of them are inverted by one
   batched launch before the combine runs bottom-up.
-* float64: the JAX package's non-kernel route, the same halving down to
-  leaves of ``base`` (default 32, at most 128) inverted by Neumann doubling
-  plus one Newton–Schulz step (``_inv_lower_base``, ``:103-133``). It
-  takes leading batch dimensions, so that the triangular solves invert all
-  their diagonal blocks at once (:func:`invert_diagonal_blocks_generic`).
+* float64, complex64 and complex128: the JAX package's non-kernel route,
+  the same halving down to leaves of ``base`` (default 32, at most 128)
+  inverted by Neumann doubling plus one Newton–Schulz step
+  (``_inv_lower_base``, ``:103-133``). It takes leading batch dimensions,
+  so that the triangular solves invert all their diagonal blocks at once
+  (:func:`invert_diagonal_blocks_generic`).
 
 The combine's products pin ``precision="highest"`` as the JAX package's
 ``_mm_hi`` does (``:30-34``): an error in an inverse is amplified by its

@@ -10,8 +10,9 @@ the blocks in float64 (``ops.triangular.invert_diagonal_blocks_generic``);
 each is applied as a product, and the blocks below (or above) get one
 product each. The diagonal-block applications pin full precision (``_mm_hi``, as
 at ``faer_tpu/ops/triangular_solve.py:25-27``); the updates of the blocks
-below or above go through the front door's dispatch. The port's dtypes
-are real, so the adjoint variants are the transpose variants.
+below or above go through the front door's dispatch. Complex input takes
+the non-kernel inverse (the JAX package keeps complex off its kernels);
+the transpose variants transpose, the adjoint variants also conjugate.
 """
 from __future__ import annotations
 
@@ -95,12 +96,12 @@ def solve_upper_triangular_transpose(u, b, *, unit: bool = False):
 
 
 def solve_lower_triangular_adjoint(l, b, *, unit: bool = False):
-    """X = L⁻ᴴ B, which is L⁻ᵀ B for the real dtypes of the port."""
-    return solve_lower_triangular_transpose(l, b, unit=unit)
+    """X = L⁻ᴴ B: an upper solve on Lᴴ (L⁻ᵀ B for a real L)."""
+    return solve_upper_triangular(l.mH, b, unit=unit)
 
 
 def solve_upper_triangular_adjoint(u, b, *, unit: bool = False):
-    return solve_upper_triangular_transpose(u, b, unit=unit)
+    return solve_lower_triangular(u.mH, b, unit=unit)
 
 
 # right-side variants: X op(T) = B  ⇔  op(T)ᵀ Xᵀ = Bᵀ

@@ -337,8 +337,20 @@ def test_facade_objects_end_to_end(dt):
 
 @pytest.mark.parametrize("name", ["Ldlt", "PivLlt", "Lblt", "FullPivLu", "ColPivQr"])
 def test_complex_input_names_item_10(name):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(tsolvers, name).new(torch.eye(4, dtype=torch.complex64))
+    """Item 10a took complex input: each of these objects factors a complex
+    Hermitian positive definite matrix and solves with it within 8·n·eps
+    (the general and generalized EVD, item 10b, still raise)."""
+    rng = np.random.default_rng(10)
+    g = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
+    a = (g @ g.conj().T / 12 + np.eye(12)).astype(np.complex64)
+    b = rng.standard_normal((12, 2)).astype(np.complex64)
+    obj = getattr(tsolvers, name).new(torch.from_numpy(a))
+    x = obj.solve(torch.from_numpy(b)).numpy()
+    a64, x64 = a.astype(np.complex128), x.astype(np.complex128)
+    res = np.linalg.norm(a64 @ x64 - b) / (np.linalg.norm(a64) * np.linalg.norm(x64))
+    assert x.dtype == np.complex64 and res <= 8 * 12 * np.finfo(np.float32).eps
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        tsolvers.Eigen.new(torch.eye(4, dtype=torch.complex64))
 
 
 def _jax_fields(obj):

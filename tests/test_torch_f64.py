@@ -79,13 +79,19 @@ def test_dtype_policy():
         tdtypes.require_real(torch.zeros(2, 2, dtype=dt), "x")
     assert tdtypes.kernel_route(torch.float32)
     assert not tdtypes.kernel_route(torch.float64)
+    # complex: the factorizations take it (item 10a), the general and
+    # generalized EVD raise naming item 10b
     for dt in (torch.complex64, torch.complex128):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
             tdtypes.require_real(torch.zeros(2, 2, dtype=dt), "x")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tchol.llt_factor(torch.eye(4, dtype=torch.complex128))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tft.Mat(torch.eye(4, dtype=torch.complex64)).ldlt()
+        tdtypes.require_field(torch.zeros(2, 2, dtype=dt), "x")
+        assert not tdtypes.kernel_route(dt)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdtypes.require_field(torch.zeros(2, 2, dtype=torch.bfloat16), "x")
+    l, info = tchol.llt_factor(torch.eye(4, dtype=torch.complex128))
+    assert bool(info.success) and torch.equal(l, torch.eye(4, dtype=torch.complex128))
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        tft.Mat(torch.eye(4, dtype=torch.complex64)).eigen()
 
 
 # -- item 2: errors, params, flags, permutations ------------------------------------

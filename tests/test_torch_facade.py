@@ -395,10 +395,12 @@ def test_error_cases_match_jax():
         _tm(np.ones((4, 3), np.float32)).partial_piv_lu()
     with pytest.raises(ShapeError):
         _tm(np.ones((4, 3), np.float32)).llt()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsolvers.PartialPivLu.new(torch.ones(3, 3, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsolvers.Ldlt.new(torch.ones(3, 3, dtype=torch.complex64))
+    # complex factorizations are ported (item 10a); the complex general EVD
+    # is item 10b
+    assert tsolvers.PartialPivLu.new(torch.eye(3, dtype=torch.complex64)).lu.is_complex()
+    assert tsolvers.Ldlt.new(torch.eye(3, dtype=torch.complex64)).ld.is_complex()
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        tsolvers.Eigen.new(torch.ones(3, 3, dtype=torch.complex64))
 
 
 @pytest.mark.parametrize("method,item", [
@@ -540,3 +542,64 @@ def test_facade_slice_matches_jax(monkeypatch, switch):
         assert _res(mat, x, b) <= tol and _res(mat, want, b) <= tol
         kappa = np.linalg.cond(mat.astype(np.float64))
         assert np.linalg.norm(x - want) <= tol * kappa * np.linalg.norm(want)
+
+
+# -- complex solver objects (ROADMAP item 10a) -------------------------------------
+
+_COMPLEX_METHODS = {
+    "llt": ("solve", "solve_conjugate", "inverse", "reconstruct", "determinant"),
+    "ldlt": ("solve", "inverse", "reconstruct", "determinant"),
+    "piv_llt": ("solve", "reconstruct"),
+    "lblt": ("solve", "reconstruct"),
+    "partial_piv_lu": ("solve", "solve_transpose", "inverse", "reconstruct", "determinant"),
+    "full_piv_lu": ("solve", "reconstruct", "determinant"),
+    "qr": ("solve", "solve_lstsq", "inverse", "reconstruct"),
+    "col_piv_qr": ("solve", "solve_lstsq", "reconstruct"),
+    "svd": ("solve_lstsq", "reconstruct"),
+    "self_adjoint_eigen": ("solve", "reconstruct"),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("method", list(_COMPLEX_METHODS))
+def test_complex_solver_objects_match_jax(method, dtype):
+    """Each solver object of complex input against the JAX package's
+    native-complex object: every method within 8·n·eps (relative to the
+    largest entry; κ-scaled for the solves), a complex determinant, real L
+    and D diagonals; a real right-hand side and a 1-D one are taken."""
+    n = 12
+    rng = np.random.default_rng(20)
+    g = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    spd = method in ("llt", "ldlt", "piv_llt")
+    herm = method in ("lblt", "self_adjoint_eigen")
+    a = (g @ g.conj().T / n + np.eye(n) if spd else (g + g.conj().T) / 2 if herm else g)
+    a = a.astype(dtype)
+    b = (rng.standard_normal((n, 3)) + 1j * rng.standard_normal((n, 3))).astype(dtype)
+    tobj = getattr(tft.Mat(torch.from_numpy(a)), method)()
+    jobj = getattr(jft.Mat(jnp.asarray(a)), method)()
+    e = float(np.finfo(dtype).eps)
+    kappa = np.linalg.cond(a.astype(np.complex128))
+    for name in _COMPLEX_METHODS[method]:
+        args = (torch.from_numpy(b),) if name.startswith("solve") else ()
+        jargs = (jnp.asarray(b),) if args else ()
+        got = np.asarray(getattr(tobj, name)(*args))
+        want = np.asarray(getattr(jobj, name)(*jargs))
+        assert np.iscomplexobj(got), name
+        scale = max(np.abs(want).max(), 1e-30) * (kappa if args or name == "inverse" else 1)
+        assert np.abs(got - want).max() <= 8 * n * e * scale, name
+    if spd and method != "piv_llt":
+        diag = np.diagonal(np.asarray(tobj.L if method == "llt" else tobj.ld))
+        assert np.all(diag.imag == 0)
+    x = np.asarray(tobj.solve_lstsq(torch.from_numpy(b.real.copy())) if method == "svd"
+                   else tobj.solve(torch.from_numpy(b.real.copy())))
+    assert np.iscomplexobj(x)
+    if method != "svd":
+        x1 = tobj.solve(torch.from_numpy(b[:, 0].copy()))
+        assert tuple(x1.shape) == (n,)
+
+
+@pytest.mark.parametrize("call", [lambda m: m.eigen(), lambda m: m.eigenvalues(),
+                                  lambda m: tft.evd(m.a), lambda m: tft.eigenvalues(m.a)])
+def test_complex_general_evd_names_item_10b(call):
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        call(tft.Mat(torch.eye(4, dtype=torch.complex64)))

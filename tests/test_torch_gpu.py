@@ -1874,3 +1874,111 @@ def test_gevd_on_card_against_scipy(cuda, dtype):
     tol = 2 * kappa * eta
     assert (chord.min(axis=0) / tol).max() <= 1
     assert (chord.min(axis=1) / tol[chord.argmin(axis=1)]).max() <= 1
+
+
+def test_qr_panel_at_a_subnormal_scale_on_card(cuda):
+    """F2 on the card: the QR panel kernel on a (4096, 128) Gaussian scaled
+    by 1e-20 (f32 squares subnormal; the cluster route), its rescaled
+    branch: R, V and τ within 2·b·eps of ``qr_panel_plain`` and of the
+    kernel's one-pass order (relative to their own largest entries), Q
+    orthogonal and Q R = A within 2·b·eps in f64, and every wrapper of the
+    family (one kernel) equal to ``qr_panel`` to the bit. The kernel's
+    parallel sums make no plain version its bitwise twin; their rounding
+    reaches the later columns through at most b reflectors."""
+    from faer_tpu_torch.ops.kernels import leaf, qr_panel_v1, qr_panel_v2, qr_panel_v3
+    from faer_tpu_torch.ops.kernels.qr_panel import (
+        qr_panel, qr_panel_onepass_plain, qr_panel_plain)
+
+    m, b = 4096, 128
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    a = torch.randn(m, b, generator=gen, device=cuda) * 1e-20
+    k1, t1 = qr_panel(a)
+    tol = 2 * b * EPS32
+    for k, t in (qr_panel_plain(a), qr_panel_onepass_plain(a)):
+        assert _rel(torch.triu(k1[:b]), torch.triu(k[:b])) <= tol
+        assert _rel(torch.tril(k1, -1), torch.tril(k, -1)) <= tol
+        assert (t1 - t).abs().max().item() <= tol
+    pk = k1.double()
+    v = torch.tril(pk, -1) + torch.eye(m, b, dtype=torch.float64, device=cuda)
+    q = torch.eye(m, dtype=torch.float64, device=cuda)
+    for j in range(b - 1, -1, -1):
+        q -= t1[j].double() * torch.outer(v[:, j], v[:, j] @ q)
+    eye = torch.eye(m, dtype=torch.float64, device=cuda)
+    assert (q.T @ q - eye).abs().max().item() <= tol
+    assert ((q @ torch.triu(pk) - a.double()).abs().max() / a.abs().max()).item() <= tol
+    for fn in (qr_panel_v1.qr_panel_v1, qr_panel_v2.qr_panel_v2, qr_panel_v3.qr_panel_v3,
+               leaf.qr_leaf):
+        k2, t2 = fn(a)
+        assert torch.equal(k1, k2) and torch.equal(t1, t2)
+
+
+def test_complex_llt_ldlt_on_card(cuda):
+    """complex64 LLT and LDLT at n = 512 on the card: the 1024 float32
+    embedding runs the fused-panel route, 4 ``llt_panel`` launches (a
+    panel of 256 for each 256 columns of the embedding) and the solves'
+    ``trtri``; L, the packed LDLT and both solves within 8·n·eps of the
+    plain CPU route of the same functions, the backward errors too."""
+    from faer_tpu_torch.linalg import cholesky as ch
+
+    n = 512
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    g = torch.complex(torch.randn(n, n, generator=gen), torch.randn(n, n, generator=gen))
+    a = g @ g.mH / n + torch.eye(n)
+    b = torch.complex(torch.randn(n, 8, generator=gen), torch.randn(n, 8, generator=gen))
+    ac, bc = a.to(cuda), b.to(cuda)
+    tol = 8 * n * EPS32
+    reset_launch_counts()
+    l, info = ch.llt_factor(ac)
+    x = ch.llt_solve(l, bc)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["llt_panel"] == 4 and counts["trtri"] > 0 and bool(info.success)
+    assert l.is_cuda and x.is_cuda and l.dtype == torch.complex64
+    lp, _ = ch.llt_factor(a)
+    xp = ch.llt_solve(lp, b)
+    assert _rel(l.cpu(), lp) <= tol and _rel(x.cpu(), xp) <= tol
+    res = ((ac @ x - bc).abs().max() / (ac.abs().max() * x.abs().max())).item()
+    assert res <= tol
+    ld, info = ch.ldlt_factor(ac)
+    y = ch.ldlt_solve(ld, bc)
+    ldp, _ = ch.ldlt_factor(a)
+    assert ld.is_cuda and _rel(ld.cpu(), ldp) <= tol
+    assert _rel(y.cpu(), ch.ldlt_solve(ldp, b)) <= tol
+
+
+def test_complex_spectral_one_sweep_launch_on_card(cuda):
+    """complex64 Hermitian EVD and SVD on the card, the direct QR route
+    (100) and the D&C route (600): one sweep launch and no host read a
+    call, real values within 8·n·eps of f64 ``eigvalsh``/``svdvals``,
+    VᴴV = I, UᴴU = I and the reconstructions within 8·n·eps; no other
+    kernel runs (the complex reductions stay off the kernels)."""
+    from faer_tpu_torch import self_adjoint_evd, svd
+    from faer_tpu_torch.core.config import host_reads
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    for n in (100, 600):
+        g = torch.complex(torch.randn(n, n, generator=gen, device=cuda),
+                          torch.randn(n, n, generator=gen, device=cuda))
+        a = (g + g.mH) / 2
+        tol = 8 * n * EPS32
+        eye = torch.eye(n, device=cuda)
+        reset_launch_counts()
+        w, v, info = self_adjoint_evd(a)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["tridiag_sweep"] == 1 and host_reads() == 0
+        assert sum(counts.values()) == 1 and w.dtype == torch.float32
+        assert ((a @ v - v * w).norm() / a.norm()).item() <= tol
+        assert (v.mH @ v - eye).abs().max().item() <= tol
+        w64 = torch.linalg.eigvalsh(a.to(torch.complex128))
+        assert ((w.double() - w64).abs().max() / w64.abs().max()).item() <= tol
+        reset_launch_counts()
+        u, s, vs, info = svd(g)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["bidiag_sweep"] == 1 and host_reads() == 0 and sum(counts.values()) == 1
+        assert (((u * s) @ vs.mH - g).norm() / g.norm()).item() <= tol
+        assert (u.mH @ u - eye).abs().max().item() <= tol
+        assert (vs.mH @ vs - eye).abs().max().item() <= tol
+        s64 = torch.linalg.svdvals(g.to(torch.complex128))
+        assert ((s.double() - s64).abs().max() / s64[0]).item() <= tol

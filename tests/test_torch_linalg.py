@@ -164,11 +164,12 @@ def test_llt_off_route_regularization_matches_jax():
 def test_llt_rejects_bad_shapes_and_dtypes():
     with pytest.raises(ShapeError):
         tchol.llt_factor(torch.zeros(256, 128))
-    with pytest.raises(NotImplementedError):
-        tchol.llt_factor(torch.eye(512, dtype=torch.complex64),
-                         params=LltParams(block_size=128))
+    # complex input factors its real embedding (item 10a); bf16 has no route
+    for dt, params in ((torch.complex64, LltParams(block_size=128)), (torch.complex128, None)):
+        l, info = tchol.llt_factor(torch.eye(300, dtype=dt), params=params)
+        assert bool(info.success) and torch.equal(l, torch.eye(300, dtype=dt))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchol.llt_factor(torch.eye(300, dtype=torch.complex128))
+        tchol.llt_factor(torch.eye(300, dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlu.lu_in_place(torch.eye(300, dtype=torch.bfloat16))
 

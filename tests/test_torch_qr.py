@@ -173,8 +173,11 @@ def test_qr_rejects_bad_shapes_and_dtypes():
     with pytest.raises(ShapeError):
         tqr.qr_in_place(torch.zeros(16))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqr.qr_in_place(torch.eye(64, dtype=torch.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqr.qr_in_place(torch.eye(64, dtype=torch.complex64))
+        tqr.qr_in_place(torch.eye(64, dtype=torch.bfloat16))
+    # complex input runs the non-kernel body (item 10a): I = Q R with |R| = I
+    for dt in (torch.complex128, torch.complex64):
+        packed, ts, block = tqr.qr_in_place(torch.eye(64, dtype=dt))
+        assert packed.dtype == dt and torch.equal(torch.triu(packed).abs(),
+                                                  torch.eye(64, dtype=dt.to_real()))
     # the JAX package keeps its own params type; the port's has the same fields
     assert set(QrParams.__dataclass_fields__) == set(JQrParams.__dataclass_fields__)

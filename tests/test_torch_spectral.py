@@ -504,10 +504,14 @@ def test_singular_values_and_pseudoinverse():
 ])
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
 def test_spectral_entry_points_are_f32_only(call, dtype):
-    """Real input only: float32 and, since the f64 spectral path (item 5c),
-    float64; complex input names item 10."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call(torch.eye(8, dtype=dtype))
+    """Every field: float32, float64 (item 5c) and, since item 10a, complex
+    Hermitian (or any complex) input, whose eigen- and singular values are
+    real; diag(1..8) gives back 1..8."""
+    d = torch.arange(1, 9, dtype=dtype.to_real())
+    out = call(torch.diag(d).to(dtype))
+    w = out if isinstance(out, torch.Tensor) else out[0] if out[0].dim() == 1 else out[1]
+    assert w.dtype == dtype.to_real()
+    assert torch.allclose(torch.sort(w).values, d)
 
 
 def test_spectral_shape_errors():

@@ -1,6 +1,6 @@
 """Per-call and device time of a checkout's hand-written kernels and their callers, on one CUDA card.
 
-    python tools/torch_split.py {chase,dense,gevd,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
+    python tools/torch_split.py {chase,dense,gevd,householder,llt,llt_panel,lu,lu_swap,matmul,qr,spectral,syrk,trtri} [ROOT]
 
 Times the ``faer_tpu_torch`` under ROOT (by default this checkout) with the
 timers and inputs of this checkout's ``chip_smoke.py``: ``cuda_ms`` per
@@ -31,6 +31,12 @@ code. The rows, per kernel:
   ``hessenberg_blocked``'s output (one call after a warm-up: its sweeps
   and AED rounds read the host), and ``Mat(a).eigen()`` at 128 (the
   multishift route's edge) per call;
+* ``householder`` (seed 21): the host-issued callers of
+  ``make_householder``, each per call: ``hessenberg_blocked`` at 1024 in
+  float32 and float64 (the general EVD's reduction), ``qr_in_place`` at
+  1024 and 4096 and ``col_piv_qr_in_place`` at 1024 in float64, and
+  ``make_householder`` on one column of 1024 in float32, with Gaussian
+  inputs;
 * ``llt``: ``llt_leaf``, ``llt_block``, ``llt_block_v3`` and
   ``torch.linalg.cholesky_ex`` at phase 3's sizes ``LLT_TIMED``, on its
   ``_spd`` inputs mirrored from the lower triangle (seed 1);
@@ -143,6 +149,26 @@ def gevd_rows(cs):
            1, None)
     a2 = torch.randn(128, 128, generator=gen, device="cuda")
     yield "Mat(a).eigen() n=128 f32", lambda: Mat(a2).eigen(), 3, None
+
+
+def householder_rows(cs):
+    """(name, call, per-call reps, None) of ``make_householder`` and the
+    host-issued loops that call it once a column."""
+    from faer_tpu_torch.linalg import qr as Q
+    from faer_tpu_torch.linalg.evd import hessenberg_blocked
+    from faer_tpu_torch.ops.householder import make_householder
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    g = torch.randn(N, N, generator=gen, device="cuda", dtype=torch.float64)
+    small = g[:1024, :1024].contiguous()
+    for dt in (torch.float32, torch.float64):
+        h = small.to(dt)
+        yield f"hessenberg_blocked n=1024 {dt}", lambda h=h: hessenberg_blocked(h), 3, None
+    yield "qr_in_place n=1024 float64", lambda: Q.qr_in_place(small), 3, None
+    yield f"qr_in_place n={N} float64", lambda: Q.qr_in_place(g), 3, None
+    yield "col_piv_qr_in_place n=1024 float64", lambda: Q.col_piv_qr_in_place(small), 3, None
+    col = small[:, 0].float()
+    yield "make_householder m=1024 float32", lambda: make_householder(col), 50, None
 
 
 def llt_rows(cs):
@@ -579,7 +605,8 @@ def spectral_rows(cs):
                lambda t=t: torch.linalg.svd(t, full_matrices=False), 3, None, None)
 
 
-ROWS = {"chase": chase_rows, "dense": dense_rows, "gevd": gevd_rows, "llt": llt_rows,
+ROWS = {"chase": chase_rows, "dense": dense_rows, "gevd": gevd_rows,
+        "householder": householder_rows, "llt": llt_rows,
         "llt_panel": llt_panel_rows, "lu": lu_rows, "lu_swap": lu_swap_rows,
         "matmul": matmul_rows, "qr": qr_rows, "spectral": spectral_rows,
         "syrk": syrk_rows, "trtri": trtri_rows}
