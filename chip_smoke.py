@@ -64,7 +64,9 @@ Phases, each printing lines; any failure exits non-zero:
    ``tridiag_qr_batched`` and ``bidiag_qr_batched`` (the whole iteration
    of many problems in one launch) on the 64 leaves of a 4096 problem, the
    ragged leaves of 4000, the bidiagonal's wide and square leaves, the
-   direct route at 384 (vectors in global memory), a max_iters case and
+   direct route at the first size past the vectors' shared-memory edge
+   (vectors in global memory; phase 7 drives the route at 384), a
+   max_iters case and
    zero diagonals (both chases), each case's route printed, against their
    plain versions (on the first two and last two problems of a batch of
    leaves): d, e, iterations, converged and sweep steps equal to the bit,
@@ -152,11 +154,12 @@ Phases, each printing lines; any failure exits non-zero:
    ``geqrf``) on the same input in the same dtype. The factors are loops
    of small launches, set by the host; ``tools/torch_split.py dense`` times
    them on the device too (CUDA graphs);
-14. general EVD and f64 spectral: at n = 1024 (ns = 64, AED window 96) the
-   Schur step as ``evd`` runs it (``hessenberg_blocked``, then multishift QR
+14. general EVD and f64 spectral: at n = 1024 in float32 (ns = 64, AED
+   window 96) and 512 in float64 (ns = 32, window 48) the Schur step as
+   ``evd`` runs it (``hessenberg_blocked``, then multishift QR
    with AED, each window one ``real_schur`` launch), with ‖A − QTQᵀ‖/‖A‖,
    max|QᵀQ − I| and the eigenvalues against f64 ``numpy.linalg.eigvals``,
-   each within 8·n·eps; ``evd`` and ``eigenvalues`` in float32 and float64
+   each within 8·n·eps; ``evd`` and ``eigenvalues`` in each dtype
    (the residual and the eigenvalues within 8·n·eps of the dtype), each
    call timed once (host clock) with its AED and sweep shares, beside
    ``torch.linalg.eig`` and ``eigvals``; ``Mat(a).eigen()`` and
@@ -188,7 +191,29 @@ Phases, each printing lines; any failure exits non-zero:
    the kernels), and times both at 96 once those processes have ended;
    then past the kernels' 512 threads a CTA, at 1024 in float32 and 600
    in float64, whose plain versions run in four host processes beside
-   phases 4–14 and are held against the kernels before phase 15.
+   phases 4–14 and are held against the kernels before phase 15;
+16. complex input (item 10a): the complex64 and complex128 factorizations,
+   solves, self-adjoint EVD and SVD through ``Mat`` and the solver objects,
+   each call counted and timed beside its library call;
+17. complex general EVD (item 10b-i), in a spawned process of its own
+   beside phases 13–16 (its lines printed after phase 16): ``evd`` and
+   ``eigenvalues`` at
+   n = 1024 (ns = 64, AED window 96) in complex64 and complex128 (the
+   unitary Hessenberg reduction, multishift QR with AED, each window one
+   ``complex_schur`` launch, the triangular eigenvectors), the Schur
+   step's ‖A − QTQᴴ‖/‖A‖ and max|QᴴQ − I| within 8·n·eps, T upper
+   triangular, the eigenvalues within 2·κ_i·η of f64 ``scipy.linalg.eig``
+   (run in a host process of its own meanwhile), the residual within
+   8·n·eps, two host reads an AED round, each call timed once with its
+   layers beside ``torch.linalg.eig`` and ``eigvals``; ``Mat(a).eigen()``
+   at 127 (one direct launch), 128 and 256 in complex64;
+   ``batched.eigenvalues`` on 8 × 64² complex64. Phase 3 holds
+   ``complex_schur`` against its plain version (T, Q, iterations,
+   converged and chase steps to the bit) at the AED windows 48 and 96, a
+   batch of 16s, n = 1 and 2, an iteration budget of 0, both sides of its
+   shared-memory edge and a ragged batch, in complex64 and complex128 (the
+   plain versions in host processes while the card runs the kernel), and
+   times it at 48 and 96.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase prints its own time. The second-to-last line is
@@ -368,6 +393,9 @@ def qz_step_flops(n: int) -> int:
 # _params_for), the multishift route edge, and the f64 spectral calls (D&C
 # at 1024, the direct QR route at DIRECT_N)
 GEVD_N = 1024
+# the float64 evd and eigenvalues run at 512 (at 1024 until phase 17 made
+# room for itself: a cut of depth, ns = 32 and w = 48 there)
+GEVD_F64_N = 512
 GEVD_EDGE = (127, 128)
 F64_SPECTRAL = (1024, DIRECT_N)
 # phase 15: the generalized EVD at full width (one hess_tri and one real_qz
@@ -941,6 +969,8 @@ def phase_kernels(gen, profs) -> dict:
     mark("real_schur")
     res.update(_gevd_kernels(gen))
     mark("hess_tri and real_qz")
+    res.update(_complex_schur_kernel(gen))
+    mark("complex_schur")
     res.update(_tile_kernels(gen))
     mark("the tile kernels")
     res.update(_llt_block_kernels(gen))
@@ -1470,10 +1500,12 @@ def _qr_batch_cases(bidiag: bool, gen) -> dict:
     sqre], max_sweeps_factor). The 64 leaves of a 4096 problem and the
     ragged ones (62, 63) of 4000, formed as the D&C forms them (the
     bidiagonal's wide upper leaves and square last one), the direct route
-    at DIRECT_N (its vectors in global memory), the 4096 leaves at one
+    at the first size past the vectors' shared-memory edge (in global
+    memory), the 4096 leaves at one
     iteration a row (max_iters: not converged), and, for the bidiagonal,
     zero diagonals that take the row chase and the column chase."""
     from faer_tpu_torch.linalg import bidiag_dnc, tridiag_dnc
+    from faer_tpu_torch.ops.kernels import _build, sweep
 
     def leaves(n):
         d = torch.randn(n, generator=gen, device=DEV)
@@ -1489,9 +1521,16 @@ def _qr_batch_cases(bidiag: bool, gen) -> dict:
         sizes = torch.full((1,), n, dtype=torch.int32, device=DEV)
         return (d, e, sizes, torch.zeros_like(sizes)) if bidiag else (d, e, sizes)
 
+    # the direct route at the first size whose vectors leave shared memory
+    # (DIRECT_N until phase 17 needed the room: the plain sweeps run on the
+    # card, ≈ n² chase steps of some thirty launches each; phase 7 drives
+    # the route at DIRECT_N)
+    kind = "bidiag" if bidiag else "tridiag"
+    direct = 1 + _build.shared_edge(
+        lambda n, dt: sweep.qr_batched_route(kind, n, dtype=dt), torch.float32, DIRECT_N)
     cases = {f"the 64 leaves of {N}": (*leaves(N), 30),
              "the ragged leaves of 4000": (*leaves(4000), 30),
-             f"direct route n={DIRECT_N}": (*one(DIRECT_N), 30),
+             f"direct route n={direct}": (*one(direct), 30),
              f"the leaves of {N}, max_iters = n": (*leaves(N), 1)}
     if bidiag:
         d = torch.randn(3, 64, generator=gen, device=DEV)
@@ -1726,6 +1765,167 @@ def _real_schur_kernel(gen) -> dict:
     return {"real_schur": out}
 
 
+# phase 3's complex_schur cases (n, batch, max_sweeps_factor): the complex
+# multishift driver's AED windows below n = 590 (48) and up to 3000 (96),
+# a batch of small blocks, the trivial sizes, and an iteration budget of 0;
+# complex_schur_cases adds both sides of each dtype's shared-memory edge and
+# the ragged batch COMPLEX_SCHUR_RAGGED
+COMPLEX_SCHUR_CASES = ((48, 2, 30), (96, 1, 30), (16, 4, 30), (1, 2, 30), (2, 3, 30),
+                       (48, 1, 0))
+COMPLEX_SCHUR_RAGGED = (40, (40, 7, 1, 0, 33))  # (nmax, sizes)
+
+
+# operations of one chase step of the complex_schur kernel at width n,
+# counted from its source: the rotation of a pair of complex entries is 12
+# products and 8 sums (rotate: 5 operations a real component), over the
+# row phase's n − i + 1 columns, the column phase's i + 3 rows of H and n
+# rows of Q, 2n + 4 pairs in all; plus 40 for the rotation (two scaled
+# magnitudes, the norm, the phase and s); and per iteration the deflation
+# test, 24 operations an entry of the subdiagonal (three scaled magnitudes)
+def complex_schur_step_flops(n: int) -> int:
+    return 20 * (2 * n + 4) + 40
+
+
+def complex_schur_cases() -> tuple:
+    """(nmax, sizes, max_sweeps_factor, dtype) of phase 3's complex_schur
+    checks: COMPLEX_SCHUR_CASES in complex64 and complex128, both sides of
+    each dtype's shared-memory edge (the largest nmax whose H and Q the
+    kernel keeps in shared memory, by bisection over its route, and the
+    next, in global memory), and the ragged batch."""
+    from faer_tpu_torch.ops.kernels import complex_schur as kcs
+
+    out = []
+    for dt in (torch.complex64, torch.complex128):
+        edge = kcs.shared_edge(dt)
+        out += [(n, (n,) * b, f, dt) for n, b, f in COMPLEX_SCHUR_CASES]
+        out += [(edge, (edge,), 30, dt), (edge + 1, (edge + 1,), 30, dt)]
+        out += [(COMPLEX_SCHUR_RAGGED[0], COMPLEX_SCHUR_RAGGED[1], 30, dt)]
+    return tuple(out)
+
+
+def _complex_schur_inputs(nmax: int, sizes, dt, gen):
+    """Complex Gaussian upper-Hessenberg problems (B, nmax, nmax) on the
+    card (zeros past each problem's size), Q = I, and the int32 sizes."""
+    rdt = dt.to_real()
+    batch = len(sizes)
+    h = torch.complex(torch.randn(batch, nmax, nmax, generator=gen, device=DEV, dtype=rdt),
+                      torch.randn(batch, nmax, nmax, generator=gen, device=DEV, dtype=rdt))
+    h = torch.triu(h, -1)
+    for b, n in enumerate(sizes):
+        h[b, n:] = 0
+        h[b, :, n:] = 0
+    q = torch.eye(nmax, device=DEV, dtype=dt).repeat(batch, 1, 1)
+    return h.contiguous(), q, torch.tensor(sizes, dtype=torch.int32, device=DEV)
+
+
+def _complex_schur_plain_case(h, q, sizes, factor):
+    """A host process's job: ``complex_schur_batched_plain`` on the CPU
+    copies, on one thread, with the seconds it took."""
+    torch.set_num_threads(1)
+    from faer_tpu_torch.ops.kernels import complex_schur as kcs
+
+    t0 = time.perf_counter()
+    out = kcs.complex_schur_batched_plain(h, q, sizes, max_sweeps_factor=factor)
+    return out, time.perf_counter() - t0
+
+
+def _complex_schur_kernel(gen) -> dict:
+    """``complex_schur_batched`` (the single-shift complex Schur iteration
+    of every problem of a batch, one CTA each, one launch) against its
+    plain version on every case of ``complex_schur_cases``, each case's
+    route printed: T, Q, iterations, converged and chase steps equal to the
+    bit (the plain version runs on CPU copies in GEVD_WORKERS host
+    processes while the card runs the kernels: IEEE operations on real
+    numbers only, so the two devices round alike), every problem of a full
+    budget converged with T upper triangular and ‖H − QTQᴴ‖/‖H‖ ≤ 8·n·eps,
+    the budget of 0 not converged; timed at the AED windows 48 and 96 per
+    call and on the device (CUDA graph of SCHUR_REPS calls) in both dtypes,
+    µs per chase step, beside the plain version (the CPU route: one call on
+    a host core, the 96 case of the checks) and ``torch.linalg.eigvals`` of
+    the same window. The
+    bound counts this run's work at 96: the kernel's chase steps ×
+    ``complex_schur_step_flops`` + its iterations × 24 flops an entry of
+    the subdiagonal over the FP32 (FP64) peak, and H, Q read and T, Q
+    written once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from faer_tpu_torch.ops.kernels import complex_schur as kcs
+
+    cases = complex_schur_cases()
+    inputs = [_complex_schur_inputs(nmax, sizes, dt, gen) for nmax, sizes, _, dt in cases]
+    with ProcessPoolExecutor(GEVD_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(_complex_schur_plain_case, h.cpu(), q.cpu(), sz.cpu(), f)
+                for (h, q, sz), (_, _, f, _) in zip(inputs, cases)]
+        got = [kcs.complex_schur_batched(h, q, sz, max_sweeps_factor=f)
+               for (h, q, sz), (_, _, f, _) in zip(inputs, cases)]
+        torch.cuda.synchronize()
+        plains = [job.result() for job in jobs]
+    errs, plain_96 = [], {}
+    for (nmax, sizes, f, dt), (h, _, _), out, (want, secs) in zip(cases, inputs, got, plains):
+        if sizes == (96,) and f:
+            plain_96[dt] = secs * 1e3
+        out = [x.cpu() for x in out]
+        same = all(torch.equal(g, w) for g, w in zip(out, want))
+        errs.append(0.0 if same else max((torch.view_as_real(g.to(torch.complex128)
+                                                             - w.to(torch.complex128))
+                                          .abs().max().item()) for g, w in zip(out[:2], want[:2])))
+        live = [b for b, n in enumerate(sizes) if n >= 1]
+        conv = bool(out[3][live].all()) if f else not bool(out[3][[b for b in live
+                                                                     if sizes[b] > 1]].any())
+        tol = 8 * nmax * torch.finfo(dt).eps
+        rec, lower = 0.0, 0.0
+        for b in live:
+            n = sizes[b]
+            if not f or n < 2:
+                continue
+            t, qo = out[0][b, :n, :n].to(torch.complex128), out[1][b, :n, :n].to(torch.complex128)
+            hb = h[b, :n, :n].cpu().to(torch.complex128)
+            rec = max(rec, (torch.linalg.matrix_norm(qo @ t @ qo.mH - hb)
+                            / torch.linalg.matrix_norm(hb)).item())
+            lower = max(lower, torch.tril(t, -1).abs().max().item())
+        tag = "c64" if dt == torch.complex64 else "c128"
+        check(same and conv and rec <= tol and lower == 0,
+              f"complex_schur_batched nmax={nmax} sizes={list(sizes)} factor={f} {tag} [H and "
+              f"Q in {kcs.route(nmax, dt)} memory]: T, Q, iterations, converged and chase "
+              f"steps equal to the plain version's to the bit {same}; "
+              f"{'all converged' if f else 'none converged (budget 0)'} {conv} "
+              f"({out[2].tolist()} iterations, {out[4].tolist()} steps); upper triangular "
+              f"{lower == 0}; |H - QTQᴴ|/|H| {rec:.3e} <= {tol:.3e}; plain {secs:.1f} s on "
+              f"one host core")
+    out = None
+    for dt in (torch.complex64, torch.complex128):
+        tag = "c64" if dt == torch.complex64 else "c128"
+        peak = PEAK_F32_FLOPS if dt == torch.complex64 else PEAK_F64_FLOPS
+        for w in (48, 96):
+            h, q, sizes = _complex_schur_inputs(w, (w,), dt, gen)
+            got = kcs.complex_schur_batched(h, q, sizes)
+            ms = cuda_ms(lambda: kcs.complex_schur_batched(h, q, sizes), SCHUR_REPS)
+            dev_ms = graph_ms(lambda: kcs.complex_schur_batched(h, q, sizes), SCHUR_REPS)
+            lib = cuda_ms(lambda: torch.linalg.eigvals(h[0]), 5)
+            plain_ms = plain_96.get(dt) if w == 96 else None
+            its, steps = int(got[2][0]), int(got[4][0])
+            flops = steps * complex_schur_step_flops(w) + its * 24 * (w - 1)
+            bound = bound_of(flops, 4 * w * w * h.element_size(), peak)
+            plain = "" if plain_ms is None else \
+                f"; plain {plain_ms:.1f} ms (one call on a host core, another window of 96)"
+            print(f"time complex_schur_batched w={w} {tag} [{kcs.route(w, dt)} memory]: per "
+                  f"call {ms:.4f} ms, device {dev_ms:.4f} ms (graph replay), {its} iterations, "
+                  f"{steps} chase steps ({dev_ms / max(steps, 1) * 1e3:.3f} us a step){plain}; "
+                  f"library eigvals of the window {lib:.4f} ms; bound {bound['bound_ms']:.6g} "
+                  f"ms ({bound['bound_by']})")
+            if w != 96:
+                continue
+            if dt == torch.complex64:
+                out = dict(max_abs_err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=lib, **bound)
+            else:
+                out.update(ms_c128=ms, device_ms_c128=dev_ms, library_ms_c128=lib,
+                           bound_ms_c128=bound["bound_ms"], bound_by_c128=bound["bound_by"])
+    return {"complex_schur": out}
+
+
 def _gevd_plain_case(mats):
     """A host process's job: the plain versions of ``hess_tri_batched`` and
     ``real_qz_batched`` on the CPU copies ``mats`` = (h, r, q, z, sizes), on
@@ -1847,7 +2047,8 @@ def _gevd_kernels(gen) -> dict:
         for name, (ms, dev, plain_ms) in times.items():
             extra = f", {its} iterations, {steps} chase steps ({dev / max(steps, 1) * 1e3:.3f} us a step)" \
                 if name == "real_qz" else f" ({dev / ((n - 1) * (n - 2) / 2) * 1e3:.3f} us a pair)"
-            plain = "" if plain_ms is None else f"; plain {plain_ms:.1f} ms (one call on the card)"
+            plain = "" if plain_ms is None else \
+                f"; plain {plain_ms:.1f} ms (one call on a host core, another window of 96)"
             print(f"time {name} n={n} {tag}: per call {ms:.4f} ms, device {dev:.4f} ms "
                   f"(graph replay){extra}{plain}; scipy.linalg.qz of the pencil "
                   f"{scipy_ms:.3f} ms (host CPU); bound {bounds[name]['bound_ms']:.6g} ms "
@@ -2801,16 +3002,29 @@ def phase_spectral(gen) -> tuple[dict, dict]:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
+    def first_call(fn):
+        """fn once under ``_counted``, and that first call's time (host
+        clock, ending in a synchronize): the time ``_timed`` reports for a
+        call past SPECTRAL_SLOW_S, so the slow calls run once."""
+        t = time.perf_counter()
+        out = _counted(fn)
+        return (*out, (time.perf_counter() - t) * 1e3)
+
+    def report(label, ms, flops_):
+        rate = f", {flops_ / ms / 1e6:.1f} GFLOP/s" if ms > SPECTRAL_SLOW_S * 1e3 else ""
+        how = "one call, host clock" if ms > SPECTRAL_SLOW_S * 1e3 else "first call, host clock"
+        print(f"time {label}: {ms:.4f} ms ({how}, the checked call){rate}")
+
     n = N
     g = torch.randn(n, n, generator=gen, device=DEV)
     a = (g + g.T) / 2
-    (w, v, info), counts, reads = _counted(lambda: self_adjoint_evd(a))
+    (w, v, info), counts, reads, evd_ms = first_call(lambda: self_adjoint_evd(a))
     add(counts)
     _one_launch(f"self_adjoint_evd n={n}", "tridiag_sweep", counts, reads)
     print(f"info converged {bool(info.converged)}, iterations {int(info.iterations)}")
     check(bool(info.converged), f"self_adjoint_evd n={n} converged")
     _evd_checks(a, w, v, f"self_adjoint_evd n={n}")
-    (u, s, vs, sinfo), counts, reads = _counted(lambda: svd(g))
+    (u, s, vs, sinfo), counts, reads, svd_ms = first_call(lambda: svd(g))
     add(counts)
     _one_launch(f"svd n={n}", "bidiag_sweep", counts, reads)
     check(bool(sinfo.converged), f"svd n={n} converged")
@@ -2851,7 +3065,7 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     # the tall SVD takes the QR preprocessing (m/n = 4 > 11/6)
     mt, nt_ = TALL
     gt = torch.randn(mt, nt_, generator=gen, device=DEV)
-    (ut, st, vt, _), counts, reads = _counted(lambda: svd(gt))
+    (ut, st, vt, _), counts, reads, tall_ms = first_call(lambda: svd(gt))
     add(counts)
     _one_launch(f"svd {mt}x{nt_}", "bidiag_sweep", counts, reads)
     check(counts["qr_panel"] > 0, f"svd {mt}x{nt_} ran qr_panel {counts['qr_panel']} times")
@@ -2859,10 +3073,12 @@ def phase_spectral(gen) -> tuple[dict, dict]:
     add(_wide_dnc_check())
 
     mark("the tall SVD and the wide D&C")
-    # times: the entry points, their yardsticks, then the layers at 4096
-    _timed(lambda: self_adjoint_evd(a), f"self_adjoint_evd n={n}", flops.evd_flops(n))
+    # times: the entry points (the 4096 and tall calls: their checked first
+    # calls, to save a second run of each), their yardsticks, then the
+    # layers at 4096
+    report(f"self_adjoint_evd n={n}", evd_ms, flops.evd_flops(n))
     eigh_ms = _timed(lambda: torch.linalg.eigh(a), f"library eigh n={n}")
-    _timed(lambda: svd(g), f"svd n={n}", flops.svd_flops(n, n))
+    report(f"svd n={n}", svd_ms, flops.svd_flops(n, n))
     _timed(lambda: torch.linalg.svd(g, full_matrices=False), f"library svd n={n}")
     for label, fn in ((f"self_adjoint_evd n={n2}", lambda: self_adjoint_evd(a2)),
                       (f"svd n={n2}", lambda: svd(g2))):
@@ -2872,7 +3088,7 @@ def phase_spectral(gen) -> tuple[dict, dict]:
               f"({busy / wall:.3f}; torch.profiler kernel spans)")
     _timed(lambda: torch.linalg.eigh(a2), f"library eigh n={n2}")
     _timed(lambda: torch.linalg.svd(g2, full_matrices=False), f"library svd n={n2}")
-    _timed(lambda: svd(gt), f"svd {mt}x{nt_}", flops.svd_flops(mt, nt_))
+    report(f"svd {mt}x{nt_}", tall_ms, flops.svd_flops(mt, nt_))
     _timed(lambda: torch.linalg.svd(gt, full_matrices=False), f"library svd {mt}x{nt_}")
     mark("the timed calls")
     d, e, hh, taus = tridiag_in_place(a)
@@ -3284,13 +3500,15 @@ def _eig_ratio(w, ref, kappa, eta: float) -> float:
 
 
 def _schur_backward(a, t, q) -> tuple[float, float, float]:
-    """The Schur step's A = Q T Qᵀ in float64: ‖A − QTQᵀ‖_F/‖A‖_F,
-    max|QᵀQ − I| and the backward error η = ‖A − QTQᵀ‖₂ + ‖A‖₂‖QᵀQ − I‖₂
-    of T's eigenvalues (T's eigenvalues are those of Q T Q⁻¹ = A − E − Q T F
-    Qᵀ + O(‖F‖²), E = A − QTQᵀ, F = QᵀQ − I)."""
-    ad, td, qd = a.double(), t.double(), q.double()
-    e = ad - qd @ td @ qd.T
-    f = qd.T @ qd - torch.eye(a.shape[0], device=a.device, dtype=torch.float64)
+    """The Schur step's A = Q T Qᴴ in float64 (complex128 for complex
+    input): ‖A − QTQᴴ‖_F/‖A‖_F, max|QᴴQ − I| and the backward error η =
+    ‖A − QTQᴴ‖₂ + ‖A‖₂‖QᴴQ − I‖₂ of T's eigenvalues (T's eigenvalues are
+    those of Q T Q⁻¹ = A − E − Q T F Qᴴ + O(‖F‖²), E = A − QTQᴴ, F = QᴴQ −
+    I)."""
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    ad, td, qd = a.to(wide), t.to(wide), q.to(wide)
+    e = ad - qd @ td @ qd.mH
+    f = qd.mH @ qd - torch.eye(a.shape[0], device=a.device, dtype=wide)
     e2, a2, f2 = (torch.linalg.matrix_norm(x, ord=2).item() for x in (e, ad, f))
     return (torch.linalg.matrix_norm(e).item() / torch.linalg.matrix_norm(ad).item(),
             f.abs().max().item(), e2 + a2 * f2)
@@ -3299,7 +3517,8 @@ def _schur_backward(a, t, q) -> tuple[float, float, float]:
 def phase_general_evd(gen) -> dict:
     """The general real EVD and the f64 spectral entry points.
 
-    * at GEVD_N, ``evd`` and ``eigenvalues`` in float32 and float64, each
+    * ``evd`` and ``eigenvalues`` in float32 at GEVD_N and in float64 at
+      GEVD_F64_N (the leading block of the same matrix), each
       call's Schur step (``hessenberg_blocked`` then
       ``_real_schur_dispatch``: multishift QR, every AED window one
       ``real_schur`` launch) with ‖A − QTQᵀ‖/‖A‖ and max|QᵀQ − I| within
@@ -3382,24 +3601,24 @@ def phase_general_evd(gen) -> dict:
     try:
         import scipy.linalg
 
-        n = GEVD_N
-        a64 = torch.randn(n, n, generator=gen, device=DEV, dtype=torch.float64)
-        # the reference: f64 LAPACK eigenvalues (numpy.linalg.eigvals) and
-        # their condition numbers from scipy's left and right vectors
-        an = a64.cpu().numpy()
-        ref = torch.from_numpy(np.linalg.eigvals(an)).to(DEV)
-        lw, yl, xr = scipy.linalg.eig(an, left=True, right=True)
-        kappa_np = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
-                    / np.abs(np.sum(yl.conj() * xr, axis=0)))
-        # scipy's order to numpy's: each of numpy's eigenvalues takes the
-        # condition number of scipy's nearest one
-        kappa = torch.from_numpy(kappa_np[np.abs(np.asarray(ref.cpu())[:, None]
-                                                 - lw[None, :]).argmin(axis=1)]).to(DEV)
-        anorm2 = torch.linalg.matrix_norm(a64, ord=2).item()
-        print(f"reference n={n}: f64 numpy.linalg.eigvals, condition numbers from "
-              f"scipy.linalg.eig: median {kappa.median().item():.3g}, largest "
-              f"{kappa.max().item():.3g}; |A|₂ {anorm2:.6g}")
-        for dt in (torch.float32, torch.float64):
+        a_all = torch.randn(GEVD_N, GEVD_N, generator=gen, device=DEV, dtype=torch.float64)
+        for dt, n in ((torch.float32, GEVD_N), (torch.float64, GEVD_F64_N)):
+            a64 = a_all[:n, :n].contiguous()
+            # the reference: f64 LAPACK eigenvalues (numpy.linalg.eigvals) and
+            # their condition numbers from scipy's left and right vectors
+            an = a64.cpu().numpy()
+            ref = torch.from_numpy(np.linalg.eigvals(an)).to(DEV)
+            lw, yl, xr = scipy.linalg.eig(an, left=True, right=True)
+            kappa_np = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+                        / np.abs(np.sum(yl.conj() * xr, axis=0)))
+            # scipy's order to numpy's: each of numpy's eigenvalues takes the
+            # condition number of scipy's nearest one
+            kappa = torch.from_numpy(kappa_np[np.abs(np.asarray(ref.cpu())[:, None]
+                                                     - lw[None, :]).argmin(axis=1)]).to(DEV)
+            anorm2 = torch.linalg.matrix_norm(a64, ord=2).item()
+            print(f"reference n={n}: f64 numpy.linalg.eigvals, condition numbers from "
+                  f"scipy.linalg.eig: median {kappa.median().item():.3g}, largest "
+                  f"{kappa.max().item():.3g}; |A|₂ {anorm2:.6g}")
             name = "f32" if dt == torch.float32 else "f64"
             eps = torch.finfo(dt).eps
             tol = 8 * n * eps
@@ -3497,6 +3716,306 @@ def phase_general_evd(gen) -> dict:
     print(f"launches in the general EVD phase: {total}")
     return total
 
+
+# phase 17: the complex general EVD at full width (ns = 64, AED window 96
+# by _params_for) in complex64 and complex128, the multishift route edge in
+# complex64, the facade at CEVD_FACADE_N and a batch of small problems
+CEVD_N = 1024
+CEVD_FACADE_N = 256
+CEVD_BATCH = (8, 64)  # batched.eigenvalues: B problems of n²
+
+
+def _scipy_eig_reference(a, conn) -> None:
+    """A host process: the f64 LAPACK eigenvalues of the complex128 ``a``
+    (``scipy.linalg.eig``), each one's condition number κ_i =
+    ‖x_i‖‖y_i‖/|y_iᴴx_i| from the left and right vectors, and the call's
+    time in ms, sent through ``conn``."""
+    import numpy as np
+    import scipy.linalg
+
+    t0 = time.perf_counter()
+    w, yl, xr = scipy.linalg.eig(a, left=True, right=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    kappa = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+             / np.abs(np.sum(yl.conj() * xr, axis=0)))
+    conn.send((w, kappa, ms))
+    conn.close()
+
+
+def start_complex_reference() -> tuple:
+    """Phase 17's complex Gaussian A at CEVD_N in complex128, on the card,
+    from a generator of its own (seed SEED + 17), and the f64 reference of
+    its eigenvalues (:func:`_scipy_eig_reference`) started in a spawned
+    daemon process with one BLAS thread, to run beside phase 17's first
+    calls: (A, process, receiving end of its pipe)."""
+    import multiprocessing
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    a = torch.complex(*(torch.randn(CEVD_N, CEVD_N, generator=g, device=DEV,
+                                    dtype=torch.float64) for _ in range(2)))
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(dict.fromkeys(names, "1"))  # read by the child at its start
+    try:
+        proc = ctx.Process(target=_scipy_eig_reference, daemon=True,
+                           args=(a.cpu().numpy(), send))
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    send.close()
+    return a, proc, recv
+
+
+def _kappa_of(a) -> torch.Tensor:
+    """The eigenvalues of the complex128 ``a`` on the card
+    (``torch.linalg.eig``) and their condition numbers ‖x_i‖‖y_i‖/|y_iᴴx_i|
+    with the left vectors the rows of V⁻¹ (y_iᴴx_i = 1)."""
+    w, v = torch.linalg.eig(a)
+    return w, torch.linalg.vector_norm(v, dim=0) * torch.linalg.vector_norm(
+        torch.linalg.inv(v), dim=1)
+
+
+def phase_complex_evd(gen, cref) -> dict:
+    """The complex general EVD (ROADMAP item 10b-i).
+
+    * at CEVD_N, ``evd`` and ``eigenvalues`` in complex64 and complex128
+      (A from :func:`start_complex_reference`), each call's Schur step
+      (``hessenberg_blocked`` then ``_complex_schur_dispatch``: multishift
+      QR, every AED window one ``complex_schur`` launch) with ‖A −
+      QTQᴴ‖/‖A‖ and max|QᴴQ − I| within 8·n·eps of its dtype and T upper
+      triangular, the eigenvalues against f64 ``scipy.linalg.eig`` within
+      2·κ_i·η (:func:`_eig_ratio`, η the step's measured backward error),
+      ``evd``'s ‖AV − VΛ‖/(‖A‖‖V‖) within 8·n·eps; ``complex_schur``
+      launches equal to the AED rounds, and the host reads two a round
+      that reaches its AED (one for the round that ends the iteration);
+      each call's time (host clock, one call) and layers, beside
+      ``torch.linalg.eig`` and ``eigvals`` in the same dtype;
+    * ``Mat(a).eigen()`` at the route edge in complex64 (127: one direct
+      ``complex_schur`` launch and no host read; 128: multishift), and at
+      CEVD_FACADE_N, each residual within 8·n·eps;
+    * ``batched.eigenvalues`` on CEVD_BATCH complex64 problems: one direct
+      launch each, the eigenvalues within 2·κ_i·η of ``torch.linalg.eig``
+      of each problem in complex128, η = 8·n·eps_c64·‖A‖₂ (the backward
+      error the Schur step is held to).
+
+    Returns the summed launch counts."""
+    from faer_tpu_torch import Mat, eigenvalues, evd
+    from faer_tpu_torch.linalg import batched, eigvec
+    from faer_tpu_torch.linalg import complex_schur as tcs
+    from faer_tpu_torch.linalg import evd as tevd
+    from faer_tpu_torch.linalg import schur_multishift as tms
+
+    total = {}
+    calls = {"aed": 0, "schur_calls": 0, "aed_ms": 0.0, "sweep": 0, "sweep_ms": 0.0,
+             "hess": 0, "hess_ms": 0.0, "schur": 0, "schur_ms": 0.0, "vecs": 0,
+             "vecs_ms": 0.0}
+    schur_out = []  # the Schur step's (t, q, info) of the last call
+
+    def wrap(mod, name, key):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls[key] += 1
+            if key + "_ms" in calls:
+                calls[key + "_ms"] += (time.perf_counter() - t) * 1e3
+            if key == "schur":
+                schur_out[:] = [out]
+            return out
+        setattr(mod, name, counted)
+        return fn
+
+    saved = [(tms, "_aed", wrap(tms, "_aed", "aed")),
+             (tcs, "complex_schur", wrap(tcs, "complex_schur", "schur_calls")),
+             (tms, "_sweep", wrap(tms, "_sweep", "sweep")),
+             (tevd, "hessenberg_blocked", wrap(tevd, "hessenberg_blocked", "hess")),
+             (tevd, "_complex_schur_dispatch", wrap(tevd, "_complex_schur_dispatch", "schur")),
+             (eigvec, "triangular_eigenvectors",
+              wrap(eigvec, "triangular_eigenvectors", "vecs"))]
+
+    def run(label, fn):
+        """fn once with every counter at 0 (the wrappers' too), timed by
+        the host clock: (result, ms, counts, host reads)."""
+        for k in calls:
+            calls[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts, reads = _counted(fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        launches = counts["complex_schur"]
+        direct = calls["schur_calls"] - calls["aed"]
+        others = {k: v for k, v in counts.items() if k != "complex_schur" and v}
+        rounds = int(schur_out[0][2].iterations) if calls["aed"] else 0
+        check(launches == calls["schur_calls"] > 0 and not others
+              and reads == (rounds + calls["aed"] if calls["aed"] else 0),
+              f"{label}: {launches} complex_schur launches = {calls['aed']} AED windows + "
+              f"{direct} direct calls, no other kernel {others}; {calls['sweep']} "
+              f"multishift sweeps; {reads} host reads = {rounds} rounds + {calls['aed']} "
+              f"AED rounds")
+        print(f"time {label}: {ms:.4f} ms (one call, host clock); layers: "
+              f"hessenberg_blocked {calls['hess_ms']:.1f} ms, the Schur step "
+              f"{calls['schur_ms']:.1f} ms (AED {calls['aed_ms']:.1f} ms in {calls['aed']} "
+              f"windows, sweeps {calls['sweep_ms']:.1f} ms in {calls['sweep']}), "
+              f"eigenvectors {calls['vecs_ms']:.1f} ms")
+        return out, ms, direct
+
+    def resid(a, w, v) -> float:
+        ad, vd = a.to(torch.complex128), v.to(torch.complex128)
+        return (torch.linalg.matrix_norm(ad @ vd - vd * w.to(torch.complex128)[None, :])
+                / (torch.linalg.matrix_norm(ad) * torch.linalg.matrix_norm(vd))).item()
+
+    a128, proc, recv = cref
+    try:
+        n = CEVD_N
+        for dt in (torch.complex64, torch.complex128):
+            name = "c64" if dt == torch.complex64 else "c128"
+            tol = 8 * n * torch.finfo(dt).eps
+            a = a128.to(dt)
+            for label, fn in ((f"evd n={n} {name}", lambda: evd(a)),
+                              (f"eigenvalues n={n} {name}", lambda: eigenvalues(a))):
+                out, _, _ = run(label, fn)
+                t, qs, sinfo = schur_out[0]
+                rec, orth, eta = _schur_backward(a, t, qs)
+                lower = torch.tril(t, -1).abs().max().item()
+                check(bool(sinfo.converged) and rec <= tol and orth <= tol and lower == 0,
+                      f"{label}, the Schur step: converged in {int(sinfo.iterations)} rounds, "
+                      f"upper triangular {lower == 0}; |A - QTQᴴ|/|A| {rec:.3e}, "
+                      f"max|QᴴQ - I| {orth:.3e}, both <= {tol:.3e}; backward error η = "
+                      f"|A - QTQᴴ|₂ + |A|₂|QᴴQ - I|₂ {eta:.3e}")
+                w = out[0] if label.startswith("evd") else out
+                if recv is not None:  # the reference, once: it ran beside phases 3–16
+                    t0 = time.perf_counter()
+                    ref, kappa, ref_ms = recv.recv()
+                    proc.join()
+                    wait = time.perf_counter() - t0
+                    ref = torch.from_numpy(ref).to(DEV)
+                    kappa = torch.from_numpy(kappa).to(DEV)
+                    recv = None
+                    print(f"reference n={n}: f64 scipy.linalg.eig with left and right vectors "
+                          f"{ref_ms:.1f} ms on one host core (waited {wait:.1f} s); condition "
+                          f"numbers median {kappa.median().item():.3g}, largest "
+                          f"{kappa.max().item():.3g}")
+                ratio = _eig_ratio(w, ref, kappa, eta)
+                check(w.dtype == dt and ratio <= 1,
+                      f"{label}: eigenvalues vs f64 scipy.linalg.eig within {ratio:.3e} of "
+                      f"their bounds 2·κ_i·η")
+                if label.startswith("evd"):
+                    _, v, info = out
+                    res = resid(a, w, v)
+                    check(bool(info.converged) and v.dtype == dt and res <= tol,
+                          f"{label}: |AV - VΛ|/(|A||V|) {res:.3e} <= {tol:.3e}")
+            lib = cuda_ms(lambda: torch.linalg.eig(a), 1)
+            libv = cuda_ms(lambda: torch.linalg.eigvals(a), 1)
+            print(f"time library n={n} {name}: torch.linalg.eig {lib:.4f} ms, eigvals "
+                  f"{libv:.4f} ms (one call each, CUDA events)")
+        # the multishift route edge and the facade in complex64
+        for n2 in (*GEVD_EDGE, CEVD_FACADE_N):
+            a2 = torch.complex(torch.randn(n2, n2, generator=gen, device=DEV),
+                               torch.randn(n2, n2, generator=gen, device=DEV))
+            eig, _, n_direct = run(f"Mat(a).eigen() n={n2} c64", lambda: Mat(a2).eigen())
+            n_aed = calls["aed"]
+            wv2 = Mat(a2).eigenvalues()
+            check(torch.equal(wv2, eig.eigenvalues), f"Mat(a).eigenvalues() n={n2} c64: the "
+                                                     f"eigenvalues of Mat(a).eigen(), to the bit")
+            tol2 = 8 * n2 * EPS32
+            res = resid(a2, eig.eigenvalues, eig.eigenvectors)
+            direct = n2 < tevd._MULTISHIFT_MIN_N
+            check(bool(eig.info.converged) and res <= tol2 and n_direct == int(direct)
+                  and (n_aed == 0) == direct,
+                  f"Mat(a).eigen() n={n2} c64 ({'direct complex_schur' if direct else 'multishift'}): "
+                  f"|AV - VΛ|/(|A||V|) {res:.3e} <= {tol2:.3e}")
+        nb, n3 = CEVD_BATCH
+        ab = torch.complex(torch.randn(nb, n3, n3, generator=gen, device=DEV),
+                           torch.randn(nb, n3, n3, generator=gen, device=DEV))
+        wb, _, n_direct = run(f"batched.eigenvalues {nb} x {n3}² c64",
+                              lambda: batched.eigenvalues(ab))
+        worst = 0.0
+        for b in range(nb):
+            a3 = ab[b].to(torch.complex128)
+            ref3, kappa3 = _kappa_of(a3)
+            eta3 = 8 * n3 * EPS32 * torch.linalg.matrix_norm(a3, ord=2).item()
+            worst = max(worst, _eig_ratio(wb[b], ref3, kappa3, eta3))
+        check(n_direct == nb and worst <= 1,
+              f"batched.eigenvalues {nb} x {n3}² c64: {n_direct} direct complex_schur calls; "
+              f"eigenvalues vs torch.linalg.eig c128 within {worst:.3e} of 2·κ_i·η, η = "
+              f"8·n·eps·|A|₂")
+    finally:
+        for mod, fname, fn in saved:
+            setattr(mod, fname, fn)
+        if recv is not None:
+            proc.kill()
+    print(f"launches in the complex general EVD phase: {total}")
+    return total
+
+
+def _complex_evd_process(conn) -> None:
+    """A spawned process's job: phase 17 (:func:`phase_complex_evd`) on the
+    card, beside phases 13–16 of the main process, on inputs from
+    generators of its own (A from :func:`start_complex_reference`, whose
+    f64 reference it starts; the rest from seed SEED + 170); its printed
+    lines are collected and sent through ``conn`` with its launch counts,
+    its exit status (1 for a failed check) and its seconds."""
+    import contextlib
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    total, status = None, 1
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 170)
+            total = phase_complex_evd(gen, start_complex_reference())
+            status = 0
+    except SystemExit as exc:  # a failed check: its FAIL line is in buf
+        status = exc.code if isinstance(exc.code, int) and exc.code else 1
+    except Exception:  # reported to the main process, which fails on it
+        buf.write(traceback.format_exc())
+    conn.send((buf.getvalue(), total, status, time.perf_counter() - t0))
+    conn.close()
+
+
+def start_complex_evd() -> tuple:
+    """Phase 17 in a spawned process of its own, to run beside phases
+    13–16: its work, as theirs, is host-bound (the card waits on one host
+    core in each process), so the two share the card with little to choose
+    between them. Returns (process, receiving end of its pipe)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_complex_evd_process, args=(send,))
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def finish_complex_evd(job) -> dict:
+    """Wait for :func:`start_complex_evd`'s process, print its lines, fail
+    if it failed, and return its launch counts."""
+    proc, recv = job
+    try:
+        text, total, status, secs = recv.recv()
+    except EOFError:
+        proc.join()
+        fail(f"phase 17's process ended with code {proc.exitcode} and sent nothing")
+    proc.join()
+    print(text, end="", flush=True)
+    check(status == 0 and total is not None,
+          f"phase 17 (complex general EVD) passed every check, {secs:.1f} s in a process "
+          f"of its own beside phases 13–16")
+    return total
 
 def _scipy_pencil_reference(a, b, conn) -> None:
     """A host process: the f64 LAPACK eigenvalues of the pencil (a, b) as
@@ -4294,12 +4813,20 @@ def main() -> None:
     lab = timed("10 panel lab", phase_panel_lab)
     llt_lab = timed("11 LLT block lab", phase_llt_lab)
     chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
-    dense = timed("13 dense stack", phase_dense_stack, gen)
-    gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
-    timed("3 wide QZ cases checked", finish_gevd_wide, wide, kern)
-    ggevd = timed("15 generalized EVD", phase_generalized_evd, gen, pencil, reference)
-    cplx = timed("16 complex", phase_complex, gen)
-    paths += [lab, llt_lab, chase_lab, dense, gevd, ggevd, cplx]
+    cevd_job = start_complex_evd()  # phase 17, in a process of its own beside 13–16
+    try:
+        dense = timed("13 dense stack", phase_dense_stack, gen)
+        gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
+        timed("3 wide QZ cases checked", finish_gevd_wide, wide, kern)
+        ggevd = timed("15 generalized EVD", phase_generalized_evd, gen, pencil, reference)
+        cplx = timed("16 complex", phase_complex, gen)
+        cevd = timed("17 complex general EVD (the wait for its process)",
+                     finish_complex_evd, cevd_job)
+    finally:
+        if cevd_job[0].is_alive():  # a failure before phase 17 ended
+            cevd_job[0].terminate()
+            cevd_job[0].join()
+    paths += [lab, llt_lab, chase_lab, dense, gevd, ggevd, cplx, cevd]
     # each kernel's launches over the paths' runs (trtri runs in several)
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     sources = {
@@ -4350,6 +4877,10 @@ def main() -> None:
         # hessenberg_triangular and the while_loop of its real_qz_iteration
         "hess_tri": ("faer_tpu_torch/csrc/hess_tri.cu", "faer_tpu/linalg/qz.py:45"),
         "real_qz": ("faer_tpu_torch/csrc/real_qz.cu", "faer_tpu/linalg/qz_real.py:56"),
+        # no Pallas kernel: the XLA while_loop of the JAX package's
+        # complex_schur
+        "complex_schur": ("faer_tpu_torch/csrc/complex_schur.cu",
+                          "faer_tpu/linalg/evd.py:277"),
     }
     # on no library path, as in the JAX package: syrk_lower_sub is unwired,
     # the v3 and v1 LU panels are called by nothing, the QR panels v1, v2,
@@ -4374,6 +4905,7 @@ def main() -> None:
                "real_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "hess_tri": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "real_qz": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "complex_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "lu_panel_swap": gemm[1:], "chase_probe": gemm[1:]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [

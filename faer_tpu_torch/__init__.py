@@ -21,6 +21,11 @@ siblings), in float32 and float64; the general real EVD, ``linalg.evd``
 ``hessenberg_blocked``), ``linalg.real_schur`` (``real_schur``, one launch
 of the ``real_schur`` kernel on a card), ``linalg.schur_multishift``
 (``multishift_real_schur``) and ``linalg.eigvec``, in float32 and float64;
+the general complex EVD through the same ``evd`` and ``eigenvalues``,
+``linalg.complex_schur`` (``complex_schur``, one launch of the
+``complex_schur`` kernel on a card, also ``evd.complex_schur``),
+``multishift_complex_schur`` and ``eigvec.triangular_eigenvectors``, in
+complex64 and complex128;
 the generalized real EVD, ``linalg.gevd`` (``gevd``, ``gevd_eigenvalues``,
 ``gevd_self_adjoint``), ``linalg.qz`` (``hessenberg_triangular``, one
 launch of the ``hess_tri`` kernel on a card; ``qz``, ``gevd_qz``) and
@@ -34,8 +39,8 @@ through the GEMM front door (``ops.matmul``) and, with the switch
 ``core.config.config.use_tile_matmul`` on, its tile kernel; and
 ``linalg.batched``, ``ops.jacobi``, ``ops.zip``. complex64 and complex128
 run through every factorization, solver object, the self-adjoint EVD and
-the SVD (``core/dtypes.py`` says which route each takes); the complex
-general and generalized EVD are ROADMAP item 10b.
+the SVD and the general EVD (``core/dtypes.py`` says which route each
+takes); the complex generalized EVD is ROADMAP item 10b-ii.
 """
 from faer_tpu_torch.core import dtypes, params, perm
 from faer_tpu_torch.core.config import (
@@ -135,8 +140,13 @@ from faer_tpu_torch.linalg.solvers import (
 from faer_tpu_torch.linalg.gevd import gevd, gevd_eigenvalues, gevd_self_adjoint
 from faer_tpu_torch.linalg.qz import gevd_qz, hessenberg_triangular, qz
 from faer_tpu_torch.linalg.qz_real import qz_eigenvalues_pair, real_qz
+from faer_tpu_torch.linalg.complex_schur import complex_schur
+from faer_tpu_torch.linalg.eigvec import triangular_eigenvectors
 from faer_tpu_torch.linalg.real_schur import real_schur
-from faer_tpu_torch.linalg.schur_multishift import multishift_real_schur
+from faer_tpu_torch.linalg.schur_multishift import (
+    multishift_complex_schur,
+    multishift_real_schur,
+)
 from faer_tpu_torch.linalg.svd import (
     pseudoinverse,
     pseudoinverse_from_svd,
@@ -181,7 +191,8 @@ __all__ = [
     "self_adjoint_evd", "self_adjoint_eigenvalues", "self_adjoint_pseudoinverse",
     "svd", "singular_values", "pseudoinverse", "pseudoinverse_from_svd",
     "evd", "eigenvalues", "evd_pair", "eigenvalues_pair", "hessenberg_in_place",
-    "hessenberg_blocked", "real_schur", "multishift_real_schur",
+    "hessenberg_blocked", "real_schur", "multishift_real_schur", "complex_schur",
+    "multishift_complex_schur", "triangular_eigenvectors",
     "GevdParams", "gevd", "gevd_eigenvalues", "gevd_self_adjoint", "gevd_qz", "qz",
     "real_qz", "qz_eigenvalues_pair", "hessenberg_triangular",
 ]

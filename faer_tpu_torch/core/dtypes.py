@@ -2,10 +2,11 @@
 
 The factorizations, their solves, the self-adjoint EVD and the SVD take
 ``torch.float32``, ``torch.float64``, ``torch.complex64`` and
-``torch.complex128`` (:func:`require_field`). The general and generalized
-EVD take the real dtypes only (:func:`require_real`): complex input raises
-``NotImplementedError`` naming ROADMAP §1 item 10b (the complex Schur form
-and the complex QZ). What the dtype decides:
+``torch.complex128`` (:func:`require_field`), and so does the general
+EVD (a complex matrix takes the complex Schur form). The generalized EVD
+takes the real dtypes only (:func:`require_real`): a complex pencil raises
+``NotImplementedError`` naming ROADMAP §1 item 10b-ii (the complex QZ).
+What the dtype decides:
 
 * the dense factorizations: float32 goes to the hand-written kernels
   (:func:`kernel_route`), as the JAX package's ``panel_kernels_enabled``
@@ -16,7 +17,10 @@ and the complex QZ). What the dtype decides:
   EVD): both dtypes run the same drivers, and each QR iteration is one
   launch of a batched kernel instantiated for float32 and for float64
   (``tridiag_qr_batched``, ``bidiag_qr_batched``, ``real_schur_batched``),
-  as the JAX package runs f64 through the same spectral drivers;
+  as the JAX package runs f64 through the same spectral drivers; the
+  general EVD of complex64 and complex128 input runs the complex Schur
+  iteration, one launch of ``complex_schur_batched`` (instantiated for
+  both) a direct call or AED window;
 * complex64 LLT and LDLT (and their solves) go through the interleaved
   real embedding (``linalg/cholesky.py``): a 2n float32 problem on the
   float32 route, so the ``llt_panel`` (or ``llt_leaf``) and ``trtri``
@@ -87,12 +91,11 @@ def abs2(x):
 
 def require_real(a, name: str) -> None:
     """Raise ``NotImplementedError`` unless ``a`` is float32 or float64: the
-    entry points whose complex form is the complex Schur form or the
-    complex QZ."""
+    entry points whose complex form is the complex QZ."""
     if a.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             f"{name}: float32 and float64 only, got {a.dtype}; the complex "
-            "Schur form and the complex QZ are ROADMAP §1 item 10b")
+            "QZ and the complex generalized EVD are ROADMAP §1 item 10b-ii")
 
 
 def require_field(a, name: str) -> None:

@@ -39,9 +39,34 @@
 // operation rounded on its own (spectral_qr.cuh) in the order of
 // real_schur_plain, so T, Q and the counts equal the plain version's to the
 // bit.
+//
+// Built with -DFAER_SCHUR_PROFILE (`tools/torch_profile.py real_schur`
+// does, into a library of its own), thread 0 of each CTA adds its cycles by
+// phase into g_prof, read by faer_real_schur_profile_read.
 #include <cuda_runtime.h>
 
 #include "spectral_qr.cuh"
+
+#ifdef FAER_SCHUR_PROFILE
+// 0 stage (H and Q in, ‖H‖), 1 deflation (the negligible pass, lo, the 2×2
+// standardizations), 2 shifts and sweep start, 3 row phase, 4 column
+// phase, 5 out: thread 0's cycles, summed over CTAs and launches
+constexpr int kProf = 6;
+__device__ long long g_prof[kProf];
+#define PROF_START long long t_prof = clock64(); long long prof[kProf] = {0};
+#define PROF_MARK(k) \
+  if (threadIdx.x == 0) { const long long t_ = clock64(); prof[k] += t_ - t_prof; t_prof = t_; }
+#define PROF_END \
+  if (threadIdx.x == 0) for (int k = 0; k < kProf; ++k) atomicAdd((unsigned long long*)&g_prof[k], (unsigned long long)prof[k]);
+#define PROF_ARG , long long* prof, long long& t_prof
+#define PROF_PASS , prof, t_prof
+#else
+#define PROF_START
+#define PROF_MARK(k)
+#define PROF_END
+#define PROF_ARG
+#define PROF_PASS
+#endif
 
 namespace {
 
@@ -131,7 +156,7 @@ __device__ void standardize_block(Mat<T> h, Mat<T> q, int n, int lo) {
 // barrier.
 template <typename T>
 __device__ int sweep(Mat<T> h, Mat<T> q, int n, int lo, int hi, int stall, int* red,
-                      T* vbuf) {
+                      T* vbuf PROF_ARG) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const T eps = Limits<T>::eps;
   T h11 = h(hi - 1, hi - 1), h12 = h(hi - 1, hi), h21 = h(hi, hi - 1), h22 = h(hi, hi);
@@ -177,6 +202,7 @@ __device__ int sweep(Mat<T> h, Mat<T> q, int n, int lo, int hi, int stall, int* 
   v2 = dvd(v2, scale);
   v3 = dvd(v3, scale);
   __syncthreads();  // every thread has read H before the first reflector
+  PROF_MARK(2)
   for (int i = m0; i < hi; ++i) {
     const bool last = i == hi - 1;
     if (i > m0) {  // the bulge below the subdiagonal of column i-1
@@ -207,6 +233,7 @@ __device__ int sweep(Mat<T> h, Mat<T> q, int n, int lo, int hi, int stall, int* 
       if (!last) h(i + 2, j) = r2;
     }
     __syncthreads();
+    PROF_MARK(3)
     // columns i..i+2 of H (rows 0..min(i+3, hi)) and of Q (every row)
     const int rend = min(i + 3, hi) + 1;
     for (int r = tid; r < n; r += nt) {
@@ -235,6 +262,7 @@ __device__ int sweep(Mat<T> h, Mat<T> q, int n, int lo, int hi, int stall, int* 
       if (!last) q(r, i + 2) = sub(y2, mul(tau, mul(u3, w)));
     }
     __syncthreads();
+    PROF_MARK(4)
   }
   return hi - m0;
 }
@@ -264,6 +292,7 @@ real_schur_kernel(T* t_all, T* q_all, const int* __restrict__ sizes, int* __rest
     }
     return;
   }
+  PROF_START
   T* tg = t_all + (size_t)b * nmax * nmax;
   T* qg = q_all + (size_t)b * nmax * nmax;
   Mat<T> h{tg, nmax}, q{qg, nmax};
@@ -284,6 +313,7 @@ real_schur_kernel(T* t_all, T* q_all, const int* __restrict__ sizes, int* __rest
   const T smlnum = mul(Limits<T>::eps, nan_max(hn, Limits<T>::tiny));
   const int max_iters = factor * n;
   int hi = n - 1, it = 0, stall = 0, steps = 0;
+  PROF_MARK(0)
   while (hi >= 1 && it < max_iters) {
     negligible_subdiag(h, n, mul(smlnum, T(1 << min(stall / 5, stall_cap<T>()))));
     // lo: the start of the unreduced block that ends at hi
@@ -297,9 +327,9 @@ real_schur_kernel(T* t_all, T* q_all, const int* __restrict__ sizes, int* __rest
     } else if (nr == 2) {
       standardize_block(h, q, n, lo);
       hi = lo - 1;
-    } else {
-      steps += sweep(h, q, n, lo, hi, stall, red, vbuf);
     }
+    PROF_MARK(1)
+    if (nr > 2) steps += sweep(h, q, n, lo, hi, stall, red, vbuf PROF_PASS);
     stall = nr <= 2 ? 0 : stall + 1;
     ++it;
   }
@@ -323,6 +353,8 @@ real_schur_kernel(T* t_all, T* q_all, const int* __restrict__ sizes, int* __rest
     out[1] = hi < 1;
     out[2] = steps;
   }
+  PROF_MARK(5)
+  PROF_END
 }
 
 template <typename T>
@@ -368,3 +400,14 @@ extern "C" int faer_real_schur_batched_f64(double* t, double* q, const int* size
                                            int batch, int nmax, int factor, void* stream) {
   return schur_batched<double>(t, q, sizes, info, batch, nmax, factor, stream);
 }
+
+#ifdef FAER_SCHUR_PROFILE
+// Copies the phase counters (SM cycles summed over CTAs and launches) to
+// the host and zeroes them. Returns the CUDA error (0 on success).
+extern "C" int faer_real_schur_profile_read(long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+  const long long zero[kProf] = {0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+  return (int)err;
+}
+#endif

@@ -6,5 +6,5 @@ self-adjoint and general EVD, the generalized EVD (``gevd``, ``qz``,
 __all__ = [
     "cholesky", "lu", "qr", "solvers", "svd", "evd", "gevd", "qz", "qz_real", "batched",
     "bidiag", "bidiag_svd", "bidiag_dnc", "tridiag", "tridiag_evd", "tridiag_dnc",
-    "real_schur", "schur_multishift", "eigvec",
+    "real_schur", "complex_schur", "schur_multishift", "eigvec",
 ]

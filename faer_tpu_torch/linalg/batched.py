@@ -109,5 +109,6 @@ def self_adjoint_evd(a_batch):
 
 
 def eigenvalues(a_batch):
-    """Batched general eigenvalues (real input; complex is item 10b)."""
+    """Batched general eigenvalues, real or complex input (``evd.eigenvalues``
+    on each matrix: complex64 and complex128 run the complex Schur form)."""
     return _map(_evd.eigenvalues, a_batch)

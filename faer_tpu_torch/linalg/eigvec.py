@@ -1,15 +1,16 @@
-"""Eigenvectors of a real quasi-triangular Schur form (counterpart of
+"""Eigenvectors of a Schur form (counterpart of
 ``faer_tpu/linalg/eigvec.py``).
 
-faer's shifted quasi-triangular back-substitution (``evd/mod.rs:670-882``):
-column k of V solves (T − λ_k I) x = 0 with the components below λ_k's own
-block pinned. Every eigenvector is solved at once, bottom-up, one row (or
-one 2×2 block's pair of rows) a step: each step is one product of T's rows
-with the whole batch of eigenvectors, in real arithmetic with (re, im)
-pairs. The pencil form,
+faer's shifted (quasi-)triangular back-substitution
+(``evd/mod.rs:670-882``): column k of V solves (T − λ_k I) x = 0 with the
+components below λ_k's own block pinned. Every eigenvector is solved at
+once, bottom-up, one row (or one 2×2 block's pair of rows) a step: each
+step is one product of T's rows with the whole batch of eigenvectors.
+:func:`triangular_eigenvectors` takes the upper-triangular complex Schur
+form, in its own dtype; the real quasi-triangular form runs in real
+arithmetic with (re, im) pairs. The pencil form,
 :func:`quasi_triangular_generalized_eigenvectors_pair`, solves the
-homogeneous (β S − α T) y = 0 the same way. ``triangular_eigenvectors``
-(complex Schur) waits for ROADMAP §1 item 10b.
+homogeneous (β S − α T) y = 0 the same way.
 """
 from __future__ import annotations
 
@@ -23,6 +24,29 @@ def _cdiv2(nr, ni, dr, di):
     """(nr + i·ni) / (dr + i·di), componentwise on real tensors."""
     d2 = dr * dr + di * di
     return (nr * dr + ni * di) / d2, (ni * dr - nr * di) / d2
+
+
+def triangular_eigenvectors(t):
+    """Right eigenvectors of the upper-triangular ``t`` (complex or real),
+    each column of unit 2-norm (``faer_tpu/linalg/eigvec.py:22-45``): the
+    bottom-up scan, each step one product of T's row j with the whole batch
+    X, x_j = −(T[j, :]·X)/(T[j, j] − λ_k) for the eigenvectors k > j, the
+    denominator clamped to the real floor ε·max(‖T‖_max, 1) where its
+    magnitude is below it; X starts as the identity."""
+    n = t.shape[0]
+    dt, dev = t.dtype, t.device
+    rdt = dtypes.real_dtype_of(dt)
+    diag = t.diagonal()
+    floor = (dtypes.eps(dt) * torch.clamp(t.abs().amax(), min=1.0)).to(rdt)
+    ks = torch.arange(n, device=dev)
+    x = torch.eye(n, dtype=dt, device=dev)
+    for j in range(n - 2, -1, -1):  # row n − 1 commits no eigenvector
+        rhs = -matmul(None, t[j:j + 1], x)[0]
+        den = t[j, j] - diag
+        den = torch.where(den.abs() < floor, floor.to(dt), den)
+        x[j] = torch.where(ks > j, rhs / den, x[j])
+    norms = torch.linalg.vector_norm(x, dim=0)
+    return x / norms[None, :]
 
 
 def quasi_triangular_eigenvectors_pair(t, wr, wi):

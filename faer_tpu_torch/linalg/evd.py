@@ -15,14 +15,20 @@
   ``eigenvalues_pair`` return (re, im) pairs as the JAX package does;
   ``evd`` and ``eigenvalues`` combine them into native complex tensors
   (``torch.complex``), on the input's device.
+* General complex — faer ``evd_cplx`` (``evd/mod.rs:1180``): the unitary
+  Hessenberg reduction (the same ``hessenberg_blocked``, conjugating), the
+  complex Schur form (:func:`_complex_schur_dispatch`: multishift QR with
+  AED from n = 128, each AED window one ``complex_schur`` kernel launch,
+  below it one direct launch; faer's dispatch, ``complex_schur.rs:631``,
+  and the JAX package's pair route's, ``evd_cpair._schur_auto``), w =
+  diag(T), the triangular eigenvectors (``eigvec.triangular_eigenvectors``)
+  and V = Q·X, all in the input's dtype.
 
 The self-adjoint EVD takes float32, float64, complex64 and complex128:
 Hermitian input reduces to a real tridiagonal (real d, e), whose QR
 iteration is the same one batched launch as for the real dtypes, and the
 back-transform is complex (``A = V diag(w) Vᴴ``, w real). The general EVD
-takes float32 and float64; complex input raises ``NotImplementedError``
-naming ROADMAP §1 item 10b, which holds ``complex_schur`` and the complex
-branches.
+takes the same four dtypes.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from faer_tpu_torch.core import dtypes
 from faer_tpu_torch.core.config import check_f32_policy
 from faer_tpu_torch.core.errors import ShapeError
 from faer_tpu_torch.core.flags import Side
+from faer_tpu_torch.linalg.complex_schur import complex_schur  # noqa: F401 (evd.complex_schur)
 from faer_tpu_torch.linalg.tridiag import tridiag_apply_q, tridiag_in_place
 from faer_tpu_torch.linalg.tridiag_evd import tridiag_evd
 from faer_tpu_torch.ops.householder import (
@@ -90,20 +97,25 @@ def self_adjoint_pseudoinverse(a, tol=None):
 # Hessenberg reduction
 # ---------------------------------------------------------------------------
 
-def _square(a, name: str):
+def _square(a, name: str, *, real: bool = False):
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ShapeError(f"{name}: needs a square matrix, got {tuple(a.shape)}")
-    dtypes.require_real(a, name)
+    dtypes.require_field(a, name)
+    if real and a.is_complex():
+        raise TypeError(f"{name}: real input (the (re, im) pair form of the real EVD); "
+                        "complex input takes evd / eigenvalues")
     if a.is_cuda:
         check_f32_policy()
 
 
 def hessenberg_in_place(a):
-    """Orthogonal reduction to upper Hessenberg: ``(h, q)`` with
-    A = Q H Qᵀ (faer ``hessenberg_in_place``, ``hessenberg.rs:549``), one
-    reflector a column, each applied to the rows and columns it changes and
-    to Q (the JAX package applies it, masked, to the whole matrix). New
-    tensors."""
+    """Unitary reduction to upper Hessenberg: ``(h, q)`` with A = Q H Qᴴ
+    (faer ``hessenberg_in_place``, ``hessenberg.rs:549``), one reflector
+    H = I − τ v vᴴ a column, A ← Hᴴ A H applied to the rows and columns it
+    changes and Q ← Q H (the JAX package applies it, masked, to the whole
+    matrix). Real input conjugates nothing: ``conj`` of a real tensor is
+    the tensor itself, so its operations are those of the real reduction.
+    New tensors."""
     n = a.shape[0]
     q = torch.eye(n, dtype=a.dtype, device=a.device)
     h = a.clone()
@@ -111,22 +123,24 @@ def hessenberg_in_place(a):
         return h, q
     for j in range(n - 2):
         v, tau, _ = make_householder(h[j + 1:, j])
-        # A ← H A H, Q ← Q H, H = I − τ v vᵀ acting on rows/columns j+1..
-        w = matmul(None, v[None, :], h[j + 1:, :])[0]
-        h[j + 1:, :] -= tau * v[:, None] * w[None, :]
+        vc = v.conj()
+        # A ← Hᴴ A H, Q ← Q H, acting on rows/columns j+1..
+        w = matmul(None, vc[None, :], h[j + 1:, :])[0]
+        h[j + 1:, :] -= tau.conj() * v[:, None] * w[None, :]
         u = matmul(None, h[:, j + 1:], v[:, None])[:, 0]
-        h[:, j + 1:] -= tau * u[:, None] * v[None, :]
+        h[:, j + 1:] -= tau * u[:, None] * vc[None, :]
         uq = matmul(None, q[:, j + 1:], v[:, None])[:, 0]
-        q[:, j + 1:] -= tau * uq[:, None] * v[None, :]
+        q[:, j + 1:] -= tau * uq[:, None] * vc[None, :]
     return torch.triu(h, -1), q
 
 
 def _hess_panel(t, bw: int):
     """lahr2-style Hessenberg panel on the trailing block ``t`` (m × m):
-    ``bw`` reflectors with DEFERRED two-sided updates. Keeps ``P = Vᵀ A0``
+    ``bw`` reflectors with DEFERRED two-sided updates. Keeps ``P = Vᴴ A0``
     (two matvecs a step are the only O(m²) work) and the compact-WY ``T``,
     so that the virtually updated matrix is
-    ``A = A0 − V (TᵀP) − (RT) Vᵀ + V (Tᵀ (PV) T) Vᵀ`` with ``R = A0 V``.
+    ``A = A0 − V (TᴴP) − (RT) Vᴴ + V (Tᴴ (PV) T) Vᴴ`` with ``R = A0 V``
+    (the JAX package's ``:124-190``; for real input ``ᴴ`` is ``ᵀ``).
     Returns (V, T, P, R, PV, e_p), e_p the subdiagonal betas; the caller
     forms the trailing update and the Hessenberg columns."""
     m = t.shape[0]
@@ -135,18 +149,18 @@ def _hess_panel(t, bw: int):
     r_p, pv, e_p = z((m, bw)), z((bw, bw)), z(bw)
     for i in range(bw):
         # virtual column i
-        tv = matmul(None, t_p, v_p[i, :, None])
-        c = t[:, i] - matmul(None, v_p, matmul(None, t_p.T, p_p[:, i, None]))[:, 0]
+        tv = matmul(None, t_p, v_p[i, :, None].conj())
+        c = t[:, i] - matmul(None, v_p, matmul(None, t_p.mH, p_p[:, i, None]))[:, 0]
         c = c - matmul(None, r_p, tv)[:, 0]
-        c = c + matmul(None, v_p, matmul(None, t_p.T, matmul(None, pv, tv)))[:, 0]
+        c = c + matmul(None, v_p, matmul(None, t_p.mH, matmul(None, pv, tv)))[:, 0]
         # reflector pivoting at row i + 1
         vt, tau, beta = make_householder(c[i + 1:])
         v = torch.cat([t.new_zeros(i + 1), vt])
-        # grow T: T ← [[T, −τ T (Vᵀ v)], [0, τ]]
-        t_p[:, i] = (-tau) * matmul(None, t_p, matmul(None, v_p.T, v[:, None]))[:, 0]
+        # grow T: T ← [[T, −τ T (Vᴴ v)], [0, τ]]
+        t_p[:, i] = (-tau) * matmul(None, t_p, matmul(None, v_p.mH, v[:, None]))[:, 0]
         t_p[i, i] = tau
         # grow P, R and PV: two matvecs against A0
-        p_new = matmul(None, v[None, :], t)[0]
+        p_new = matmul(None, v.conj()[None, :], t)[0]
         p_p[i] = p_new
         r_p[:, i] = matmul(None, t, v[:, None])[:, 0]
         pv[i] = matmul(None, p_new[None, :], v_p)[0]
@@ -173,12 +187,12 @@ def hessenberg_blocked(a, *, block: int = 96):
         m = n - j0
         t = h[j0:, j0:]
         v_p, t_p, p_p, r_p, pv, e_p = _hess_panel(t, bw)
-        # A1 = (I − V T Vᵀ)ᵀ A0 (I − V T Vᵀ) on the trailing block
-        w_full = matmul(None, t_p.T, p_p)
+        # A1 = (I − V T Vᴴ)ᴴ A0 (I − V T Vᴴ) on the trailing block
+        w_full = matmul(None, t_p.mH, p_p)
         y_full = matmul(None, r_p, t_p)
-        cross = matmul(None, t_p.T, matmul(None, pv, t_p))
+        cross = matmul(None, t_p.mH, matmul(None, pv, t_p))
         t_new = t - matmul(None, v_p, w_full) - matmul(
-            None, y_full - matmul(None, v_p, cross), v_p.T)
+            None, y_full - matmul(None, v_p, cross), v_p.mH)
         # the strip above the trailing block: A[:j0, j0:] · H
         h[:j0, j0:] = apply_block_on_right(v_p, t_p, h[:j0, j0:], adjoint=False)
         # the panel's Hessenberg columns exactly: the virtual columns' heads,
@@ -233,7 +247,7 @@ def evd_pair(a, *, max_sweeps_factor: int = 30):
     from faer_tpu_torch.linalg.eigvec import quasi_triangular_eigenvectors_pair
     from faer_tpu_torch.linalg.real_schur import schur_eigenvalues_pair
 
-    _square(a, "evd")
+    _square(a, "evd_pair", real=True)
     h, q = hessenberg_blocked(a)
     t, qs, info = _real_schur_dispatch(h, q, max_sweeps_factor=max_sweeps_factor)
     wr, wi = schur_eigenvalues_pair(t)
@@ -246,10 +260,36 @@ def eigenvalues_pair(a, *, max_sweeps_factor: int = 30):
     adjacent, in the order of the Schur form's diagonal."""
     from faer_tpu_torch.linalg.real_schur import schur_eigenvalues_pair
 
-    _square(a, "eigenvalues")
+    _square(a, "eigenvalues_pair", real=True)
     h, q = hessenberg_blocked(a)
     t, _, _ = _real_schur_dispatch(h, q, max_sweeps_factor=max_sweeps_factor)
     return schur_eigenvalues_pair(t)
+
+
+def _complex_schur_dispatch(h, q, *, max_sweeps_factor: int):
+    """Complex Hessenberg → complex Schur: multishift QR + AED from
+    ``_MULTISHIFT_MIN_N`` on, every AED window one ``complex_schur``
+    launch; below it one direct launch of the single-shift iteration."""
+    if h.shape[0] >= _MULTISHIFT_MIN_N:
+        from faer_tpu_torch.linalg.schur_multishift import multishift_complex_schur
+
+        return multishift_complex_schur(h, q)
+    from faer_tpu_torch.linalg.complex_schur import complex_schur
+
+    return complex_schur(h, q, max_sweeps_factor=max_sweeps_factor)
+
+
+def _evd_complex(a, *, max_sweeps_factor: int, vectors: bool):
+    """The complex EVD (module docstring): ``(w, v, info)``, v None without
+    ``vectors``."""
+    from faer_tpu_torch.linalg.eigvec import triangular_eigenvectors
+
+    h, q = hessenberg_blocked(a)
+    t, qs, info = _complex_schur_dispatch(h, q, max_sweeps_factor=max_sweeps_factor)
+    w = t.diagonal().clone()
+    if not vectors:
+        return w, None, info
+    return w, matmul(None, qs, triangular_eigenvectors(t)), info
 
 
 def _combine_pair(re, im):
@@ -259,14 +299,22 @@ def _combine_pair(re, im):
 
 def evd(a, *, max_sweeps_factor: int = 30):
     """General eigendecomposition: ``(w, v, info)`` with A v_k = w_k v_k,
-    w and v complex (complex64 from float32, complex128 from float64).
-    faer ``evd_real`` (``evd/mod.rs:1213``); complex input (``evd_cplx``,
-    ``complex_schur``) is ROADMAP §1 item 10b."""
+    each v_k of unit 2-norm, w and v complex (complex64 from float32 and
+    complex64, complex128 from float64 and complex128). Real input: faer
+    ``evd_real`` (``evd/mod.rs:1213``), conjugate pairs adjacent; complex
+    input: ``evd_cplx`` (``:1180``), the complex Schur form's diagonal
+    order."""
+    _square(a, "evd")
+    if a.is_complex():
+        return _evd_complex(a, max_sweeps_factor=max_sweeps_factor, vectors=True)
     (wr, wi), (vr, vi), info = evd_pair(a, max_sweeps_factor=max_sweeps_factor)
     return _combine_pair(wr, wi), _combine_pair(vr, vi), info
 
 
 def eigenvalues(a, *, max_sweeps_factor: int = 30):
-    """Eigenvalues of a real matrix as a complex tensor (conjugate pairs
-    adjacent); complex input is ROADMAP §1 item 10b."""
+    """Eigenvalues as a complex tensor: of a real matrix with conjugate
+    pairs adjacent, of a complex one in the Schur form's diagonal order."""
+    _square(a, "eigenvalues")
+    if a.is_complex():
+        return _evd_complex(a, max_sweeps_factor=max_sweeps_factor, vectors=False)[0]
     return _combine_pair(*eigenvalues_pair(a, max_sweeps_factor=max_sweeps_factor))

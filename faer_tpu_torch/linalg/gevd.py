@@ -11,7 +11,7 @@ general EVD of C (β = 1), cheaper where B is well conditioned.
 by the Cholesky factor of B: C = L⁻¹AL⁻ᵀ, C y = w y, v = L⁻ᵀy.
 
 float32 and float64; complex pencils (``gevd_cplx``, the complex QZ) are
-ROADMAP §1 item 10b.
+ROADMAP §1 item 10b-ii.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ s = sign(x)·z/r, r the norm of the scaled pair): PyTorch keeps the float32
 subnormals that XLA flushes, and the unscaled squares of the JAX
 package's ``_cgivens`` underflow there.
 
-Complex pencils (the complex QZ, ``qz_cpair``) are ROADMAP §1 item 10b.
+Complex pencils (the complex QZ, ``qz_cpair``) are ROADMAP §1 item 10b-ii.
 """
 from __future__ import annotations
 
@@ -141,7 +141,7 @@ def qz(a, b, *, max_sweeps_factor: int = 30):
     """The generalized Schur form of a real pencil: ``(s, t, q, z, info)``
     with A = Q S Zᵀ and B = Q T Zᵀ, S quasi-triangular and T upper
     triangular (:func:`.qz_real.real_qz`). Complex pencils, whose form is
-    triangular, are ROADMAP §1 item 10b."""
+    triangular, are ROADMAP §1 item 10b-ii."""
     from faer_tpu_torch.linalg.qz_real import real_qz
 
     return real_qz(a, b, max_sweeps_factor=max_sweeps_factor)

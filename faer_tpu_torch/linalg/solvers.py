@@ -7,14 +7,15 @@ and the decomposition structs (``:697-765``), built by the ``Mat`` methods
 info) with the JAX dataclass's field names, so that ``interop`` can carry
 one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
-``SelfAdjointEigen``, ``Eigen`` (the general real EVD) and
+``SelfAdjointEigen``, ``Eigen`` (the general EVD) and
 ``GeneralizedEigen`` (the real pencil's EVD by QZ). Every object but the
-last two takes float32, float64, complex64 and complex128, as the JAX
+last takes float32, float64, complex64 and complex128, as the JAX
 package's native path does (the JAX package's split (re, im) pair path is
 not ported: ``interop`` turns its pairs into complex tensors); a complex
-determinant is complex, L's and D's diagonals real. ``Eigen`` and
-``GeneralizedEigen`` of complex input raise ``NotImplementedError`` naming
-ROADMAP §1 item 10b (the complex Schur form and the complex QZ). A real
+determinant is complex, L's and D's diagonals real; ``Eigen`` of complex
+input runs the complex Schur form. ``GeneralizedEigen`` of a complex pencil
+raises ``NotImplementedError`` naming ROADMAP §1 item 10b-ii (the complex
+QZ). A real
 factor solves a complex right-hand side as its real and imaginary parts;
 a complex factor promotes a real one.
 """
@@ -447,9 +448,9 @@ class SelfAdjointEigen:
 
 @dataclasses.dataclass(frozen=True)
 class Eigen:
-    """General eigendecomposition of a real matrix: A V = V diag(w), w and
-    V complex (faer ``solvers.rs:761``); complex input is ROADMAP §1 item
-    10b."""
+    """General eigendecomposition: A V = V diag(w), w and V complex
+    (complex64 from float32 and complex64 input, complex128 from float64
+    and complex128; faer ``solvers.rs:761``)."""
 
     v: torch.Tensor
     w: torch.Tensor

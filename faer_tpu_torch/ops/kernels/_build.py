@@ -33,7 +33,8 @@ _SIGNATURES = {
     # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
     # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route,
     # faer_bidiag_qr_route, faer_real_schur_route, faer_hess_tri_route,
-    # faer_real_qz_route and their _f64 twins; bytes
+    # faer_real_qz_route and their _f64 twins, faer_complex_schur_route and
+    # its _c128 twin; bytes
     # for faer_chase_smem_bytes)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
@@ -64,6 +65,10 @@ _SIGNATURES = {
     "faer_real_schur_batched_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "faer_real_schur_route": [_I],
     "faer_real_schur_route_f64": [_I],
+    "faer_complex_schur_batched": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_complex_schur_batched_c128": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_complex_schur_route": [_I],
+    "faer_complex_schur_route_c128": [_I],
     "faer_hess_tri_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
     "faer_hess_tri_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _P],
     "faer_hess_tri_route": [_I],

@@ -87,3 +87,50 @@ def vectors_close(v, ref, values, n, npdt, phases=None):
     err = np.abs(va - ref).max(axis=0, initial=0.0)
     bound = 8 * n * eps(npdt) * cond * np.abs(ref).max(axis=0, initial=0.0)
     assert np.all(err <= bound), (err / bound).max()
+
+
+def hess_input(n, npdt, seed=0, scale=1.0):
+    """A complex Gaussian upper-Hessenberg matrix times ``scale``."""
+    rng = np.random.default_rng(7000 + 10 * n + seed)
+    g = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return (np.triu(g, -1) * scale).astype(npdt)
+
+
+def schur_backward(a, t, q):
+    """The Schur step's A = Q T Qᴴ in complex128: ‖A − QTQᴴ‖_F/‖A‖_F,
+    max|QᴴQ − I| and the backward error η = ‖A − QTQᴴ‖₂ + ‖A‖₂‖QᴴQ − I‖₂ of
+    T's eigenvalues."""
+    a, t, q = (np.asarray(x, np.complex128) for x in (a, t, q))
+    e = a - q @ t @ q.conj().T
+    f = q.conj().T @ q - np.eye(a.shape[0])
+    an = np.linalg.norm(a)
+    return (np.linalg.norm(e) / an if an else np.linalg.norm(e), np.abs(f).max(),
+            np.linalg.norm(e, 2) + np.linalg.norm(a, 2) * np.linalg.norm(f, 2))
+
+
+def eig_ratio(w, a, eta, other=None):
+    """How far the eigenvalues ``w`` lie from f64 ``scipy.linalg.eig`` of
+    ``a`` (or from ``other``, another computation's eigenvalues of ``a``)
+    against each reference eigenvalue's bound 2·κ_i·η (κ_i =
+    ‖x_i‖‖y_i‖/|y_iᴴx_i| from scipy's left and right vectors, η a backward
+    error, doubled for the reference's own error of the same kind; η is
+    taken at least n·eps_f64·‖A‖₂, LAPACK's own backward error, where a
+    complex128 step at a small n errs less than the reference does): the
+    largest ratio, each eigenvalue matched to the nearest of the other set
+    in both directions (a different rounding can order a Schur diagonal
+    differently)."""
+    import scipy.linalg
+
+    a = np.asarray(a, np.complex128)
+    eta = max(eta, a.shape[0] * float(np.finfo(np.float64).eps) * np.linalg.norm(a, 2))
+    lam, yl, xr = scipy.linalg.eig(a, left=True, right=True)
+    kappa = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+             / np.abs(np.sum(yl.conj() * xr, axis=0)))
+    ref = lam if other is None else np.asarray(other, np.complex128)
+    if other is not None:  # each of other's eigenvalues takes κ of scipy's nearest
+        kappa = kappa[np.abs(ref[:, None] - lam[None, :]).argmin(axis=1)]
+    w = np.asarray(w, np.complex128)
+    dist = np.abs(w[:, None] - ref[None, :])
+    tol = np.maximum(2 * kappa * eta, np.finfo(np.float64).tiny)
+    near_ref = dist.argmin(axis=1)
+    return max((dist.min(axis=1) / tol[near_ref]).max(), (dist.min(axis=0) / tol).max())

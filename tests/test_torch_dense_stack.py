@@ -339,7 +339,8 @@ def test_facade_objects_end_to_end(dt):
 def test_complex_input_names_item_10(name):
     """Item 10a took complex input: each of these objects factors a complex
     Hermitian positive definite matrix and solves with it within 8·n·eps
-    (the general and generalized EVD, item 10b, still raise)."""
+    (the complex general EVD is item 10b-i and runs; the generalized EVD,
+    item 10b-ii, still raises)."""
     rng = np.random.default_rng(10)
     g = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
     a = (g @ g.conj().T / 12 + np.eye(12)).astype(np.complex64)
@@ -349,8 +350,10 @@ def test_complex_input_names_item_10(name):
     a64, x64 = a.astype(np.complex128), x.astype(np.complex128)
     res = np.linalg.norm(a64 @ x64 - b) / (np.linalg.norm(a64) * np.linalg.norm(x64))
     assert x.dtype == np.complex64 and res <= 8 * 12 * np.finfo(np.float32).eps
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsolvers.Eigen.new(torch.eye(4, dtype=torch.complex64))
+    eye = torch.eye(4, dtype=torch.complex64)
+    assert torch.equal(tsolvers.Eigen.new(eye).w, torch.ones(4, dtype=torch.complex64))
+    with pytest.raises(NotImplementedError, match="item 10b-ii"):
+        tsolvers.GeneralizedEigen.new(eye, eye)
 
 
 def _jax_fields(obj):

@@ -79,10 +79,10 @@ def test_dtype_policy():
         tdtypes.require_real(torch.zeros(2, 2, dtype=dt), "x")
     assert tdtypes.kernel_route(torch.float32)
     assert not tdtypes.kernel_route(torch.float64)
-    # complex: the factorizations take it (item 10a), the general and
-    # generalized EVD raise naming item 10b
+    # complex: the factorizations (item 10a) and the general EVD (item
+    # 10b-i) take it, the generalized EVD raises naming item 10b-ii
     for dt in (torch.complex64, torch.complex128):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+        with pytest.raises(NotImplementedError, match="item 10b-ii"):
             tdtypes.require_real(torch.zeros(2, 2, dtype=dt), "x")
         tdtypes.require_field(torch.zeros(2, 2, dtype=dt), "x")
         assert not tdtypes.kernel_route(dt)
@@ -90,8 +90,10 @@ def test_dtype_policy():
         tdtypes.require_field(torch.zeros(2, 2, dtype=torch.bfloat16), "x")
     l, info = tchol.llt_factor(torch.eye(4, dtype=torch.complex128))
     assert bool(info.success) and torch.equal(l, torch.eye(4, dtype=torch.complex128))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tft.Mat(torch.eye(4, dtype=torch.complex64)).eigen()
+    eye = tft.Mat(torch.eye(4, dtype=torch.complex64))
+    assert torch.equal(eye.eigen().eigenvalues, torch.ones(4, dtype=torch.complex64))
+    with pytest.raises(NotImplementedError, match="item 10b-ii"):
+        eye.generalized_eigen(eye)
 
 
 # -- item 2: errors, params, flags, permutations ------------------------------------

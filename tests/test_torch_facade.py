@@ -395,24 +395,32 @@ def test_error_cases_match_jax():
         _tm(np.ones((4, 3), np.float32)).partial_piv_lu()
     with pytest.raises(ShapeError):
         _tm(np.ones((4, 3), np.float32)).llt()
-    # complex factorizations are ported (item 10a); the complex general EVD
-    # is item 10b
+    # complex factorizations are ported (item 10a), and so is the complex
+    # general EVD (item 10b-i); the complex generalized EVD is item 10b-ii
     assert tsolvers.PartialPivLu.new(torch.eye(3, dtype=torch.complex64)).lu.is_complex()
     assert tsolvers.Ldlt.new(torch.eye(3, dtype=torch.complex64)).ld.is_complex()
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsolvers.Eigen.new(torch.ones(3, 3, dtype=torch.complex64))
+    ones = torch.ones(3, 3, dtype=torch.complex64)
+    assert torch.allclose(tsolvers.Eigen.new(ones).w.abs().sort().values,
+                          torch.tensor([0.0, 0.0, 3.0]), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="item 10b-ii"):
+        tsolvers.GeneralizedEigen.new(ones, ones)
 
 
 @pytest.mark.parametrize("method,item", [
     ("eigen", "10"), ("eigenvalues", "10"), ("generalized_eigen", "10"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """The general and generalized EVD of complex input wait for item 10;
-    the real ones are ported (a real pencil (I, I) has the eigenvalues 1)."""
+    """The generalized EVD of a complex pencil waits for item 10b-ii; the
+    complex general EVD (item 10b-i) and the real ones are ported (I and the
+    real pencil (I, I) have the eigenvalues 1)."""
     c = tft.Mat(torch.eye(4, dtype=torch.complex64))
-    args = (c,) if method == "generalized_eigen" else ()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        getattr(c, method)(*args)
+    if method == "generalized_eigen":
+        with pytest.raises(NotImplementedError, match=f"item {item}b-ii"):
+            c.generalized_eigen(c)
+    else:
+        out = getattr(c, method)()
+        w = out if method == "eigenvalues" else out.eigenvalues
+        assert torch.equal(w, torch.ones(4, dtype=torch.complex64))
     real = _tm(np.eye(4, dtype=np.float32))
     out = getattr(real, method)(*((real,) if method == "generalized_eigen" else ()))
     w = out if method == "eigenvalues" else out.eigenvalues
@@ -601,5 +609,9 @@ def test_complex_solver_objects_match_jax(method, dtype):
 @pytest.mark.parametrize("call", [lambda m: m.eigen(), lambda m: m.eigenvalues(),
                                   lambda m: tft.evd(m.a), lambda m: tft.eigenvalues(m.a)])
 def test_complex_general_evd_names_item_10b(call):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        call(tft.Mat(torch.eye(4, dtype=torch.complex64)))
+    """Item 10b-i ported the complex general EVD: each entry point takes a
+    complex matrix (the eigenvalues of I are 1, of complex64)."""
+    out = call(tft.Mat(torch.eye(4, dtype=torch.complex64)))
+    w = out.eigenvalues if hasattr(out, "eigenvalues") else (
+        out[0] if isinstance(out, tuple) else out)
+    assert torch.equal(w, torch.ones(4, dtype=torch.complex64))

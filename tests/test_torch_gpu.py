@@ -1672,6 +1672,93 @@ def test_real_schur_kernel_at_its_shared_memory_edge(cuda, dtype, past):
         assert torch.equal(g, w)
 
 
+# -- the complex Schur kernel ---------------------------------------------------
+
+def _complex_hess_batch(n, batch, seed, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.complex(torch.randn(batch, n, n, generator=gen, dtype=torch.float64),
+                      torch.randn(batch, n, n, generator=gen, dtype=torch.float64))
+    return torch.triu(g, -1).to(dtype)
+
+
+def _complex_schur_pair(h, cuda, factor=30):
+    """The kernel on the card and its plain version on the CPU copies (IEEE
+    operations on real numbers only, so the two devices round alike): T,
+    Q, iterations, converged and chase steps of each."""
+    from faer_tpu_torch.ops.kernels import complex_schur as kcs
+
+    batch, n, _ = h.shape
+    q = torch.eye(n, dtype=h.dtype).repeat(batch, 1, 1)
+    sizes = torch.full((batch,), n, dtype=torch.int32)
+    reset_launch_counts()
+    got = kcs.complex_schur_batched(h.to(cuda), q.to(cuda), sizes.to(cuda),
+                                    max_sweeps_factor=factor)
+    torch.cuda.synchronize()
+    assert launch_counts()["complex_schur"] == 1
+    want = kcs.complex_schur_batched_plain(h, q, sizes, max_sweeps_factor=factor)
+    return [g.cpu() for g in got], want
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,batch,factor", [(1, 2, 30), (2, 3, 30), (16, 4, 30), (48, 2, 30),
+                                            (96, 1, 30), (48, 1, 0)])
+def test_complex_schur_kernel_equals_its_plain_version(cuda, n, batch, factor, dtype):
+    """T, Q, the iteration counts, the convergence flags and the chase steps
+    equal to the bit; every problem converged, or none under a budget of
+    0."""
+    got, want = _complex_schur_pair(_complex_hess_batch(n, batch, n, dtype), cuda, factor)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[3].all()) == (factor > 0 or n == 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("past", [0, 1])
+def test_complex_schur_kernel_at_its_shared_memory_edge(cuda, dtype, past):
+    """The largest nmax whose H and Q the kernel keeps in shared memory
+    (119 in complex64, 85 in complex128 on an H100) and the next, in global
+    memory: equal to the plain version to the bit."""
+    from faer_tpu_torch.ops.kernels import complex_schur as kcs
+
+    n = kcs.shared_edge(dtype) + past
+    assert kcs.route(n, dtype) == ("global" if past else "shared")
+    got, want = _complex_schur_pair(_complex_hess_batch(n, 1, 5, dtype), cuda)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_complex_evd_on_card_against_the_cpu_route(cuda, monkeypatch):
+    """``evd`` of a complex64 matrix at 200 (multishift with AED, each window
+    one complex_schur launch) on the card and on the CPU: both residuals
+    ‖AV − V diag(w)‖/‖A‖ within 8·n·eps, one launch an AED call and no
+    other kernel."""
+    import faer_tpu_torch as ft
+    from faer_tpu_torch.linalg import schur_multishift as tms
+
+    calls = []
+    aed = tms._aed
+    monkeypatch.setattr(tms, "_aed", lambda *a, **k: calls.append(1) or aed(*a, **k))
+    n = 200
+    rng = np.random.default_rng(200)
+    g = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))).astype(np.complex64)
+    a = torch.tensor(g)
+    reset_launch_counts()
+    w, v, info = ft.evd(a.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert bool(info.converged) and counts["complex_schur"] == len(calls) > 0
+    assert sum(counts.values()) == counts["complex_schur"]
+    wc, vc, _ = ft.evd(a)
+    an = g.astype(np.complex128)
+    tol = 8 * n * EPS32
+
+    def resid(w, v):
+        w, v = w.cpu().numpy().astype(np.complex128), v.cpu().numpy().astype(np.complex128)
+        return np.linalg.norm(an @ v - v * w) / np.linalg.norm(an)
+
+    assert resid(w, v) <= tol and resid(wc, vc) <= tol
+
+
 @pytest.mark.parametrize("case", ["ragged", "global memory"])
 @pytest.mark.parametrize("kind", ["tridiag", "bidiag"])
 def test_qr_batched_kernel_f64(cuda, kind, case):

@@ -98,15 +98,21 @@ def test_batched_factorizations_match_vmap(name):
 
 @pytest.mark.parametrize("name", ["f32", "f64"])
 def test_batched_eigenvalues_match_vmap(name):
-    """The general eigenvalues of a real batch (complex input is item 10b)."""
+    """The general eigenvalues of a real batch, and of a complex one (item
+    10b-i), against the JAX package's vmap."""
     tdt, npdt = DT[name]
     g = _randn(np.random.default_rng(9), (2, 5, 5), npdt)
     w = tb.eigenvalues(torch.from_numpy(g)).numpy()
     wj = np.asarray(jb.eigenvalues(jnp.asarray(g)))
     for k in range(2):
         close(np.sort_complex(w[k]), np.sort_complex(wj[k]), 5, npdt)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tb.eigenvalues(torch.from_numpy(g.astype(np.complex64)))
+    c = (g + 1j * _randn(np.random.default_rng(10), (2, 5, 5), npdt)).astype(
+        np.complex64 if npdt == np.float32 else np.complex128)
+    wc = tb.eigenvalues(torch.from_numpy(c)).numpy()
+    wcj = np.asarray(jb.eigenvalues(jnp.asarray(c)))
+    assert wc.dtype == c.dtype
+    for k in range(2):
+        close(np.sort_complex(wc[k]), np.sort_complex(wcj[k]), 5, npdt)
 
 
 def test_batched_shape_errors():

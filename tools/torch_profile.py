@@ -1,6 +1,7 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {chase,llt,llt_panel,lu,lu_swap,qr,trtri} [ROOT]
+    python tools/torch_profile.py {chase,complex_schur,llt,llt_panel,lu,lu_swap,qr,
+                                   real_schur,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -102,6 +103,20 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   last cluster barrier, the columns out); and the largest difference from
   ``chase_probe_plain`` relative to the largest entry (held to 8·2b·eps at
   24 steps or fewer).
+
+* ``real_schur`` (``csrc/real_schur.cu``) and ``complex_schur``
+  (``csrc/complex_schur.cu``), both ``-DFAER_SCHUR_PROFILE``, per CTA, on
+  Gaussian Hessenberg problems (seed 1) at ``SCHUR_PROFILE_CASES``: the
+  multishift driver's AED windows 48 and 96 in both of the kernel's
+  dtypes, both sides of each dtype's shared-memory edge (by bisection over
+  the kernel's route) and a batch of 16 windows of 48, each with its
+  route: ``stage`` (H and Q into shared memory, ‖H‖), ``deflation`` (the
+  negligible pass and lo a step of the iteration, and the real kernel's
+  2×2 standardizations), ``shift`` (the shifts, and the real kernel's
+  sweep start), ``row phase`` and ``column phase`` (the chase steps' two
+  halves, summed), ``out``; the iterations and chase steps, the cycles a
+  chase step, and whether T, Q and the counts equal the plain version's
+  (run on the host) to the bit.
 
 ROOT (default: this checkout) names the checkout whose kernel source is
 built, so that one chip call profiles a parent unpacked beside this one
@@ -466,6 +481,73 @@ def _llt_panel_cases(lib, gen):
         lib.faer_llt_panel_profile_force_global(0)
 
 
+SCHUR_LABELS = ("stage", "deflation", "shift", "row phase", "column phase", "out")
+# (n, batch) in each dtype; "edge" and "edge+1": both sides of the
+# kernel's shared-memory edge
+SCHUR_PROFILE_CASES = ((48, 1), (96, 1), ("edge", 1), ("edge+1", 1), (48, 16))
+
+
+def _schur_cases(kind):
+    """The cases of the ``real_schur`` or ``complex_schur`` mode: (label,
+    launch, CTAs a launch, check) at each of SCHUR_PROFILE_CASES in both
+    dtypes, on the route the kernel picks."""
+
+    def cases(lib, gen):
+        from faer_tpu_torch.ops.kernels import _build
+        from faer_tpu_torch.ops.kernels import complex_schur as kcs
+        from faer_tpu_torch.ops.kernels import real_schur as krs
+
+        mod = krs if kind == "real_schur" else kcs
+        dtypes = ((torch.float32, ""), (torch.float64, "_f64")) if kind == "real_schur" else \
+            ((torch.complex64, ""), (torch.complex128, "_c128"))
+        stream = torch.cuda.current_stream().cuda_stream
+        for dt, suffix in dtypes:
+            route = getattr(lib, f"faer_{kind}_route{suffix}")
+            route.argtypes = [ctypes.c_int]
+            entry = getattr(lib, f"faer_{kind}_batched{suffix}")
+            entry.argtypes = _build._SIGNATURES[f"faer_{kind}_batched{suffix}"]
+            edge = _build.shared_edge(
+                lambda n, _dt: {0: "shared", 1: "global"}.get(route(n), "refused"), dt,
+                mod.MAX_N)
+            for n, batch in SCHUR_PROFILE_CASES:
+                n = {"edge": edge, "edge+1": edge + 1}.get(n, n)
+                h = torch.triu(torch.randn(batch, n, n, generator=gen, device="cuda",
+                                           dtype=torch.float64), -1)
+                if dt.is_complex:
+                    h = torch.complex(h, torch.triu(torch.randn(
+                        batch, n, n, generator=gen, device="cuda", dtype=torch.float64), -1))
+                h = h.to(dt)
+                q = torch.eye(n, device="cuda", dtype=dt).repeat(batch, 1, 1)
+                sizes = torch.full((batch,), n, dtype=torch.int32, device="cuda")
+                t, qo = h.clone(), q.clone()
+                info = torch.empty((batch, 3), dtype=torch.int32, device="cuda")
+
+                def launch(h=h, q=q, t=t, qo=qo, info=info, sizes=sizes, n=n, batch=batch,
+                           entry=entry):
+                    t.copy_(h)
+                    qo.copy_(q)
+                    return entry(t.data_ptr(), qo.data_ptr(), sizes.data_ptr(),
+                                 info.data_ptr(), batch, n, 30, stream)
+
+                def check(h=h, q=q, t=t, qo=qo, info=info, sizes=sizes):
+                    launch()
+                    torch.cuda.synchronize()
+                    plain = getattr(mod, f"{kind}_batched_plain")
+                    want = plain(h.cpu(), q.cpu(), sizes.cpu())
+                    got = (t.cpu(), qo.cpu(), info[:, 0].cpu(), info[:, 1].cpu() != 0,
+                           info[:, 2].cpu())
+                    same = all(torch.equal(g, w) for g, w in zip(got, want))
+                    its, steps = int(info[:, 0].sum()), int(info[:, 2].sum())
+                    return (f"{its} iterations, {steps} chase steps in all; equal to the "
+                            f"plain version to the bit: {same}")
+
+                where = "shared" if route(n) == 0 else "global"
+                yield (f"n={n} B={batch} {str(dt).split('.')[-1]} [H and Q in {where} "
+                       f"memory]", launch, batch, check)
+
+    return cases
+
+
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
@@ -505,6 +587,15 @@ KERNELS = {
                labels=("stage", "exchange wait", "reflector", "update", "partials", "out"),
                phases=("stage", "exchange wait", "reflector", "update", "partials", "out"),
                cases=_qr_cases, unit="CTA"),
+    "real_schur": dict(source="real_schur.cu", macro="FAER_SCHUR_PROFILE",
+                       entry="faer_real_schur_batched", read="faer_real_schur_profile_read",
+                       labels=SCHUR_LABELS, phases=SCHUR_LABELS,
+                       cases=_schur_cases("real_schur"), unit="CTA"),
+    "complex_schur": dict(source="complex_schur.cu", macro="FAER_SCHUR_PROFILE",
+                          entry="faer_complex_schur_batched",
+                          read="faer_complex_schur_profile_read",
+                          labels=SCHUR_LABELS, phases=SCHUR_LABELS,
+                          cases=_schur_cases("complex_schur"), unit="CTA"),
     "trtri": dict(source="trtri.cu", macro="FAER_TRTRI_PROFILE", entry="faer_trtri_batched",
                   read="faer_trtri_profile_read",
                   labels=("stage", "diagonal", "w=16", "w=32", "w=64", "out"),
