@@ -196,8 +196,7 @@ Phases, each printing lines; any failure exits non-zero:
    solves, self-adjoint EVD and SVD through ``Mat`` and the solver objects,
    each call counted and timed beside its library call;
 17. complex general EVD (item 10b-i), in a spawned process of its own
-   beside phases 13–16 (its lines printed after phase 16): ``evd`` and
-   ``eigenvalues`` at
+   beside phases 13–16 (its lines printed after phase 16): ``evd`` at
    n = 1024 (ns = 64, AED window 96) in complex64 and complex128 (the
    unitary Hessenberg reduction, multishift QR with AED, each window one
    ``complex_schur`` launch, the triangular eigenvectors), the Schur
@@ -213,7 +212,30 @@ Phases, each printing lines; any failure exits non-zero:
    batch of 16s, n = 1 and 2, an iteration budget of 0, both sides of its
    shared-memory edge and a ragged batch, in complex64 and complex128 (the
    plain versions in host processes while the card runs the kernel), and
-   times it at 48 and 96.
+   times it at 48 and 96;
+18. complex generalized EVD (item 10b-ii), in phase 17's process after it:
+   ``gevd`` at n = 1024 (ns = 64, AED window 96) in complex64 and
+   complex128 on one complex Gaussian pencil (the QR of B, one
+   ``complex_hess_tri`` launch; multishift QZ with AED, every window one
+   ``complex_qz`` launch and one ``complex_hess_tri`` launch on its kept
+   block; the triangular pencil's eigenvectors), with ‖A − QSZᴴ‖/‖A‖,
+   ‖B − QTZᴴ‖/‖B‖, max|QᴴQ − I|, max|ZᴴZ − I| and the pencil residual
+   within 8·n·eps, S and T upper triangular, every (α, β) within 2·κ_i·η
+   of f64 ``scipy.linalg.eig`` of the complex128 pencil (run in a host
+   process of its own from the start of phase 17) in the chordal metric,
+   two host reads an AED round, each call timed once with its layers
+   beside ``torch.linalg.eig(torch.linalg.solve(B, A))``; ``qz`` at 127
+   (one direct ``complex_qz`` launch, no host read) and 128 in complex64;
+   ``method="reduction"`` at 512, ``gevd_self_adjoint`` at 1024 and
+   ``Mat(a).generalized_eigen(b)`` at 256 in complex64. Phase 3 holds
+   ``complex_hess_tri`` and ``complex_qz`` against their plain versions
+   (the reduction's H, R, Q, Z and the QZ's S, T, Q, Z, iterations,
+   converged and chase steps to the bit) at 1, 2, 3, 16, 48, 96, a budget
+   of 0, both sides of each kernel's shared-memory edge, a B of rank 12 at
+   16 and a ragged batch, in complex64 and complex128 (the plain versions
+   in host processes while the card runs the kernels), the chain also at
+   513 (past 512 threads a CTA; its plain version beside phases 4–14), and
+   times both at 96.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase prints its own time. The second-to-last line is
@@ -971,6 +993,8 @@ def phase_kernels(gen, profs) -> dict:
     mark("hess_tri and real_qz")
     res.update(_complex_schur_kernel(gen))
     mark("complex_schur")
+    res.update(_complex_gevd_kernels(gen))
+    mark("complex_hess_tri and complex_qz")
     res.update(_tile_kernels(gen))
     mark("the tile kernels")
     res.update(_llt_block_kernels(gen))
@@ -1926,6 +1950,257 @@ def _complex_schur_kernel(gen) -> dict:
     return {"complex_schur": out}
 
 
+# phase 3's complex_hess_tri and complex_qz cases (n, batch, budget): the
+# trivial sizes, a batch of 16s, the AED windows 48 and 96, a budget of 0;
+# complex_gevd_cases adds both sides of each kernel's shared-memory edge, a
+# B of low rank and the ragged batch; COMPLEX_GEVD_WIDE runs the chain past
+# the kernels' 512 threads a CTA (its plain version beside phases 4–14)
+COMPLEX_GEVD_CASES = ((1, 2, 30), (2, 2, 30), (3, 3, 30), (16, 3, 30), (48, 1, 30),
+                      (96, 1, 30), (48, 1, 0))
+COMPLEX_GEVD_RANK = (16, 12)  # (n, rank of B): four infinite eigenvalues
+COMPLEX_GEVD_WIDE = 513
+
+
+# operations of the complex_hess_tri kernel's chain at n, counted from its
+# source: pair (j, i) rotates pairs of complex entries in H's columns
+# j..n−1, R's i..n−1 and Q's n rows, then in R's rows 0..i+1 and H's and Z's
+# n rows, 5n − j + 2 pairs, 20 flops each (rotate: 5 a real component),
+# plus 80 for the two rotations (two scaled magnitudes, the norm, the
+# phase and s each); column j has n − 2 − j pairs
+def complex_hess_tri_flops(n: int) -> int:
+    return sum((n - 2 - j) * (20 * (5 * n - j + 2) + 80) for j in range(n - 2))
+
+
+# operations of one chase step of the complex_qz kernel at width n, counted
+# from its source: the left rotation of H's rows (n − i + 1 columns), T's
+# (n − i) and Q's n columns, the right one of H's columns (i + 3 rows), T's
+# (i + 2) and Z's n rows: 4n + 6 pairs of complex entries, 20 flops each,
+# plus 80 for the two rotations; and per iteration the deflation test, 24
+# operations an entry of the subdiagonal (three scaled magnitudes)
+def complex_qz_step_flops(n: int) -> int:
+    return 20 * (4 * n + 6) + 80
+
+
+def complex_gevd_cases() -> tuple:
+    """(nmax, sizes, max_sweeps_factor, dtype, rank of B or None) of phase
+    3's complex_hess_tri and complex_qz checks: COMPLEX_GEVD_CASES in
+    complex64 and complex128, both sides of each kernel's shared-memory
+    edge (the largest nmax whose four matrices it keeps in shared memory,
+    by bisection over its route, and the next), B of low rank
+    (COMPLEX_GEVD_RANK) and the ragged batch GEVD_RAGGED."""
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    out = []
+    for dt in (torch.complex64, torch.complex128):
+        edges = sorted({kcq.shared_edge(k, dt) + d for k in ("complex_hess_tri", "complex_qz")
+                        for d in (0, 1)})
+        out += [(n, (n,) * b, f, dt, None) for n, b, f in COMPLEX_GEVD_CASES]
+        out += [(n, (n,), 30, dt, None) for n in edges]
+        out += [(COMPLEX_GEVD_RANK[0], (COMPLEX_GEVD_RANK[0],), 30, dt, COMPLEX_GEVD_RANK[1]),
+                (GEVD_RAGGED[0], GEVD_RAGGED[1], 30, dt, None)]
+    return tuple(out)
+
+
+def _complex_gevd_inputs(nmax: int, batch: int, dt, rank, gen):
+    """The complex Givens chain's inputs on the card, (h, r, q, z) (batch,
+    nmax, nmax) in ``dt``: the QR of a complex Gaussian B (a product of
+    nmax × rank and rank × nmax Gaussians when ``rank`` is given), Q₀ᴴA for
+    a complex Gaussian A, Z = I."""
+    def cg(*shape):
+        return torch.complex(*(torch.randn(*shape, generator=gen, device=DEV,
+                                           dtype=torch.float64) for _ in range(2)))
+
+    a, b = cg(batch, nmax, nmax), cg(batch, nmax, nmax)
+    if rank is not None:
+        b = cg(batch, nmax, rank) @ cg(batch, rank, nmax)
+    q, r = torch.linalg.qr(b)
+    z = torch.eye(nmax, device=DEV, dtype=torch.complex128).repeat(batch, 1, 1)
+    return tuple(x.to(dt).contiguous() for x in (q.mH @ a, torch.triu(r), q, z))
+
+
+def _complex_gevd_plain_case(mats, factor):
+    """A host process's job: the plain versions of ``complex_hess_tri_batched``
+    and ``complex_qz_batched`` on the CPU copies ``mats`` = (h, r, q, z,
+    sizes), on one thread, the second on the first's output as on the card;
+    with the seconds each took."""
+    torch.set_num_threads(1)
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    *m, sizes = mats
+    t0 = time.perf_counter()
+    red = kcq.complex_hess_tri_batched_plain(*m, sizes)
+    t1 = time.perf_counter()
+    qz = kcq.complex_qz_batched_plain(*red, sizes, max_sweeps_factor=factor)
+    return red, qz, t1 - t0, time.perf_counter() - t1
+
+
+def _check_complex_gevd_case(nmax, sizes, factor, dt, rank, mats, red, qz, plain,
+                             errs: dict) -> None:
+    """One case of phase 3's complex_hess_tri and complex_qz checks: the
+    kernels' outputs ``red`` and ``qz`` (``qz`` None: the chain alone)
+    against their plain versions' ``plain`` = (reduction, QZ) to the bit,
+    each kernel's largest difference folded into ``errs``; H Hessenberg and
+    R triangular; under a full budget every problem converged, S and T
+    triangular and, on a full pencil, Q S Zᴴ and Q T Zᴴ within 8·n·eps of
+    Q₀H₀ and Q₀R₀ (A and B); under a budget of 0 none converged."""
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    def diff(g, w):
+        return 0.0 if torch.equal(g, w) else (torch.view_as_real(
+            g.to(torch.complex128) - w.to(torch.complex128)).abs().max().item())
+
+    red = [x.cpu() for x in red]
+    same_red = all(torch.equal(g, w) for g, w in zip(red, plain[0]))
+    errs["complex_hess_tri"] = max(errs["complex_hess_tri"],
+                                   *(diff(g, w) for g, w in zip(red, plain[0])))
+    shape = all(not bool(torch.tril(red[0][b, :n, :n], -2).any())
+                and not bool(torch.tril(red[1][b, :n, :n], -1).any())
+                for b, n in enumerate(sizes) if n >= 1)
+    ok, detail = same_red and shape, ""
+    tag = "c64" if dt == torch.complex64 else "c128"
+    tol = 8 * nmax * torch.finfo(dt).eps
+    full = len(set(sizes)) == 1 and nmax > 1
+    a0 = b0 = None
+    if full:  # A = Q₀H₀, B = Q₀R₀
+        q0, h0, r0 = (x.to(torch.complex128).to(DEV) for x in (mats[2], mats[0], mats[1]))
+        a0, b0 = q0 @ h0, q0 @ r0
+
+    def rec(s, t, q, z):
+        s, t, q, z = (x.to(torch.complex128).to(DEV) for x in (s, t, q, z))
+        return max(((q @ x @ z.mH - y).norm(dim=(-2, -1)) / y.norm(dim=(-2, -1))).max().item()
+                   for x, y in ((s, a0), (t, b0)))
+
+    if full and qz is None:
+        r_red = rec(*red)
+        ok = ok and r_red <= tol
+        detail = f"; |A - QHZᴴ|, |B - QRZᴴ| relative {r_red:.3e} <= {tol:.3e}"
+    same_qz = None
+    if qz is not None:
+        qz = [x.cpu() for x in qz]
+        same_qz = all(torch.equal(g, w) for g, w in zip(qz, plain[1]))
+        errs["complex_qz"] = max(errs["complex_qz"],
+                                 *(diff(g, w) for g, w in zip(qz[:4], plain[1][:4])))
+        live = [b for b, n in enumerate(sizes) if n >= 1]
+        conv = bool(qz[5][live].all()) if factor else \
+            not bool(qz[5][[b for b in live if sizes[b] > 1]].any())
+        ok = ok and same_qz and conv
+        if factor:
+            tri = all(not bool(torch.tril(qz[k][b, :n, :n], -1).any())
+                      for k in (0, 1) for b, n in enumerate(sizes) if n >= 1)
+            ok = ok and tri
+            detail = f"; S, T triangular {tri}"
+            if full:
+                r_qz = rec(*qz[:4])
+                ok = ok and r_qz <= tol
+                detail += f"; |A - QSZᴴ|, |B - QTZᴴ| relative {r_qz:.3e} <= {tol:.3e}"
+            if rank is not None:
+                floor = nmax * torch.finfo(dt).eps * torch.linalg.matrix_norm(
+                    b0[0], ord=2).item()
+                small = int((torch.diagonal(qz[1][0]).abs() <= floor).sum())
+                ok = ok and small == nmax - rank
+                detail += f"; B of rank {rank}: {small} β within n·eps·|B|₂ of 0 ({nmax - rank})"
+        detail += (f"; {'all' if factor else 'none (budget 0)'} converged {conv} "
+                   f"({qz[4].tolist()} iterations, {qz[6].tolist()} chase steps)")
+    check(ok, f"complex_hess_tri + complex_qz nmax={nmax} sizes={list(sizes)} factor={factor} "
+              f"{tag} [complex_hess_tri in {kcq.route('complex_hess_tri', nmax, dt)}, complex_qz "
+              f"in {kcq.route('complex_qz', nmax, dt)} memory, "
+              f"{min(CTA_THREADS, (nmax + 31) // 32 * 32)} threads a CTA]: reduction and QZ equal "
+              f"to the plain versions to the bit {same_red}, {same_qz}; H Hessenberg, R "
+              f"triangular {shape}{detail}")
+
+
+def _complex_gevd_kernels(gen) -> dict:
+    """``complex_hess_tri_batched`` (the complex Hessenberg–triangular
+    Givens chain) and ``complex_qz_batched`` (the complex QZ, on the first's
+    output), one CTA a problem and one launch each, against their plain
+    versions on every case of ``complex_gevd_cases``, each case's routes
+    printed (:func:`_check_complex_gevd_case`; the plain versions run on CPU
+    copies in GEVD_WORKERS host processes while the card runs the kernels:
+    IEEE operations on real numbers only, so the two devices round alike).
+    Once those processes have ended, each kernel timed at 96 per call and
+    on the device (CUDA graph) in both dtypes, µs a Givens pair or chase
+    step, beside its plain version (one call on a host core, the check's
+    pencil of 96) and scipy.linalg.qz of the same pencil on the host
+    (PyTorch has no QZ). The bounds count this run's work:
+    ``complex_hess_tri_flops``, and the QZ's chase steps ×
+    ``complex_qz_step_flops`` + its iterations × 24 flops an entry of the
+    subdiagonal, over the FP32 (FP64) peak; the four matrices read and
+    written once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import scipy.linalg
+
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    cases = complex_gevd_cases()
+    inputs = [_complex_gevd_inputs(nmax, len(sizes), dt, rank, gen)
+              for nmax, sizes, _, dt, rank in cases]
+    sizes_all = [torch.tensor(sz, dtype=torch.int32, device=DEV) for _, sz, _, _, _ in cases]
+    with ProcessPoolExecutor(GEVD_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(_complex_gevd_plain_case, tuple(x.cpu() for x in (*mats, sz)), f)
+                for mats, sz, (_, _, f, _, _) in zip(inputs, sizes_all, cases)]
+        got = []
+        for mats, sz, (_, _, f, _, _) in zip(inputs, sizes_all, cases):
+            red = kcq.complex_hess_tri_batched(*mats, sz)
+            got.append((red, kcq.complex_qz_batched(*red, sz, max_sweeps_factor=f)))
+        torch.cuda.synchronize()
+        plains = [job.result() for job in jobs]
+    errs = {"complex_hess_tri": 0.0, "complex_qz": 0.0}
+    plain_96 = {}
+    for (nmax, sizes, f, dt, rank), mats, (red, qz), (pred, pqz, t_red, t_qz) in zip(
+            cases, inputs, got, plains):
+        if sizes == (96,) and f:
+            plain_96[dt] = (t_red * 1e3, t_qz * 1e3)
+        _check_complex_gevd_case(nmax, sizes, f, dt, rank, mats, red, qz, (pred, pqz), errs)
+    res = {}
+    for dt in (torch.complex64, torch.complex128):
+        n = 96
+        mats = _complex_gevd_inputs(n, 1, dt, None, gen)
+        sz = torch.full((1,), n, dtype=torch.int32, device=DEV)
+        red = kcq.complex_hess_tri_batched(*mats, sz)
+        out = kcq.complex_qz_batched(*red, sz)
+        its, steps = int(out[4][0]), int(out[6][0])
+        times = {}
+        for name, fn in (("complex_hess_tri", lambda: kcq.complex_hess_tri_batched(*mats, sz)),
+                         ("complex_qz", lambda: kcq.complex_qz_batched(*red, sz))):
+            times[name] = (cuda_ms(fn, GEVD_REPS), graph_ms(fn, GEVD_REPS))
+        q0, h0, r0 = (x[0].to(torch.complex128).cpu().numpy() for x in (mats[2], mats[0], mats[1]))
+        a64, b64 = q0 @ h0, q0 @ r0
+        scipy_ms = statistics.median(_host_ms(lambda: scipy.linalg.qz(a64, b64))
+                                     for _ in range(3))
+        nbytes = 8 * n * n * mats[0].element_size()
+        peak = PEAK_F32_FLOPS if dt == torch.complex64 else PEAK_F64_FLOPS
+        bounds = {"complex_hess_tri": bound_of(complex_hess_tri_flops(n), nbytes, peak),
+                  "complex_qz": bound_of(steps * complex_qz_step_flops(n)
+                                         + its * 24 * (n - 1), nbytes, peak)}
+        plain_ms = dict(zip(("complex_hess_tri", "complex_qz"), plain_96.get(dt, (None, None))))
+        tag = "c64" if dt == torch.complex64 else "c128"
+        for name, (ms, dev) in times.items():
+            extra = (f", {its} iterations, {steps} chase steps "
+                     f"({dev / max(steps, 1) * 1e3:.3f} us a step)" if name == "complex_qz" else
+                     f" ({dev / ((n - 1) * (n - 2) / 2) * 1e3:.3f} us a pair)")
+            pm = plain_ms[name]
+            plain = "" if pm is None else \
+                f"; plain {pm:.1f} ms (one call on a host core, another pencil of 96)"
+            print(f"time {name} n={n} {tag} [{kcq.route(name, n, dt)} memory]: per call "
+                  f"{ms:.4f} ms, device {dev:.4f} ms (graph replay){extra}{plain}; "
+                  f"scipy.linalg.qz of the pencil {scipy_ms:.3f} ms (host CPU); bound "
+                  f"{bounds[name]['bound_ms']:.6g} ms ({bounds[name]['bound_by']})")
+            if dt == torch.complex64:
+                res[name] = dict(ms=ms, device_ms=dev, plain_ms=pm, library_ms=None,
+                                 scipy_cpu_ms=scipy_ms, **bounds[name])
+            else:
+                res[name].update(ms_c128=ms, device_ms_c128=dev, plain_ms_c128=pm,
+                                 scipy_cpu_ms_c128=scipy_ms,
+                                 bound_ms_c128=bounds[name]["bound_ms"],
+                                 bound_by_c128=bounds[name]["bound_by"])
+    for name in res:
+        res[name]["max_abs_err"] = errs[name]
+    return res
+
+
 def _gevd_plain_case(mats):
     """A host process's job: the plain versions of ``hess_tri_batched`` and
     ``real_qz_batched`` on the CPU copies ``mats`` = (h, r, q, z, sizes), on
@@ -2113,14 +2388,17 @@ def _check_gevd_case(nmax, sizes, dt, rd, mats, red, qz, plain, errs: dict) -> N
 
 def _gevd_plain_daemon(name: str, mats, sizes, conn) -> None:
     """A host process's job: the plain version of ``hess_tri_batched``
-    (``name`` "hess_tri") or of ``real_qz_batched`` on the CPU copies
+    (``name`` "hess_tri"), of ``real_qz_batched`` ("real_qz") or of
+    ``complex_hess_tri_batched`` ("complex_hess_tri") on the CPU copies
     ``mats``, on one thread; its outputs sent down ``conn`` as arrays,
     with the seconds it took."""
     torch.set_num_threads(1)
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
     from faer_tpu_torch.ops.kernels import hess_tri as kh
     from faer_tpu_torch.ops.kernels import real_qz as kq
 
-    fn = kh.hess_tri_batched_plain if name == "hess_tri" else kq.real_qz_batched_plain
+    fn = {"hess_tri": kh.hess_tri_batched_plain, "real_qz": kq.real_qz_batched_plain,
+          "complex_hess_tri": kcq.complex_hess_tri_batched_plain}[name]
     t0 = time.perf_counter()
     out = [x.numpy() for x in fn(*mats, sizes)]
     conn.send((out, time.perf_counter() - t0))
@@ -2137,30 +2415,41 @@ def start_gevd_wide() -> list:
     in a spawned daemon process of its own, one thread each, to run beside
     phases 4–14: [(nmax, dtype, inputs, reduction, QZ, [(process,
     receiving end of its pipe)] × 2)], the tensors on the CPU, for
-    :func:`finish_gevd_wide`."""
+    :func:`finish_gevd_wide`. Last, ``complex_hess_tri`` at
+    COMPLEX_GEVD_WIDE in complex64 the same way (the chain alone: QZ None,
+    one process)."""
     import multiprocessing
 
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
     from faer_tpu_torch.ops.kernels import hess_tri as kh
     from faer_tpu_torch.ops.kernels import real_qz as kq
 
     ctx = multiprocessing.get_context("spawn")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     pending = []
+
+    def start(name, args, sz):
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_gevd_plain_daemon, daemon=True,
+                           args=(name, args, sz.cpu(), send))
+        proc.start()
+        send.close()
+        return proc, recv
+
     for n, dt in GEVD_WIDE:
         mats = _gevd_inputs(n, 1, dt, False, gen)
         sz = torch.full((1,), n, dtype=torch.int32, device=DEV)
         red = kh.hess_tri_batched(*mats, sz)
         qz = kq.real_qz_batched(*red, sz)
         mats, red, qz = ([x.cpu() for x in xs] for xs in (mats, red, qz))
-        jobs = []
-        for name, args in (("hess_tri", mats), ("real_qz", red)):
-            recv, send = ctx.Pipe(duplex=False)
-            proc = ctx.Process(target=_gevd_plain_daemon, daemon=True,
-                               args=(name, args, sz.cpu(), send))
-            proc.start()
-            send.close()
-            jobs.append((proc, recv))
+        jobs = [start("hess_tri", mats, sz), start("real_qz", red, sz)]
         pending.append((n, dt, mats, red, qz, jobs))
+    n = COMPLEX_GEVD_WIDE
+    mats = _complex_gevd_inputs(n, 1, torch.complex64, None, gen)
+    sz = torch.full((1,), n, dtype=torch.int32, device=DEV)
+    red = [x.cpu() for x in kcq.complex_hess_tri_batched(*mats, sz)]
+    mats = [x.cpu() for x in mats]
+    pending.append((n, torch.complex64, mats, red, None, [start("complex_hess_tri", mats, sz)]))
     return pending
 
 
@@ -2169,7 +2458,8 @@ def finish_gevd_wide(pending: list, kern: dict) -> None:
     processes; check each case as phase 3 does (:func:`_check_gevd_case`),
     and fold each kernel's largest difference into ``kern``'s
     max_abs_err."""
-    errs = {name: kern[name]["max_abs_err"] for name in ("hess_tri", "real_qz")}
+    errs = {name: kern[name]["max_abs_err"]
+            for name in ("hess_tri", "real_qz", "complex_hess_tri", "complex_qz")}
     for n, dt, mats, red, qz, jobs in pending:
         plain, secs = [], []
         for proc, recv in jobs:
@@ -2177,6 +2467,12 @@ def finish_gevd_wide(pending: list, kern: dict) -> None:
             plain.append([torch.from_numpy(x) for x in out])
             secs.append(sec)
             proc.join()
+        if dt.is_complex:
+            print(f"time plain complex_hess_tri n={n} c64: {secs[0]:.1f} s (one host core, "
+                  f"beside phases 4–14)")
+            _check_complex_gevd_case(n, (n,), 30, dt, None, mats, red, None,
+                                     (plain[0], None), errs)
+            continue
         print(f"time plain hess_tri, real_qz n={n} {'f32' if dt == torch.float32 else 'f64'}: "
               f"{secs[0]:.1f} s, {secs[1]:.1f} s (one host core each, beside phases 4–14)")
         _check_gevd_case(n, (n,), dt, False, mats, red, qz, plain, errs)
@@ -3784,7 +4080,7 @@ def _kappa_of(a) -> torch.Tensor:
 def phase_complex_evd(gen, cref) -> dict:
     """The complex general EVD (ROADMAP item 10b-i).
 
-    * at CEVD_N, ``evd`` and ``eigenvalues`` in complex64 and complex128
+    * at CEVD_N, ``evd`` in complex64 and complex128
       (A from :func:`start_complex_reference`), each call's Schur step
       (``hessenberg_blocked`` then ``_complex_schur_dispatch``: multishift
       QR, every AED window one ``complex_schur`` launch) with ‖A −
@@ -3805,7 +4101,7 @@ def phase_complex_evd(gen, cref) -> dict:
       error the Schur step is held to).
 
     Returns the summed launch counts."""
-    from faer_tpu_torch import Mat, eigenvalues, evd
+    from faer_tpu_torch import Mat, evd
     from faer_tpu_torch.linalg import batched, eigvec
     from faer_tpu_torch.linalg import complex_schur as tcs
     from faer_tpu_torch.linalg import evd as tevd
@@ -3882,8 +4178,10 @@ def phase_complex_evd(gen, cref) -> dict:
             name = "c64" if dt == torch.complex64 else "c128"
             tol = 8 * n * torch.finfo(dt).eps
             a = a128.to(dt)
-            for label, fn in ((f"evd n={n} {name}", lambda: evd(a)),
-                              (f"eigenvalues n={n} {name}", lambda: eigenvalues(a))):
+            # evd alone at this width: the eigenvalues calls, no faster than
+            # evd's, gave their time to phase 18 (Mat(a).eigenvalues() below
+            # still runs the entry point)
+            for label, fn in ((f"evd n={n} {name}", lambda: evd(a)),):
                 out, _, _ = run(label, fn)
                 t, qs, sinfo = schur_out[0]
                 rec, orth, eta = _schur_backward(a, t, qs)
@@ -3959,13 +4257,279 @@ def phase_complex_evd(gen, cref) -> dict:
     return total
 
 
+# phase 18: the complex generalized EVD at full width (ns = 64, AED window
+# 96); the multishift route edge; the reduction method at 512; the
+# self-adjoint-definite pencil at 1024; the facade once
+CGEVD_N = 1024
+CGEVD_REDUCTION_N = 512
+CGEVD_SA_N = 1024
+CGEVD_FACADE_N = 256
+
+
+def start_complex_gevd_reference() -> tuple:
+    """Phase 18's complex Gaussian pencil (A, B) at CGEVD_N in complex128,
+    on the card, from a generator of its own (seed SEED + 18), and its f64
+    reference (:func:`start_gevd_reference`: one host core) started in a
+    spawned daemon process to run beside phase 17: (A, B, process,
+    receiving end of its pipe)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    a, b = (torch.complex(*(torch.randn(CGEVD_N, CGEVD_N, generator=g, device=DEV,
+                                        dtype=torch.float64) for _ in range(2)))
+            for _ in range(2))
+    return (a, b, *start_gevd_reference(a, b))
+
+
+def phase_complex_gevd(gen, gref) -> dict:
+    """The complex generalized EVD (ROADMAP item 10b-ii).
+
+    * at CGEVD_N, ``gevd`` in complex64 and complex128 on the pencil of
+      :func:`start_complex_gevd_reference`: the QZ step (captured inside
+      the call: the QR of B, one ``complex_hess_tri`` launch, multishift QZ
+      with AED, every AED window one ``complex_qz`` and one
+      ``complex_hess_tri`` launch) with ‖A − QSZᴴ‖/‖A‖, ‖B − QTZᴴ‖/‖B‖,
+      max|QᴴQ − I| and max|ZᴴZ − I| within 8·n·eps of the dtype, S and T
+      upper triangular; the pencil residual (:func:`_pencil_residual`)
+      within 8·n·eps; every (α, β) against f64 ``scipy.linalg.eig`` of the
+      complex128 pencil within 2·κ_i·η (:func:`_chordal_ratio`); the host
+      reads two a round that reaches its AED (one for the round that ends
+      the iteration); each call's time (host clock, one call) and layers
+      (the QR of B, the reduction's chain, the AED rounds, the sweeps, the
+      eigenvectors), beside ``torch.linalg.eig(torch.linalg.solve(B, A))``
+      in the same dtype;
+    * ``qz`` at the route edge in complex64 (127: one ``complex_hess_tri``
+      and one direct ``complex_qz`` launch, no host read; 128:
+      multishift), each within 8·n·eps;
+    * ``gevd(method="reduction")`` at CGEVD_REDUCTION_N in complex64
+      (:func:`gevd_reduction_readings`) beside ``eig(solve(B, A))``;
+    * ``gevd_self_adjoint`` at CGEVD_SA_N in complex64 (a Hermitian A, a
+      Hermitian positive definite B): ‖AV − BVΛ‖ and max|VᴴBV − I|;
+    * ``Mat(a).generalized_eigen(b)`` at CGEVD_FACADE_N in complex64 once,
+      equal to ``gevd`` to the bit.
+
+    Returns the summed launch counts."""
+    from faer_tpu_torch import Mat, gevd, gevd_self_adjoint, qz
+    from faer_tpu_torch.linalg import eigvec
+    from faer_tpu_torch.linalg import qz as tqz
+    from faer_tpu_torch.linalg import qz_multishift as tqm
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    total = {}
+    calls = {"red": 0, "red_ms": 0.0, "aed": 0, "aed_ms": 0.0, "sweep": 0, "sweep_ms": 0.0,
+             "qz_calls": 0, "vecs": 0, "vecs_ms": 0.0, "chain": 0, "chain_ms": 0.0,
+             "wide_chains": 0, "qz_steps": 0, "step": 0}
+    qz_out = []  # the QZ step's (s, t, q, z, info) of the last call
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def wrap(mod, name, key):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls[key] += 1
+            if key + "_ms" in calls:
+                calls[key + "_ms"] += (time.perf_counter() - t) * 1e3
+            if key == "chain" and args[0].shape[1] == calls["n"]:
+                calls["wide_chains"] += 1
+                calls["wide_chain_ms"] = (time.perf_counter() - t) * 1e3
+            if key == "qz_calls":
+                calls["qz_steps"] += int(out[6].sum())
+            if key == "step":
+                qz_out[:] = [out]
+            return out
+        setattr(mod, name, counted)
+        return mod, name, fn
+
+    saved = [wrap(tqz, "hessenberg_triangular", "red"), wrap(tqm, "_aed", "aed"),
+             wrap(tqm, "_sweep", "sweep"), wrap(kcq, "complex_qz_batched", "qz_calls"),
+             wrap(kcq, "complex_hess_tri_batched", "chain"),
+             wrap(eigvec, "triangular_generalized_eigenvectors", "vecs"),
+             wrap(tqz, "_complex_qz", "step")]
+
+    def run(label, fn, n):
+        """fn once with every counter at 0 (the wrappers' too), timed by the
+        host clock, its launches and host reads checked: (result, ms)."""
+        for k in calls:
+            calls[k] = 0
+        calls["n"] = n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts, reads = _counted(fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        add(counts)
+        aed = calls["aed"]
+        others = {k: v for k, v in counts.items()
+                  if k not in ("complex_hess_tri", "complex_qz") and v}
+        rounds = int(qz_out[0][4].iterations) if aed else 0
+        check(counts["complex_qz"] == calls["qz_calls"] == (aed if aed else 1)
+              and counts["complex_hess_tri"] == calls["chain"] == 1 + aed
+              and calls["wide_chains"] == 1 and not others
+              and reads == (rounds + aed if aed else 0),
+              f"{label}: {counts['complex_hess_tri']} complex_hess_tri launches = the "
+              f"reduction's 1 + {aed} AED windows; {counts['complex_qz']} complex_qz launches "
+              f"= {'the AED windows' if aed else 'one direct call'}; no other kernel {others}; "
+              f"{calls['sweep']} multishift sweeps; {reads} host reads = {rounds} rounds + "
+              f"{aed} AED rounds")
+        chain = calls.get("wide_chain_ms", 0.0)
+        print(f"time {label}: {ms:.1f} ms (one call, host clock); layers: the QR of B and "
+              f"Q₀ᴴA {calls['red_ms'] - chain:.1f} ms, the reduction's complex_hess_tri "
+              f"{chain:.1f} ms ({chain / ((n - 1) * (n - 2) / 2) * 1e3:.3f} us a pair), AED "
+              f"{calls['aed_ms']:.1f} ms in {aed} rounds, sweeps {calls['sweep_ms']:.1f} ms in "
+              f"{calls['sweep']}, the eigenvectors {calls['vecs_ms']:.1f} ms; complex_qz "
+              f"{calls['qz_steps']} chase steps")
+        return out, ms
+
+    def qz_checks(label, a, b, s, t, q, z, info, dt):
+        n = a.shape[0]
+        tol = 8 * n * torch.finfo(dt).eps
+        ad, bd = a.to(torch.complex128), b.to(torch.complex128)
+        sd, td, qd, zd = (x.to(torch.complex128) for x in (s, t, q, z))
+        eye = torch.eye(n, device=DEV, dtype=torch.complex128)
+        ea, eb = ad - qd @ sd @ zd.mH, bd - qd @ td @ zd.mH
+        rec_a = (torch.linalg.matrix_norm(ea) / torch.linalg.matrix_norm(ad)).item()
+        rec_b = (torch.linalg.matrix_norm(eb) / torch.linalg.matrix_norm(bd)).item()
+        orth_q = (qd.mH @ qd - eye).abs().max().item()
+        orth_z = (zd.mH @ zd - eye).abs().max().item()
+        eta = torch.hypot(torch.linalg.matrix_norm(ea, ord=2),
+                          torch.linalg.matrix_norm(eb, ord=2)).item()
+        tri = not bool(torch.tril(s, -1).any()) and not bool(torch.tril(t, -1).any())
+        check(bool(info.converged) and tri and max(rec_a, rec_b, orth_q, orth_z) <= tol,
+              f"{label}, the QZ step: converged in {int(info.iterations)} "
+              f"{'rounds' if n >= tqz._MULTISHIFT_MIN_N else 'iterations'}, S and T upper "
+              f"triangular {tri}; |A - QSZᴴ|/|A| {rec_a:.3e}, |B - QTZᴴ|/|B| {rec_b:.3e}, "
+              f"max|QᴴQ - I| {orth_q:.3e}, max|ZᴴZ - I| {orth_z:.3e}, all <= {tol:.3e}; "
+              f"backward error η = |(A - QSZᴴ, B - QTZᴴ)|₂ {eta:.3e}")
+        return eta
+
+    a128, b128, proc, recv = gref
+    try:
+        n = CGEVD_N
+        for dt in (torch.complex64, torch.complex128):
+            name = "c64" if dt == torch.complex64 else "c128"
+            a, b = a128.to(dt), b128.to(dt)
+            label = f"gevd n={n} {name}"
+            (alpha, beta, v, info), _ = run(label, lambda: gevd(a, b), n)
+            eta = qz_checks(label, a, b, *qz_out[0][:4], qz_out[0][4], dt)
+            if recv is not None:  # the reference, once: it ran beside phase 17
+                t0 = time.perf_counter()
+                ra, rb, kappa, ref_ms = recv.recv()
+                proc.join()
+                wait = time.perf_counter() - t0
+                ra, rb, kappa = (torch.from_numpy(x).to(DEV) for x in (ra, rb, kappa))
+                recv = None
+                print(f"reference n={n}: f64 scipy.linalg.eig of the complex128 pencil with "
+                      f"left and right vectors {ref_ms:.1f} ms on one host core (waited "
+                      f"{wait:.1f} s); chordal condition numbers median "
+                      f"{kappa.median().item():.3g}, largest {kappa.max().item():.3g}")
+            tol = 8 * n * torch.finfo(dt).eps
+            res = _pencil_residual(a, b, alpha, beta, v)
+            ratio = _chordal_ratio(alpha, beta, ra, rb, kappa, eta)
+            check(bool(info.converged) and alpha.dtype == beta.dtype == v.dtype == dt
+                  and res <= tol and ratio <= 1,
+                  f"{label}: |AVβ - BVα| column by column {res:.3e} <= {tol:.3e} of "
+                  f"(|A||β| + |B||α|)|v|; (α, β) vs f64 scipy.linalg.eig within {ratio:.3e} "
+                  f"of their chordal bounds 2·κ_i·η")
+            lib = cuda_ms(lambda: torch.linalg.eig(torch.linalg.solve(b, a)), 1)
+            print(f"time library n={n} {name}: torch.linalg.eig(torch.linalg.solve(B, A)) "
+                  f"{lib:.1f} ms (one call, CUDA events)")
+
+        # the multishift route edge through qz, complex64
+        for n2 in (tqz._MULTISHIFT_MIN_N - 1, tqz._MULTISHIFT_MIN_N):
+            a2, b2 = (torch.complex(torch.randn(n2, n2, generator=gen, device=DEV),
+                                    torch.randn(n2, n2, generator=gen, device=DEV))
+                      for _ in range(2))
+            label = f"qz n={n2} c64"
+            out, _ = run(label, lambda: qz(a2, b2), n2)
+            qz_checks(label, a2, b2, *out[:4], out[4], torch.complex64)
+
+        # the reduction method: C = B⁻¹A, the complex evd(C)
+        n3 = CGEVD_REDUCTION_N
+        a3, b3 = (torch.complex(torch.randn(n3, n3, generator=gen, device=DEV),
+                                torch.randn(n3, n3, generator=gen, device=DEV))
+                  for _ in range(2))
+        r = gevd_reduction_readings(a3, b3)
+        add(r["counts"])
+        lib = cuda_ms(lambda: torch.linalg.eig(torch.linalg.solve(b3, a3)), 1)
+        check(r["ok"], f"gevd n={n3} c64 method='reduction': {r['message']}")
+        print(f"time gevd n={n3} c64 method='reduction': {r['ms']:.1f} ms (one call, host "
+              f"clock); library torch.linalg.eig(torch.linalg.solve(B, A)) {lib:.1f} ms")
+
+        # the self-adjoint-definite pencil: A Hermitian, B Hermitian positive definite
+        n4 = CGEVD_SA_N
+        g, g2 = (torch.complex(torch.randn(n4, n4, generator=gen, device=DEV),
+                               torch.randn(n4, n4, generator=gen, device=DEV))
+                 for _ in range(2))
+        a4 = (g + g.mH) / 2
+        b4 = g2 @ g2.mH / n4 + torch.eye(n4, device=DEV, dtype=torch.complex64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (w, v, info), counts, reads = _counted(lambda: gevd_self_adjoint(a4, b4))
+        ms = (time.perf_counter() - t0) * 1e3
+        add(counts)
+        c128 = torch.complex128
+        vd, ad, bd = v.to(c128), a4.to(c128), b4.to(c128)
+        wv = vd * w.double()[None, :]
+        res = (torch.linalg.matrix_norm(ad @ vd - bd @ wv)
+               / (torch.linalg.matrix_norm(ad) * torch.linalg.matrix_norm(vd)
+                  + torch.linalg.matrix_norm(bd) * torch.linalg.matrix_norm(wv))).item()
+        cond_b = torch.linalg.cond(bd).item()
+        orth = (vd.mH @ bd @ vd - torch.eye(n4, device=DEV, dtype=c128)).abs().max().item()
+        tol = 8 * n4 * EPS32
+        check(bool(info.converged) and not w.is_complex() and bool((w[1:] >= w[:-1]).all())
+              and res <= tol and orth <= tol * cond_b and counts["llt_panel"] > 0
+              and counts["tridiag_sweep"] == 1,
+              f"gevd_self_adjoint n={n4} c64: w real and ascending, |AV - BVΛ|/(|A||V| + "
+              f"|B||VΛ|) {res:.3e} <= {tol:.3e}, max|VᴴBV - I| {orth:.3e} <= "
+              f"{tol * cond_b:.3e} (8·n·eps·κ(B)); launches llt_panel {counts['llt_panel']}, "
+              f"trtri {counts['trtri']}, tridiag_sweep {counts['tridiag_sweep']}")
+
+        def library_sa():
+            l4 = torch.linalg.cholesky(b4)
+            c4 = torch.linalg.solve_triangular(l4, a4, upper=False)
+            c4 = torch.linalg.solve_triangular(l4, c4.mH, upper=False)
+            w4, y4 = torch.linalg.eigh(c4)
+            return w4, torch.linalg.solve_triangular(l4.mH, y4, upper=True)
+
+        print(f"time gevd_self_adjoint n={n4} c64: {ms:.1f} ms (one call, host clock); "
+              f"library cholesky, solve_triangular and eigh {cuda_ms(library_sa, 1):.1f} ms")
+
+        # the facade
+        n5 = CGEVD_FACADE_N
+        a5, b5 = (torch.complex(torch.randn(n5, n5, generator=gen, device=DEV),
+                                torch.randn(n5, n5, generator=gen, device=DEV))
+                  for _ in range(2))
+        ge, _ = run(f"Mat(a).generalized_eigen(b) n={n5} c64",
+                    lambda: Mat(a5).generalized_eigen(Mat(b5)), n5)
+        alpha, beta, v, _ = gevd(a5, b5)
+        check(torch.equal(ge.alpha, alpha) and torch.equal(ge.beta, beta)
+              and torch.equal(ge.v, v) and bool(ge.info.converged),
+              f"Mat(a).generalized_eigen(b) n={n5} c64: gevd's α, β and V to the bit, "
+              f"converged")
+    finally:
+        for mod, fname, fn in saved:
+            setattr(mod, fname, fn)
+        if recv is not None:
+            proc.kill()
+    print(f"launches in the complex generalized EVD phase: "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def _complex_evd_process(conn) -> None:
-    """A spawned process's job: phase 17 (:func:`phase_complex_evd`) on the
-    card, beside phases 13–16 of the main process, on inputs from
-    generators of its own (A from :func:`start_complex_reference`, whose
-    f64 reference it starts; the rest from seed SEED + 170); its printed
-    lines are collected and sent through ``conn`` with its launch counts,
-    its exit status (1 for a failed check) and its seconds."""
+    """A spawned process's job: phase 17 (:func:`phase_complex_evd`), then
+    phase 18 (:func:`phase_complex_gevd`), on the card, beside phases 13–16
+    of the main process, on inputs from generators of their own (A from
+    :func:`start_complex_reference` and the pencil from
+    :func:`start_complex_gevd_reference`, whose f64 references it starts
+    first, to run beside phase 17; the rest from seeds SEED + 170 and
+    SEED + 180); its printed lines are collected and sent through ``conn``
+    with the two phases' launch counts, its exit status (1 for a failed
+    check) and its seconds."""
     import contextlib
     import io
     import traceback
@@ -3976,7 +4540,15 @@ def _complex_evd_process(conn) -> None:
     try:
         with contextlib.redirect_stdout(buf):
             gen = torch.Generator(device=DEV).manual_seed(SEED + 170)
+            gref = start_complex_gevd_reference()  # phase 18's, beside phase 17
             total = phase_complex_evd(gen, start_complex_reference())
+            t17 = time.perf_counter() - t0
+            print(f"phase 17: {t17:.1f} s in its process")
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 180)
+            total18 = phase_complex_gevd(gen, gref)
+            print(f"phase 18: {time.perf_counter() - t0 - t17:.1f} s in its process, "
+                  f"after phase 17")
+            total = {k: total.get(k, 0) + total18.get(k, 0) for k in {*total, *total18}}
             status = 0
     except SystemExit as exc:  # a failed check: its FAIL line is in buf
         status = exc.code if isinstance(exc.code, int) and exc.code else 1
@@ -3987,10 +4559,10 @@ def _complex_evd_process(conn) -> None:
 
 
 def start_complex_evd() -> tuple:
-    """Phase 17 in a spawned process of its own, to run beside phases
-    13–16: its work, as theirs, is host-bound (the card waits on one host
-    core in each process), so the two share the card with little to choose
-    between them. Returns (process, receiving end of its pipe)."""
+    """Phases 17 and 18 in a spawned process of their own, to run beside
+    phases 13–16: their work, as theirs, is host-bound (the card waits on
+    one host core in each process), so the two share the card with little
+    to choose between them. Returns (process, receiving end of its pipe)."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -4013,8 +4585,8 @@ def finish_complex_evd(job) -> dict:
     proc.join()
     print(text, end="", flush=True)
     check(status == 0 and total is not None,
-          f"phase 17 (complex general EVD) passed every check, {secs:.1f} s in a process "
-          f"of its own beside phases 13–16")
+          f"phases 17 and 18 (complex general and generalized EVD) passed every check, "
+          f"{secs:.1f} s in a process of their own beside phases 13–16")
     return total
 
 def _scipy_pencil_reference(a, b, conn) -> None:
@@ -4045,7 +4617,8 @@ def gevd_pencil() -> tuple:
 
 
 def start_gevd_reference(a, b) -> tuple:
-    """Start :func:`_scipy_pencil_reference` of (a, b) in float64 in a
+    """Start :func:`_scipy_pencil_reference` of (a, b) in float64 (complex128
+    for a complex pencil) in a
     spawned daemon process with one BLAS thread, so that it runs beside
     phases 3–14 on one core: (process, receiving end of its pipe)."""
     import multiprocessing
@@ -4057,7 +4630,7 @@ def start_gevd_reference(a, b) -> tuple:
     os.environ.update(dict.fromkeys(names, "1"))  # read by the child at its start
     try:
         proc = ctx.Process(target=_scipy_pencil_reference, daemon=True,
-                           args=(a.double().cpu().numpy(), b.double().cpu().numpy(), send))
+                           args=(_wide(a).cpu().numpy(), _wide(b).cpu().numpy(), send))
         proc.start()
     finally:
         for k, v in saved.items():
@@ -4088,25 +4661,32 @@ def _chordal_ratio(al, be, ra, rb, kappa, eta: float) -> float:
                (near_w.values / tol).max().item())
 
 
+def _wide(x):
+    """``x`` in float64, or in complex128 when it is complex."""
+    return x.to(torch.complex128) if x.is_complex() else x.double()
+
+
 def _pencil_residual(a, b, alpha, beta, v) -> float:
     """max_k ‖A v_k β_k − B v_k α_k‖ / ((‖A‖₂|β_k| + ‖B‖₂|α_k|)‖v_k‖), in
-    float64 on the card."""
+    float64 (complex128) on the card."""
     c = torch.complex128
-    ad, bd, vd = a.double().to(c), b.double().to(c), v.to(c)
+    ad, bd, vd = _wide(a).to(c), _wide(b).to(c), v.to(c)
     al, be = alpha.to(c), beta.to(c)
     num = torch.linalg.vector_norm(ad @ vd * be[None, :] - bd @ vd * al[None, :], dim=0)
-    den = ((torch.linalg.matrix_norm(a.double(), ord=2) * be.abs()
-            + torch.linalg.matrix_norm(b.double(), ord=2) * al.abs())
+    den = ((torch.linalg.matrix_norm(_wide(a), ord=2) * be.abs()
+            + torch.linalg.matrix_norm(_wide(b), ord=2) * al.abs())
            * torch.linalg.vector_norm(vd, dim=0))
     return (num / den).max().item()
 
 
 def gevd_reduction_readings(a, b) -> dict:
-    """``gevd(a, b, method="reduction")`` in float32 on the card, held to
+    """``gevd(a, b, method="reduction")`` in float32 (or complex64) on the
+    card, held to
     the backward error of its two steps: Ĉ, the LU solve of B Ĉ = A
     (captured from ``lu_solve``), with η_s = ‖A − BĈ‖₂/(‖B‖₂‖Ĉ‖₂), and
     evd(Ĉ), with η_e = max_k ‖Ĉv_k − λ_k v_k‖/(‖Ĉ‖₂‖v_k‖), each within
-    8·n·eps; then, since A v − λ B v = (A − BĈ)v + B(Ĉv − λv), the pencil
+    8·n·eps of the dtype; then, since A v − λ B v = (A − BĈ)v + B(Ĉv −
+    λv), the pencil
     residual (:func:`_pencil_residual`, β = 1) within 2·κ₂(B)·η, η =
     max(η_s, η_e): the first-order bound (η_s + η_e)·‖B‖₂‖Ĉ‖₂/‖A‖₂, with
     ‖Ĉ‖₂ ≤ ‖B⁻¹‖₂‖A‖₂. No bound of the form 8·n·eps holds for the pencil
@@ -4134,7 +4714,7 @@ def gevd_reduction_readings(a, b) -> dict:
     finally:
         tlu.lu_solve = lu_solve
     c128 = torch.complex128
-    ad, bd, cd = a.double(), b.double(), solved[0].double()
+    ad, bd, cd = _wide(a), _wide(b), _wide(solved[0])
     norm_a, norm_b, norm_c = (torch.linalg.matrix_norm(x, ord=2).item() for x in (ad, bd, cd))
     eta_s = torch.linalg.matrix_norm(ad - bd @ cd, ord=2).item() / (norm_b * norm_c)
     vx, w = v.to(c128), alpha.to(c128)
@@ -4143,11 +4723,13 @@ def gevd_reduction_readings(a, b) -> dict:
     kappa = torch.linalg.cond(bd).item()
     eta = max(eta_s, eta_e)
     res = _pencil_residual(a, b, alpha, beta, v)
-    tol = 8 * n * EPS32
+    tol = 8 * n * torch.finfo(a.dtype).eps
     launched = {k: c for k, c in counts.items() if c}
+    # a complex LU runs no kernel; the complex evd's Schur step is complex_schur
+    kernels = counts["complex_schur"] > 0 if a.is_complex() else \
+        counts["lu_panel"] + counts["lu_leaf"] > 0 and counts["real_schur"] > 0
     ok = (bool(info.converged) and bool((beta == 1).all()) and max(eta_s, eta_e) <= tol
-          and res <= 2 * kappa * eta
-          and counts["lu_panel"] + counts["lu_leaf"] > 0 and counts["real_schur"] > 0)
+          and res <= 2 * kappa * eta and kernels)
     message = (f"β = 1; backward errors of the LU solve η_s {eta_s:.3e} and of evd(Ĉ) "
                f"η_e {eta_e:.3e}, both <= {tol:.3e} (8·n·eps); |AV - BVΛ| column by column "
                f"{res:.3e} <= 2·κ₂(B)·η {2 * kappa * eta:.3e} (κ₂(B) {kappa:.4g}, "
@@ -4813,15 +5395,15 @@ def main() -> None:
     lab = timed("10 panel lab", phase_panel_lab)
     llt_lab = timed("11 LLT block lab", phase_llt_lab)
     chase_lab = timed("12 chase lab", phase_chase_lab, spectral_ms)
-    cevd_job = start_complex_evd()  # phase 17, in a process of its own beside 13–16
+    cevd_job = start_complex_evd()  # phases 17–18, in a process of their own beside 13–16
     try:
         dense = timed("13 dense stack", phase_dense_stack, gen)
         gevd = timed("14 general EVD and f64 spectral", phase_general_evd, gen)
         timed("3 wide QZ cases checked", finish_gevd_wide, wide, kern)
         ggevd = timed("15 generalized EVD", phase_generalized_evd, gen, pencil, reference)
         cplx = timed("16 complex", phase_complex, gen)
-        cevd = timed("17 complex general EVD (the wait for its process)",
-                     finish_complex_evd, cevd_job)
+        cevd = timed("17-18 complex general and generalized EVD (the wait for their "
+                     "process)", finish_complex_evd, cevd_job)
     finally:
         if cevd_job[0].is_alive():  # a failure before phase 17 ended
             cevd_job[0].terminate()
@@ -4881,6 +5463,11 @@ def main() -> None:
         # complex_schur
         "complex_schur": ("faer_tpu_torch/csrc/complex_schur.cu",
                           "faer_tpu/linalg/evd.py:277"),
+        # no Pallas kernel: the XLA fori_loops of the JAX package's complex
+        # hessenberg_triangular and the while_loop of its qz_iteration
+        "complex_hess_tri": ("faer_tpu_torch/csrc/complex_hess_tri.cu",
+                             "faer_tpu/linalg/qz.py:45"),
+        "complex_qz": ("faer_tpu_torch/csrc/complex_qz.cu", "faer_tpu/linalg/qz.py:111"),
     }
     # on no library path, as in the JAX package: syrk_lower_sub is unwired,
     # the v3 and v1 LU panels are called by nothing, the QR panels v1, v2,
@@ -4905,7 +5492,12 @@ def main() -> None:
                "real_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "hess_tri": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
                "real_qz": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
-               "complex_schur": ["faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "complex_schur": ["faer_tpu_torch/csrc/complex_ops.cuh",
+                                 "faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "complex_hess_tri": ["faer_tpu_torch/csrc/complex_ops.cuh",
+                                    "faer_tpu_torch/csrc/spectral_qr.cuh"],
+               "complex_qz": ["faer_tpu_torch/csrc/complex_ops.cuh",
+                              "faer_tpu_torch/csrc/spectral_qr.cuh"],
                "lu_panel_swap": gemm[1:], "chase_probe": gemm[1:]}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [

@@ -30,7 +30,13 @@ the generalized real EVD, ``linalg.gevd`` (``gevd``, ``gevd_eigenvalues``,
 ``gevd_self_adjoint``), ``linalg.qz`` (``hessenberg_triangular``, one
 launch of the ``hess_tri`` kernel on a card; ``qz``, ``gevd_qz``) and
 ``linalg.qz_real`` (``real_qz``, one launch of the ``real_qz`` kernel on a
-card; ``qz_eigenvalues_pair``), in float32 and float64; and the facade
+card; ``qz_eigenvalues_pair``), in float32 and float64; the generalized
+complex EVD through the same ``gevd`` and ``qz``, ``linalg.complex_qz``
+(``qz_iteration``, one launch of the ``complex_qz`` kernel on a card, also
+``qz.qz_iteration``; the Givens chain of ``hessenberg_triangular`` one
+launch of ``complex_hess_tri``), ``linalg.qz_multishift``
+(``multishift_qz``) and ``eigvec.triangular_generalized_eigenvectors``, in
+complex64 and complex128; and the facade
 over them: ``Mat``, ``Col``, ``Row``, ``Diag``, ``Scale``
 and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
@@ -38,9 +44,9 @@ and the solver objects ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 through the GEMM front door (``ops.matmul``) and, with the switch
 ``core.config.config.use_tile_matmul`` on, its tile kernel; and
 ``linalg.batched``, ``ops.jacobi``, ``ops.zip``. complex64 and complex128
-run through every factorization, solver object, the self-adjoint EVD and
-the SVD and the general EVD (``core/dtypes.py`` says which route each
-takes); the complex generalized EVD is ROADMAP item 10b-ii.
+run through every factorization, solver object, the self-adjoint EVD, the
+SVD, the general EVD and the generalized EVD (``core/dtypes.py`` says
+which route each takes).
 """
 from faer_tpu_torch.core import dtypes, params, perm
 from faer_tpu_torch.core.config import (
@@ -139,9 +145,14 @@ from faer_tpu_torch.linalg.solvers import (
 )
 from faer_tpu_torch.linalg.gevd import gevd, gevd_eigenvalues, gevd_self_adjoint
 from faer_tpu_torch.linalg.qz import gevd_qz, hessenberg_triangular, qz
+from faer_tpu_torch.linalg.complex_qz import qz_iteration
+from faer_tpu_torch.linalg.qz_multishift import multishift_qz
 from faer_tpu_torch.linalg.qz_real import qz_eigenvalues_pair, real_qz
 from faer_tpu_torch.linalg.complex_schur import complex_schur
-from faer_tpu_torch.linalg.eigvec import triangular_eigenvectors
+from faer_tpu_torch.linalg.eigvec import (
+    triangular_eigenvectors,
+    triangular_generalized_eigenvectors,
+)
 from faer_tpu_torch.linalg.real_schur import real_schur
 from faer_tpu_torch.linalg.schur_multishift import (
     multishift_complex_schur,
@@ -192,7 +203,8 @@ __all__ = [
     "svd", "singular_values", "pseudoinverse", "pseudoinverse_from_svd",
     "evd", "eigenvalues", "evd_pair", "eigenvalues_pair", "hessenberg_in_place",
     "hessenberg_blocked", "real_schur", "multishift_real_schur", "complex_schur",
-    "multishift_complex_schur", "triangular_eigenvectors",
+    "multishift_complex_schur", "triangular_eigenvectors", "qz_iteration", "multishift_qz",
+    "triangular_generalized_eigenvectors",
     "GevdParams", "gevd", "gevd_eigenvalues", "gevd_self_adjoint", "gevd_qz", "qz",
     "real_qz", "qz_eigenvalues_pair", "hessenberg_triangular",
 ]

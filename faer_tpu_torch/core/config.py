@@ -39,7 +39,8 @@ KERNELS = ("trtri", "llt_panel", "lu_panel", "qr_panel", "llt_leaf", "lu_leaf",
            "tridiag_sweep", "bidiag_sweep", "matmul", "syrk", "lu_panel_v2",
            "lu_panel_v3", "lu_panel_swap", "qr_panel_v1", "qr_panel_v2",
            "qr_panel_v3", "qr_leaf", "llt_block", "llt_block_v3", "chase_probe",
-           "real_schur", "hess_tri", "real_qz", "complex_schur")
+           "real_schur", "hess_tri", "real_qz", "complex_schur", "complex_hess_tri",
+           "complex_qz")
 F32_PRECISIONS = ("highest", "high")
 
 

@@ -2,11 +2,11 @@
 
 The factorizations, their solves, the self-adjoint EVD and the SVD take
 ``torch.float32``, ``torch.float64``, ``torch.complex64`` and
-``torch.complex128`` (:func:`require_field`), and so does the general
-EVD (a complex matrix takes the complex Schur form). The generalized EVD
-takes the real dtypes only (:func:`require_real`): a complex pencil raises
-``NotImplementedError`` naming ROADMAP §1 item 10b-ii (the complex QZ).
-What the dtype decides:
+``torch.complex128`` (:func:`require_field`), and so do the general EVD
+(a complex matrix takes the complex Schur form) and the generalized EVD (a
+complex pencil takes the complex QZ). Only the real QZ's own helpers
+(``qz_real.real_qz``, ``qz_eigenvalues_pair``) take the real dtypes alone
+(:func:`require_real`). What the dtype decides:
 
 * the dense factorizations: float32 goes to the hand-written kernels
   (:func:`kernel_route`), as the JAX package's ``panel_kernels_enabled``
@@ -20,7 +20,9 @@ What the dtype decides:
   as the JAX package runs f64 through the same spectral drivers; the
   general EVD of complex64 and complex128 input runs the complex Schur
   iteration, one launch of ``complex_schur_batched`` (instantiated for
-  both) a direct call or AED window;
+  both) a direct call or AED window, and the generalized EVD of a complex
+  pencil the complex QZ, one ``complex_hess_tri_batched`` launch a call
+  and one ``complex_qz_batched`` launch a direct call or AED window;
 * complex64 LLT and LDLT (and their solves) go through the interleaved
   real embedding (``linalg/cholesky.py``): a 2n float32 problem on the
   float32 route, so the ``llt_panel`` (or ``llt_leaf``) and ``trtri``
@@ -91,11 +93,11 @@ def abs2(x):
 
 def require_real(a, name: str) -> None:
     """Raise ``NotImplementedError`` unless ``a`` is float32 or float64: the
-    entry points whose complex form is the complex QZ."""
+    real QZ's own helpers, whose complex form is ``qz``."""
     if a.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"{name}: float32 and float64 only, got {a.dtype}; the complex "
-            "QZ and the complex generalized EVD are ROADMAP §1 item 10b-ii")
+            f"{name}: float32 and float64 only, got {a.dtype}; a complex pencil "
+            "takes qz (the complex QZ) and gevd")
 
 
 def require_field(a, name: str) -> None:

@@ -175,41 +175,54 @@ class _Problem:
         re, im = self.h[i, j].tolist()
         return self.sc(re), self.sc(im)
 
-    def _rotate(self, pair, dim: int, c, s1, s2) -> None:
-        """The rotation of a pair of rows (``dim`` 0) or columns (``dim`` 1)
-        P0, P1 of the real view, in place: P0 ← c·P0 + (s1·P1 + s2·sw(P1)),
-        P1 ← c·P1 + ((−s1)·P0 + s2·sw(P0)), sw(x) = −i·x = (x_im, −x_re),
-        each product and sum one rounding (the kernel's ``rotate``)."""
-        other = pair.flip(dim)
-        other_sw = other.flip(-1) * self.sgn
-        shape = [1, 1, 1]
-        shape[dim] = 2
-        coef = torch.tensor([float(s1), -float(s1)], dtype=pair.dtype,
-                            device=pair.device).reshape(shape)
-        pair.copy_(float(c) * pair + (coef * other + float(s2) * other_sw))
-
     def rotate_rows(self, i: int, c_from: int, c, sr, si) -> None:
         """Rows i, i + 1 of H from column ``c_from`` on ← Gᴴ rows: row i ←
         c·a + s̄·b, row i + 1 ← c·b − s·a (s̄·b = sr·b + si·sw(b))."""
-        self._rotate(self.h[i:i + 2, c_from:], 0, c, sr, si)
+        rotate_pair(self.h[i:i + 2, c_from:], 0, c, sr, si, self.sgn)
 
     def rotate_cols(self, i: int, rend: int, c, sr, si) -> None:
         """Columns i, i + 1 of Q and of H's rows 0..rend − 1 ← columns · G:
         column i ← c·x + s·y, column i + 1 ← c·y − s̄·x (s·y = sr·y −
         si·sw(y))."""
-        self._rotate(self.m[:self.r + rend, i:i + 2], 1, c, sr, -si)
+        rotate_pair(self.m[:self.r + rend, i:i + 2], 1, c, sr, -si, self.sgn)
 
     def negligible_subdiag(self, floor) -> None:
         """Zero every subdiagonal entry of H with |h| at most max(ε·(|d_i| +
         |d_{i+1}|), floor). In place."""
-        d = self.h.diagonal(0, 0, 1).cpu().numpy()  # (2, n)
-        sd = self.h.diagonal(-1, 0, 1)
-        sdn = sd.cpu().numpy()
-        ad = _cabs_arr(d[0], d[1])
-        tol = np.maximum(self.eps * (ad[:-1] + ad[1:]), floor)
-        kill = np.nonzero(_cabs_arr(sdn[0], sdn[1]) <= tol)[0]
-        if kill.size:
-            sd[:, torch.from_numpy(kill).to(sd.device)] = 0.0
+        negligible_subdiag(self.h, self.eps, floor)
+
+
+def rotate_pair(pair, dim: int, c, s1, s2, sgn, *, reverse: bool = False) -> None:
+    """The rotation of a pair of rows (``dim`` 0) or columns (``dim`` 1)
+    P0, P1 of a real view (…, 2) of a complex matrix, in place: P0 ← c·P0 +
+    (s1·P1 + s2·sw(P1)), P1 ← c·P1 + ((−s1)·P0 + s2·sw(P0)), sw(x) = −i·x =
+    (x_im, −x_re), each product and sum one rounding (the kernels'
+    ``rotate``); ``reverse`` swaps the roles of P0 and P1. ``sgn`` is the
+    real tensor (1, −1) of the view's dtype and device."""
+    other = pair.flip(dim)
+    other_sw = other.flip(-1).mul_(sgn)
+    shape = [1, 1, 1]
+    shape[dim] = 2
+    s1 = float(s1)
+    coef = torch.tensor([-s1, s1] if reverse else [s1, -s1], dtype=pair.dtype,
+                        device=pair.device).view(shape)
+    # c·P + (coef·other + s2·sw(other)), one rounding an operation
+    pair.copy_((pair * float(c)).add_(other.mul_(coef).add_(other_sw.mul_(float(s2)))))
+
+
+def negligible_subdiag(h, eps, floor) -> None:
+    """Zero every subdiagonal entry of the real view ``h`` (n, n, 2) of a
+    complex Hessenberg matrix with |h| at most max(ε·(|d_i| + |d_{i+1}|),
+    floor), the magnitudes scaled (numpy arrays of the element type). In
+    place."""
+    d = h.diagonal(0, 0, 1).cpu().numpy()  # (2, n)
+    sd = h.diagonal(-1, 0, 1)
+    sdn = sd.cpu().numpy()
+    ad = _cabs_arr(d[0], d[1])
+    tol = np.maximum(eps * (ad[:-1] + ad[1:]), floor)
+    kill = np.nonzero(_cabs_arr(sdn[0], sdn[1]) <= tol)[0]
+    if kill.size:
+        sd[:, torch.from_numpy(kill).to(sd.device)] = 0.0
 
 
 def _sweep(p: _Problem, lo: int, hi: int, stall: int) -> int:

@@ -8,9 +8,11 @@ once, bottom-up, one row (or one 2×2 block's pair of rows) a step: each
 step is one product of T's rows with the whole batch of eigenvectors.
 :func:`triangular_eigenvectors` takes the upper-triangular complex Schur
 form, in its own dtype; the real quasi-triangular form runs in real
-arithmetic with (re, im) pairs. The pencil form,
-:func:`quasi_triangular_generalized_eigenvectors_pair`, solves the
-homogeneous (β S − α T) y = 0 the same way.
+arithmetic with (re, im) pairs. The pencil forms solve the homogeneous
+(β S − α T) y = 0 the same way: :func:`triangular_generalized_eigenvectors`
+for the complex QZ's upper-triangular (S, T), in their own dtype, and
+:func:`quasi_triangular_generalized_eigenvectors_pair` for the real QZ's
+quasi-triangular S, in real arithmetic with (re, im) pairs.
 """
 from __future__ import annotations
 
@@ -47,6 +49,34 @@ def triangular_eigenvectors(t):
         x[j] = torch.where(ks > j, rhs / den, x[j])
     norms = torch.linalg.vector_norm(x, dim=0)
     return x / norms[None, :]
+
+
+def triangular_generalized_eigenvectors(s, t, alpha, beta):
+    """Right eigenvectors of the upper-triangular pencil (``s``, ``t``)
+    with eigenvalues as (α, β) pairs (the complex QZ's diagonals), each
+    column of unit 2-norm (``faer_tpu/linalg/qz_cpair.py:326-364``,
+    ``_gen_eigvec_scan``): column k solves the homogeneous
+    (β_k S − α_k T) y = 0 with y_k = 1 and y_j = 0 below k, so an infinite
+    eigenvalue (β = 0) gives a null direction of T. Every eigenvector is
+    solved at once by a bottom-up scan, each step two products of S's and
+    T's row j with the whole batch Y: y_j = (α_k·T[j, :]·Y − β_k·S[j, :]·Y)
+    / (β_k S_jj − α_k T_jj) for k > j, the denominator clamped to the real
+    floor ε·max(‖(S, T)‖_max, 1) where its magnitude is below it."""
+    n = s.shape[0]
+    dt, dev = s.dtype, s.device
+    rdt = dtypes.real_dtype_of(dt)
+    floor = (dtypes.eps(dt) * torch.clamp(torch.maximum(s.abs().amax(), t.abs().amax()),
+                                          min=1.0)).to(rdt)
+    ks = torch.arange(n, device=dev)
+    sd, td = s.diagonal(), t.diagonal()
+    y = torch.eye(n, dtype=dt, device=dev)
+    for j in range(n - 2, -1, -1):  # row n − 1 commits no eigenvector
+        rhs = alpha * matmul(None, t[j:j + 1], y)[0] - beta * matmul(None, s[j:j + 1], y)[0]
+        den = beta * sd[j] - alpha * td[j]
+        den = torch.where(den.abs() < floor, floor.to(dt), den)
+        y[j] = torch.where(ks > j, rhs / den, y[j])
+    norms = torch.linalg.vector_norm(y, dim=0)
+    return y / norms[None, :]
 
 
 def quasi_triangular_eigenvectors_pair(t, wr, wi):

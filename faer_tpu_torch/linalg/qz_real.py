@@ -333,7 +333,8 @@ def real_qz(a, b, *, max_sweeps_factor: int = 30):
     on a card)."""
     from faer_tpu_torch.linalg.qz import hessenberg_triangular
 
-    _pencil(a, b, "real_qz")
+    a, b = _pencil(a, b, "real_qz")
+    dtypes.require_real(a, "real_qz")
     h, t, q, z = hessenberg_triangular(a, b)
     return real_qz_iteration(h, t, q, z, max_sweeps_factor=max_sweeps_factor)
 
@@ -343,6 +344,7 @@ def qz_eigenvalues_pair(s, t):
     gives (S_kk, 0, T_kk), β = 0 an infinite eigenvalue; a 2×2 block
     (S[k + 1, k] ≠ 0) the complex pair of det(S₂ − λT₂) = 0, with
     β = |det T₂| and α = λβ (``faer_tpu/linalg/qz_real.py:373``)."""
+    dtypes.require_real(s, "qz_eigenvalues_pair")
     n = s.shape[0]
     d, td = s.diagonal(), t.diagonal()
     if n == 1:

@@ -8,16 +8,15 @@ info) with the JAX dataclass's field names, so that ``interop`` can carry
 one across. The port has ``Llt``, ``Ldlt``, ``PivLlt``, ``Lblt``,
 ``PartialPivLu``, ``FullPivLu``, ``Qr``, ``ColPivQr``, ``Svd``,
 ``SelfAdjointEigen``, ``Eigen`` (the general EVD) and
-``GeneralizedEigen`` (the real pencil's EVD by QZ). Every object but the
-last takes float32, float64, complex64 and complex128, as the JAX
-package's native path does (the JAX package's split (re, im) pair path is
-not ported: ``interop`` turns its pairs into complex tensors); a complex
-determinant is complex, L's and D's diagonals real; ``Eigen`` of complex
-input runs the complex Schur form. ``GeneralizedEigen`` of a complex pencil
-raises ``NotImplementedError`` naming ROADMAP §1 item 10b-ii (the complex
-QZ). A real
-factor solves a complex right-hand side as its real and imaginary parts;
-a complex factor promotes a real one.
+``GeneralizedEigen`` (the pencil's EVD by QZ). Every object takes float32,
+float64, complex64 and complex128, as the JAX package's native path does
+(the JAX package's split (re, im) pair path is not ported: ``interop``
+turns its pairs into complex tensors); a complex determinant is complex,
+L's and D's diagonals real; ``Eigen`` of complex input runs the complex
+Schur form, ``GeneralizedEigen`` of a complex pencil the complex QZ (a real
+B promoted to a complex A's dtype). A real factor solves a complex
+right-hand side as its real and imaginary parts; a complex factor promotes
+a real one.
 """
 from __future__ import annotations
 
@@ -474,9 +473,10 @@ class Eigen:
 
 @dataclasses.dataclass(frozen=True)
 class GeneralizedEigen:
-    """Generalized eigendecomposition of a real pencil (A, B) as (α, β)
-    pairs: A V diag(β) = B V diag(α), α, β and V complex; β = 0 marks an
-    infinite eigenvalue (``gevd.gevd``, the real QZ)."""
+    """Generalized eigendecomposition of a pencil (A, B) as (α, β) pairs:
+    A V diag(β) = B V diag(α), α, β and V complex; β = 0 marks an infinite
+    eigenvalue (``gevd.gevd``: the real QZ for a real pencil, the complex
+    QZ for a complex one)."""
 
     alpha: torch.Tensor
     beta: torch.Tensor

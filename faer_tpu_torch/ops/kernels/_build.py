@@ -33,8 +33,9 @@ _SIGNATURES = {
     # for faer_llt_block_route, faer_llt_panel_route, faer_qr_panel_route,
     # faer_lu_panel_route, faer_lu_panel_swap_route, faer_tridiag_qr_route,
     # faer_bidiag_qr_route, faer_real_schur_route, faer_hess_tri_route,
-    # faer_real_qz_route and their _f64 twins, faer_complex_schur_route and
-    # its _c128 twin; bytes
+    # faer_real_qz_route and their _f64 twins, faer_complex_schur_route,
+    # faer_complex_hess_tri_route, faer_complex_qz_route and their _c128
+    # twins; bytes
     # for faer_chase_smem_bytes)
     "faer_tile_matmul": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _P],
@@ -69,6 +70,14 @@ _SIGNATURES = {
     "faer_complex_schur_batched_c128": [_P, _P, _P, _P, _I, _I, _I, _P],
     "faer_complex_schur_route": [_I],
     "faer_complex_schur_route_c128": [_I],
+    "faer_complex_hess_tri_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "faer_complex_hess_tri_batched_c128": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "faer_complex_hess_tri_route": [_I],
+    "faer_complex_hess_tri_route_c128": [_I],
+    "faer_complex_qz_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_complex_qz_batched_c128": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "faer_complex_qz_route": [_I],
+    "faer_complex_qz_route_c128": [_I],
     "faer_hess_tri_batched": [_P, _P, _P, _P, _P, _I, _I, _P],
     "faer_hess_tri_batched_f64": [_P, _P, _P, _P, _P, _I, _I, _P],
     "faer_hess_tri_route": [_I],

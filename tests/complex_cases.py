@@ -134,3 +134,81 @@ def eig_ratio(w, a, eta, other=None):
     tol = np.maximum(2 * kappa * eta, np.finfo(np.float64).tiny)
     near_ref = dist.argmin(axis=1)
     return max((dist.min(axis=1) / tol[near_ref]).max(), (dist.min(axis=0) / tol).max())
+
+
+def pencil_input(n, npdt, seed=0, scale=1.0, rank=None):
+    """A complex Gaussian pencil (A, B) times ``scale``; B of rank ``rank``
+    (a product of Gaussian n × rank and rank × n factors) when given."""
+    rng = np.random.default_rng(9000 + 10 * n + seed)
+
+    def cg(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    a, b = cg(n, n), cg(n, n)
+    if rank is not None:
+        b = cg(n, rank) @ cg(rank, n)
+    return (a * scale).astype(npdt), (b * scale).astype(npdt)
+
+
+def qz_backward(a, b, s, t, q, z):
+    """The QZ step's A = Q S Zᴴ, B = Q T Zᴴ in complex128:
+    ‖A − QSZᴴ‖_F/‖A‖_F, ‖B − QTZᴴ‖_F/‖B‖_F, max|QᴴQ − I|, max|ZᴴZ − I| and
+    the backward error η = ‖(A − QSZᴴ, B − QTZᴴ)‖₂ + ‖(A, B)‖₂·max(‖QᴴQ −
+    I‖₂, ‖ZᴴZ − I‖₂) of (S, T)'s eigenvalues."""
+    a, b, s, t, q, z = (np.asarray(x, np.complex128) for x in (a, b, s, t, q, z))
+    n = a.shape[0]
+    ea, eb = a - q @ s @ z.conj().T, b - q @ t @ z.conj().T
+    fq, fz = q.conj().T @ q - np.eye(n), z.conj().T @ z - np.eye(n)
+    ab = np.hypot(np.linalg.norm(a, 2), np.linalg.norm(b, 2))
+    eta = np.hypot(np.linalg.norm(ea, 2), np.linalg.norm(eb, 2)) \
+        + ab * max(np.linalg.norm(fq, 2), np.linalg.norm(fz, 2))
+    return (np.linalg.norm(ea) / max(np.linalg.norm(a), 1e-300),
+            np.linalg.norm(eb) / max(np.linalg.norm(b), 1e-300),
+            np.abs(fq).max(), np.abs(fz).max(), eta)
+
+
+def chordal_ratio(alpha, beta, a, b, eta, other=None):
+    """How far the (α, β) pairs lie from f64 ``scipy.linalg.eig`` of the
+    pencil (a, b) (or from ``other``, another computation's (α, β)) in the
+    chordal metric |αβ̂ − α̂β|/(‖(α, β)‖‖(α̂, β̂)‖), against each reference
+    eigenvalue's bound 2·κ_i·η (κ_i = ‖x_i‖‖y_i‖/‖(y_iᴴAx_i, y_iᴴBx_i)‖
+    from scipy's left and right vectors, η a backward error, doubled for
+    the reference's own error; η is taken at least n·eps_f64·‖(A, B)‖₂):
+    the largest ratio, each eigenvalue matched to the nearest of the other
+    set in both directions."""
+    import scipy.linalg
+
+    a, b = np.asarray(a, np.complex128), np.asarray(b, np.complex128)
+    n = a.shape[0]
+    eta = max(eta, n * float(np.finfo(np.float64).eps)
+              * np.hypot(np.linalg.norm(a, 2), np.linalg.norm(b, 2)))
+    (ra, rb), yl, xr = scipy.linalg.eig(a, b, left=True, right=True, homogeneous_eigvals=True)
+    kappa = (np.linalg.norm(yl, axis=0) * np.linalg.norm(xr, axis=0)
+             / np.hypot(np.abs(np.sum(yl.conj() * (a @ xr), axis=0)),
+                        np.abs(np.sum(yl.conj() * (b @ xr), axis=0))))
+    if other is not None:  # each of other's eigenvalues takes κ of scipy's nearest
+        oa, ob = (np.asarray(x, np.complex128) for x in other)
+        near = _chordal(oa, ob, ra, rb).argmin(axis=1)
+        ra, rb, kappa = oa, ob, kappa[near]
+    chord = _chordal(np.asarray(alpha, np.complex128), np.asarray(beta, np.complex128), ra, rb)
+    tol = np.maximum(2 * kappa * eta, np.finfo(np.float64).tiny)
+    near_ref = chord.argmin(axis=1)
+    return max((chord.min(axis=1) / tol[near_ref]).max(), (chord.min(axis=0) / tol).max())
+
+
+def _chordal(al, be, ra, rb):
+    """The chordal distances between the pairs (al, be) (rows) and (ra, rb)
+    (columns)."""
+    return (np.abs(al[:, None] * rb[None, :] - ra[None, :] * be[:, None])
+            / (np.hypot(np.abs(al), np.abs(be))[:, None]
+               * np.hypot(np.abs(ra), np.abs(rb))[None, :]))
+
+
+def pencil_residual(a, b, alpha, beta, v):
+    """max_k ‖A v_k β_k − B v_k α_k‖ / ((‖A‖₂|β_k| + ‖B‖₂|α_k|)‖v_k‖) in
+    complex128."""
+    a, b, al, be, v = (np.asarray(x, np.complex128) for x in (a, b, alpha, beta, v))
+    num = np.linalg.norm(a @ v * be[None, :] - b @ v * al[None, :], axis=0)
+    den = ((np.linalg.norm(a, 2) * np.abs(be) + np.linalg.norm(b, 2) * np.abs(al))
+           * np.linalg.norm(v, axis=0))
+    return (num / den).max()

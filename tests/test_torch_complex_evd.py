@@ -3,8 +3,8 @@ Hessenberg reduction, the triangular eigenvectors, ``evd`` and
 ``eigenvalues`` below the multishift route (n < 128: one ``complex_schur``
 call), the facade (``Mat.eigen``, ``Mat.eigenvalues``, ``Eigen``,
 ``batched.eigenvalues``) and the scope of the slice: real input takes the
-code it took before, to the bit, and the complex QZ still raises naming
-item 10b-ii. The multishift route (n ≥ 128) is in
+code it took before, to the bit, and a complex pencil's QZ entry points
+(item 10b-ii) run. The multishift route (n ≥ 128) is in
 ``tests/test_torch_complex_evd_multishift.py``, split from this file to keep
 each file's time short.
 
@@ -242,11 +242,20 @@ def test_real_input_takes_the_code_it_took_before(dt):
     lambda a, b: tsolvers.GeneralizedEigen.new(a, b),
 ])
 def test_complex_qz_still_names_item_10b_ii(call):
-    """The complex QZ and generalized EVD are item 10b-ii: complex pencils
-    raise ``NotImplementedError`` naming it; ``evd_pair`` refuses complex
-    input (its pair form is the real EVD's)."""
+    """Item 10b-ii ported the complex QZ and generalized EVD: each entry
+    point takes the complex pencil (I, 2I), whose eigenvalues α/β are all
+    1/2 (to the bit: the pencil stays diagonal); ``evd_pair`` refuses
+    complex input (its pair form is the real EVD's)."""
     a = torch.eye(4, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        call(a, a)
+    out = call(a, 2 * a)
+    if isinstance(out, torch.Tensor):
+        w = out
+    elif isinstance(out, tsolvers.GeneralizedEigen):
+        w = out.eigenvalues
+    elif len(out) == 5:  # qz: (s, t, q, z, info)
+        w = out[0].diagonal() / out[1].diagonal()
+    else:  # gevd: (alpha, beta, v, info)
+        w = out[0] / out[1]
+    assert torch.equal(w, torch.full((4,), 0.5, dtype=torch.complex64))
     with pytest.raises(TypeError, match="evd_pair"):
         tevd.evd_pair(a)

@@ -339,8 +339,8 @@ def test_facade_objects_end_to_end(dt):
 def test_complex_input_names_item_10(name):
     """Item 10a took complex input: each of these objects factors a complex
     Hermitian positive definite matrix and solves with it within 8·n·eps
-    (the complex general EVD is item 10b-i and runs; the generalized EVD,
-    item 10b-ii, still raises)."""
+    (the complex general EVD, item 10b-i, and the generalized EVD, item
+    10b-ii, run: the eigenvalues of I and of the pencil (I, I) are 1)."""
     rng = np.random.default_rng(10)
     g = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
     a = (g @ g.conj().T / 12 + np.eye(12)).astype(np.complex64)
@@ -352,8 +352,8 @@ def test_complex_input_names_item_10(name):
     assert x.dtype == np.complex64 and res <= 8 * 12 * np.finfo(np.float32).eps
     eye = torch.eye(4, dtype=torch.complex64)
     assert torch.equal(tsolvers.Eigen.new(eye).w, torch.ones(4, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        tsolvers.GeneralizedEigen.new(eye, eye)
+    assert torch.equal(tsolvers.GeneralizedEigen.new(eye, eye).eigenvalues,
+                       torch.ones(4, dtype=torch.complex64))
 
 
 def _jax_fields(obj):

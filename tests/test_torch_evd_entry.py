@@ -115,12 +115,14 @@ def test_eigen_interop_with_jax():
 
 
 def test_general_evd_refusals():
-    """A complex pencil's generalized EVD is item 10b-ii and raises; the
-    complex general EVD (item 10b-i) runs (the eigenvalues of I are 1)."""
+    """The complex general EVD (item 10b-i) runs (the eigenvalues of I are
+    1), and so does a complex pencil's generalized EVD (item 10b-ii): a
+    complex A with a real B of its precision promotes B (the eigenvalues of
+    (I, I) are 1)."""
     w, _, _ = ft.evd(torch.eye(3, dtype=torch.complex64))
     assert torch.equal(w, torch.ones(3, dtype=torch.complex64))
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        ft.Mat(torch.eye(3, dtype=torch.complex64)).generalized_eigen(torch.eye(3))
+    gc = ft.Mat(torch.eye(3, dtype=torch.complex64)).generalized_eigen(torch.eye(3))
+    assert torch.equal(gc.eigenvalues, torch.ones(3, dtype=torch.complex64))
     ge = ft.Mat(torch.eye(3)).generalized_eigen(ft.Mat(2 * torch.eye(3)))
     assert torch.equal(ge.eigenvalues, torch.full((3,), 0.5, dtype=torch.complex64))
     with pytest.raises(ShapeError):

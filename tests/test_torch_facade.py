@@ -395,32 +395,31 @@ def test_error_cases_match_jax():
         _tm(np.ones((4, 3), np.float32)).partial_piv_lu()
     with pytest.raises(ShapeError):
         _tm(np.ones((4, 3), np.float32)).llt()
-    # complex factorizations are ported (item 10a), and so is the complex
-    # general EVD (item 10b-i); the complex generalized EVD is item 10b-ii
+    # complex factorizations are ported (item 10a), and so are the complex
+    # general EVD (item 10b-i) and the complex generalized EVD (item 10b-ii)
     assert tsolvers.PartialPivLu.new(torch.eye(3, dtype=torch.complex64)).lu.is_complex()
     assert tsolvers.Ldlt.new(torch.eye(3, dtype=torch.complex64)).ld.is_complex()
     ones = torch.ones(3, 3, dtype=torch.complex64)
     assert torch.allclose(tsolvers.Eigen.new(ones).w.abs().sort().values,
                           torch.tensor([0.0, 0.0, 3.0]), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        tsolvers.GeneralizedEigen.new(ones, ones)
+    ge = tsolvers.GeneralizedEigen.new(ones + 3 * torch.eye(3, dtype=torch.complex64),
+                                       torch.eye(3, dtype=torch.complex64))
+    assert torch.allclose(ge.eigenvalues.abs().sort().values,
+                          torch.tensor([3.0, 3.0, 6.0]), atol=1e-5)
 
 
 @pytest.mark.parametrize("method,item", [
     ("eigen", "10"), ("eigenvalues", "10"), ("generalized_eigen", "10"),
 ])
 def test_unported_methods_name_their_roadmap_item(method, item):
-    """The generalized EVD of a complex pencil waits for item 10b-ii; the
-    complex general EVD (item 10b-i) and the real ones are ported (I and the
-    real pencil (I, I) have the eigenvalues 1)."""
+    """Every method of ROADMAP item 10 is ported: the complex general EVD
+    (item 10b-i), the generalized EVD of a complex pencil (item 10b-ii) and
+    the real ones (I, the complex pencil (I, I) and the real pencil (I, I)
+    have the eigenvalues 1)."""
     c = tft.Mat(torch.eye(4, dtype=torch.complex64))
-    if method == "generalized_eigen":
-        with pytest.raises(NotImplementedError, match=f"item {item}b-ii"):
-            c.generalized_eigen(c)
-    else:
-        out = getattr(c, method)()
-        w = out if method == "eigenvalues" else out.eigenvalues
-        assert torch.equal(w, torch.ones(4, dtype=torch.complex64))
+    out = getattr(c, method)(*((c,) if method == "generalized_eigen" else ()))
+    w = out if method == "eigenvalues" else out.eigenvalues
+    assert torch.equal(w, torch.ones(4, dtype=torch.complex64)), item
     real = _tm(np.eye(4, dtype=np.float32))
     out = getattr(real, method)(*((real,) if method == "generalized_eigen" else ()))
     w = out if method == "eigenvalues" else out.eigenvalues

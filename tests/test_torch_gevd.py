@@ -209,10 +209,20 @@ def test_generalized_eigen_interop():
 
 
 def test_complex_pencils_name_item_10():
+    """Item 10b-ii ported the complex pencil: ``gevd``, ``gevd_eigenvalues``,
+    ``gevd_self_adjoint``, ``hessenberg_triangular`` and the facade take
+    the pencil (I, 2I) (eigenvalues 1/2, to the bit but through the
+    Cholesky factor √2 of ``gevd_self_adjoint``); ``real_qz`` still refuses
+    it, naming ``qz``."""
     c = torch.eye(3, dtype=torch.complex64)
-    for fn in (ft.gevd, ft.gevd_eigenvalues, ft.gevd_self_adjoint, ft.real_qz,
-               ft.hessenberg_triangular):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(c, c)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ft.Mat(c).generalized_eigen(c)
+    half = torch.full((3,), 0.5, dtype=torch.complex64)
+    alpha, beta, _, _ = ft.gevd(c, 2 * c)
+    assert torch.equal(alpha / beta, half)
+    assert torch.equal(ft.gevd_eigenvalues(c, 2 * c), half)
+    w, _, _ = ft.gevd_self_adjoint(c, 2 * c)  # through √2: within 8·n·eps
+    assert (w - half.real).abs().max() <= 8 * 3 * torch.finfo(torch.float32).eps
+    h, r, _, _ = ft.hessenberg_triangular(c, 2 * c)
+    assert torch.equal(h.diagonal() / r.diagonal(), half)
+    assert torch.equal(ft.Mat(c).generalized_eigen(2 * c).eigenvalues, half)
+    with pytest.raises(NotImplementedError, match="qz"):
+        ft.real_qz(c, c)

@@ -2069,3 +2069,135 @@ def test_complex_spectral_one_sweep_launch_on_card(cuda):
         assert (vs.mH @ vs - eye).abs().max().item() <= tol
         s64 = torch.linalg.svdvals(g.to(torch.complex128))
         assert ((s.double() - s64).abs().max() / s64[0]).item() <= tol
+
+
+def _complex_gevd_inputs(n, batch, seed, dtype, rank=None):
+    """The complex Givens chain's inputs on the CPU, (h, r, q, z) (batch, n,
+    n): the QR of a complex Gaussian B (of rank ``rank`` when given, so that
+    R has zero diagonal entries), Q₀ᴴA, Z = I."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def cg(*shape):
+        return torch.complex(torch.randn(*shape, generator=gen, dtype=torch.float64),
+                             torch.randn(*shape, generator=gen, dtype=torch.float64))
+
+    a, b = cg(batch, n, n), cg(batch, n, n)
+    if rank is not None:
+        b = cg(batch, n, rank) @ cg(batch, rank, n)
+    q, r = torch.linalg.qr(b)
+    z = torch.eye(n, dtype=torch.complex128).repeat(batch, 1, 1)
+    return tuple(x.to(dtype).contiguous() for x in (q.mH @ a, torch.triu(r), q, z))
+
+
+def _complex_gevd_kernel_pairs(mats, sizes, cuda, factor=30):
+    """``complex_hess_tri_batched`` and then ``complex_qz_batched`` on the
+    card (one launch each, the second on the first's output), and their
+    plain versions on the CPU copies (IEEE operations on real numbers only,
+    so the two devices round alike): (kernel outputs, plain outputs) of
+    each."""
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    reset_launch_counts()
+    red = kcq.complex_hess_tri_batched(*(x.to(cuda) for x in mats), sizes.to(cuda))
+    qz = kcq.complex_qz_batched(*red, sizes.to(cuda), max_sweeps_factor=factor)
+    torch.cuda.synchronize()
+    assert launch_counts()["complex_hess_tri"] == 1 and launch_counts()["complex_qz"] == 1
+    red_cpu = [x.cpu() for x in red]
+    return ((red_cpu, kcq.complex_hess_tri_batched_plain(*mats, sizes)),
+            ([x.cpu() for x in qz], kcq.complex_qz_batched_plain(
+                *red_cpu, sizes, max_sweeps_factor=factor)))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,batch,factor", [(1, 2, 30), (2, 2, 30), (3, 3, 30), (16, 3, 30),
+                                            (48, 1, 30), (96, 1, 30), (48, 1, 0)])
+def test_complex_gevd_kernels_equal_their_plain_versions(cuda, n, batch, factor, dtype):
+    """H, R, Q, Z of the complex reduction and S, T, Q, Z, iterations,
+    converged and chase steps of the complex QZ equal to the bit; every
+    problem converged, or none under a budget of 0."""
+    mats = _complex_gevd_inputs(n, batch, n, dtype)
+    pairs = _complex_gevd_kernel_pairs(mats, torch.full((batch,), n, dtype=torch.int32),
+                                       cuda, factor)
+    _assert_bitwise(pairs)
+    assert bool(pairs[1][0][5].all()) == (factor > 0 or n == 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_gevd_kernels_ragged_and_low_rank(cuda, dtype):
+    """A ragged batch (sizes 0 and 1 among them) and a B of rank 12 at 16
+    (four infinite eigenvalues, carried by the guarded shift): equal to the
+    bit."""
+    mats = _complex_gevd_inputs(40, 5, 7, dtype)
+    sizes = torch.tensor([40, 7, 1, 0, 33], dtype=torch.int32)
+    _assert_bitwise(_complex_gevd_kernel_pairs(mats, sizes, cuda))
+    mats = _complex_gevd_inputs(16, 1, 12, dtype, rank=12)
+    _assert_bitwise(_complex_gevd_kernel_pairs(mats, torch.full((1,), 16, dtype=torch.int32),
+                                               cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kernel", ["complex_hess_tri", "complex_qz"])
+@pytest.mark.parametrize("past", [0, 1])
+def test_complex_gevd_kernels_at_their_shared_memory_edge(cuda, dtype, kernel, past):
+    """The largest nmax whose four matrices the kernel keeps in shared
+    memory and the next, in global memory: both kernels equal to their
+    plain versions."""
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    n = kcq.shared_edge(kernel, dtype) + past
+    assert kcq.route(kernel, n, dtype) == ("global" if past else "shared")
+    mats = _complex_gevd_inputs(n, 1, 5, dtype)
+    _assert_bitwise(_complex_gevd_kernel_pairs(mats, torch.full((1,), n, dtype=torch.int32),
+                                               cuda))
+
+
+def test_complex_hess_tri_past_the_cta_width(cuda):
+    """At 520, past the kernel's 512 threads a CTA (the width of the main
+    path's 1024): some threads take two entries of a row, the matrices sit
+    in global memory; equal to the plain version to the bit."""
+    from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+    mats = _complex_gevd_inputs(520, 1, 520, torch.complex64)
+    sizes = torch.full((1,), 520, dtype=torch.int32)
+    got = kcq.complex_hess_tri_batched(*(x.to(cuda) for x in mats), sizes.to(cuda))
+    _assert_bitwise([([x.cpu() for x in got], kcq.complex_hess_tri_batched_plain(*mats, sizes))])
+
+
+@pytest.mark.parametrize("n", [100, 200])
+def test_complex_gevd_on_card_against_the_cpu_route(cuda, n, monkeypatch):
+    """``gevd`` of a complex64 pencil at 100 (one complex_hess_tri and one
+    complex_qz launch) and 200 (multishift QZ with AED: one complex_qz and
+    one complex_hess_tri launch an AED window, besides the reduction's) on
+    the card and on the CPU: both pencil residuals ‖AVβ − BVα‖ within 8·n·eps
+    of (‖A‖|β| + ‖B‖|α|)‖v‖ column by column; no other kernel."""
+    import faer_tpu_torch as ft
+    from faer_tpu_torch.linalg import qz_multishift as tqm
+
+    calls = []
+    aed = tqm._aed
+    monkeypatch.setattr(tqm, "_aed", lambda *a, **k: calls.append(1) or aed(*a, **k))
+    rng = np.random.default_rng(n)
+    an, bn = ((rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+              .astype(np.complex64) for _ in range(2))
+    a, b = torch.tensor(an), torch.tensor(bn)
+    reset_launch_counts()
+    alpha, beta, v, info = ft.gevd(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    windows = len(calls)
+    assert bool(info.converged) and (windows > 0) == (n >= 128)
+    assert counts["complex_qz"] == max(windows, 1)
+    assert counts["complex_hess_tri"] == 1 + windows
+    assert sum(counts.values()) == counts["complex_qz"] + counts["complex_hess_tri"]
+    a64, b64 = an.astype(np.complex128), bn.astype(np.complex128)
+
+    def resid(alpha, beta, v):
+        al, be, vn = (x.cpu().numpy().astype(np.complex128) for x in (alpha, beta, v))
+        num = np.linalg.norm(a64 @ vn * be[None, :] - b64 @ vn * al[None, :], axis=0)
+        den = (np.linalg.norm(a64, 2) * np.abs(be) + np.linalg.norm(b64, 2) * np.abs(al)) \
+            * np.linalg.norm(vn, axis=0)
+        return (num / den).max()
+
+    tol = 8 * n * EPS32
+    assert resid(alpha, beta, v) <= tol
+    assert resid(*ft.gevd(a, b)[:3]) <= tol

@@ -1,7 +1,7 @@
 """Where the time of a hand-written kernel goes, on one CUDA card.
 
-    python tools/torch_profile.py {chase,complex_schur,llt,llt_panel,lu,lu_swap,qr,
-                                   real_schur,trtri} [ROOT]
+    python tools/torch_profile.py {chase,complex_hess_tri,complex_qz,complex_schur,llt,
+                                   llt_panel,lu,lu_swap,qr,real_schur,trtri} [ROOT]
 
 Builds the kernel's source with its profile macro (its ``clock64`` marks)
 into a library of its own under ``build/<kernel>_profile/``, runs it
@@ -117,6 +117,18 @@ each phase, as thread 0 of a CTA sees them between block barriers:
   halves, summed), ``out``; the iterations and chase steps, the cycles a
   chase step, and whether T, Q and the counts equal the plain version's
   (run on the host) to the bit.
+
+* ``complex_hess_tri`` (``csrc/complex_hess_tri.cu``, ``-DFAER_CHT_PROFILE``)
+  and ``complex_qz`` (``csrc/complex_qz.cu``, ``-DFAER_CQZ_PROFILE``), per
+  CTA, on complex Gaussian pencils (seed 1; the QR of B and Q₀ᴴA in
+  float64 first, and for ``complex_qz`` the kernel's own reduction) at
+  ``SCHUR_PROFILE_CASES`` in complex64 and complex128, each with its route:
+  for the chain ``stage`` (the four matrices into shared memory), ``row
+  phase`` and ``column phase`` (each Givens pair's two halves, summed),
+  ``out``, and the Givens pairs; for the QZ the ``real_schur`` mode's
+  phases (``deflation``, ``shift``, ``row phase``, ``column phase``) and
+  the iterations and chase steps; and whether the outputs equal the plain
+  version's (run on the host) to the bit.
 
 ROOT (default: this checkout) names the checkout whose kernel source is
 built, so that one chip call profiles a parent unpacked beside this one
@@ -548,6 +560,75 @@ def _schur_cases(kind):
     return cases
 
 
+CHT_LABELS = ("stage", "row phase", "column phase", "out")
+
+
+def _pencil_cases(kind):
+    """The cases of the ``complex_hess_tri`` or ``complex_qz`` mode: (label,
+    launch, CTAs a launch, check) at each of SCHUR_PROFILE_CASES in
+    complex64 and complex128, on the route the kernel picks."""
+
+    def cases(lib, gen):
+        from faer_tpu_torch.ops.kernels import _build
+        from faer_tpu_torch.ops.kernels import complex_qz as kcq
+
+        stream = torch.cuda.current_stream().cuda_stream
+        for dt, suffix in ((torch.complex64, ""), (torch.complex128, "_c128")):
+            route = getattr(lib, f"faer_{kind}_route{suffix}")
+            route.argtypes = [ctypes.c_int]
+            entry = getattr(lib, f"faer_{kind}_batched{suffix}")
+            entry.argtypes = _build._SIGNATURES[f"faer_{kind}_batched{suffix}"]
+            edge = _build.shared_edge(
+                lambda n, _dt: {0: "shared", 1: "global"}.get(route(n), "refused"), dt,
+                kcq.MAX_N)
+            for n, batch in SCHUR_PROFILE_CASES:
+                n = {"edge": edge, "edge+1": edge + 1}.get(n, n)
+                a, b = (torch.complex(*(torch.randn(batch, n, n, generator=gen, device="cuda",
+                                                    dtype=torch.float64) for _ in range(2)))
+                        for _ in range(2))
+                q0, r0 = torch.linalg.qr(b)
+                eye = torch.eye(n, device="cuda", dtype=torch.complex128).repeat(batch, 1, 1)
+                mats = [x.to(dt).contiguous() for x in (q0.mH @ a, torch.triu(r0), q0, eye)]
+                sizes = torch.full((batch,), n, dtype=torch.int32, device="cuda")
+                if kind == "complex_qz":
+                    mats = list(kcq.complex_hess_tri_batched(*mats, sizes))
+                work = [x.clone() for x in mats]
+                info = torch.empty((batch, 3), dtype=torch.int32, device="cuda")
+
+                def launch(mats=mats, work=work, info=info, sizes=sizes, n=n, batch=batch,
+                           entry=entry):
+                    for w, m in zip(work, mats):
+                        w.copy_(m.transpose(1, 2) if w is work[2] or w is work[3] else m)
+                    ptrs = [w.data_ptr() for w in work]
+                    if kind == "complex_qz":
+                        return entry(*ptrs, sizes.data_ptr(), info.data_ptr(), batch, n, 30,
+                                     stream)
+                    return entry(*ptrs, sizes.data_ptr(), batch, n, stream)
+
+                def check(mats=mats, work=work, info=info, sizes=sizes, n=n, batch=batch):
+                    launch()
+                    torch.cuda.synchronize()
+                    got = [work[0], work[1], work[2].transpose(1, 2), work[3].transpose(1, 2)]
+                    got = [x.cpu() for x in got]
+                    cpu = [x.cpu() for x in mats]
+                    if kind == "complex_qz":
+                        want = kcq.complex_qz_batched_plain(*cpu, sizes.cpu())
+                        got += [info[:, 0].cpu(), info[:, 1].cpu() != 0, info[:, 2].cpu()]
+                        its, steps = int(info[:, 0].sum()), int(info[:, 2].sum())
+                        what = f"{its} iterations, {steps} chase steps in all"
+                    else:
+                        want = kcq.complex_hess_tri_batched_plain(*cpu, sizes.cpu())
+                        what = f"{batch * (n - 1) * (n - 2) // 2} Givens pairs in all"
+                    same = all(torch.equal(g, w) for g, w in zip(got, want))
+                    return f"{what}; equal to the plain version to the bit: {same}"
+
+                where = "shared" if route(n) == 0 else "global"
+                yield (f"n={n} B={batch} {str(dt).split('.')[-1]} [the matrices in {where} "
+                       f"memory]", launch, batch, check)
+
+    return cases
+
+
 # per kernel: source, macro, C entry, counter reader, the counters in order,
 # the phases that sum to a total, its cases, and what the cycles are per
 KERNELS = {
@@ -596,6 +677,15 @@ KERNELS = {
                           read="faer_complex_schur_profile_read",
                           labels=SCHUR_LABELS, phases=SCHUR_LABELS,
                           cases=_schur_cases("complex_schur"), unit="CTA"),
+    "complex_hess_tri": dict(source="complex_hess_tri.cu", macro="FAER_CHT_PROFILE",
+                             entry="faer_complex_hess_tri_batched",
+                             read="faer_complex_hess_tri_profile_read",
+                             labels=CHT_LABELS, phases=CHT_LABELS,
+                             cases=_pencil_cases("complex_hess_tri"), unit="CTA"),
+    "complex_qz": dict(source="complex_qz.cu", macro="FAER_CQZ_PROFILE",
+                       entry="faer_complex_qz_batched", read="faer_complex_qz_profile_read",
+                       labels=SCHUR_LABELS, phases=SCHUR_LABELS,
+                       cases=_pencil_cases("complex_qz"), unit="CTA"),
     "trtri": dict(source="trtri.cu", macro="FAER_TRTRI_PROFILE", entry="faer_trtri_batched",
                   read="faer_trtri_profile_read",
                   labels=("stage", "diagonal", "w=16", "w=32", "w=64", "out"),
